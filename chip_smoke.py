@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA card and
+check what comes out.
+
+Run from the root of a checkout, with one CUDA card and nvcc:
+
+    python3 chip_smoke.py
+
+Phases, each of which exits non-zero on any failure:
+
+1. device: the card's name and power limit (nvidia-smi), the torch and
+   nvcc versions; every kernel of the port is built from ``csrc/``
+   (one nvcc per source, all started together).
+2. kernels: each kernel is held against its plain PyTorch version at
+   the shapes GPT-2-small serving gives it, in f32 and bf16, with the
+   tolerance printed beside the error, and timed (CUDA events around a
+   captured CUDA graph of many calls) beside its plain version, one
+   PyTorch library call computing the same function (a yardstick the
+   port never calls) and the card's bound for the work (published H100
+   SXM peaks: 989 TFLOP/s bf16, 67 TFLOP/s f32 without tensor cores,
+   3.35 TB/s). TF32 is off for every comparison.
+3. engine: LLMEngine serves GPT-2-small in bf16 with seeded random
+   weights (block_size 16, max_model_len 1024, max_batch_size 8,
+   monolithic prefill, paged decode) for 8 greedy requests of 32
+   tokens. The kernels' launch counters are zeroed just before and read
+   just after; every request must finish by length with 32 tokens, both
+   kernels must have launched, and the pool must drain. Then the
+   decode-step logits of one request (through the paged-attention
+   kernel) are held against one fresh prefill over prompt + generated
+   tokens (through the flash kernel) at the same positions.
+4. profile: the same requests again under torch.profiler, for the
+   device's busy share and its time by kernel class.
+
+It prints one JSON line per kernel shape, for the engine and for the
+profile, then a
+``{"kernels": [...]}`` line, and as its last line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+# tolerances of each kernel against its plain version: f32 differs in
+# summation order only; bf16 also rounds the softmax weights and the
+# output to bf16 (half an ulp at 1.0 is 0.004)
+TOL = {
+    "flash_fwd": {"float32": {"o": 1e-4, "lse": 1e-4},
+                  "bfloat16": {"o": 2e-2, "lse": 1e-3}},
+    "paged_attention": {"float32": {"o": 1e-4}, "bfloat16": {"o": 2e-2}},
+}
+# decode logits (paged kernel, one token per step) against one prefill
+# (flash kernel) over the same tokens: both run GPT-2-small in bf16,
+# whose residual stream rounds at other places on the two paths (on an
+# H100 the seeded run differs by at most 0.032, 0.0046 on average)
+LOGITS_TOL = {"max_abs": 0.1, "mean_abs": 0.01}
+ENGINE_PROMPTS = (700, 600, 530, 300, 90, 40, 17, 12)
+MAX_TOKENS = 32
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(torch, fn, iters: int) -> float:
+    """Mean device milliseconds per call over `iters` back-to-back calls,
+    replayed from one captured CUDA graph: launched one by one from
+    Python, a call of a few tens of microseconds is bound by the host
+    and the events would time the gaps between launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def dname(torch, dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+# ------------------------------------------------------------ phase 1
+
+
+def phase_device(torch) -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=False)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    for line in smi.stdout.strip().splitlines():
+        print(line.strip(), flush=True)
+    from ray_tpu_torch import _build
+
+    ver = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
+                         text=True, timeout=60, check=False)
+    print(f"torch {torch.__version__} (CUDA {torch.version.cuda}); "
+          f"nvcc: {ver.stdout.strip().splitlines()[-1]}", flush=True)
+    t0 = time.perf_counter()
+    try:
+        built = _build.build_all()
+    except RuntimeError as e:
+        fail(str(e))
+    for name, info in built.items():
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": {n: os.path.basename(i["path"])
+                        for n, i in built.items()}})
+
+
+# ------------------------------------------------------------ phase 2
+
+
+def check_flash(torch, gen) -> dict:
+    """K1 against its plain version; returns the bf16 T=1024 row."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    B, H = 1, 12
+    main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dname(torch, dtype)
+        # the prefill buckets; then a ragged length, no mask, D = 128
+        for T, D, causal in ((64, 64, True), (512, 64, True),
+                             (1024, 64, True), (731, 64, True),
+                             (256, 64, False), (256, 128, True)):
+            scale = 1.0 / math.sqrt(D)
+            q, k, v = (torch.randn((B, T, H, D), generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(3))
+            o, lse = fa._fwd(q, k, v, causal, scale)
+            o_ref, lse_ref = fa._fwd_plain(q, k, v, causal, scale)
+            torch.cuda.synchronize()
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            err_lse = (lse - lse_ref).abs().max().item()
+            tol = TOL["flash_fwd"][dn]
+            if not (math.isfinite(err_o) and err_o <= tol["o"]
+                    and err_lse <= tol["lse"]):
+                fail(f"flash_fwd {dn} T={T} D={D} causal={causal}: o err "
+                     f"{err_o} (tol {tol['o']}), lse err {err_lse} (tol "
+                     f"{tol['lse']})")
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            ms = cuda_ms(torch, lambda: fa._fwd(q, k, v, causal, scale), 50)
+            plain_ms = cuda_ms(
+                torch, lambda: fa._fwd_plain(q, k, v, causal, scale), 20)
+            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal), 50)
+            esz = q.element_size()
+            pairs = T * (T + 1) / 2 if causal else T * T
+            flops = 4.0 * B * H * D * pairs
+            nbytes = 4.0 * B * T * H * D * esz + 4.0 * B * H * T
+            b_ms, b_by = bound(flops, nbytes, dn)
+            row = {"kernel": "flash_fwd", "dtype": dn,
+                   "shape": {"B": B, "T": T, "H": H, "D": D,
+                             "causal": causal},
+                   "max_abs_err_o": err_o, "tol_o": tol["o"],
+                   "max_abs_err_lse": err_lse, "tol_lse": tol["lse"],
+                   "kernel_ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            emit(row)
+            if dtype == torch.bfloat16 and T == 1024:
+                main = row
+    return main
+
+
+def check_paged(torch, gen) -> dict:
+    """K4 against its plain version; returns the bf16 decode row."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    S, C = 8, 1024
+    ctx_list = [0, 1, 17, 130, 511, 640, 1000, 1023]
+    main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dname(torch, dtype)
+        # decode, a verify window, GQA; then the other page sizes, D = 128
+        for H, HK, W, bs, D in ((12, 12, 1, 16, 64), (12, 12, 5, 16, 64),
+                                (12, 4, 5, 16, 64), (12, 12, 1, 8, 64),
+                                (12, 4, 5, 32, 64), (8, 8, 1, 16, 128)):
+            maxB = C // bs
+            npages = S * maxB + 1
+            k_pages, v_pages = (torch.randn(
+                (npages, bs, HK, D), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+            perm = torch.randperm(npages - 1, generator=gen,
+                                  device="cuda") + 1
+            tables = perm[:S * maxB].reshape(S, maxB).int().contiguous()
+            ctx_len = torch.tensor(ctx_list, dtype=torch.int32,
+                                   device="cuda")
+            q = torch.randn((S, W, H, D), generator=gen,
+                            device="cuda").to(dtype)
+            ok, ov = (torch.randn((S, W, HK, D), generator=gen,
+                                  device="cuda").to(dtype)
+                      for _ in range(2))
+            args = (q, ok, ov, k_pages, v_pages, tables, ctx_len)
+            out = pa.paged_attention(*args)
+            ref = pa.paged_attention_reference(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = TOL["paged_attention"][dn]["o"]
+            if not (math.isfinite(err) and err <= tol):
+                fail(f"paged_attention {dn} H={H} H_kv={HK} W={W} "
+                     f"bs={bs} D={D}: err {err} (tol {tol})")
+            # yardstick: one SDPA call over the context gathered ahead
+            # of time, with the length and own-window masks as one mask
+            rep = H // HK
+            k_all = torch.cat([k_pages[tables.long()].reshape(S, C, HK, D),
+                               ok], 1).repeat_interleave(rep, 2)
+            v_all = torch.cat([v_pages[tables.long()].reshape(S, C, HK, D),
+                               ov], 1).repeat_interleave(rep, 2)
+            kh, vh = (t.transpose(1, 2).contiguous() for t in (k_all, v_all))
+            qh = q.transpose(1, 2).contiguous()
+            ctx_ok = torch.arange(C, device="cuda")[None, :] \
+                < ctx_len.long()[:, None]
+            own_ok = torch.ones(W, W, dtype=torch.bool,
+                                device="cuda").tril()
+            mask = torch.cat([ctx_ok[:, None, :].expand(S, W, C),
+                              own_ok[None].expand(S, W, W)], -1)[:, None]
+            lib = F.scaled_dot_product_attention(qh, kh, vh,
+                                                 attn_mask=mask)
+            lib_err = (lib.transpose(1, 2).float() - ref.float()).abs().max()
+            ms = cuda_ms(torch, lambda: pa.paged_attention(*args), 100)
+            plain_ms = cuda_ms(
+                torch, lambda: pa.paged_attention_reference(*args), 20)
+            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask), 100)
+            esz = q.element_size()
+            n_ctx = sum(ctx_list)
+            pages_read = sum((c + bs - 1) // bs for c in ctx_list)
+            flops = 4.0 * H * D * W * (n_ctx + S * (W + 1) / 2)
+            nbytes = esz * (2 * S * W * H * D + 2 * S * W * HK * D
+                            + 2 * n_ctx * HK * D) + 4 * (pages_read + S)
+            b_ms, b_by = bound(flops, nbytes, dn)
+            row = {"kernel": "paged_attention", "dtype": dn,
+                   "shape": {"S": S, "W": W, "H": H, "H_kv": HK, "D": D,
+                             "block_size": bs, "max_blocks": maxB,
+                             "ctx_len": ctx_list},
+                   "max_abs_err": err, "tol": tol,
+                   "library_err": lib_err.item(),
+                   "kernel_ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            emit(row)
+            if dtype == torch.bfloat16 and (H, HK, W, bs, D) == (
+                    12, 12, 1, 16, 64):
+                main = row
+    return main
+
+
+# ------------------------------------------------------------ phase 3
+
+
+def drain(stream, first_at: dict, counts: dict, now: float) -> None:
+    """Take every event the stream holds without blocking."""
+    while True:
+        try:
+            ev = stream.next_event(timeout=0)
+        except TimeoutError:
+            return
+        if ev is None:
+            return
+        first_at.setdefault(stream.seq_id, now)
+        counts[stream.seq_id] = counts.get(stream.seq_id, 0) + 1
+
+
+def phase_engine(torch) -> dict:
+    import numpy as np
+
+    from ray_tpu_torch.models.gpt2 import gpt2_prefill_kv
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.serve.llm import (
+        EngineConfig,
+        LLMEngine,
+        SamplingParams,
+    )
+    from ray_tpu_torch.serve.llm.runner import DecodeItem
+
+    t0 = time.perf_counter()
+    engine = LLMEngine(EngineConfig(
+        model="gpt2", preset="small", block_size=16, max_model_len=1024,
+        max_batch_size=8, prefill_chunk_size=0, use_paged_attention=True,
+        speculative=None, seed=0))
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shapes = engine.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    cfg = engine.model_cfg
+
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in ENGINE_PROMPTS]
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES.reset()
+    pa.LAUNCHES.reset()
+    t_submit = time.perf_counter()
+    streams = [engine.add_request(p, SamplingParams(max_tokens=MAX_TOKENS))
+               for p in prompts]
+    first_at: dict = {}
+    counts: dict = {}
+    steps = 0
+    step_ms: dict[str, list[float]] = {"prefill": [], "decode": []}
+    deadline = t_submit + 600
+    while any(s.final() is None for s in streams):
+        # every request fits the batch and the pool, so admission (one
+        # prefill per step) runs exactly while requests wait
+        kind = "prefill" if engine.scheduler.waiting else "decode"
+        t_step = time.perf_counter()
+        engine.step()
+        steps += 1
+        now = time.perf_counter()
+        step_ms[kind].append((now - t_step) * 1e3)
+        for s in streams:
+            drain(s, first_at, counts, now)
+        if now > deadline:
+            fail(f"engine made no progress in 600 s ({steps} steps)")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_submit
+    launches = {"flash_fwd": fa.LAUNCHES.count,
+                "paged_attention": pa.LAUNCHES.count}
+    peak = torch.cuda.max_memory_allocated()
+    for s in streams:
+        drain(s, first_at, counts, time.perf_counter())
+
+    finals = [s.final() for s in streams]
+    for p, s, f in zip(prompts, streams, finals):
+        if str(f["finish_reason"]).startswith("error"):
+            fail(f"request of {len(p)} tokens: {f['finish_reason']}")
+        if f["finish_reason"] != "length" \
+                or f["num_generated"] != MAX_TOKENS \
+                or len(f["token_ids"]) != MAX_TOKENS \
+                or counts.get(s.seq_id) != MAX_TOKENS:
+            fail(f"request of {len(p)} tokens: {f['finish_reason']}, "
+                 f"{f['num_generated']} generated, "
+                 f"{counts.get(s.seq_id)} token events")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"{name} was not launched on the main path")
+    st = engine.stats()
+    if st["blocks_used"] != 0 or st["running"] or st["waiting"]:
+        fail(f"pool not drained: {st['blocks_used']} blocks used, "
+             f"{st['running']} running, {st['waiting']} waiting")
+    ttft = sorted((first_at[s.seq_id] - t_submit) * 1e3 for s in streams)
+
+    # decode logits (paged kernel) vs one prefill (flash kernel) over the
+    # same tokens, for the longest request
+    prompt, gen = prompts[0], finals[0]["token_ids"]
+    runner, pool = engine.runner, engine.pool
+    table = pool.alloc(pool.blocks_for_tokens(len(prompt) + len(gen)))
+    _, last = runner.prefill(prompt, table, 0.0)
+    rows = [last]
+    for i in range(1, len(gen)):
+        _, lg = runner.decode(
+            [DecodeItem(gen[i - 1], len(prompt) + i - 1, table, 0.0)])
+        rows.append(lg[0])
+    pool.free(table)
+    full = torch.tensor([prompt + gen[:-1]], device="cuda")
+    with torch.no_grad():
+        ref, _, _ = gpt2_prefill_kv(runner._compute, full, cfg)
+    ref = ref[0, len(prompt) - 1:].cpu().numpy()
+    got = np.stack(rows)
+    diff = np.abs(got - ref)[:, :cfg.vocab_size]
+    agree = int((got[:, :cfg.vocab_size].argmax(-1)
+                 == ref[:, :cfg.vocab_size].argmax(-1)).sum())
+    if not (np.isfinite(got).all() and diff.max() <= LOGITS_TOL["max_abs"]
+            and diff.mean() <= LOGITS_TOL["mean_abs"]):
+        fail(f"decode logits vs prefill: max {diff.max()}, mean "
+             f"{diff.mean()} (tol {LOGITS_TOL})")
+
+    profile = profile_engine(torch, engine, prompts)
+    n_tokens = sum(f["num_generated"] for f in finals)
+    row = {"phase": "engine", "model": "gpt2-small", "dtype": "bfloat16",
+           "requests": len(prompts), "prompt_lens": list(ENGINE_PROMPTS),
+           "max_tokens": MAX_TOKENS, "num_blocks": engine.pool.num_blocks,
+           "init_s": init_s, "warmup_s": warm_s, "warmup_shapes": shapes,
+           "wall_s": wall, "steps": steps, "tokens": n_tokens,
+           "tokens_per_s": n_tokens / wall,
+           "ttft_ms_p50": float(np.median(ttft)), "ttft_ms_max": ttft[-1],
+           "step_ms": {k: {"n": len(v), "p50": float(np.median(v)),
+                           "max": max(v)} for k, v in step_ms.items()},
+           "max_memory_allocated": peak, "launches": launches,
+           "consistency": {"rows": len(rows), "max_abs": float(diff.max()),
+                           "mean_abs": float(diff.mean()),
+                           "argmax_agree": agree, "tol": LOGITS_TOL}}
+    emit(row)
+    emit(profile)
+    return launches
+
+
+def kernel_class(name: str) -> str:
+    if "flash_fwd_" in name:
+        return "flash_fwd"
+    if "paged_kernel" in name:
+        return "paged_attention"
+    if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "gemv",
+                                        "nvjet")):
+        return "matmul"
+    return "other"
+
+
+def profile_engine(torch, engine, prompts) -> dict:
+    """Serve the same requests again under torch.profiler: device time
+    by kernel class and the device's busy share of the wall time (the
+    profiler's own cost slows the host side of this pass)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.serve.llm import SamplingParams
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        streams = [engine.add_request(p, SamplingParams(
+            max_tokens=MAX_TOKENS)) for p in prompts]
+        while any(s.final() is None for s in streams):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_class: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    launches = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        by_class[kernel_class(ev.key)] = \
+            by_class.get(kernel_class(ev.key), 0.0) + us
+        by_name[ev.key[:80]] = by_name.get(ev.key[:80], 0.0) + us
+        launches += ev.count
+    busy = sum(by_class.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"phase": "profile", "wall_ms": wall_us / 1e3,
+            "device_kernel_launches": launches,
+            "device_busy_ms": busy / 1e3 if busy else "not measured",
+            "device_busy_share": busy / wall_us if busy else "not measured",
+            "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()},
+            "top_kernels_ms": {k: v / 1e3 for k, v in top}}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "ray_tpu_torch")):
+        fail(f"no ray_tpu_torch/ beside {__file__}: run it from a checkout")
+    sys.path.insert(0, root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+
+    phase_device(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    k1 = check_flash(torch, gen)
+    k4 = check_paged(torch, gen)
+    launches = phase_engine(torch)
+
+    kernels = []
+    for main_row, name, src, replaces, err_key in (
+            (k1, "flash_fwd", "ray_tpu_torch/csrc/flash_attention.cu",
+             "ray_tpu/ops/flash_attention.py:60", "max_abs_err_o"),
+            (k4, "paged_attention", "ray_tpu_torch/csrc/paged_attention.cu",
+             "ray_tpu/ops/paged_attention.py:73", "max_abs_err")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": main_row[err_key], "ms": main_row["kernel_ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "shape": main_row["shape"], "dtype": main_row["dtype"]})
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

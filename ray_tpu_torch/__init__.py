@@ -1,0 +1,14 @@
+"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu, for NVIDIA Hopper.
+
+The JAX package ``ray_tpu`` stays as it is and is the reference the
+port is held against; this package imports neither it nor jax. Every
+Pallas kernel of ray_tpu on a ported path becomes a hand-written CUDA
+C++ kernel here (``csrc/``), built with nvcc for sm_90a at its first
+use, never at import. Entry points run on the card unless the caller
+passes ``device="cpu"``, where each kernel's wrapper runs its plain
+PyTorch version instead.
+
+Ported so far: GPT-2 serving (``ray_tpu_torch.serve.llm``), through the
+flash-attention forward (``ops/flash_attention.py``) and the paged
+attention kernel (``ops/paged_attention.py``). See ROADMAP.md.
+"""

@@ -1,0 +1,32 @@
+"""Convert the JAX package's parameter trees into the port's, and back.
+
+A tree is nested dicts whose leaves are arrays: JAX arrays or numpy
+arrays, with the stacked ``[L, ...]`` block leaves the JAX models build
+(``ray_tpu/models/gpt2.py`` `init_gpt2`). Every leaf goes through a
+float32 numpy array, so bf16 leaves need no ``ml_dtypes`` here. Torch
+seeds cannot reproduce ``jax.random`` draws, so this is how a test
+makes both sides compute with the same weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def params_from_jax(tree: Any) -> Any:
+    """Nested dict of array-likes -> nested dict of float32 CPU torch
+    tensors, same keys (move or cast them with ``.to``)."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, dtype=np.float32))
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Nested dict of torch tensors -> nested dict of float32 numpy
+    arrays, same keys (the inverse of `params_from_jax`)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", torch.float32).numpy()

@@ -1,0 +1,240 @@
+"""GPT-2 in PyTorch: the port of ``ray_tpu/models/gpt2.py``, serving half.
+
+Parameters are a nested dict of tensors with the JAX tree's names and
+layout (``wte``, ``wpe``, ``blocks`` with stacked ``[L, ...]`` leaves
+``ln1``, ``attn_qkv``, ``attn_proj``, ``ln2``, ``mlp_fc``, ``mlp_proj``,
+and ``lnf``; dense kernels ``(in, out)``), so `ray_tpu_torch.interop`
+maps a JAX tree one to one. Masters are float32; compute runs in
+``cfg.dtype``, with the same casts as the JAX model: matmul kernels,
+biases and embeddings go to ``cfg.dtype``, layer norms run in f32 with
+f32 scale and bias. `serving_params` makes those casts once; a cast of
+a float32 tensor to bf16 rounds to nearest even in both frameworks, so
+its copies are bit-equal to JAX's per-call ``.astype(dt)``.
+
+Attention goes through ``ops/attention.py`` (kernel K1) in the
+full-sequence forward and prefill, and through ``ops/paged_attention.py``
+(kernel K4) in paged decode. The training loss, remat policies, the
+chunked-prefill and verify entry points and the partition rules come
+with later slices (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.ops.paged_attention import paged_attention
+
+Params = Any
+_DENSE = ("attn_qkv", "attn_proj", "mlp_fc", "mlp_proj")
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_layer: int = 12
+    n_head: int = 12
+    n_embd: int = 768
+    block_size: int = 1024
+    dtype: torch.dtype = torch.bfloat16
+    # Pad the vocab so the logits matmul tiles cleanly (50257 -> 50304
+    # for gpt2-small).
+    vocab_pad_multiple: int = 128
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return (self.vocab_size + m - 1) // m * m
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head
+
+    @staticmethod
+    def small() -> "GPT2Config":
+        return GPT2Config()
+
+    @staticmethod
+    def medium() -> "GPT2Config":
+        return GPT2Config(n_layer=24, n_head=16, n_embd=1024)
+
+    @staticmethod
+    def large() -> "GPT2Config":
+        return GPT2Config(n_layer=36, n_head=20, n_embd=1280)
+
+    @staticmethod
+    def xl() -> "GPT2Config":
+        return GPT2Config(n_layer=48, n_head=25, n_embd=1600)
+
+    @staticmethod
+    def tiny(vocab_size: int = 512, block_size: int = 128) -> "GPT2Config":
+        return GPT2Config(
+            vocab_size=vocab_size,
+            n_layer=2,
+            n_head=4,
+            n_embd=128,
+            block_size=block_size,
+            vocab_pad_multiple=128,
+        )
+
+
+def init_gpt2(generator: torch.Generator, cfg: GPT2Config) -> Params:
+    """Initialize parameters (float32 master copy) on the generator's
+    device, GPT-2 init scheme: normal(0.02), residual projections scaled
+    by 1/sqrt(2*n_layer), biases zero, layer norms one/zero. The draws
+    follow torch's generator, not jax.random: the tests convert JAX
+    parameters through `interop` instead of re-initialising."""
+    L, E, V = cfg.n_layer, cfg.n_embd, cfg.padded_vocab
+    dev = generator.device
+    std = 0.02
+    resid_std = 0.02 / math.sqrt(2 * cfg.n_layer)
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=generator, device=dev) * scale
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=dev)
+
+    def ones(*shape):
+        return torch.ones(shape, device=dev)
+
+    blocks = {
+        "ln1": {"scale": ones(L, E), "bias": zeros(L, E)},
+        "attn_qkv": {"kernel": normal((L, E, 3 * E), std),
+                     "bias": zeros(L, 3 * E)},
+        "attn_proj": {"kernel": normal((L, E, E), resid_std),
+                      "bias": zeros(L, E)},
+        "ln2": {"scale": ones(L, E), "bias": zeros(L, E)},
+        "mlp_fc": {"kernel": normal((L, E, 4 * E), std),
+                   "bias": zeros(L, 4 * E)},
+        "mlp_proj": {"kernel": normal((L, 4 * E, E), resid_std),
+                     "bias": zeros(L, E)},
+    }
+    return {
+        "wte": normal((V, E), std),
+        "wpe": normal((cfg.block_size, E), std),
+        "blocks": blocks,
+        "lnf": {"scale": ones(E), "bias": zeros(E)},
+    }
+
+
+def serving_params(params: Params, cfg: GPT2Config) -> Params:
+    """The tree with every leaf the model casts to ``cfg.dtype`` cast
+    once (embeddings, dense kernels and biases); layer norms stay f32."""
+    dt = cfg.dtype
+    blocks = dict(params["blocks"])
+    for name in _DENSE:
+        blocks[name] = {k: t.to(dt) for k, t in blocks[name].items()}
+    return {"wte": params["wte"].to(dt), "wpe": params["wpe"].to(dt),
+            "blocks": blocks, "lnf": params["lnf"]}
+
+
+def _layer(params: Params, i: int) -> Params:
+    """Layer i's parameters out of the stacked block tree."""
+    return {name: {k: t[i] for k, t in leaf.items()}
+            for name, leaf in params["blocks"].items()}
+
+
+def _layer_norm(x, scale, bias, eps=1e-5):
+    y = F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(),
+                     eps)
+    return y.to(x.dtype)
+
+
+def _dense(h, p, dt):
+    return h @ p["kernel"].to(dt) + p["bias"].to(dt)
+
+
+def _mlp(x, p, cfg: GPT2Config):
+    h = _layer_norm(x, p["ln2"]["scale"], p["ln2"]["bias"])
+    h = _dense(h, p["mlp_fc"], cfg.dtype)
+    # jax.nn.gelu defaults to the tanh approximation; torch's to erf
+    h = F.gelu(h, approximate="tanh")
+    return x + _dense(h, p["mlp_proj"], cfg.dtype)
+
+
+def _block_kv(x, p, cfg: GPT2Config):
+    """One transformer block on x (B, T, E); also returns this layer's
+    attention K/V heads (B, T, H, D) for the serving cache."""
+    B, T, E = x.shape
+    H, D = cfg.n_head, cfg.head_dim
+    h = _layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"])
+    qkv = _dense(h, p["attn_qkv"], cfg.dtype)
+    q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(E, dim=-1))
+    att = causal_attention(q, k, v).reshape(B, T, E)
+    x = x + _dense(att, p["attn_proj"], cfg.dtype)
+    return _mlp(x, p, cfg), (k, v)
+
+
+def _embed(params, tokens, positions, cfg: GPT2Config):
+    dt = cfg.dtype
+    return params["wte"].to(dt)[tokens] + params["wpe"].to(dt)[positions]
+
+
+def _logits(params, x, cfg: GPT2Config):
+    x = _layer_norm(x, params["lnf"]["scale"], params["lnf"]["bias"])
+    return (x @ params["wte"].to(cfg.dtype).T).float()
+
+
+def gpt2_forward(params: Params, tokens: torch.Tensor,
+                 cfg: GPT2Config) -> torch.Tensor:
+    """tokens (B, T) int -> logits (B, T, padded_vocab) float32."""
+    T = tokens.shape[1]
+    x = _embed(params, tokens, torch.arange(T, device=tokens.device), cfg)
+    for i in range(cfg.n_layer):
+        x, _ = _block_kv(x, _layer(params, i), cfg)
+    return _logits(params, x, cfg)
+
+
+def gpt2_prefill_kv(params: Params, tokens: torch.Tensor, cfg: GPT2Config
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """tokens (B, T) -> (logits (B, T, Vp) f32, k, v (L, B, T, H, D))."""
+    T = tokens.shape[1]
+    x = _embed(params, tokens, torch.arange(T, device=tokens.device), cfg)
+    ks, vs = [], []
+    for i in range(cfg.n_layer):
+        x, (k, v) = _block_kv(x, _layer(params, i), cfg)
+        ks.append(k)
+        vs.append(v)
+    return _logits(params, x, cfg), torch.stack(ks), torch.stack(vs)
+
+
+def _decode_block(x, p, k_pages, v_pages, tables, positions,
+                  cfg: GPT2Config):
+    """Single-token block step on x (B, E) against one layer's pages.
+    Returns (x, (k_new, v_new)) with k_new/v_new (B, H, D)."""
+    B, E = x.shape
+    H, D = cfg.n_head, cfg.head_dim
+    h = _layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"])
+    qkv = _dense(h, p["attn_qkv"], cfg.dtype)
+    q, k, v = (t.reshape(B, 1, H, D).contiguous()
+               for t in qkv.split(E, dim=-1))
+    att = paged_attention(q, k, v, k_pages, v_pages, tables, positions)
+    x = x + _dense(att.reshape(B, E), p["attn_proj"], cfg.dtype)
+    return _mlp(x, p, cfg), (k[:, 0], v[:, 0])
+
+
+def gpt2_decode_paged_kv(params: Params, tokens: torch.Tensor,
+                         positions: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, tables: torch.Tensor,
+                         cfg: GPT2Config
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step against the page pool (L, num_blocks, block_size,
+    H, D). tokens/positions (B,) with positions int32 (it is also the
+    kernel's ctx_len); tables (B, max_blocks_per_seq) int32. Returns
+    (logits (B, Vp) f32, k_new, v_new (L, B, H, D)); the caller scatters
+    k_new/v_new into the pages after the step."""
+    x = _embed(params, tokens, positions.long(), cfg)
+    ks, vs = [], []
+    for i in range(cfg.n_layer):
+        x, (k, v) = _decode_block(x, _layer(params, i), k_pages[i],
+                                  v_pages[i], tables, positions, cfg)
+        ks.append(k)
+        vs.append(v)
+    return _logits(params, x, cfg), torch.stack(ks), torch.stack(vs)
+

@@ -1,0 +1,160 @@
+"""Paged attention over the serving KV page pool: kernel K4, its plain
+version, and a launch counter.
+
+The port of ``ray_tpu/ops/paged_attention.py``, with the same operand
+layout (one layer at a time):
+
+- ``q``                   (S, W, H, D): W query positions per sequence,
+  W=1 for decode, W=K+1 for a speculative verify window;
+- ``own_k``/``own_v``     (S, W, H_kv, D): the window's own keys and
+  values, never in the pages (the caller scatters them after the step),
+  attended causally within the window;
+- ``k_pages``/``v_pages`` (num_blocks, block_size, H_kv, D): the pool;
+- ``tables``              (S, max_blocks_per_seq) int32: logical page i
+  of sequence s lives in physical page ``tables[s, i]`` (padding points
+  at the null page 0, which the length mask excludes);
+- ``ctx_len``             (S,) int32: positions < ctx_len[s] are cached.
+
+On CUDA tensors `paged_attention` launches K4
+(``csrc/paged_attention.cu``, hand-written CUDA C++ for Hopper, sm_90a),
+which reads each page once per KV head for all of its grouped query
+heads and every window row. On CPU tensors it runs the plain version,
+`paged_attention_reference`, the dense oracle of the JAX module (gather
+pages through the table, mask by ctx_len, causal own window). There is
+no fallback: a CUDA operand the kernel does not take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ray_tpu_torch import _build
+
+LAUNCHES = _build.LaunchCounter("paged_attention")
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_BLOCK_SIZES = (8, 16, 32)
+MAX_WINDOW = 32
+MAX_SMEM_BYTES = 232448
+_WARPS = 8
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P]
+
+
+def paged_attention_reference(q, own_k, own_v, k_pages, v_pages, tables,
+                              ctx_len, *, sm_scale: float | None = None):
+    """Dense oracle, same operand layout: every query row attends
+    [cached slots < ctx_len[s]] ++ [own window, causally]. Returns
+    (S, W, H, D) in q's dtype."""
+    S, W, H, D = q.shape
+    HK = own_k.shape[2]
+    bs = k_pages.shape[1]
+    maxB = tables.shape[1]
+    C = maxB * bs
+    rep = H // HK
+    tables = tables.long()
+    k_ctx = k_pages[tables].reshape(S, C, HK, D).repeat_interleave(rep, 2)
+    v_ctx = v_pages[tables].reshape(S, C, HK, D).repeat_interleave(rep, 2)
+    ko = own_k.repeat_interleave(rep, 2)
+    vo = own_v.repeat_interleave(rep, 2)
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    s_ctx = torch.einsum("swhd,schd->shwc", q, k_ctx).float()
+    s_own = torch.einsum("swhd,sxhd->shwx", q, ko).float()
+    s = torch.cat([s_ctx, s_own], dim=-1) * scale
+    ctx_valid = torch.arange(C, device=q.device)[None, :] \
+        < ctx_len.to(q.device).long()[:, None]  # (S, C)
+    causal = torch.ones(W, W, dtype=torch.bool, device=q.device).tril()
+    valid = torch.cat([ctx_valid[:, None, :].expand(S, W, C),
+                       causal[None].expand(S, W, W)], dim=-1)
+    s = torch.where(valid[:, None, :, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    att = torch.einsum("shwc,schd->swhd", p[..., :C], v_ctx.float()) \
+        + torch.einsum("shwx,sxhd->swhd", p[..., C:], vo.float())
+    return att.to(q.dtype)
+
+
+def smem_bytes(rows: int, head_dim: int) -> int:
+    """Shared memory one K4 block needs for `rows` = (H / H_kv) * W
+    query rows (mirrors the kernel's layout)."""
+    state = rows * head_dim + 2 * rows
+    return 4 * (rows * head_dim + (_WARPS + 1) * state)
+
+
+def _check_kernel_operands(q, own_k, own_v, k_pages, v_pages, tables,
+                           ctx_len) -> None:
+    ops = (q, own_k, own_v, k_pages, v_pages, tables, ctx_len)
+    if not all(t.is_cuda and t.device == q.device for t in ops):
+        raise ValueError(
+            "paged_attention: all operands must lie on one CUDA device "
+            "(or all on the CPU)")
+    if q.dim() != 4 or own_k.dim() != 4 or k_pages.dim() != 4:
+        raise ValueError("paged_attention: q, own_k/v, pages must be 4-D")
+    S, W, H, D = q.shape
+    NB, bs, HK, Dp = k_pages.shape
+    if own_k.shape != (S, W, HK, D) or own_v.shape != own_k.shape:
+        raise ValueError(
+            f"paged_attention: own_k/own_v {tuple(own_k.shape)}, "
+            f"{tuple(own_v.shape)} do not match q {tuple(q.shape)} "
+            f"with H_kv={HK}")
+    if v_pages.shape != k_pages.shape or Dp != D:
+        raise ValueError("paged_attention: page shapes do not match q")
+    if tables.dim() != 2 or tables.shape[0] != S \
+            or ctx_len.shape != (S,):
+        raise ValueError("paged_attention: tables (S, maxB) and ctx_len "
+                         "(S,) expected")
+    if tables.dtype != torch.int32 or ctx_len.dtype != torch.int32:
+        raise ValueError("paged_attention: tables and ctx_len must be "
+                         "int32")
+    if q.dtype not in KERNEL_DTYPES or not all(
+            t.dtype == q.dtype for t in (own_k, own_v, k_pages, v_pages)):
+        raise ValueError(
+            f"paged_attention: the kernel takes one dtype of "
+            f"{KERNEL_DTYPES} for q, own_k/v and the pages")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"paged_attention: head dim {D} not in {KERNEL_HEAD_DIMS}")
+    if H % HK or bs not in KERNEL_BLOCK_SIZES or not 1 <= W <= MAX_WINDOW:
+        raise ValueError(
+            f"paged_attention: needs H % H_kv == 0, block_size in "
+            f"{KERNEL_BLOCK_SIZES}, W <= {MAX_WINDOW}; got H={H}, "
+            f"H_kv={HK}, block_size={bs}, W={W}")
+    if S < 1 or S > 65535 or smem_bytes((H // HK) * W, D) > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"paged_attention: S={S}, {H // HK} heads per group x W={W} "
+            f"out of the kernel's range")
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("paged_attention: operands must be contiguous")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_attention: the kernel reads pages with "
+                         "16-byte loads; page tensors must be 16-byte "
+                         "aligned")
+
+
+def paged_attention(q, own_k, own_v, k_pages, v_pages, tables, ctx_len,
+                    *, sm_scale: float | None = None) -> torch.Tensor:
+    """One layer of paged attention; see the module docstring for the
+    operand layout. Returns (S, W, H, D) in q's dtype."""
+    ops = (q, own_k, own_v, k_pages, v_pages, tables, ctx_len)
+    if all(t.device.type == "cpu" for t in ops):
+        return paged_attention_reference(*ops, sm_scale=sm_scale)
+    _check_kernel_operands(*ops)
+    S, W, H, D = q.shape
+    _, bs, HK, _ = k_pages.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    out = torch.empty_like(q)
+    lib = _build.load("paged_attention")
+    fn = _build.bind(lib.rt_paged_attention, _ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), own_k.data_ptr(), own_v.data_ptr(),
+                 k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
+                 ctx_len.data_ptr(), out.data_ptr(), S, W, H, HK, D, bs,
+                 tables.shape[1], float(scale),
+                 int(q.dtype == torch.bfloat16), stream)
+    _build.check(err, "paged_attention", _build.bind(
+        lib.rt_paged_error_string, [_I], ctypes.c_char_p))
+    LAUNCHES.add()
+    return out

@@ -1,0 +1,294 @@
+"""Block KV-cache pool: fixed-size pages, refcounts, and a
+content-addressed prefix index (automatic prefix caching).
+
+The port's own copy of ``ray_tpu/serve/llm/cache.py``: `BlockPool` and
+the hash chain are unchanged; `auto_num_blocks` sizes off the card's
+memory through torch instead of jax.
+
+The device arrays themselves live in the ModelRunner (one K and one V
+array of shape (L, num_blocks, block_size, H_kv, D) per model); this
+module owns the *bookkeeping*: which physical pages are free, each
+sequence's logical-block -> physical-page table, and which pages hold
+which token content.
+
+Page 0 is reserved as a **null sink**: it is never handed out, padded
+lanes of a bucketed batch point their tables at it, and padded prefill
+positions scatter into it. Gathers through a padded table therefore
+always hit a legal page, and the attention mask (not the allocator)
+is what keeps garbage out of the softmax.
+
+Prefix caching (reference shape: vLLM's automatic prefix caching):
+
+- a **full** page's content is identified by a *hash chain* over token
+  ids — ``h_k = H(h_{k-1}, tokens[k*bs:(k+1)*bs])`` — so equal hashes
+  imply equal token *prefixes*, not just equal page contents;
+- every allocated page is **refcounted**; sequences whose prompts share
+  a prefix share the physical pages (each holds one ref);
+- releasing the last ref of a *registered* page does not free it — the
+  page parks in an LRU of evictable pages, still indexed by hash, so a
+  later request (or a preempted sequence re-admitting) can revive it
+  with `match_prefix`. `alloc` takes truly-free pages first and only
+  then evicts LRU refcount-0 pages (oldest first).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from collections import OrderedDict
+from typing import Iterable, Sequence
+
+
+class CacheExhausted(Exception):
+    """Raised by alloc() when the pool cannot satisfy a request; the
+    scheduler turns this into preemption, not an error."""
+
+
+def hash_page(prev_hash: int, tokens: Sequence[int]) -> int:
+    """Content hash of one full page given the previous page's chain
+    hash (0 for the first page). Chained, so a page hash commits to the
+    entire token prefix ending at that page; stable across processes
+    (blake2b, not Python's salted hash) so the same function can key
+    replica affinity routing."""
+    h = hashlib.blake2b(digest_size=8)
+    h.update(prev_hash.to_bytes(8, "little", signed=False))
+    for t in tokens:
+        h.update(int(t).to_bytes(4, "little", signed=True))
+    return int.from_bytes(h.digest(), "little")
+
+
+def chain_hashes(tokens: Sequence[int], block_size: int,
+                 n_pages: int) -> list[int]:
+    """Hash chain over the first `n_pages` full pages of `tokens`."""
+    out: list[int] = []
+    prev = 0
+    for k in range(n_pages):
+        prev = hash_page(prev, tokens[k * block_size:(k + 1) * block_size])
+        out.append(prev)
+    return out
+
+
+class BlockPool:
+    """Refcounted allocator over `num_blocks` physical KV pages with a
+    hash -> page prefix index.
+
+    Thread-safe: the engine's step loop allocates while request threads
+    release on abort. Lock order: `_lock` is a LEAF lock — no callback
+    or foreign lock is ever taken while holding it.
+    """
+
+    def __init__(self, num_blocks: int, block_size: int, *,
+                 enable_prefix_cache: bool = True):
+        if num_blocks < 2:
+            raise ValueError("need >= 2 blocks (page 0 is the null sink)")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self.enable_prefix_cache = enable_prefix_cache
+        self._lock = threading.Lock()
+        # page 0 reserved; LIFO free list keeps hot pages hot
+        self._free: list[int] = list(range(num_blocks - 1, 0, -1))  # guarded_by(_lock)
+        # allocated pages only; a page leaves this map when its count
+        # drops to zero (to _free or to _lru)
+        self._refcount: dict[int, int] = {}  # guarded_by(_lock)
+        # content index over REGISTERED pages (full pages whose KV is
+        # completely written): hash -> page and its inverse
+        self._page_of: dict[int, int] = {}  # guarded_by(_lock)
+        self._hash_of: dict[int, int] = {}  # guarded_by(_lock)
+        # refcount-0 registered pages, oldest-first (eviction order)
+        self._lru: "OrderedDict[int, None]" = OrderedDict()  # guarded_by(_lock)
+        # monotonic stat, read by the engine's metrics pump (hit/miss
+        # accounting lives in the scheduler: only an admission that
+        # actually goes through should count)
+        self.evictions = 0  # guarded_by(_lock)
+
+    @property
+    def usable_blocks(self) -> int:
+        return self.num_blocks - 1
+
+    def num_free(self) -> int:
+        """Allocatable pages: truly free + evictable (refcount-0 LRU)."""
+        with self._lock:
+            return len(self._free) + len(self._lru)
+
+    def num_used(self) -> int:
+        return self.usable_blocks - self.num_free()
+
+    def num_cached(self) -> int:
+        """Refcount-0 pages retained only for prefix reuse."""
+        with self._lock:
+            return len(self._lru)
+
+    def utilization(self) -> float:
+        return self.num_used() / max(1, self.usable_blocks)
+
+    def blocks_for_tokens(self, n_tokens: int) -> int:
+        """Pages needed to hold positions 0..n_tokens-1."""
+        return (n_tokens + self.block_size - 1) // self.block_size
+
+    def can_alloc(self, n: int) -> bool:
+        with self._lock:
+            return len(self._free) + len(self._lru) >= n
+
+    # ------------------------------------------------------------- alloc
+
+    def alloc(self, n: int) -> list[int]:
+        """Pop `n` pages or raise CacheExhausted (all-or-nothing).
+        Returned pages carry refcount 1 and no content registration."""
+        if n < 0:
+            raise ValueError(f"alloc({n})")
+        with self._lock:
+            if len(self._free) + len(self._lru) < n:
+                raise CacheExhausted(
+                    f"need {n} blocks, "
+                    f"{len(self._free) + len(self._lru)} free")
+            take = min(n, len(self._free))
+            out = self._free[len(self._free) - take:] if take else []
+            del self._free[len(self._free) - take:]
+            while len(out) < n:  # evict coldest cached pages
+                page, _ = self._lru.popitem(last=False)
+                self._drop_registration_locked(page)
+                self.evictions += 1
+                out.append(page)
+            for b in out:
+                self._refcount[b] = 1
+            return out
+
+    def _drop_registration_locked(self, page: int) -> None:
+        """Caller holds self._lock."""
+        h = self._hash_of.pop(page, None)
+        if h is not None and self._page_of.get(h) == page:
+            del self._page_of[h]
+
+    # ------------------------------------------------------------ release
+
+    def free(self, blocks: Iterable[int]) -> None:
+        """Drop one reference per listed page. A page whose count hits
+        zero returns to the free list — unless it is content-registered,
+        in which case it parks in the LRU, revivable by match_prefix."""
+        blocks = list(blocks)
+        if not blocks:
+            return
+        with self._lock:
+            for b in blocks:
+                if not 0 < b < self.num_blocks:
+                    raise ValueError(f"free of invalid block {b}")
+                if b not in self._refcount:
+                    raise ValueError(f"double free of block {b}")
+            # reversed: callers pass a sequence's table in logical order,
+            # so park the chain TAIL first (oldest in the LRU). Eviction
+            # pops oldest-first and therefore shrinks a cached prefix
+            # from its tail — the head pages stay matchable; evicting the
+            # head first would orphan every page behind it.
+            for b in reversed(blocks):
+                self._refcount[b] -= 1
+                if self._refcount[b] > 0:
+                    continue
+                del self._refcount[b]
+                if b in self._hash_of:
+                    self._lru[b] = None  # newest at the end
+                    self._lru.move_to_end(b)
+                else:
+                    self._free.append(b)
+
+    # ------------------------------------------------------ prefix index
+
+    def register(self, page: int, content_hash: int) -> None:
+        """Content-address a page whose KV is now completely written.
+        First writer wins: if another page already claims the hash, this
+        page simply stays unregistered (both copies are valid; dedup of
+        in-flight duplicates is not worth a migration)."""
+        if not self.enable_prefix_cache:
+            return
+        with self._lock:
+            if page not in self._refcount:
+                return  # released (abort raced the registration): skip
+            if page in self._hash_of or content_hash in self._page_of:
+                return
+            self._hash_of[page] = content_hash
+            self._page_of[content_hash] = page
+
+    def match_prefix(self, hashes: Sequence[int]) -> list[int]:
+        """Longest-prefix match: walk the hash chain, returning the run
+        of consecutively indexed pages. Matched pages gain one reference
+        each (revived out of the LRU if parked there) — the caller owns
+        them exactly like alloc() output and releases via free()."""
+        if not self.enable_prefix_cache:
+            return []
+        out: list[int] = []
+        with self._lock:
+            for i, h in enumerate(hashes):
+                page = self._page_of.get(h)
+                if page is None:
+                    break
+                if page in self._refcount:
+                    self._refcount[page] += 1
+                else:
+                    del self._lru[page]
+                    self._refcount[page] = 1
+                out.append(page)
+        return out
+
+    def invalidate_prefix_cache(self) -> int:
+        """Drop EVERY content registration (weight hot-swap): cached KV
+        was computed under the old weights, so a post-swap admission
+        matching it would silently mix weight versions inside one
+        forward. Parked refcount-0 pages return to the free list;
+        in-use pages stay allocated (their owners keep decoding, tagged
+        stale by the engine) but lose their registration so no future
+        request can match them. Returns the number of registrations
+        dropped."""
+        with self._lock:
+            n = len(self._hash_of)
+            for page in self._lru:
+                self._free.append(page)
+            self._lru.clear()
+            self._hash_of.clear()
+            self._page_of.clear()
+            return n
+
+    def refcount(self, page: int) -> int:
+        with self._lock:
+            return self._refcount.get(page, 0)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "free": len(self._free),
+                "cached": len(self._lru),
+                "registered": len(self._hash_of),
+                "evictions": self.evictions,
+            }
+
+
+def auto_num_blocks(
+    *,
+    n_layer: int,
+    n_kv_head: int,
+    head_dim: int,
+    block_size: int,
+    dtype_bytes: int,
+    max_model_len: int,
+    max_batch_size: int,
+    memory_fraction: float = 0.3,
+    device=None,
+) -> int:
+    """Size the pool off device memory (reference: vLLM's gpu memory
+    profiling, here a static estimate: params are already resident, so
+    take `memory_fraction` of the card's total memory for KV).
+
+    On a CUDA device the budget is ``total_memory * memory_fraction``
+    from ``torch.cuda.get_device_properties``. Elsewhere (the CPU, in
+    tests) it keeps the floor rule: "every lane can reach
+    max_model_len, twice over". The JAX pool's `tensor_ways` argument
+    waits for the port's mesh: this slice serves from one card.
+    """
+    import torch
+
+    per_block = 2 * n_layer * block_size * n_kv_head * head_dim \
+        * dtype_bytes
+    floor = max_batch_size * ((max_model_len + block_size - 1) // block_size)
+    device = torch.device(device if device is not None else "cuda")
+    if device.type != "cuda":
+        return 2 * floor + 1  # +1: the null page
+    total = torch.cuda.get_device_properties(device).total_memory
+    return max(floor + 1, int(total * memory_fraction) // per_block)

@@ -1,0 +1,144 @@
+"""Engine and per-request sampling configuration.
+
+`EngineConfig` is deliberately a plain dataclass of primitives (plus an
+optional concrete model config object) so it round-trips through
+cloudpickle into serve replicas and through JSON into HTTP payloads.
+
+The port's own copy of ``ray_tpu/serve/llm/config.py`` with the same
+fields and defaults. The `speculative` field is validated here, against
+the keys and ranges of the JAX package's ``SpeculativeConfig``, because
+the proposer module arrives with the verify slice; until then the
+port's engine refuses a non-None value.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    """Per-request decode controls (reference: vLLM SamplingParams,
+    trimmed to what the runner implements)."""
+
+    max_tokens: int = 16
+    temperature: float = 0.0  # 0 => greedy argmax
+    top_k: int = 0  # 0 => disabled; else sample from the k best
+    top_p: float = 1.0  # 1.0 => disabled; else nucleus sampling
+    eos_token_id: int | Sequence[int] | None = None
+    # include prompt token ids in the final output event (debug aid)
+    echo: bool = False
+    # emit the sampled token's log-probability per token event and a
+    # "logprobs" list in the final event. The value is log-softmax of
+    # the model logits at the sampled token, scaled by `temperature`
+    # when temperature > 0 (i.e. the log-prob under the distribution
+    # actually sampled from, BEFORE top-k/top-p truncation — RL rollout
+    # consumers run without truncation so behaviour == policy).
+    logprobs: bool = False
+
+    def __post_init__(self):
+        if self.max_tokens < 1:
+            raise ValueError(
+                f"max_tokens must be >= 1, got {self.max_tokens} "
+                "(prefill always yields the first token)")
+        if self.temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got "
+                             f"{self.temperature}")
+        if self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {self.top_k}")
+        if not 0 < self.top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
+
+    def eos_set(self) -> frozenset[int]:
+        if self.eos_token_id is None:
+            return frozenset()
+        if isinstance(self.eos_token_id, int):
+            return frozenset((self.eos_token_id,))
+        return frozenset(int(t) for t in self.eos_token_id)
+
+    @staticmethod
+    def from_payload(d: dict | None) -> "SamplingParams":
+        d = d or {}
+        return SamplingParams(
+            max_tokens=int(d.get("max_tokens", 16)),
+            temperature=float(d.get("temperature", 0.0)),
+            top_k=int(d.get("top_k", 0)),
+            top_p=float(d.get("top_p", 1.0)),
+            eos_token_id=d.get("eos_token_id"),
+            echo=bool(d.get("echo", False)),
+            logprobs=bool(d.get("logprobs", False)))
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """Engine shape. `num_blocks=None` sizes the pool off device memory
+    (`cache.auto_num_blocks`); tests pass small explicit pools to force
+    preemption."""
+
+    model: str = "gpt2"  # adapter key: "gpt2" | "llama"
+    preset: str = "tiny"  # model-config preset name on the config class
+    model_config: Any = None  # overrides preset when given
+    block_size: int = 16  # tokens per KV page
+    num_blocks: int | None = None  # physical pages incl. the null page
+    memory_fraction: float = 0.3  # of device memory, when auto-sizing
+    max_model_len: int | None = None  # default: model cfg block_size
+    max_batch_size: int = 8  # concurrent decode lanes
+    prefill_bucket_min: int = 16
+    # chunked prefill: prompts longer than this prefill in page-aligned
+    # chunks interleaved with decode steps (0 disables — monolithic
+    # prefill only, no prefill-from-offset program)
+    prefill_chunk_size: int = 256
+    # content-addressed KV pages: identical prompt prefixes share
+    # physical pages and skip their prefill entirely
+    enable_prefix_cache: bool = True
+    seed: int = 0  # weight init seed when no params are passed
+    # speculative decoding: SpeculativeConfig | dict | None (off).
+    # See serve/llm/spec.py — greedy outputs stay bit-identical.
+    speculative: Any = None
+    # paged-attention kernel for decode + verify. Off => dense
+    # gathered-context math (not ported yet: the engine refuses it).
+    use_paged_attention: bool = False
+
+    def __post_init__(self):
+        if self.block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        if self.max_batch_size < 1:
+            raise ValueError("max_batch_size must be >= 1")
+        if self.prefill_chunk_size < 0:
+            raise ValueError("prefill_chunk_size must be >= 0")
+        self.speculative = _check_speculative(self.speculative)
+
+    @staticmethod
+    def from_dict(d: dict) -> "EngineConfig":
+        known = {f.name for f in dataclasses.fields(EngineConfig)}
+        bad = set(d) - known
+        if bad:
+            raise ValueError(f"unknown EngineConfig keys: {sorted(bad)}")
+        return EngineConfig(**d)
+
+
+_SPEC_DEFAULTS = {"num_draft_tokens": 4, "method": "ngram",
+                  "max_ngram": 3, "min_ngram": 1}
+
+
+def _check_speculative(spec: Any) -> dict | None:
+    """None, or a dict of speculative-decoding knobs checked like the
+    JAX package's ``SpeculativeConfig`` and filled with its defaults."""
+    if spec is None:
+        return None
+    if not isinstance(spec, dict):
+        raise TypeError(
+            f"speculative must be a dict of {sorted(_SPEC_DEFAULTS)} or "
+            f"None, got {type(spec).__name__}")
+    unknown = set(spec) - set(_SPEC_DEFAULTS)
+    if unknown:
+        raise ValueError(f"unknown speculative keys: {sorted(unknown)}")
+    out = {**_SPEC_DEFAULTS, **spec}
+    if out["num_draft_tokens"] < 1:
+        raise ValueError("num_draft_tokens must be >= 1")
+    if out["method"] != "ngram":
+        raise ValueError(f"unknown speculative method: {out['method']!r}")
+    if out["min_ngram"] < 1 or out["max_ngram"] < out["min_ngram"]:
+        raise ValueError("need 1 <= min_ngram <= max_ngram")
+    return out

@@ -1,0 +1,343 @@
+"""ModelRunner: paged prefill and decode steps on one device.
+
+The port of ``ray_tpu/serve/llm/runner.py``. It owns the device half of
+the KV cache, one K and one V tensor of shape
+``(L, num_blocks, block_size, H_kv, D)`` in the JAX layout, and the two
+steps that touch it:
+
+- **prefill**: full-sequence forward of one prompt, padded to a length
+  bucket, through kernel K1; every position's K/V is scattered into its
+  page and the first generated token is sampled from the last valid
+  position's logits;
+- **decode**: one token for a batch of sequences, padded to a batch
+  bucket, through kernel K4, which reads the pages in place through
+  each lane's block table; the new K/V is scattered at the lane's
+  position after the step.
+
+PyTorch runs eagerly, so the JAX runner's compiled-program bookkeeping
+becomes plain shape padding: prompt lengths still round up to powers of
+two from ``prefill_bucket_min`` to ``max_model_len`` and decode batches
+to powers of two up to ``max_batch_size``, which keeps the kernels'
+shapes to a small set. Padded lanes and positions point at page 0, the
+pool's null sink, so every scatter is in bounds and the attention masks
+keep its contents out of the softmax. The pages are updated in place
+(the JAX runner replaces them functionally each step).
+
+Not ported yet (ROADMAP.md): the chunked prefill-from-offset step, the
+speculative verify step, the dense gathered-context decode, meshes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Any, Callable, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAdapter:
+    """Uniform view over a model family for the engine/runner."""
+
+    name: str
+    presets: dict[str, Callable[[], Any]]
+    init_fn: Callable  # (generator, cfg) -> params (f32 masters)
+    serving_params_fn: Callable  # (params, cfg) -> compute-dtype copies
+    prefill_fn: Callable  # (params, tokens, cfg) -> (logits, k, v)
+    # (params, toks, pos, k_pages, v_pages, tables, cfg) -> (logits, k, v)
+    decode_paged_fn: Callable
+    kv_heads: Callable[[Any], int]
+
+
+def adapters() -> dict[str, ModelAdapter]:
+    """Model registry (a lazy import keeps `import ray_tpu_torch.serve`
+    light). Llama comes with the next serving slice."""
+    from ray_tpu_torch.models import gpt2
+
+    return {
+        "gpt2": ModelAdapter(
+            name="gpt2",
+            presets={
+                "tiny": gpt2.GPT2Config.tiny,
+                "small": gpt2.GPT2Config.small,
+                "medium": gpt2.GPT2Config.medium,
+                "large": gpt2.GPT2Config.large,
+                "xl": gpt2.GPT2Config.xl,
+            },
+            init_fn=gpt2.init_gpt2,
+            serving_params_fn=gpt2.serving_params,
+            prefill_fn=gpt2.gpt2_prefill_kv,
+            decode_paged_fn=gpt2.gpt2_decode_paged_kv,
+            kv_heads=lambda cfg: cfg.n_head,
+        ),
+    }
+
+
+class DecodeItem(NamedTuple):
+    token: int  # last sampled token (input to this step)
+    pos: int  # its absolute position (== tokens written so far)
+    table: Sequence[int]  # physical page ids, logical order
+    temperature: float
+    top_k: int = 0  # 0: disabled
+    top_p: float = 1.0  # 1.0: disabled
+
+
+def _next_pow2(n: int, lo: int) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def logprob_at(logits, token: int, temperature: float,
+               vocab_size: int) -> float:
+    """Log-prob of `token` under the distribution it was sampled from:
+    log-softmax over the real vocab (padding masked) of `logits`
+    (one position's row), scaled by temperature when temperature > 0
+    (greedy reports the unscaled policy log-prob). Host-side float64.
+
+    This is THE logprob definition of the RL determinism contract
+    (RL.md): the engine records rollout logprobs with it and the GRPO
+    learner's teacher-forced reference recomputes them with it — one
+    implementation, so the two cannot drift."""
+    x = np.asarray(logits, np.float64)[:vocab_size]
+    if temperature > 0:
+        x = x / temperature
+    x = x - x.max()
+    return float(x[int(token)] - np.log(np.exp(x).sum()))
+
+
+def truncation_cut(logits: torch.Tensor, safe: torch.Tensor,
+                   topks: torch.Tensor, topps: torch.Tensor
+                   ) -> torch.Tensor:
+    """(S, 1) cutoff of the top-k / top-p filters (the JAX runner's
+    `trunc_cut`): logits below it are dropped. One descending sort pays
+    for both; topks 0 and topps 1.0 disable their filter. Top-p keeps
+    the smallest prefix of descending probabilities, at temperature
+    `safe`, whose mass reaches top_p (the item crossing it stays)."""
+    V = logits.shape[-1]
+    desc = torch.sort(logits, dim=-1, descending=True).values
+    k_idx = (torch.where(topks > 0, topks, V) - 1).clamp(0, V - 1)
+    kth = desc.gather(-1, k_idx.long()[:, None])
+    p_desc = torch.softmax(desc / safe[:, None], dim=-1)
+    keep = (torch.cumsum(p_desc, dim=-1) - p_desc) < topps[:, None]
+    pth = torch.where(keep, desc, torch.inf).min(
+        dim=-1, keepdim=True).values
+    return torch.maximum(kth, pth)
+
+
+class ModelRunner:
+    """Executes prefill/decode for one model instance on one device.
+    Not thread-safe: exactly one step-loop thread drives it (the engine
+    enforces this); construction may happen on another thread."""
+
+    def __init__(
+        self,
+        adapter: ModelAdapter,
+        cfg: Any,
+        params: Any,
+        *,
+        block_size: int,
+        num_blocks: int,
+        max_model_len: int,
+        max_batch_size: int,
+        device: torch.device,
+        prefill_bucket_min: int = 16,
+        sample_seed: int = 0,
+    ):
+        self.adapter = adapter
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.block_size = block_size
+        self.num_blocks = num_blocks
+        self.max_model_len = max_model_len
+        self.max_batch_size = max_batch_size
+        self.prefill_bucket_min = prefill_bucket_min
+        self.max_blocks_per_seq = (
+            max_model_len + block_size - 1) // block_size
+        page_shape = (cfg.n_layer, num_blocks, block_size,
+                      adapter.kv_heads(cfg), cfg.head_dim)
+        self.k_pages = torch.zeros(page_shape, dtype=cfg.dtype,
+                                   device=self.device)
+        self.v_pages = torch.zeros_like(self.k_pages)
+        self._lock = threading.Lock()
+        self._install(params)
+        # torch's generator cannot reproduce jax.random.categorical;
+        # greedy lanes never draw from it
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(sample_seed)
+        self._vocab_ok = torch.arange(
+            cfg.padded_vocab, device=self.device) < cfg.vocab_size
+
+    def _install(self, params: Any) -> None:
+        """Keep the f32 masters and their compute-dtype copies (made
+        once; bit-equal to casting at every call)."""
+        compute = self.adapter.serving_params_fn(params, self.cfg)
+        with self._lock:
+            self.params = params
+            self._compute = compute
+
+    # ----------------------------------------------------------- sampling
+
+    def _sample(self, logits: torch.Tensor, temps: np.ndarray,
+                topks: np.ndarray, topps: np.ndarray) -> torch.Tensor:
+        """Greedy when temp==0, else temperature sampling with optional
+        top-k / top-p truncation; vocab padding is always masked out.
+        The branches are taken on the host arrays, so a greedy batch
+        runs no sort and draws nothing."""
+        logits = torch.where(self._vocab_ok, logits, -1e30)
+        greedy = logits.argmax(dim=-1)
+        if not (temps > 0).any():
+            return greedy
+        dev = self.device
+        t = torch.as_tensor(temps, device=dev)
+        safe = torch.where(t > 0, t, 1.0)
+        if ((topks > 0) | (topps < 1.0)).any():
+            cut = truncation_cut(logits, safe,
+                                 torch.as_tensor(topks, device=dev),
+                                 torch.as_tensor(topps, device=dev))
+            logits = torch.where(logits < cut, -torch.inf, logits)
+        probs = torch.softmax(logits / safe[:, None], dim=-1)
+        sampled = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        return torch.where(t > 0, sampled, greedy)
+
+    # ---------------------------------------------------------- buckets
+
+    def prefill_bucket(self, n: int) -> int:
+        if n > self.max_model_len:
+            raise ValueError(
+                f"prompt of {n} tokens exceeds max_model_len "
+                f"{self.max_model_len}")
+        return min(_next_pow2(n, self.prefill_bucket_min),
+                   self.max_model_len)
+
+    def decode_bucket(self, n: int) -> int:
+        return min(_next_pow2(n, 1), self.max_batch_size)
+
+    # ------------------------------------------------------------- steps
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    @torch.no_grad()
+    def prefill(self, token_ids: Sequence[int], table: Sequence[int],
+                temperature: float, top_k: int = 0, top_p: float = 1.0
+                ) -> tuple[int, np.ndarray]:
+        """Run one prompt through monolithic prefill; returns (first
+        generated token, last-position logits). `table` must cover
+        blocks_for_tokens(len(token_ids)) pages."""
+        n = len(token_ids)
+        Tb = self.prefill_bucket(n)
+        toks = np.zeros((1, Tb), np.int64)
+        toks[0, :n] = token_ids
+        # padded positions scatter into the null page 0
+        block_ids = np.zeros((Tb,), np.int64)
+        offsets = np.arange(Tb, dtype=np.int64) % self.block_size
+        pos = np.arange(n)
+        block_ids[:n] = np.asarray(table, np.int64)[pos // self.block_size]
+        with self._lock:
+            logits, k, v = self.adapter.prefill_fn(
+                self._compute, self._tensor(toks), self.cfg)
+            bid, off = self._tensor(block_ids), self._tensor(offsets)
+            self.k_pages[:, bid, off] = k[:, 0]
+            self.v_pages[:, bid, off] = v[:, 0]
+            last = logits[0, n - 1]
+            nxt = self._sample(last[None, :],
+                               np.asarray([temperature], np.float32),
+                               np.asarray([top_k], np.int32),
+                               np.asarray([top_p], np.float32))
+        return int(nxt[0]), last.cpu().numpy()
+
+    @torch.no_grad()
+    def decode(self, items: Sequence[DecodeItem]
+               ) -> tuple[list[int], np.ndarray]:
+        """One decode step for up to max_batch_size sequences; returns
+        (next token per item, logits (len(items), Vp))."""
+        S = len(items)
+        if not 0 < S <= self.max_batch_size:
+            raise ValueError(f"decode batch of {S}")
+        Sb = self.decode_bucket(S)
+        toks = np.zeros((Sb,), np.int64)
+        poss = np.zeros((Sb,), np.int32)
+        tables = np.zeros((Sb, self.max_blocks_per_seq), np.int32)
+        temps = np.zeros((Sb,), np.float32)
+        topks = np.zeros((Sb,), np.int32)
+        topps = np.ones((Sb,), np.float32)
+        for i, it in enumerate(items):
+            toks[i] = it.token
+            poss[i] = it.pos
+            tables[i, :len(it.table)] = it.table
+            temps[i] = it.temperature
+            topks[i] = it.top_k
+            topps[i] = it.top_p
+        # the new K/V lands at each lane's own position (padded lanes:
+        # page 0, slot 0) after the step
+        block_ids = tables[np.arange(Sb), poss // self.block_size]
+        offsets = poss % self.block_size
+        with self._lock:
+            logits, k_new, v_new = self.adapter.decode_paged_fn(
+                self._compute, self._tensor(toks), self._tensor(poss),
+                self.k_pages, self.v_pages, self._tensor(tables), self.cfg)
+            bid = self._tensor(block_ids.astype(np.int64))
+            off = self._tensor(offsets.astype(np.int64))
+            self.k_pages[:, bid, off] = k_new
+            self.v_pages[:, bid, off] = v_new
+            nxt = self._sample(logits, temps, topks, topps)
+            out = logits[:S].cpu().numpy()
+        return [int(t) for t in nxt[:S].tolist()], out
+
+    def warmup(self) -> int:
+        """Run every prefill length bucket and decode batch bucket once
+        against the null page, so that first-call costs (kernel builds,
+        library handles, allocator growth) are paid before any request.
+        Returns the number of step shapes run."""
+        null_table = [0] * self.max_blocks_per_seq
+        n = 0
+        b = min(self.prefill_bucket_min, self.max_model_len)
+        while True:
+            self.prefill([1] * b, null_table, 0.0)
+            n += 1
+            if b >= self.max_model_len:
+                break
+            b = min(b * 2, self.max_model_len)
+        s = 1
+        while True:
+            self.decode([DecodeItem(1, 0, null_table, 0.0)] * s)
+            n += 1
+            if s >= self.max_batch_size:
+                break
+            s = min(s * 2, self.max_batch_size)
+        return n
+
+    def set_params(self, params: Any) -> None:
+        """Install a new parameter tree (weight hot-swap). The tree
+        structure and leaf shapes must match the resident params; leaves
+        are cast to the resident dtypes and moved to the runner's
+        device. The caller guarantees no step is in flight (the engine
+        holds its step lock across the swap)."""
+
+        def cast(new, old, path):
+            if isinstance(old, dict):
+                if not isinstance(new, dict) or set(new) != set(old):
+                    raise ValueError(
+                        f"param tree mismatch at {path or 'root'}: engine "
+                        f"has {sorted(old)}, update has "
+                        f"{sorted(new) if isinstance(new, dict) else new}")
+                return {k: cast(new[k], old[k], f"{path}/{k}")
+                        for k in old}
+            t = torch.as_tensor(new).to(self.device, old.dtype)
+            if t.shape != old.shape:
+                raise ValueError(
+                    f"param shape mismatch at {path}: engine has "
+                    f"{tuple(old.shape)}, update has {tuple(t.shape)}")
+            return t
+
+        self._install(cast(params, self.params, ""))
+
+    def reset_cache(self) -> None:
+        """Zero the pages (tests); allocator state lives in BlockPool."""
+        with self._lock:
+            self.k_pages.zero_()
+            self.v_pages.zero_()

@@ -1,0 +1,454 @@
+"""Continuous-batching scheduler (reference shape: vLLM's scheduler,
+reduced to the static-shape essentials) with automatic prefix
+caching and chunked prefill.
+
+The port's own copy of ``ray_tpu/serve/llm/scheduler.py``, unchanged
+but for its imports: the policy is host-side bookkeeping and holds no
+device code. The port's engine runs it with chunking and prefix caching
+off until the prefill-from-offset program lands (see ROADMAP.md).
+
+State machine per sequence::
+
+    WAITING --admit--> RUNNING(prefilling -> decoding) --eos/cap--> FINISHED
+       ^                  |
+       +---- preempt -----+   (cache pool exhausted)
+
+Policy, chosen per step by `schedule()`:
+
+- **prefill-first admission**: if a waiting sequence fits (a free
+  decode lane AND enough free pages), admit it. Admission first runs a
+  longest-prefix match against the content-addressed pool — full pages
+  whose hash chain is already cached are *shared* (refcount +1) and
+  skipped entirely; only the remaining pages are allocated and only the
+  remaining tokens are prefilled;
+- an admitted sequence prefills its (unmatched) prompt in page-aligned
+  **chunks** of at most `chunk_size` tokens. Continuation chunks
+  alternate with decode steps, so one long prompt stalls the decode
+  batch by at most one chunk's latency instead of its whole prefill;
+- otherwise **decode** every fully-prefilled sequence in one batched
+  step; before it, any lane crossing a page boundary gets one new page;
+  if the pool is dry, the **most recently admitted** lane is preempted
+  (recompute-style: its page refs are dropped and it re-enters the
+  waiting queue FRONT with prompt+generated as its new prompt — with
+  greedy sampling its continuation is bit-identical, which the tests
+  assert). LIFO victim choice protects the oldest sequences' progress.
+  A preempted sequence's pages usually survive in the pool's LRU, so
+  its re-admission prefix-matches them back instead of re-prefilling.
+
+Page registration: a page becomes shareable the moment its KV content
+is completely written — after the prefill chunk covering it, or after
+the decode step that fills its last slot. The hash chain covers
+prompt AND generated tokens, so shared prefixes survive preemption and
+even extend into generated text (RL-style rollouts forking one prompt).
+
+The scheduler owns no locks: the engine serializes calls. The pool's
+internal `_lock` is a leaf — taken inside pool calls only, never
+around scheduler state — so there is no lock-order cycle with the
+engine's `_lock`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import time
+from collections import deque
+
+from ray_tpu_torch.serve.llm.cache import (
+    BlockPool,
+    CacheExhausted,
+    hash_page,
+)
+from ray_tpu_torch.serve.llm.config import SamplingParams
+
+
+class SeqState(enum.Enum):
+    WAITING = "waiting"
+    RUNNING = "running"
+    FINISHED = "finished"
+
+
+@dataclasses.dataclass
+class Sequence:
+    """One request's scheduling view."""
+
+    seq_id: int
+    prompt: list[int]
+    sampling: SamplingParams
+    state: SeqState = SeqState.WAITING
+    generated: list[int] = dataclasses.field(default_factory=list)
+    table: list[int] = dataclasses.field(default_factory=list)
+    last_token: int = -1  # input to the next decode step
+    preemptions: int = 0
+    # chunked-prefill progress: [0, prefilled) of refill_tokens is
+    # scattered into `table`; the goal is `prefill_target` (the refill
+    # length at admission — refill_tokens keeps growing as decode
+    # appends, but those positions are written by decode steps). The
+    # scheduler marks a chunk prefilled when it ISSUES the work; the
+    # engine executes it before the next schedule() call.
+    prefilled: int = 0
+    prefill_target: int = 0
+    # prefix-cache accounting: tokens skipped at the last admission,
+    # and how many leading pages of `table` are content-registered
+    cached_tokens: int = 0
+    registered_pages: int = 0
+    # weight hot-swap bookkeeping (RL flywheel): the engine's weight
+    # version at the step that sampled each generated token, and —
+    # when SamplingParams.logprobs — the sampled token's log-prob under
+    # the distribution it was drawn from. Both survive preemption
+    # (recompute replays the tokens, it does not resample them).
+    token_versions: list[int] = dataclasses.field(default_factory=list)
+    logprobs: list[float] = dataclasses.field(default_factory=list)
+    # set by the engine on running sequences at a weight swap: this
+    # sequence's KV pages mix weight versions, so they must never be
+    # content-registered (a later match would reuse stale KV) and the
+    # trajectory is tagged stale. Cleared on preemption — recompute
+    # rebuilds the whole table under one consistent version.
+    kv_stale: bool = False
+    enqueued_at: float = dataclasses.field(default_factory=time.monotonic)
+    first_token_at: float | None = None
+    finish_reason: str | None = None
+    # ---- latency attribution (the per-request waterfall) ----
+    # Interval accounting: `_mark` is where attribution left off; every
+    # phase transition charges [_mark, now) to ONE phase and advances
+    # the mark, so the phases always sum to exactly the wall time from
+    # enqueue to the last transition — the property the breakdown's
+    # "sums to e2e" contract rests on. Phases: queue (waiting for
+    # admission), prefix_match (the successful admission's cache
+    # lookup), prefill (chunk execution, incl. recompute after
+    # preemption), decode (decode steps + their scheduling gaps),
+    # preempt (evicted, waiting for re-admission), emit (finalize tail).
+    phases: dict[str, float] = dataclasses.field(default_factory=dict)
+    _mark: float = dataclasses.field(default_factory=time.monotonic)
+    _preempt_wait: bool = False  # between preemption and re-admission
+    # request trace context (set by the engine at add_request): the
+    # finalize-time waterfall spans hang off this, so one request's
+    # phase spans correlate with its handle/proxy spans by trace_id
+    trace: dict | None = None
+
+    def note_phase(self, phase: str, now: float | None = None) -> None:
+        """Charge the interval since the last mark to `phase`."""
+        if now is None:
+            now = time.monotonic()
+        self.phases[phase] = self.phases.get(phase, 0.0) \
+            + max(0.0, now - self._mark)
+        self._mark = now
+    # lazily extended hash chain over prompt+generated full pages
+    _hashes: list[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def refill_tokens(self) -> list[int]:
+        """What prefill must run over: the original prompt plus anything
+        generated before a preemption (recompute-style resume)."""
+        return self.prompt + self.generated
+
+    @property
+    def pos(self) -> int:
+        """prompt+generated length. The cache holds positions
+        0..pos-2 (the last generated token is sampled but not yet
+        cached); the next decode step feeds it at position pos-1 and
+        writes its KV there."""
+        return len(self.prompt) + len(self.generated)
+
+    @property
+    def prefill_pending(self) -> bool:
+        return self.state is SeqState.RUNNING \
+            and self.prefilled < self.prefill_target
+
+    def page_hashes(self, n_pages: int, block_size: int) -> list[int]:
+        """Hash chain over the first `n_pages` full pages of
+        prompt+generated (extends the cached chain; earlier entries are
+        append-only stable because tokens only ever append)."""
+        if n_pages > len(self._hashes):
+            all_tokens = self.prompt + self.generated
+            prev = self._hashes[-1] if self._hashes else 0
+            for k in range(len(self._hashes), n_pages):
+                prev = hash_page(
+                    prev, all_tokens[k * block_size:(k + 1) * block_size])
+                self._hashes.append(prev)
+        return self._hashes[:n_pages]
+
+    def eos_hit(self, token: int) -> bool:
+        return token in self.sampling.eos_set()
+
+
+@dataclasses.dataclass
+class PrefillWork:
+    """Prefill refill_tokens[start:end] at position offset `start`
+    (page-aligned). `is_last` marks the chunk that reaches the end of
+    the prompt — the engine samples the first generated token from it."""
+
+    seq: Sequence
+    start: int = 0
+    end: int = 0
+    is_last: bool = True
+
+
+@dataclasses.dataclass
+class DecodeWork:
+    seqs: list[Sequence]
+
+
+class Scheduler:
+    def __init__(self, pool: BlockPool, *, max_batch_size: int,
+                 max_model_len: int, chunk_size: int = 0,
+                 spec_tokens: int = 0):
+        self.pool = pool
+        self.max_batch_size = max_batch_size
+        self.max_model_len = max_model_len
+        # page-aligned by construction (the engine rounds it); 0 means
+        # "whole prompt in one chunk" (monolithic prefill)
+        self.chunk_size = chunk_size
+        # speculative decoding: opportunistically grow tables so a
+        # drafted run of up to spec_tokens extra KV slots fits (0 = off)
+        self.spec_tokens = spec_tokens
+        self.waiting: deque[Sequence] = deque()
+        self.running: list[Sequence] = []  # admission order (LIFO victim)
+        self.preemption_count = 0
+        self.prefix_hit_pages = 0
+        self.prefix_miss_pages = 0
+        self._last_was_prefill = False
+        # sequences retired INSIDE schedule() (length cap backstop,
+        # cache_exhausted fail-loud) — the engine drains these every
+        # step so their streams still get closed
+        self.retired_in_schedule: list[Sequence] = []
+
+    # ------------------------------------------------------------ intake
+
+    def add(self, seq: Sequence) -> None:
+        if len(seq.prompt) >= self.max_model_len:
+            raise ValueError(
+                f"prompt of {len(seq.prompt)} tokens needs at least one "
+                f"free position below max_model_len={self.max_model_len}")
+        self.waiting.append(seq)
+
+    def abort(self, seq: Sequence, reason: str = "aborted") -> None:
+        if seq.state is SeqState.RUNNING:
+            self.running.remove(seq)
+        elif seq.state is SeqState.WAITING:
+            try:
+                self.waiting.remove(seq)
+            except ValueError:
+                pass
+        self._finish(seq, reason)
+
+    # ---------------------------------------------------------- planning
+
+    def schedule(self) -> PrefillWork | DecodeWork | None:
+        """Pick the next unit of work. Admission never preempts: a
+        waiting sequence only enters when pages are genuinely free."""
+        work = self._try_admit()
+        if work is not None:
+            self._last_was_prefill = True
+            return work
+        pending = [s for s in self.running if s.prefill_pending]
+        ready = [s for s in self.running if not s.prefill_pending]
+        if pending and not (self._last_was_prefill and ready):
+            # continuation chunk; alternate with decode when both kinds
+            # of work exist so a long prompt can't monopolize steps
+            self._last_was_prefill = True
+            return self._next_chunk(pending[0])
+        if not ready:
+            if pending:  # nothing decodable yet: keep prefilling
+                self._last_was_prefill = True
+                return self._next_chunk(pending[0])
+            return None
+        self._last_was_prefill = False
+        self._grow_tables_or_preempt()
+        ready = [s for s in self.running if not s.prefill_pending]
+        if not ready:
+            return None
+        return DecodeWork(ready)
+
+    def _try_admit(self) -> PrefillWork | None:
+        if not (self.waiting and len(self.running) < self.max_batch_size):
+            return None
+        seq = self.waiting[0]
+        total = len(seq.refill_tokens)
+        n_pages = self.pool.blocks_for_tokens(total)
+        bs = self.pool.block_size
+        # longest-prefix match over FULL pages, capped so at least one
+        # token is left to prefill (its logits sample the first token)
+        t_match = time.monotonic()
+        matched = self.pool.match_prefix(
+            seq.page_hashes((total - 1) // bs, bs))
+        if not self.pool.can_alloc(n_pages - len(matched)):
+            if matched:
+                self.pool.free(matched)  # drop the refs; stay queued
+            return None
+        # waterfall: everything up to the successful match attempt was
+        # queue time (or preempt-wait time after an eviction); the
+        # lookup itself is the prefix_match phase
+        seq.note_phase("preempt" if seq._preempt_wait else "queue",
+                       t_match)
+        seq._preempt_wait = False
+        seq.note_phase("prefix_match")
+        self.waiting.popleft()
+        self.prefix_hit_pages += len(matched)
+        self.prefix_miss_pages += n_pages - len(matched)
+        seq.table = matched + self.pool.alloc(n_pages - len(matched))
+        seq.prefilled = len(matched) * bs
+        seq.prefill_target = total
+        seq.cached_tokens = seq.prefilled
+        seq.registered_pages = len(matched)
+        seq.state = SeqState.RUNNING
+        self.running.append(seq)
+        return self._next_chunk(seq)
+
+    def _next_chunk(self, seq: Sequence) -> PrefillWork:
+        total = seq.prefill_target
+        start = seq.prefilled
+        end = min(total, start + (self.chunk_size or total))
+        seq.prefilled = end  # issued == done: the engine runs it now
+        return PrefillWork(seq=seq, start=start, end=end,
+                           is_last=(end == total))
+
+    def _grow_tables_or_preempt(self) -> None:
+        """Every decoding lane must own the page its next token writes
+        into; preempt (LIFO) until the survivors all fit. Lanes still
+        mid-prefill already own their whole table (admission allocates
+        it), so they pass through untouched."""
+        i = 0
+        while i < len(self.running):
+            seq = self.running[i]
+            if seq.pos > self.max_model_len:
+                # next decode would write at position pos-1 >= cap:
+                # close out at the length limit
+                self._retire(seq, "length")
+                self.retired_in_schedule.append(seq)
+                continue
+            # the decode step writes KV at position pos-1, so the table
+            # must cover pos tokens
+            needed = self.pool.blocks_for_tokens(seq.pos)
+            if len(seq.table) >= needed:
+                i += 1
+                continue
+            try:
+                seq.table.extend(self.pool.alloc(needed - len(seq.table)))
+                i += 1
+            except CacheExhausted:
+                victim = self.running[-1]
+                if victim is seq and len(self.running) == 1:
+                    # sole runner and the pool can't grow it: engine
+                    # guarantees pool >= one max-len sequence, so this
+                    # is unreachable unless misconfigured — fail loud
+                    self._retire(seq, "error:cache_exhausted")
+                    self.retired_in_schedule.append(seq)
+                    return
+                self.preempt(victim)
+                if victim is seq:
+                    continue  # re-examine slot i (new occupant)
+        # speculative headroom is best-effort: a drafted run commits up
+        # to spec_tokens + 1 positions in one step, so try to cover
+        # pos + spec_tokens — but NEVER preempt for it; under pressure
+        # the engine just clamps the draft length to the pages owned
+        # and decode proceeds exactly as without spec
+        if self.spec_tokens:
+            for seq in self.running:
+                if seq.prefill_pending:
+                    continue
+                want = self.pool.blocks_for_tokens(
+                    min(seq.pos + self.spec_tokens, self.max_model_len))
+                if len(seq.table) < want:
+                    try:
+                        seq.table.extend(
+                            self.pool.alloc(want - len(seq.table)))
+                    except CacheExhausted:
+                        break
+
+    def preempt(self, seq: Sequence) -> None:
+        """Recompute-style: drop page refs, requeue at the FRONT so the
+        victim re-admits as soon as space frees up. Registered pages the
+        victim doesn't share park in the pool's LRU — re-admission
+        usually prefix-matches them straight back."""
+        # waterfall: close the running interval (decode-stage time, or
+        # prefill if the victim was still mid-prefill); everything
+        # until re-admission charges to "preempt"
+        seq.note_phase("prefill" if seq.prefill_pending else "decode")
+        seq._preempt_wait = True
+        self.running.remove(seq)
+        self.pool.free(seq.table)
+        seq.table = []
+        seq.prefilled = 0
+        seq.prefill_target = 0
+        seq.cached_tokens = 0
+        seq.registered_pages = 0
+        seq.kv_stale = False  # re-prefill rebuilds KV on one version
+        seq.state = SeqState.WAITING
+        seq.preemptions += 1
+        self.preemption_count += 1
+        self.waiting.appendleft(seq)
+
+    # ----------------------------------------------------------- results
+
+    def commit_token(self, seq: Sequence, token: int) -> bool:
+        """Record one generated token; returns True if the sequence is
+        now finished."""
+        seq.generated.append(token)
+        seq.last_token = token
+        if seq.first_token_at is None:
+            seq.first_token_at = time.monotonic()
+        # the decode step that produced `token` wrote KV at the previous
+        # position — any page it completed is now shareable
+        self.register_prefilled_pages(seq, seq.pos - 1)
+        if seq.eos_hit(token):
+            self._retire(seq, "eos")
+            return True
+        if len(seq.generated) >= seq.sampling.max_tokens:
+            self._retire(seq, "length")
+            return True
+        if seq.pos >= self.max_model_len:
+            self._retire(seq, "length")
+            return True
+        return False
+
+    def register_prefilled_pages(self, seq: Sequence,
+                                 upto_tokens: int) -> None:
+        """Content-register every full page of `seq` whose KV is
+        completely written (positions 0..upto_tokens-1). Idempotent via
+        seq.registered_pages."""
+        if not self.pool.enable_prefix_cache \
+                or seq.state is SeqState.FINISHED or seq.kv_stale:
+            return
+        bs = self.pool.block_size
+        full = min(upto_tokens // bs, len(seq.table))
+        if full <= seq.registered_pages:
+            return
+        hashes = seq.page_hashes(full, bs)
+        for k in range(seq.registered_pages, full):
+            self.pool.register(seq.table[k], hashes[k])
+        seq.registered_pages = full
+
+    def _retire(self, seq: Sequence, reason: str) -> None:
+        if seq in self.running:
+            self.running.remove(seq)
+        self._finish(seq, reason)
+
+    def _finish(self, seq: Sequence, reason: str) -> None:
+        self.pool.free(seq.table)
+        seq.table = []
+        seq.state = SeqState.FINISHED
+        seq.finish_reason = reason
+
+    def take_retired(self) -> list[Sequence]:
+        """Drain sequences retired inside schedule(); caller (the
+        engine) closes their streams."""
+        out, self.retired_in_schedule = self.retired_in_schedule, []
+        return out
+
+    # ------------------------------------------------------------- stats
+
+    def depth(self) -> dict:
+        ps = self.pool.stats()
+        return {
+            "waiting": len(self.waiting),
+            "running": len(self.running),
+            "blocks_used": self.pool.num_used(),
+            "blocks_total": self.pool.usable_blocks,
+            "blocks_cached": ps["cached"],
+            "cache_utilization": self.pool.utilization(),
+            "preemptions": self.preemption_count,
+            "prefix_hit_pages": self.prefix_hit_pages,
+            "prefix_miss_pages": self.prefix_miss_pages,
+            "prefix_evictions": ps["evictions"],
+        }
