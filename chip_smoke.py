@@ -12,13 +12,15 @@ Phases, each of which exits non-zero on any failure:
    nvcc versions; every kernel of the port is built from ``csrc/``
    (one nvcc per source, all started together).
 2. kernels: each kernel is held against its plain PyTorch version at
-   the shapes GPT-2-small serving gives it, in f32 and bf16, with the
-   tolerance printed beside the error, and timed (CUDA events around a
-   captured CUDA graph of many calls) beside its plain version, one
-   PyTorch library call computing the same function (a yardstick the
-   port never calls) and the card's bound for the work (published H100
-   SXM peaks: 989 TFLOP/s bf16, 67 TFLOP/s f32 without tensor cores,
-   3.35 TB/s). TF32 is off for every comparison.
+   the shapes GPT-2-small serving and training give it (K1 forward,
+   K2/K3 backward at B=8 T=1024, K4 decode), and beside them, in f32
+   and bf16, with the tolerance printed beside the error, and timed
+   (CUDA events around a captured CUDA graph of many calls) beside its
+   plain version, one PyTorch library call computing the same function
+   (a yardstick the port never calls: SDPA, its fused backward) and the
+   card's bound for the work (published H100 SXM peaks: 989 TFLOP/s
+   bf16, 67 TFLOP/s f32 without tensor cores, 3.35 TB/s). TF32 is off
+   for every comparison.
 3. engine: LLMEngine serves GPT-2-small in bf16 with seeded random
    weights (block_size 16, max_model_len 1024, max_batch_size 8,
    monolithic prefill, paged decode) for 8 greedy requests of 32
@@ -30,9 +32,19 @@ Phases, each of which exits non-zero on any failure:
    tokens (through the flash kernel) at the same positions.
 4. profile: the same requests again under torch.profiler, for the
    device's busy share and its time by kernel class.
+5. train: GPT-2-small training through `make_train_step` (bf16 compute,
+   f32 masters, B=8 T=1024, adamw(3e-4, weight_decay=0.1), remat on, 3
+   warm-up and 20 timed steps on one fixed batch), with the launch
+   counters zeroed around the timed steps: tokens/s, step ms, MFU, peak
+   memory, the losses; every loss and grad norm must be finite, the
+   last loss below the first, and the launches exactly 24 K1, 12 K2
+   and 12 K3 a step. Then 3 steps under torch.profiler.
+6. parity: one f32 train step of GPT-2-small at full width, B=1 T=256,
+   from the same params on the card (kernels) and on the CPU (plain
+   versions): the loss, every leaf's grad and updated value within the
+   printed tolerances.
 
-It prints one JSON line per kernel shape, for the engine and for the
-profile, then a
+It prints one JSON line per kernel shape and per phase, then a
 ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
@@ -56,6 +68,13 @@ TOL = {
                   "bfloat16": {"o": 2e-2, "lse": 1e-3}},
     "paged_attention": {"float32": {"o": 1e-4}, "bfloat16": {"o": 2e-2}},
 }
+# the backward kernels against their plain version, elementwise
+# |kernel - plain| <= atol + rtol |plain|: f32 differs in summation order
+# only; in bf16 both round p and ds to bf16 before the products, so they
+# differ where a value lands on the other side of a rounding step, and
+# in the output's last bit (an ulp is 2^-7 relative)
+BWD_TOL = {"float32": {"atol": 1e-4, "rtol": 1e-4},
+           "bfloat16": {"atol": 2e-2, "rtol": 2e-2}}
 # decode logits (paged kernel, one token per step) against one prefill
 # (flash kernel) over the same tokens: both run GPT-2-small in bf16,
 # whose residual stream rounds at other places on the two paths (on an
@@ -63,6 +82,16 @@ TOL = {
 LOGITS_TOL = {"max_abs": 0.1, "mean_abs": 0.01}
 ENGINE_PROMPTS = (700, 600, 530, 300, 90, 40, 17, 12)
 MAX_TOKENS = 32
+# the training recipe of bench.py's GPT-2-small flagship, on one card
+TRAIN_BATCH = (8, 1024)
+TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 3, 20, 3
+# card (kernels, cuBLAS) against CPU (plain versions) for one f32 step:
+# both compute in f32 and differ in summation order; the grad tolerance
+# is relative to the leaf's largest grad; one Adam step moves a param by
+# at most lr (1 + weight decay |p|), so the updated-param tolerance is
+# what a near-zero grad flipping sign could cost
+PARITY_BATCH = (1, 256)
+PARITY_TOL = {"loss": 1e-4, "grad_rel": 1e-3, "param": 1e-3}
 
 
 def fail(msg: str) -> None:
@@ -95,6 +124,24 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def event_ms(torch, fn, iters: int) -> float:
+    """Mean device milliseconds per call over `iters` calls launched one
+    after another from Python, between two CUDA events: for a call that
+    cannot be captured in a CUDA graph (autograd runs a backward on the
+    stream of its forward) and takes long enough to keep the queue full."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -148,19 +195,22 @@ def phase_device(torch) -> None:
 
 
 def check_flash(torch, gen) -> dict:
-    """K1 against its plain version; returns the bf16 T=1024 row."""
+    """K1 against its plain version; returns the bf16 T=1024 rows of the
+    serving prefill (B=1) and of training (B=8) as "serve" and "train"."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import flash_attention as fa
 
-    B, H = 1, 12
-    main = None
+    H = 12
+    main = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = dname(torch, dtype)
-        # the prefill buckets; then a ragged length, no mask, D = 128
-        for T, D, causal in ((64, 64, True), (512, 64, True),
-                             (1024, 64, True), (731, 64, True),
-                             (256, 64, False), (256, 128, True)):
+        # the prefill buckets, the training shape; then a ragged length,
+        # no mask, D = 128
+        for B, T, D, causal in ((1, 64, 64, True), (1, 512, 64, True),
+                                (1, 1024, 64, True), (8, 1024, 64, True),
+                                (1, 731, 64, True), (1, 256, 64, False),
+                                (1, 256, 128, True)):
             scale = 1.0 / math.sqrt(D)
             q, k, v = (torch.randn((B, T, H, D), generator=gen,
                                    device="cuda").to(dtype)
@@ -179,7 +229,8 @@ def check_flash(torch, gen) -> dict:
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             ms = cuda_ms(torch, lambda: fa._fwd(q, k, v, causal, scale), 50)
             plain_ms = cuda_ms(
-                torch, lambda: fa._fwd_plain(q, k, v, causal, scale), 20)
+                torch, lambda: fa._fwd_plain(q, k, v, causal, scale),
+                20 if B == 1 else 5)
             lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=causal), 50)
             esz = q.element_size()
@@ -197,7 +248,7 @@ def check_flash(torch, gen) -> dict:
                    "bound_by": b_by}
             emit(row)
             if dtype == torch.bfloat16 and T == 1024:
-                main = row
+                main["serve" if B == 1 else "train"] = row
     return main
 
 
@@ -283,6 +334,105 @@ def check_paged(torch, gen) -> dict:
             if dtype == torch.bfloat16 and (H, HK, W, bs, D) == (
                     12, 12, 1, 16, 64):
                 main = row
+    return main
+
+
+def sdpa_bwd(torch, q, k, v, do, causal: bool):
+    """The library yardstick for K2 and K3: one autograd call through
+    PyTorch's fused attention backward (the one SDPA's autograd uses),
+    computing dq, dk and dv together on (B, H, T, D) copies. Returns a
+    function that runs it, or None with the reason printed."""
+    import torch.nn.functional as F
+
+    qh, kh, vh = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+
+    def call():
+        return torch.autograd.grad(out, (qh, kh, vh), doh,
+                                   retain_graph=True)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"  sdpa backward yardstick unavailable: {e}", flush=True)
+        return None
+    return call
+
+
+def check_flash_bwd(torch, gen) -> dict:
+    """K2 and K3 against their plain version at the training shape and
+    beside it; returns the bf16 training-shape rows by kernel name."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    H = 12
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dname(torch, dtype)
+        tol = BWD_TOL[dn]
+        # the training shape; then a ragged length, no mask, D = 128
+        for B, T, D, causal in ((8, 1024, 64, True), (1, 731, 64, True),
+                                (1, 256, 64, False), (1, 256, 128, True)):
+            scale = 1.0 / math.sqrt(D)
+            # q, k, v as column slices of one fused projection, as the
+            # model hands them over
+            qkv = torch.randn((B, T, 3 * H * D), generator=gen,
+                              device="cuda").to(dtype)
+            q, k, v = (t.reshape(B, T, H, D)
+                       for t in qkv.split(H * D, dim=-1))
+            do = torch.randn((B, T, H, D), generator=gen,
+                             device="cuda").to(dtype)
+            o, lse = fa._fwd(q, k, v, causal, scale)
+            delta = fa._delta(o, do)
+            got = fa._bwd(q, k, v, o, lse, do, causal, scale)
+            ref = fa._bwd_plain(q, k, v, o, lse, do, causal, scale)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                diff = (g.float() - r.float()).abs()
+                errs[name] = diff.max().item()
+                excess = (diff - tol["atol"]
+                          - tol["rtol"] * r.float().abs()).max().item()
+                if not (math.isfinite(errs[name]) and excess <= 0):
+                    fail(f"flash bwd {name} {dn} B={B} T={T} D={D} "
+                         f"causal={causal}: max abs err {errs[name]} "
+                         f"(tol {tol})")
+            lib = sdpa_bwd(torch, q, k, v, do, causal)
+            lib_ms = event_ms(torch, lib, 10) if lib else None
+            esz = q.element_size()
+            pairs = B * H * (T * (T + 1) / 2 if causal else T * T)
+            n = B * T * H * D
+            rows_f32 = 2 * 4 * B * H * T  # lse and delta
+            for name, products, n_out, launch, plain, err in (
+                    ("flash_dq", 3, 1,
+                     lambda: fa._launch_dq(q, k, v, do, lse, delta,
+                                           causal, scale),
+                     lambda: fa._bwd_plain(q, k, v, o, lse, do, causal,
+                                           scale, want_dkv=False),
+                     errs["dq"]),
+                    ("flash_dkv", 4, 2,
+                     lambda: fa._launch_dkv(q, k, v, do, lse, delta,
+                                            causal, scale),
+                     lambda: fa._bwd_plain(q, k, v, o, lse, do, causal,
+                                           scale, want_dq=False),
+                     max(errs["dk"], errs["dv"]))):
+                ms = cuda_ms(torch, launch, 20)
+                plain_ms = cuda_ms(torch, plain, 3 if B > 1 else 10)
+                flops = 2.0 * D * pairs * products
+                nbytes = esz * n * (4 + n_out) + rows_f32
+                b_ms, b_by = bound(flops, nbytes, dn)
+                row = {"kernel": name, "dtype": dn,
+                       "shape": {"B": B, "T": T, "H": H, "D": D,
+                                 "causal": causal},
+                       "max_abs_err": err, "errors": errs, "tol": tol,
+                       "kernel_ms": ms, "plain_ms": plain_ms,
+                       "library_ms": lib_ms, "bound_ms": b_ms,
+                       "bound_by": b_by}
+                emit(row)
+                if dtype == torch.bfloat16 and B == 8:
+                    main[name] = row
     return main
 
 
@@ -428,8 +578,9 @@ def phase_engine(torch) -> dict:
 
 
 def kernel_class(name: str) -> str:
-    if "flash_fwd_" in name:
-        return "flash_fwd"
+    for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if k + "_" in name:
+            return k
     if "paged_kernel" in name:
         return "paged_attention"
     if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "gemv",
@@ -455,6 +606,140 @@ def profile_engine(torch, engine, prompts) -> dict:
             engine.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    out = device_time(torch, prof, wall_us)
+    out["phase"] = "profile"
+    return out
+
+
+# ------------------------------------------------------------ phase 5
+
+
+def _reset_counters():
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    counters = {"flash_fwd": fa.LAUNCHES, "flash_dq": fa.LAUNCHES_DQ,
+                "flash_dkv": fa.LAUNCHES_DKV,
+                "paged_attention": pa.LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    return counters
+
+
+def phase_train(torch) -> dict:
+    """GPT-2-small training through the port's entry points: bf16
+    compute, f32 masters, B=8 T=1024 random tokens (seed 0), one fixed
+    batch, adamw(3e-4, weight_decay=0.1), remat on; TRAIN_WARMUP steps,
+    then TRAIN_STEPS timed steps with the launch counters zeroed just
+    before and read just after, then a few steps under torch.profiler."""
+    from ray_tpu_torch.models.gpt2 import (
+        GPT2Config,
+        count_params,
+        gpt2_loss,
+        init_gpt2,
+    )
+    from ray_tpu_torch.train import TrainState, adamw, make_train_step
+
+    cfg = GPT2Config.small()
+    B, T = TRAIN_BATCH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_gpt2(gen, cfg)
+    n_params = count_params(params)
+    tx = adamw(3e-4, weight_decay=0.1)
+    state = TrainState.create(params, tx)
+    step = make_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx)
+    toks = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    metrics = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    counters = _reset_counters()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_STEPS + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        state, m = step(state, batch)
+        metrics.append(m)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sorted(events[i].elapsed_time(events[i + 1])
+                     for i in range(TRAIN_STEPS))
+
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"train: non-finite loss or grad norm: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss on the fixed batch did not fall: "
+             f"{losses[0]} -> {losses[-1]}")
+    per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
+    want = {"flash_fwd": 2 * cfg.n_layer, "flash_dq": cfg.n_layer,
+            "flash_dkv": cfg.n_layer, "paged_attention": 0}
+    if per_step != want:
+        fail(f"train: launches per step {per_step}, want {want}")
+    if state.step != TRAIN_WARMUP + TRAIN_STEPS:
+        fail(f"train: state.step {state.step}")
+
+    profile = profile_train(torch, step, state, batch)
+    tok_s = B * T * TRAIN_STEPS / wall
+    row = {"phase": "train", "model": "gpt2-small", "dtype": "bfloat16",
+           "masters": "float32", "batch": B, "seq": T, "remat": cfg.remat,
+           "optimizer": "adamw(3e-4, weight_decay=0.1)",
+           "n_params": n_params, "init_s": init_s, "warmup_steps":
+           TRAIN_WARMUP, "warmup_s": warm_s, "steps": TRAIN_STEPS,
+           "wall_s": wall, "tokens_per_s": tok_s,
+           "step_ms": {"p50": step_ms[len(step_ms) // 2],
+                       "max": step_ms[-1], "min": step_ms[0]},
+           "mfu": 6.0 * n_params * tok_s / PEAK_FLOPS["bfloat16"],
+           "mfu_formula": "6 N tokens/s / 989e12 (bf16 dense peak)",
+           "max_memory_allocated": peak, "loss_first": losses[0],
+           "loss_last": losses[-1], "losses": losses,
+           "grad_norm_first": norms[0], "grad_norm_last": norms[-1],
+           "launches": launches, "launches_per_step": per_step}
+    emit(row)
+    emit(profile)
+    return launches
+
+
+def profile_train(torch, step, state, batch) -> dict:
+    """PROFILE_STEPS more train steps under torch.profiler, tracing the
+    device only (tracing the host's operator calls as well more than
+    doubles the step's wall time): device time by kernel class and per
+    step, and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = device_time(torch, prof, wall_us)
+    out.update({"phase": "train_profile", "steps": PROFILE_STEPS,
+                "step_wall_ms": wall_us / 1e3 / PROFILE_STEPS})
+    if out["device_busy_ms"] != "not measured":
+        out["device_ms_per_step"] = out["device_busy_ms"] / PROFILE_STEPS
+    return out
+
+
+def device_time(torch, prof, wall_us: float) -> dict:
+    """Device time by kernel class and busy share from a profile."""
     by_class: dict[str, float] = {}
     by_name: dict[str, float] = {}
     launches = 0
@@ -469,12 +754,86 @@ def profile_engine(torch, engine, prompts) -> dict:
         launches += ev.count
     busy = sum(by_class.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"phase": "profile", "wall_ms": wall_us / 1e3,
+    return {"wall_ms": wall_us / 1e3,
             "device_kernel_launches": launches,
             "device_busy_ms": busy / 1e3 if busy else "not measured",
             "device_busy_share": busy / wall_us if busy else "not measured",
             "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()},
             "top_kernels_ms": {k: v / 1e3 for k, v in top}}
+
+
+# ------------------------------------------------------------ phase 6
+
+
+def phase_parity(torch) -> dict:
+    """One train step of GPT-2-small at full width in f32, B=1 T=256,
+    from the same seeded params: on the card through the kernels, on the
+    CPU through their plain versions. The loss, each leaf's gradient and
+    each leaf's updated value must agree within PARITY_TOL."""
+    import dataclasses
+
+    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_loss, init_gpt2
+    from ray_tpu_torch.train import TrainState, adamw, make_train_step
+    from ray_tpu_torch.util import tree
+
+    cfg = dataclasses.replace(GPT2Config.small(), dtype=torch.float32)
+    B, T = PARITY_BATCH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    params = {"cuda": init_gpt2(gen, cfg)}
+    params["cpu"] = tree.tree_map(lambda t: t.cpu(), params["cuda"])
+    toks = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen,
+                         device="cuda")
+    counters = _reset_counters()
+    loss, grads, stepped = {}, {}, {}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        batch = {"tokens": toks[:, :-1].to(dev),
+                 "targets": toks[:, 1:].to(dev)}
+        leaves = [t.detach().requires_grad_()
+                  for t in tree.leaves(params[dev])]
+        value = gpt2_loss(tree.unflatten(params[dev], leaves), batch, cfg)
+        loss[dev] = float(value.detach())
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(value, leaves)]
+        tx = adamw(3e-4, weight_decay=0.1)
+        step = make_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx)
+        state, _ = step(TrainState.create(params[dev], tx), batch)
+        stepped[dev] = [t.cpu() for t in tree.leaves(state.params)]
+    torch.cuda.synchronize()
+    launches = {k: c.count for k, c in counters.items()}
+    names = [path for path, _ in _paths(params["cpu"])]
+    if abs(loss["cuda"] - loss["cpu"]) > PARITY_TOL["loss"]:
+        fail(f"parity: loss {loss['cuda']} on the card, {loss['cpu']} on "
+             f"the CPU (tol {PARITY_TOL['loss']})")
+    rows = {}
+    for name, gc, gp, pc, pp in zip(names, grads["cuda"], grads["cpu"],
+                                    stepped["cuda"], stepped["cpu"]):
+        g_err = (gc - gp).abs().max().item()
+        g_tol = PARITY_TOL["grad_rel"] * gp.abs().max().item()
+        p_err = (pc - pp).abs().max().item()
+        rows[name] = {"grad_err": g_err, "grad_tol": g_tol,
+                      "param_err": p_err, "param_tol": PARITY_TOL["param"]}
+        if not (g_err <= g_tol and p_err <= PARITY_TOL["param"]):
+            fail(f"parity: {name}: grad err {g_err} (tol {g_tol}), "
+                 f"updated param err {p_err} (tol {PARITY_TOL['param']})")
+    for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if launches[k] <= 0:
+            fail(f"parity: {k} was not launched on the card")
+    row = {"phase": "parity", "model": "gpt2-small", "dtype": "float32",
+           "batch": B, "seq": T, "seconds": time.perf_counter() - t0,
+           "loss_cuda": loss["cuda"], "loss_cpu": loss["cpu"],
+           "loss_tol": PARITY_TOL["loss"], "launches": launches,
+           "leaves": rows}
+    emit(row)
+    return row
+
+
+def _paths(t, path=""):
+    if isinstance(t, dict):
+        for k in sorted(t):
+            yield from _paths(t[k], f"{path}/{k}")
+    else:
+        yield path, t
 
 
 def main() -> int:
@@ -496,18 +855,35 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     k1 = check_flash(torch, gen)
+    k23 = check_flash_bwd(torch, gen)
     k4 = check_paged(torch, gen)
-    launches = phase_engine(torch)
+    serve = phase_engine(torch)
+    train = phase_train(torch)
+    phase_parity(torch)
 
+    # flash_fwd runs on both paths: its row is the training shape, its
+    # launches those of both runs
+    by_path = {name: {"serve": serve.get(name, 0),
+                      "train": train.get(name, 0)}
+               for name in ("flash_fwd", "flash_dq", "flash_dkv",
+                            "paged_attention")}
     kernels = []
     for main_row, name, src, replaces, err_key in (
-            (k1, "flash_fwd", "ray_tpu_torch/csrc/flash_attention.cu",
+            (k1["train"], "flash_fwd",
+             "ray_tpu_torch/csrc/flash_attention.cu",
              "ray_tpu/ops/flash_attention.py:60", "max_abs_err_o"),
+            (k23["flash_dq"], "flash_dq",
+             "ray_tpu_torch/csrc/flash_attention_bwd.cu",
+             "ray_tpu/ops/flash_attention.py:151", "max_abs_err"),
+            (k23["flash_dkv"], "flash_dkv",
+             "ray_tpu_torch/csrc/flash_attention_bwd.cu",
+             "ray_tpu/ops/flash_attention.py:192", "max_abs_err"),
             (k4, "paged_attention", "ray_tpu_torch/csrc/paged_attention.cu",
              "ray_tpu/ops/paged_attention.py:73", "max_abs_err")):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             "max_abs_err": main_row[err_key], "ms": main_row["kernel_ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

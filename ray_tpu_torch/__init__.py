@@ -10,5 +10,7 @@ PyTorch version instead.
 
 Ported so far: GPT-2 serving (``ray_tpu_torch.serve.llm``), through the
 flash-attention forward (``ops/flash_attention.py``) and the paged
-attention kernel (``ops/paged_attention.py``). See ROADMAP.md.
+attention kernel (``ops/paged_attention.py``); GPT-2 training on one
+card (``ray_tpu_torch.train``), through the flash-attention forward and
+backward kernels. See ROADMAP.md.
 """

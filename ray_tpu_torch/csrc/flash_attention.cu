@@ -32,8 +32,6 @@
 // one fused qkv projection; the head dimension must be contiguous.
 // wgmma, TMA and a producer warp are for a later version.
 
-#include <stdint.h>
-
 #include "common.cuh"
 
 namespace {
@@ -195,45 +193,12 @@ constexpr int bf16_smem_bytes() {  // q, k, v tiles, rows padded by 8
   return 3 * kBlockQ * (D + 8) * static_cast<int>(sizeof(__nv_bfloat16));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two values into one register as bf16, `lo` in the low half (the lower
-// column of an mma fragment)
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// c += a b for a 16x16 (row) by 16x8 (col) bf16 tile, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy rows [t0, t0 + 64) of a (T, D) slice with row stride `rs` into a
-// padded shared tile, 32 bits at a time; rows past `seq` become zero.
+// one 64-row tile of q, k or v into shared memory
 template <int D>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long rs, int t0, int seq,
-                                           int tid) {
-  constexpr int kWords = D / 2;
-  for (int i = tid; i < kBlockQ * kWords; i += kWarps * 32) {
-    const int r = i / kWords, c = (i % kWords) * 2, t = t0 + r;
-    const uint32_t w = t < seq ? ld32(src + t * rs + c) : 0u;
-    *reinterpret_cast<uint32_t*>(dst + r * (D + 8) + c) = w;
-  }
+__device__ __forceinline__ void stage(__nv_bfloat16* dst,
+                                      const __nv_bfloat16* src, long long rs,
+                                      int t0, int seq, int tid) {
+  rt::stage_bf16<D, kBlockQ, kWarps * 32>(dst, src, rs, t0, seq, tid);
 }
 
 template <int D>
@@ -263,7 +228,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // warp's 16, at columns 2 * tig and 2 * tig + 1 of each 8-wide tile
   const int grp = lane >> 2, tig = lane & 3;
 
-  stage_bf16<D>(qs, q + b * st.qb + h * st.qh, st.qt, q0, seq, tid);
+  stage<D>(qs, q + b * st.qb + h * st.qh, st.qt, q0, seq, tid);
   __syncthreads();
   uint32_t qf[KS][4];  // this warp's q rows as A fragments, kept all along
   {
@@ -271,10 +236,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* q_hi = q_lo + 8 * LD;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      qf[kk][0] = ld32(q_lo + kk * 16);
-      qf[kk][1] = ld32(q_hi + kk * 16);
-      qf[kk][2] = ld32(q_lo + kk * 16 + 8);
-      qf[kk][3] = ld32(q_hi + kk * 16 + 8);
+      qf[kk][0] = rt::ld32(q_lo + kk * 16);
+      qf[kk][1] = rt::ld32(q_hi + kk * 16);
+      qf[kk][2] = rt::ld32(q_lo + kk * 16 + 8);
+      qf[kk][3] = rt::ld32(q_hi + kk * 16 + 8);
     }
   }
   float of[DT][4];
@@ -287,8 +252,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // the previous tile is consumed
-    stage_bf16<D>(ks, k + b * st.kb + h * st.kh, st.kt, k0, seq, tid);
-    stage_bf16<D>(vs, v + b * st.vb + h * st.vh, st.vt, k0, seq, tid);
+    stage<D>(ks, k + b * st.kb + h * st.kh, st.kt, k0, seq, tid);
+    stage<D>(vs, v + b * st.vb + h * st.vh, st.vt, k0, seq, tid);
     __syncthreads();
 
     // s = q k^T: 16 rows x 64 keys per warp, as NT accumulator tiles
@@ -299,7 +264,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const __nv_bfloat16* kr = ks + (nt * 8 + grp) * LD + 2 * tig;
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
-        mma_bf16(sf[nt], qf[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
+        rt::mma_bf16(sf[nt], qf[kk], rt::ld32(kr + kk * 16), rt::ld32(kr + kk * 16 + 8));
     }
 
     // mask and scale; element e of a tile is row rows[e / 2], key
@@ -348,16 +313,16 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     // exactly one A fragment
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_f32(sf[2 * kk][0], sf[2 * kk][1]),
-                              pack_f32(sf[2 * kk][2], sf[2 * kk][3]),
-                              pack_f32(sf[2 * kk + 1][0], sf[2 * kk + 1][1]),
-                              pack_f32(sf[2 * kk + 1][2], sf[2 * kk + 1][3])};
+      const uint32_t pa[4] = {rt::pack_f32(sf[2 * kk][0], sf[2 * kk][1]),
+                              rt::pack_f32(sf[2 * kk][2], sf[2 * kk][3]),
+                              rt::pack_f32(sf[2 * kk + 1][0], sf[2 * kk + 1][1]),
+                              rt::pack_f32(sf[2 * kk + 1][2], sf[2 * kk + 1][3])};
       const __nv_bfloat16* vr = vs + (kk * 16 + 2 * tig) * LD + grp;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
         const __nv_bfloat16* vc = vr + dt * 8;
-        mma_bf16(of[dt], pa, pack_bf16(vc[0], vc[LD]),
-                 pack_bf16(vc[8 * LD], vc[9 * LD]));
+        rt::mma_bf16(of[dt], pa, rt::pack_bf16(vc[0], vc[LD]),
+                     rt::pack_bf16(vc[8 * LD], vc[9 * LD]));
       }
     }
   }
@@ -372,7 +337,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
       *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack_f32(of[dt][2 * i] / ls, of[dt][2 * i + 1] / ls);
+          rt::pack_f32(of[dt][2 * i] / ls, of[dt][2 * i + 1] / ls);
     if (tig == 0) lse[static_cast<long long>(bh) * seq + rows[i]] = m[i] + logf(ls);
   }
 }

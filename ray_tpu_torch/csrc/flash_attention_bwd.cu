@@ -1,0 +1,670 @@
+// K2 and K3: flash-attention backward for Hopper (sm_90a), CUDA C++.
+//
+// Replace the Pallas TPU kernels `_dq_kernel` (K2) and `_dkv_kernel`
+// (K3) launched by `_bwd` in ray_tpu/ops/flash_attention.py. Both
+// recompute the softmax weights from the forward's lse instead of
+// storing them: p = exp(s * scale - lse), exactly 0 above the diagonal
+// and past the ragged edge; with delta = rowsum(do * o) (computed by the
+// caller, f32) and dp = do v^T, ds = p (dp - delta) scale. Then
+//   K2: dq = ds k                 (ds rounded to k's type first)
+//   K3: dv = p^T do, dk = ds^T q  (p rounded to do's type, ds to q's)
+// as the TPU kernels do. Two kernels and no atomics, as on the TPU: each
+// output tile has one owner block, so the results are deterministic.
+//
+// What bounds them: at GPT-2-small training (T = 1024, D = 64) each
+// runs three (K2) or four (K3) T^2 D products per head against ~5-6
+// T D elements moved, far above the card's ops-per-byte line, so they
+// are bound by operations and belong on the tensor cores. The design:
+//  - K2 takes K1's structure: one block per (b * h, 64-row q tile), four
+//    warps of 16 q rows, a loop over the 64-key k/v tiles up to the
+//    diagonal. q and do stay in registers as mma A fragments for
+//    s = q k^T and dp = do v^T; the accumulators of s become p and then
+//    ds in place, and ds rounded to bf16 is already the A operand of
+//    ds k (k staged as the B operand in [key, d] orientation, as v is
+//    for K1's p v), so p and ds never touch shared memory.
+//  - K3 works in the transposed orientation, so that nothing goes
+//    through shared memory twice: one block per (b * h, 64-row k tile),
+//    four warps of 16 keys, k and v in registers as A fragments, a loop
+//    over the q tiles from the diagonal down; s^T = k q^T and
+//    dp^T = v do^T come out with keys as rows, lse and delta are indexed
+//    by column, and p^T and ds^T in registers are the A operands of
+//    p^T do and ds^T q.
+//  - f32 keeps K1's scalar FMA path (TF32 would lose f32's digits), with
+//    each warp's p and ds rows passed through shared memory.
+//  - The ragged edge (T not a multiple of 64) is masked, so any T that
+//    K1 takes works here.
+// Strides are passed per tensor for q, k, v and do (the head dimension
+// contiguous), so q, k and v may stay column slices of the fused qkv
+// projection; lse and delta are (B, H, T) f32, the outputs (B, T, H, D)
+// contiguous. cp.async/TMA pipelining and wgmma are for a later version.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBlock = 64;  // q rows and keys per tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kBlock / kWarps;  // rows owned by one warp
+
+struct Args {
+  const void *q, *k, *v, *dout;  // (B, T, H, D), strided
+  const float *lse, *delta;      // (B, H, T)
+  void *g0, *g1;                 // K2: dq; K3: dk, dv. (B, T, H, D)
+  int seq, heads;
+  long long qb, qt, qh, kb, kt, kh, vb, vt, vh, ob, ot, oh;
+  float scale;
+  int causal;
+};
+
+__device__ __forceinline__ long long out_row(const Args& a, int b, int h, int t) {
+  return (static_cast<long long>(b) * a.seq + t) * a.heads + h;
+}
+
+// p for one (row, key) pair: exactly 0 where the key is masked
+__device__ __forceinline__ bool visible(const Args& a, int row, int key) {
+  return row < a.seq && key < a.seq && (!a.causal || key <= row);
+}
+
+// ------------------------------------------------------------- f32 path
+
+template <int D>
+constexpr int dq_f32_smem_bytes() {  // q, do; k, v padded; ds; lse, delta
+  return (2 * kBlock * D + 2 * kBlock * (D + 1) + kBlock * kBlock + 2 * kBlock) *
+         static_cast<int>(sizeof(float));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(Args a) {
+  constexpr int C = D / 32;  // output columns per lane
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                   // [kBlock][D]
+  float* dos = qs + kBlock * D;       // [kBlock][D]
+  float* ks = dos + kBlock * D;       // [kBlock][D + 1]: conflict-free column reads
+  float* vs = ks + kBlock * (D + 1);  // [kBlock][D + 1]
+  float* dss = vs + kBlock * (D + 1);  // [kBlock][kBlock]: ds of each warp's rows
+  float* lse_s = dss + kBlock * kBlock;
+  float* dlt_s = lse_s + kBlock;
+
+  const int seq = a.seq;
+  const int n_tiles = (seq + kBlock - 1) / kBlock;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);
+  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int q0 = qt * kBlock;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* qb = static_cast<const float*>(a.q) + b * a.qb + h * a.qh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.kb + h * a.kh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vb + h * a.vh;
+  const float* ob = static_cast<const float*>(a.dout) + b * a.ob + h * a.oh;
+
+  for (int i = tid; i < kBlock * D; i += kThreads) {
+    const int r = i / D, d = i % D, t = q0 + r;
+    const bool ok = t < seq;
+    qs[i] = ok ? qb[t * a.qt + d] : 0.f;
+    dos[i] = ok ? ob[t * a.ot + d] : 0.f;
+  }
+  for (int r = tid; r < kBlock; r += kThreads) {
+    const int t = q0 + r;
+    lse_s[r] = t < seq ? a.lse[static_cast<long long>(bh) * seq + t] : 0.f;
+    dlt_s[r] = t < seq ? a.delta[static_cast<long long>(bh) * seq + t] : 0.f;
+  }
+
+  float acc[kRows][C];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
+  const float* qw = qs + warp * kRows * D;
+  const float* dw = dos + warp * kRows * D;
+  float* sw = dss + warp * kRows * kBlock;
+  const int row0 = q0 + warp * kRows;
+  const int last = a.causal ? qt : n_tiles - 1;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    const int k0 = kt * kBlock;
+    __syncthreads();  // the previous tile is consumed; q, do are loaded
+    for (int i = tid; i < kBlock * D; i += kThreads) {
+      const int r = i / D, d = i % D, t = k0 + r;
+      const bool ok = t < seq;
+      ks[r * (D + 1) + d] = ok ? kb[t * a.kt + d] : 0.f;
+      vs[r * (D + 1) + d] = ok ? vb[t * a.vt + d] : 0.f;
+    }
+    __syncthreads();
+
+    // s = q k^T and dp = do v^T for this warp's rows against keys lane
+    // and lane + 32
+    float s[kRows][2], dp[kRows][2];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
+    const float* ka = ks + lane * (D + 1);
+    const float* kc = ks + (lane + 32) * (D + 1);
+    const float* va = vs + lane * (D + 1);
+    const float* vc = vs + (lane + 32) * (D + 1);
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float k0v[4], k1v[4], v0v[4], v1v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        k0v[e] = ka[d + e];
+        k1v[e] = kc[d + e];
+        v0v[e] = va[d + e];
+        v1v[e] = vc[d + e];
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(qw + i * D + d);
+        const float4 y = *reinterpret_cast<const float4*>(dw + i * D + d);
+        s[i][0] = fmaf(x.x, k0v[0], fmaf(x.y, k0v[1], fmaf(x.z, k0v[2], fmaf(x.w, k0v[3], s[i][0]))));
+        s[i][1] = fmaf(x.x, k1v[0], fmaf(x.y, k1v[1], fmaf(x.z, k1v[2], fmaf(x.w, k1v[3], s[i][1]))));
+        dp[i][0] = fmaf(y.x, v0v[0], fmaf(y.y, v0v[1], fmaf(y.z, v0v[2], fmaf(y.w, v0v[3], dp[i][0]))));
+        dp[i][1] = fmaf(y.x, v1v[0], fmaf(y.y, v1v[1], fmaf(y.z, v1v[2], fmaf(y.w, v1v[3], dp[i][1]))));
+      }
+    }
+
+    // ds = p (dp - delta) scale, p recomputed from lse
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = warp * kRows + i;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + lane + 32 * c;
+        const float p = visible(a, row0 + i, key) ? expf(s[i][c] * a.scale - lse_s[r]) : 0.f;
+        sw[i * kBlock + lane + 32 * c] = p * (dp[i][c] - dlt_s[r]) * a.scale;
+      }
+    }
+    __syncwarp();
+
+    // acc += ds k over the tile's keys; lane owns columns lane + 32 c
+#pragma unroll 2
+    for (int j = 0; j < kBlock; j += 4) {
+      float kv[4][C];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int c = 0; c < C; ++c) kv[e][c] = ks[(j + e) * (D + 1) + lane + 32 * c];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float4 g = *reinterpret_cast<const float4*>(sw + i * kBlock + j);
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          acc[i][c] = fmaf(g.x, kv[0][c], fmaf(g.y, kv[1][c],
+                      fmaf(g.z, kv[2][c], fmaf(g.w, kv[3][c], acc[i][c]))));
+      }
+    }
+    __syncwarp();
+  }
+
+  float* dq = static_cast<float*>(a.g0);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = row0 + i;
+    if (row >= seq) continue;
+    float* out = dq + out_row(a, b, h, row) * D;
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[lane + 32 * c] = acc[i][c];
+  }
+}
+
+template <int D>
+constexpr int dkv_f32_smem_bytes() {  // k, v; q, do padded; p, ds; lse, delta
+  return (2 * kBlock * D + 2 * kBlock * (D + 1) + 2 * kBlock * kBlock + 2 * kBlock) *
+         static_cast<int>(sizeof(float));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(Args a) {
+  constexpr int C = D / 32;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                    // [kBlock][D]
+  float* vs = ks + kBlock * D;         // [kBlock][D]
+  float* qs = vs + kBlock * D;         // [kBlock][D + 1]
+  float* dos = qs + kBlock * (D + 1);  // [kBlock][D + 1]
+  float* ps = dos + kBlock * (D + 1);  // [kBlock][kBlock]: p^T of each warp's keys
+  float* dss = ps + kBlock * kBlock;   // [kBlock][kBlock]: ds^T
+  float* lse_s = dss + kBlock * kBlock;
+  float* dlt_s = lse_s + kBlock;
+
+  const int seq = a.seq;
+  const int n_tiles = (seq + kBlock - 1) / kBlock;
+  const int kt = blockIdx.x;  // the first k tiles see the most q tiles
+  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int k0 = kt * kBlock;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* qb = static_cast<const float*>(a.q) + b * a.qb + h * a.qh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.kb + h * a.kh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vb + h * a.vh;
+  const float* ob = static_cast<const float*>(a.dout) + b * a.ob + h * a.oh;
+
+  for (int i = tid; i < kBlock * D; i += kThreads) {
+    const int r = i / D, d = i % D, t = k0 + r;
+    const bool ok = t < seq;
+    ks[i] = ok ? kb[t * a.kt + d] : 0.f;
+    vs[i] = ok ? vb[t * a.vt + d] : 0.f;
+  }
+
+  float gk[kRows][C], gv[kRows][C];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int c = 0; c < C; ++c) gk[i][c] = gv[i][c] = 0.f;
+  const float* kw = ks + warp * kRows * D;
+  const float* vw = vs + warp * kRows * D;
+  float* pw = ps + warp * kRows * kBlock;
+  float* sw = dss + warp * kRows * kBlock;
+  const int key0 = k0 + warp * kRows;
+  // causal: q tiles before this k tile's own hold no row that sees it
+  const int first = a.causal ? kt : 0;
+
+  for (int qt = first; qt < n_tiles; ++qt) {
+    const int q0 = qt * kBlock;
+    __syncthreads();  // the previous tile is consumed; k, v are loaded
+    for (int i = tid; i < kBlock * D; i += kThreads) {
+      const int r = i / D, d = i % D, t = q0 + r;
+      const bool ok = t < seq;
+      qs[r * (D + 1) + d] = ok ? qb[t * a.qt + d] : 0.f;
+      dos[r * (D + 1) + d] = ok ? ob[t * a.ot + d] : 0.f;
+    }
+    for (int r = tid; r < kBlock; r += kThreads) {
+      const int t = q0 + r;
+      lse_s[r] = t < seq ? a.lse[static_cast<long long>(bh) * seq + t] : 0.f;
+      dlt_s[r] = t < seq ? a.delta[static_cast<long long>(bh) * seq + t] : 0.f;
+    }
+    __syncthreads();
+
+    // s^T = k q^T and dp^T = v do^T for this warp's keys against q rows
+    // lane and lane + 32
+    float s[kRows][2], dp[kRows][2];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
+    const float* qa = qs + lane * (D + 1);
+    const float* qc = qs + (lane + 32) * (D + 1);
+    const float* da = dos + lane * (D + 1);
+    const float* dc = dos + (lane + 32) * (D + 1);
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float q0v[4], q1v[4], d0v[4], d1v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        q0v[e] = qa[d + e];
+        q1v[e] = qc[d + e];
+        d0v[e] = da[d + e];
+        d1v[e] = dc[d + e];
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(kw + i * D + d);
+        const float4 y = *reinterpret_cast<const float4*>(vw + i * D + d);
+        s[i][0] = fmaf(x.x, q0v[0], fmaf(x.y, q0v[1], fmaf(x.z, q0v[2], fmaf(x.w, q0v[3], s[i][0]))));
+        s[i][1] = fmaf(x.x, q1v[0], fmaf(x.y, q1v[1], fmaf(x.z, q1v[2], fmaf(x.w, q1v[3], s[i][1]))));
+        dp[i][0] = fmaf(y.x, d0v[0], fmaf(y.y, d0v[1], fmaf(y.z, d0v[2], fmaf(y.w, d0v[3], dp[i][0]))));
+        dp[i][1] = fmaf(y.x, d1v[0], fmaf(y.y, d1v[1], fmaf(y.z, d1v[2], fmaf(y.w, d1v[3], dp[i][1]))));
+      }
+    }
+
+    // p^T and ds^T; lse and delta belong to the columns (q rows)
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = lane + 32 * c;
+        const float p = visible(a, q0 + col, key0 + i) ? expf(s[i][c] * a.scale - lse_s[col]) : 0.f;
+        pw[i * kBlock + col] = p;
+        sw[i * kBlock + col] = p * (dp[i][c] - dlt_s[col]) * a.scale;
+      }
+    }
+    __syncwarp();
+
+    // gv += p^T do and gk += ds^T q over the tile's q rows; lane owns
+    // columns lane + 32 c
+#pragma unroll 2
+    for (int j = 0; j < kBlock; j += 4) {
+      float xq[4][C], xo[4][C];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          xq[e][c] = qs[(j + e) * (D + 1) + lane + 32 * c];
+          xo[e][c] = dos[(j + e) * (D + 1) + lane + 32 * c];
+        }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float4 p = *reinterpret_cast<const float4*>(pw + i * kBlock + j);
+        const float4 g = *reinterpret_cast<const float4*>(sw + i * kBlock + j);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          gv[i][c] = fmaf(p.x, xo[0][c], fmaf(p.y, xo[1][c],
+                     fmaf(p.z, xo[2][c], fmaf(p.w, xo[3][c], gv[i][c]))));
+          gk[i][c] = fmaf(g.x, xq[0][c], fmaf(g.y, xq[1][c],
+                     fmaf(g.z, xq[2][c], fmaf(g.w, xq[3][c], gk[i][c]))));
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+  float* dk = static_cast<float*>(a.g0);
+  float* dv = static_cast<float*>(a.g1);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int key = key0 + i;
+    if (key >= seq) continue;
+    const long long o = out_row(a, b, h, key) * D;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      dk[o + lane + 32 * c] = gk[i][c];
+      dv[o + lane + 32 * c] = gv[i][c];
+    }
+  }
+}
+
+// ------------------------------------------------------------ bf16 path
+
+using bf16 = __nv_bfloat16;
+
+template <int D>
+constexpr int bf16_smem_bytes() {  // four 64-row tiles, rows padded by 8
+  return 4 * kBlock * (D + 8) * static_cast<int>(sizeof(bf16)) +
+         2 * kBlock * static_cast<int>(sizeof(float));
+}
+
+template <int D>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* src, long long rs,
+                                      int t0, int seq, int tid) {
+  rt::stage_bf16<D, kBlock, kThreads>(dst, src, rs, t0, seq, tid);
+}
+
+// A fragments of this warp's 16 rows of a staged tile (row-major, 16
+// columns per k-step)
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4], const bf16* tile,
+                                       int warp, int grp, int tig) {
+  constexpr int LD = D + 8;
+  const bf16* lo = tile + (warp * kRows + grp) * LD + 2 * tig;
+  const bf16* hi = lo + 8 * LD;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    f[kk][0] = rt::ld32(lo + kk * 16);
+    f[kk][1] = rt::ld32(hi + kk * 16);
+    f[kk][2] = rt::ld32(lo + kk * 16 + 8);
+    f[kk][3] = rt::ld32(hi + kk * 16 + 8);
+  }
+}
+
+// acc = a x^T over the head dim: a's 16 rows (fragments `a`) against
+// the 64 rows of the staged tile `x`, as 8 accumulator tiles of 8
+// columns
+template <int D>
+__device__ __forceinline__ void rows_by_rows(float (&acc)[kBlock / 8][4],
+                                             const uint32_t (&a)[D / 16][4],
+                                             const bf16* x, int grp, int tig) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int nt = 0; nt < kBlock / 8; ++nt) {
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    const bf16* xr = x + (nt * 8 + grp) * LD + 2 * tig;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      rt::mma_bf16(acc[nt], a[kk], rt::ld32(xr + kk * 16), rt::ld32(xr + kk * 16 + 8));
+  }
+}
+
+// out += w x: the 16 x 64 weights `w` (accumulator layout, rounded to
+// bf16 here) against the staged 64-row tile `x` in [row, d] orientation
+template <int D>
+__device__ __forceinline__ void weights_by_tile(float (&out)[D / 8][4],
+                                                const float (&w)[kBlock / 8][4],
+                                                const bf16* x, int grp, int tig) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < kBlock / 16; ++kk) {
+    // two accumulator tiles, rounded to bf16, are exactly one A fragment
+    const uint32_t wa[4] = {rt::pack_f32(w[2 * kk][0], w[2 * kk][1]),
+                            rt::pack_f32(w[2 * kk][2], w[2 * kk][3]),
+                            rt::pack_f32(w[2 * kk + 1][0], w[2 * kk + 1][1]),
+                            rt::pack_f32(w[2 * kk + 1][2], w[2 * kk + 1][3])};
+    const bf16* xr = x + (kk * 16 + 2 * tig) * LD + grp;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const bf16* xc = xr + dt * 8;
+      rt::mma_bf16(out[dt], wa, rt::pack_bf16(xc[0], xc[LD]),
+                   rt::pack_bf16(xc[8 * LD], xc[9 * LD]));
+    }
+  }
+}
+
+// rows `rows[0]`, `rows[1]` of an accumulator in (B, T, H, D) layout
+template <int D>
+__device__ __forceinline__ void store_rows(const Args& a, void* base, int b, int h,
+                                           const int (&rows)[2],
+                                           const float (&acc)[D / 8][4], int tig) {
+  bf16* out = static_cast<bf16*>(base);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= a.seq) continue;
+    bf16* r = out + out_row(a, b, h, rows[i]) * D + 2 * tig;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<uint32_t*>(r + dt * 8) = rt::pack_f32(acc[dt][2 * i], acc[dt][2 * i + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dq_bf16_kernel(Args a) {
+  constexpr int LD = D + 8, NT = kBlock / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char tiles[];
+  bf16* qs = reinterpret_cast<bf16*>(tiles);
+  bf16* dos = qs + kBlock * LD;
+  bf16* ks = dos + kBlock * LD;
+  bf16* vs = ks + kBlock * LD;
+
+  const int seq = a.seq;
+  const int n_tiles = (seq + kBlock - 1) / kBlock;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);
+  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int q0 = qt * kBlock;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+
+  stage<D>(qs, static_cast<const bf16*>(a.q) + b * a.qb + h * a.qh, a.qt, q0, seq, tid);
+  stage<D>(dos, static_cast<const bf16*>(a.dout) + b * a.ob + h * a.oh, a.ot, q0, seq,
+           tid);
+  __syncthreads();
+  uint32_t qf[D / 16][4], df[D / 16][4];  // kept all along
+  load_a<D>(qf, qs, warp, grp, tig);
+  load_a<D>(df, dos, warp, grp, tig);
+  const int rows[2] = {q0 + warp * kRows + grp, q0 + warp * kRows + grp + 8};
+  float lse[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long at = static_cast<long long>(bh) * seq + rows[i];
+    lse[i] = rows[i] < seq ? a.lse[at] : 0.f;
+    dlt[i] = rows[i] < seq ? a.delta[at] : 0.f;
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  const int last = a.causal ? qt : n_tiles - 1;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.kb + h * a.kh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vb + h * a.vh;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    const int k0 = kt * kBlock;
+    __syncthreads();  // the previous tile is consumed
+    stage<D>(ks, kb, a.kt, k0, seq, tid);
+    stage<D>(vs, vb, a.vt, k0, seq, tid);
+    __syncthreads();
+
+    float sf[NT][4], dpf[NT][4];
+    rows_by_rows<D>(sf, qf, ks, grp, tig);   // s = q k^T
+    rows_by_rows<D>(dpf, df, vs, grp, tig);  // dp = do v^T
+    // element e of tile nt: row rows[e / 2], key k0 + 8 nt + 2 tig + e % 2
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + nt * 8 + 2 * tig + (e & 1);
+        const float p = visible(a, rows[e >> 1], key) ? expf(sf[nt][e] * a.scale - lse[e >> 1]) : 0.f;
+        sf[nt][e] = p * (dpf[nt][e] - dlt[e >> 1]) * a.scale;  // ds
+      }
+    weights_by_tile<D>(acc, sf, ks, grp, tig);  // dq += ds k
+  }
+  store_rows<D>(a, a.g0, b, h, rows, acc, tig);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dkv_bf16_kernel(Args a) {
+  constexpr int LD = D + 8, NT = kBlock / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char tiles[];
+  bf16* ks = reinterpret_cast<bf16*>(tiles);
+  bf16* vs = ks + kBlock * LD;
+  bf16* qs = vs + kBlock * LD;
+  bf16* dos = qs + kBlock * LD;
+  float* lse_s = reinterpret_cast<float*>(dos + kBlock * LD);
+  float* dlt_s = lse_s + kBlock;
+
+  const int seq = a.seq;
+  const int n_tiles = (seq + kBlock - 1) / kBlock;
+  const int kt = blockIdx.x;  // the first k tiles see the most q tiles
+  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int k0 = kt * kBlock;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+
+  stage<D>(ks, static_cast<const bf16*>(a.k) + b * a.kb + h * a.kh, a.kt, k0, seq, tid);
+  stage<D>(vs, static_cast<const bf16*>(a.v) + b * a.vb + h * a.vh, a.vt, k0, seq, tid);
+  __syncthreads();
+  uint32_t kf[D / 16][4], vf[D / 16][4];  // kept all along
+  load_a<D>(kf, ks, warp, grp, tig);
+  load_a<D>(vf, vs, warp, grp, tig);
+  const int keys[2] = {k0 + warp * kRows + grp, k0 + warp * kRows + grp + 8};
+  float gk[DT][4], gv[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[dt][e] = gv[dt][e] = 0.f;
+  const int first = a.causal ? kt : 0;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qb + h * a.qh;
+  const bf16* ob = static_cast<const bf16*>(a.dout) + b * a.ob + h * a.oh;
+
+  for (int qt = first; qt < n_tiles; ++qt) {
+    const int q0 = qt * kBlock;
+    __syncthreads();  // the previous tile is consumed
+    stage<D>(qs, qb, a.qt, q0, seq, tid);
+    stage<D>(dos, ob, a.ot, q0, seq, tid);
+    for (int r = tid; r < kBlock; r += kThreads) {
+      const int t = q0 + r;
+      lse_s[r] = t < seq ? a.lse[static_cast<long long>(bh) * seq + t] : 0.f;
+      dlt_s[r] = t < seq ? a.delta[static_cast<long long>(bh) * seq + t] : 0.f;
+    }
+    __syncthreads();
+
+    float sf[NT][4], dpf[NT][4];
+    rows_by_rows<D>(sf, kf, qs, grp, tig);  // s^T = k q^T
+    // element e of tile nt: key keys[e / 2], q row q0 + 8 nt + 2 tig + e % 2
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = nt * 8 + 2 * tig + (e & 1);
+        sf[nt][e] = visible(a, q0 + col, keys[e >> 1])
+                        ? expf(sf[nt][e] * a.scale - lse_s[col]) : 0.f;  // p^T
+      }
+    weights_by_tile<D>(gv, sf, dos, grp, tig);  // dv += p^T do
+    rows_by_rows<D>(dpf, vf, dos, grp, tig);    // dp^T = v do^T
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = nt * 8 + 2 * tig + (e & 1);
+        sf[nt][e] *= (dpf[nt][e] - dlt_s[col]) * a.scale;  // ds^T
+      }
+    weights_by_tile<D>(gk, sf, qs, grp, tig);  // dk += ds^T q
+  }
+  store_rows<D>(a, a.g0, b, h, keys, gk, tig);
+  store_rows<D>(a, a.g1, b, h, keys, gv, tig);
+}
+
+// --------------------------------------------------------------- launch
+
+// Each kernel is opted into its shared memory once, at its first launch.
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, int smem, cudaError_t attr, const Args& a,
+                   int batch, cudaStream_t stream) {
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.seq + kBlock - 1) / kBlock, batch * a.heads);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const Args& a, int batch, int is_bf16, cudaStream_t s) {
+  if (is_bf16) {
+    static const cudaError_t attr =
+        rt::allow_smem(flash_dq_bf16_kernel<D>, bf16_smem_bytes<D>());
+    return launch(flash_dq_bf16_kernel<D>, bf16_smem_bytes<D>(), attr, a, batch, s);
+  }
+  static const cudaError_t attr =
+      rt::allow_smem(flash_dq_f32_kernel<D>, dq_f32_smem_bytes<D>());
+  return launch(flash_dq_f32_kernel<D>, dq_f32_smem_bytes<D>(), attr, a, batch, s);
+}
+
+template <int D>
+cudaError_t launch_dkv(const Args& a, int batch, int is_bf16, cudaStream_t s) {
+  if (is_bf16) {
+    static const cudaError_t attr =
+        rt::allow_smem(flash_dkv_bf16_kernel<D>, bf16_smem_bytes<D>());
+    return launch(flash_dkv_bf16_kernel<D>, bf16_smem_bytes<D>(), attr, a, batch, s);
+  }
+  static const cudaError_t attr =
+      rt::allow_smem(flash_dkv_f32_kernel<D>, dkv_f32_smem_bytes<D>());
+  return launch(flash_dkv_f32_kernel<D>, dkv_f32_smem_bytes<D>(), attr, a, batch, s);
+}
+
+Args make_args(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* g0, void* g1, int seq,
+               int heads, const long long* st, float scale, int causal) {
+  return Args{q, k, v, dout,
+              static_cast<const float*>(lse), static_cast<const float*>(delta),
+              g0, g1, seq, heads,
+              st[0], st[1], st[2], st[3], st[4], st[5],
+              st[6], st[7], st[8], st[9], st[10], st[11],
+              scale, causal};
+}
+
+}  // namespace
+
+// q, k, v, dout: (B, T, H, D) with the strides given (in elements) for
+// the batch, time and head axes, in that order for q, k, v, dout; D
+// contiguous (bf16: strides even, pointers 4-byte aligned). lse, delta:
+// (B, H, T) f32 contiguous. Outputs (B, T, H, D) contiguous, in the
+// input type. is_bf16 != 0 selects __nv_bfloat16, else float. Each returns
+// the CUDA error code of its launch (0 on success).
+extern "C" int rt_flash_dq(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse, const void* delta,
+                           void* dq, int batch, int seq, int heads, int head_dim,
+                           const long long* strides, float scale, int causal,
+                           int is_bf16, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, seq, heads,
+                           strides, scale, causal);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) return launch_dq<64>(a, batch, is_bf16, s);
+  if (head_dim == 128) return launch_dq<128>(a, batch, is_bf16, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* delta,
+                            void* dk, void* dv, int batch, int seq, int heads,
+                            int head_dim, const long long* strides, float scale,
+                            int causal, int is_bf16, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, dk, dv, seq, heads, strides,
+                           scale, causal);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) return launch_dkv<64>(a, batch, is_bf16, s);
+  if (head_dim == 128) return launch_dkv<128>(a, batch, is_bf16, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" const char* rt_flash_bwd_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,4 +1,4 @@
-"""GPT-2 in PyTorch: the port of ``ray_tpu/models/gpt2.py``, serving half.
+"""GPT-2 in PyTorch: the port of ``ray_tpu/models/gpt2.py``.
 
 Parameters are a nested dict of tensors with the JAX tree's names and
 layout (``wte``, ``wpe``, ``blocks`` with stacked ``[L, ...]`` leaves
@@ -11,24 +11,31 @@ f32 scale and bias. `serving_params` makes those casts once; a cast of
 a float32 tensor to bf16 rounds to nearest even in both frameworks, so
 its copies are bit-equal to JAX's per-call ``.astype(dt)``.
 
-Attention goes through ``ops/attention.py`` (kernel K1) in the
-full-sequence forward and prefill, and through ``ops/paged_attention.py``
-(kernel K4) in paged decode. The training loss, remat policies, the
-chunked-prefill and verify entry points and the partition rules come
-with later slices (ROADMAP.md).
+Attention goes through ``ops/attention.py`` (kernel K1 forward, K2 and
+K3 backward) in the full-sequence forward and prefill, and through
+``ops/paged_attention.py`` (kernel K4) in paged decode. `gpt2_loss` is
+the training loss; with ``cfg.remat`` (the default) each block of
+`gpt2_forward` is recomputed in the backward, as the JAX model's "full"
+remat policy does. The selective policies ``save_flash`` and
+``save_dots``, the chunked-prefill and verify entry points and the
+partition rules come with later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import os
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.ops.paged_attention import paged_attention
+from ray_tpu_torch.util import tree
 
 Params = Any
 _DENSE = ("attn_qkv", "attn_proj", "mlp_fc", "mlp_proj")
@@ -45,6 +52,7 @@ class GPT2Config:
     # Pad the vocab so the logits matmul tiles cleanly (50257 -> 50304
     # for gpt2-small).
     vocab_pad_multiple: int = 128
+    remat: bool = True
 
     @property
     def padded_vocab(self) -> int:
@@ -134,10 +142,16 @@ def serving_params(params: Params, cfg: GPT2Config) -> Params:
             "blocks": blocks, "lnf": params["lnf"]}
 
 
-def _layer(params: Params, i: int) -> Params:
-    """Layer i's parameters out of the stacked block tree."""
-    return {name: {k: t[i] for k, t in leaf.items()}
-            for name, leaf in params["blocks"].items()}
+def _layers(params: Params) -> list[Params]:
+    """Every layer's parameters out of the stacked block tree, with one
+    ``unbind(0)`` per stacked leaf: its backward stacks the layers'
+    grads once, where indexing ``t[i]`` per layer would add a zero
+    tensor the size of the whole stack for each layer."""
+    per = {name: {k: t.unbind(0) for k, t in leaf.items()}
+           for name, leaf in params["blocks"].items()}
+    n = len(tree.leaves(per)[0])
+    return [{name: {k: ts[i] for k, ts in leaf.items()}
+             for name, leaf in per.items()} for i in range(n)]
 
 
 def _layer_norm(x, scale, bias, eps=1e-5):
@@ -171,6 +185,37 @@ def _block_kv(x, p, cfg: GPT2Config):
     return _mlp(x, p, cfg), (k, v)
 
 
+def _block(x, p, cfg: GPT2Config):
+    return _block_kv(x, p, cfg)[0]
+
+
+# RAY_TPU_REMAT_POLICY values of the JAX model that keep named residuals;
+# they need the flash op visible to a selective-checkpoint policy, which
+# a ctypes launch is not
+_SELECTIVE_REMAT = ("save_flash", "save_dots")
+
+
+def _remat_block(cfg: GPT2Config):
+    """The block as `gpt2_forward` runs it. With ``cfg.remat``,
+    RAY_TPU_REMAT_POLICY picks what the backward replay reuses, as in the
+    JAX model: "none" keeps every activation, any other value is "full"
+    and recomputes each block (``torch.utils.checkpoint``, non-reentrant),
+    and "save_flash" / "save_dots" raise until they are ported."""
+    if not cfg.remat:
+        return _block
+    mode = os.environ.get("RAY_TPU_REMAT_POLICY", "full")
+    if mode in _SELECTIVE_REMAT:
+        raise NotImplementedError(
+            f"RAY_TPU_REMAT_POLICY={mode} is not ported yet (ROADMAP.md, "
+            f"queue 1, 'Remat policies save_flash and save_dots'); use "
+            f"'full' (the default) or 'none'")
+    if mode == "none" or not torch.is_grad_enabled():
+        return _block
+    # the block draws no random numbers, so no RNG state is stashed
+    return functools.partial(checkpoint, _block, use_reentrant=False,
+                             preserve_rng_state=False)
+
+
 def _embed(params, tokens, positions, cfg: GPT2Config):
     dt = cfg.dtype
     return params["wte"].to(dt)[tokens] + params["wpe"].to(dt)[positions]
@@ -185,10 +230,28 @@ def gpt2_forward(params: Params, tokens: torch.Tensor,
                  cfg: GPT2Config) -> torch.Tensor:
     """tokens (B, T) int -> logits (B, T, padded_vocab) float32."""
     T = tokens.shape[1]
+    block = _remat_block(cfg)
     x = _embed(params, tokens, torch.arange(T, device=tokens.device), cfg)
-    for i in range(cfg.n_layer):
-        x, _ = _block_kv(x, _layer(params, i), cfg)
+    for p in _layers(params):
+        x = block(x, p, cfg)
     return _logits(params, x, cfg)
+
+
+def gpt2_loss(params: Params, batch: dict, cfg: GPT2Config) -> torch.Tensor:
+    """Next-token cross entropy; positions past vocab_size are masked.
+    `batch` holds ``tokens`` and ``targets`` (B, T) and optionally
+    ``weights`` (B, T), which average the per-token losses."""
+    logits = gpt2_forward(params, batch["tokens"], cfg)
+    V = cfg.padded_vocab
+    mask = torch.arange(V, device=logits.device) < cfg.vocab_size
+    logits = torch.where(mask, logits, -1e9)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, batch["targets"].long()[..., None])[..., 0]
+    weights = batch.get("weights")
+    if weights is None:
+        return -ll.mean()
+    weights = weights.to(ll.dtype)
+    return -(ll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
 
 
 def gpt2_prefill_kv(params: Params, tokens: torch.Tensor, cfg: GPT2Config
@@ -197,8 +260,8 @@ def gpt2_prefill_kv(params: Params, tokens: torch.Tensor, cfg: GPT2Config
     T = tokens.shape[1]
     x = _embed(params, tokens, torch.arange(T, device=tokens.device), cfg)
     ks, vs = [], []
-    for i in range(cfg.n_layer):
-        x, (k, v) = _block_kv(x, _layer(params, i), cfg)
+    for p in _layers(params):
+        x, (k, v) = _block_kv(x, p, cfg)
         ks.append(k)
         vs.append(v)
     return _logits(params, x, cfg), torch.stack(ks), torch.stack(vs)
@@ -231,10 +294,13 @@ def gpt2_decode_paged_kv(params: Params, tokens: torch.Tensor,
     k_new/v_new into the pages after the step."""
     x = _embed(params, tokens, positions.long(), cfg)
     ks, vs = [], []
-    for i in range(cfg.n_layer):
-        x, (k, v) = _decode_block(x, _layer(params, i), k_pages[i],
-                                  v_pages[i], tables, positions, cfg)
+    for i, p in enumerate(_layers(params)):
+        x, (k, v) = _decode_block(x, p, k_pages[i], v_pages[i], tables,
+                                  positions, cfg)
         ks.append(k)
         vs.append(v)
     return _logits(params, x, cfg), torch.stack(ks), torch.stack(vs)
 
+
+def count_params(params: Params) -> int:
+    return sum(t.numel() for t in tree.leaves(params))

@@ -5,7 +5,9 @@
   q's dtype before the PV product).
 - `causal_attention`: the model's entry point. It always goes through
   `flash_attention`, which launches kernel K1 on a CUDA tensor and runs
-  its plain version on a CPU tensor.
+  its plain version on a CPU tensor, and is differentiable: its
+  backward launches K2 and K3 on the card and runs their plain version
+  on the CPU.
 
 Deviation from the JAX module: it sends only T >= 512 to the flash
 kernel (`_FLASH_MIN_SEQ`, a cost decision for the TPU) and uses the
@@ -36,5 +38,6 @@ def causal_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
-    """Causal attention through the flash kernel (K1) at every length."""
+    """Causal attention through the flash kernels at every length: K1
+    forward, K2 and K3 backward."""
     return flash_attention(q, k, v, causal=True)

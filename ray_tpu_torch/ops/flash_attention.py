@@ -1,17 +1,20 @@
-"""Flash-attention forward: kernel K1, its plain version, and a launch
-counter.
+"""Flash attention, forward and backward: kernels K1, K2 and K3, their
+plain versions, launch counters, and the ``torch.autograd.Function``
+that joins them.
 
-The port of the forward half of ``ray_tpu/ops/flash_attention.py``. On
-a CUDA tensor `flash_attention` launches K1 (``csrc/flash_attention.cu``,
-hand-written CUDA C++ for Hopper, sm_90a); on a CPU tensor it computes
-the same function with the plain PyTorch version `_fwd_plain`, which is
-also what chip_smoke.py holds the kernel against on the card. There is
-no fallback: a CUDA tensor the kernel does not take raises.
+The port of ``ray_tpu/ops/flash_attention.py``. On CUDA tensors `_fwd`
+launches K1 (``csrc/flash_attention.cu``) and `_bwd` launches K2 (dq)
+and K3 (dk, dv) (``csrc/flash_attention_bwd.cu``), hand-written CUDA
+C++ for Hopper (sm_90a); on CPU tensors they compute the same functions
+with the plain PyTorch versions `_fwd_plain` and `_bwd_plain`, which are
+also what chip_smoke.py holds the kernels against on the card. There is
+no fallback: a CUDA tensor the kernels do not take raises.
 
-`_fwd` returns ``(o, lse)`` with lse laid out (B, H, T) in f32, the
-residual the backward kernels will need. The backward (`_dq_kernel`,
-`_dkv_kernel` of the JAX module, wrapped in a ``torch.autograd.Function``)
-waits for the training slice (ROADMAP.md, queue 2).
+`flash_attention` goes through `_FlashAttention`, the counterpart of
+the JAX module's custom VJP: its forward runs `_fwd` and saves
+``(q, k, v, o, lse)`` (lse laid out (B, H, T) in f32), its backward runs
+`_bwd`, so a ``loss.backward()`` on the card reaches K2 and K3 and on
+the CPU the plain backward.
 """
 
 from __future__ import annotations
@@ -24,12 +27,19 @@ from ray_tpu_torch import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 LAUNCHES = _build.LaunchCounter("flash_fwd")
+LAUNCHES_DQ = _build.LaunchCounter("flash_dq")
+LAUNCHES_DKV = _build.LaunchCounter("flash_dkv")
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_HEAD_DIMS = (64, 128)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 9 \
     + [ctypes.c_float, _I, _I, _P]
+_STRIDES = _L * 12
+# rt_flash_dq(q, k, v, do, lse, delta, dq, B, T, H, D, strides, scale,
+# causal, bf16, stream); rt_flash_dkv takes dk, dv in place of dq
+_DQ_ARGTYPES = [_P] * 7 + [_I] * 4 + [_P, ctypes.c_float, _I, _I, _P]
+_DKV_ARGTYPES = [_P] * 8 + [_I] * 4 + [_P, ctypes.c_float, _I, _I, _P]
 
 
 def _fwd_plain(q, k, v, causal: bool, sm_scale: float):
@@ -44,6 +54,41 @@ def _fwd_plain(q, k, v, causal: bool, sm_scale: float):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return o.to(q.dtype), lse
+
+
+def _bwd_plain(q, k, v, o, lse, do, causal: bool, sm_scale: float,
+               want_dq: bool = True, want_dkv: bool = True):
+    """Dense f32 version of K2 (dq) and K3 (dk, dv) on (B, T, H, D), with
+    lse (B, H, T): returns (dq, dk, dv) in q's, k's and v's dtypes, None
+    for outputs not wanted. It makes the kernels' casts: ds goes to k's
+    (q's) dtype before ds k (ds^T q), p to do's dtype before p^T do, so
+    that a bf16 comparison is tight."""
+    T = q.shape[1]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    delta = _delta(o, do)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * sm_scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        keep = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        p = torch.where(keep, p, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * sm_scale
+    dq = dk = dv = None
+    if want_dq:
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
+                          kf).to(q.dtype)
+    if want_dkv:
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(),
+                          qf).to(k.dtype)
+        dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(),
+                          dof).to(v.dtype)
+    return dq, dk, dv
+
+
+def _delta(o, do):
+    """rowsum(do * o) in f32, laid out (B, H, T) like lse: computed
+    outside the kernels, as the JAX module does."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def _check_kernel_operands(q, k, v) -> None:
@@ -102,12 +147,112 @@ def _fwd(q, k, v, causal: bool, sm_scale: float):
     return o, lse
 
 
+def _kernel_grad_output(do, q):
+    """`do` as the backward kernels take it: q's shape and dtype, the
+    head dim contiguous, and for bf16 aligned element pairs. Strides are
+    passed, so the usual gradient (contiguous, or a strided view) goes
+    in as it is; only a layout the kernels cannot read is copied once."""
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"flash_attention backward: do {tuple(do.shape)} {do.dtype} on "
+            f"{do.device} does not match q {tuple(q.shape)} {q.dtype} on "
+            f"{q.device}")
+    if do.stride(-1) != 1 or (q.dtype == torch.bfloat16 and (
+            do.data_ptr() % 4 or any(s % 2 for s in do.stride()[:3]))):
+        do = do.contiguous()
+    return do
+
+
+def _bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float,
+         want_dq: bool = True, want_dkv: bool = True):
+    """(dq, dk, dv) in q's, k's and v's dtypes, (B, T, H, D): K2 (dq) and
+    K3 (dk, dv) on CUDA tensors, `_bwd_plain` on CPU tensors. A kernel
+    whose outputs are not wanted is not launched, and they are None."""
+    if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):
+        return _bwd_plain(q, k, v, o, lse, do, causal, sm_scale,
+                          want_dq, want_dkv)
+    _check_kernel_operands(q, k, v)
+    do = _kernel_grad_output(do, q)
+    B, T, H, _ = q.shape
+    if lse.shape != (B, H, T) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or o.shape != q.shape:
+        raise ValueError("flash_attention backward: lse must be (B, H, T) "
+                         "f32 contiguous and o (B, T, H, D)")
+    delta = _delta(o, do)
+    dq = _launch_dq(q, k, v, do, lse, delta, causal, sm_scale) \
+        if want_dq else None
+    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale) \
+        if want_dkv else (None, None)
+    return dq, dk, dv
+
+
+def _launch_bwd(entry: str, outs, q, k, v, do, lse, delta, causal: bool,
+                sm_scale: float) -> None:
+    """Launch K2 (``rt_flash_dq``) or K3 (``rt_flash_dkv``) into `outs`
+    on operands `_bwd` has checked."""
+    B, T, H, D = q.shape
+    lib = _build.load("flash_attention_bwd")
+    fn = _build.bind(getattr(lib, entry), _DQ_ARGTYPES if len(outs) == 1
+                     else _DKV_ARGTYPES)
+    strides = _STRIDES(*(s for t in (q, k, v, do) for s in t.stride()[:3]))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 *(t.data_ptr() for t in outs), B, T, H, D,
+                 ctypes.cast(strides, _P), float(sm_scale), int(causal),
+                 int(q.dtype == torch.bfloat16), stream)
+    _build.check(err, entry, _build.bind(
+        lib.rt_flash_bwd_error_string, [_I], ctypes.c_char_p))
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
+    """K2: dq (B, T, H, D) in q's dtype."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("rt_flash_dq", (dq,), q, k, v, do, lse, delta, causal,
+                sm_scale)
+    LAUNCHES_DQ.add()
+    return dq
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
+    """K3: (dk, dv) (B, T, H, D) in k's and v's dtypes."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    _launch_bwd("rt_flash_dkv", (dk, dv), q, k, v, do, lse, delta, causal,
+                sm_scale)
+    LAUNCHES_DKV.add()
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The custom VJP of the JAX module (`_flash`, `_flash_fwd`,
+    `_flash_bwd`): forward K1, backward K2 and K3."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        o, lse = _fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        want_q, want_k, want_v = ctx.needs_input_grad[:3]
+        dq, dk, dv = _bwd(q, k, v, o, lse, do, ctx.causal, ctx.sm_scale,
+                          want_dq=want_q, want_dkv=want_k or want_v)
+        return (dq if want_q else None, dk if want_k else None,
+                dv if want_v else None, None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     sm_scale: float | None = None) -> torch.Tensor:
     """q, k, v: (B, T, H, D) -> (B, T, H, D), in q's dtype.
 
-    Any T works: the kernel masks the ragged edge (the TPU kernel needs
-    T divisible by its block size). Forward only for now."""
+    Differentiable: the backward runs K2 and K3 on the card and the
+    plain backward on the CPU. Any T works: the kernels mask the ragged
+    edge (the TPU kernels need T divisible by their block size)."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    return _fwd(q, k, v, causal, sm_scale)[0]
+    return _FlashAttention.apply(q, k, v, causal, float(sm_scale))

@@ -22,6 +22,10 @@ heads and every window row. On CPU tensors it runs the plain version,
 `paged_attention_reference`, the dense oracle of the JAX module (gather
 pages through the table, mask by ctx_len, causal own window). There is
 no fallback: a CUDA operand the kernel does not take raises.
+
+It has no backward, as in the JAX module: with grad mode on and an
+operand that requires grad it raises on either device, where a kernel
+launch would otherwise return a result cut off from autograd.
 """
 
 from __future__ import annotations
@@ -138,6 +142,11 @@ def paged_attention(q, own_k, own_v, k_pages, v_pages, tables, ctx_len,
     """One layer of paged attention; see the module docstring for the
     operand layout. Returns (S, W, H, D) in q's dtype."""
     ops = (q, own_k, own_v, k_pages, v_pages, tables, ctx_len)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        raise RuntimeError(
+            "paged_attention has no backward (the JAX module defines no "
+            "VJP either): call it under torch.no_grad() or with operands "
+            "that do not require grad")
     if all(t.device.type == "cpu" for t in ops):
         return paged_attention_reference(*ops, sm_scale=sm_scale)
     _check_kernel_operands(*ops)

@@ -46,10 +46,10 @@ from ray_tpu_torch.serve.llm.scheduler import (
 _FINAL = object()
 
 
-def _not_ported(item: int, what: str) -> NotImplementedError:
+def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1, slice 2, item "
-        f"{item})")
+        f"{what} is not ported yet (ROADMAP.md, queue 1, 'Serving, the "
+        f"rest')")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -123,13 +123,13 @@ class LLMEngine:
     def __init__(self, config: EngineConfig, *, params: Any = None,
                  device=None):
         if config.prefill_chunk_size > 0:
-            raise _not_ported(1, f"chunked prefill (prefill_chunk_size="
-                                 f"{config.prefill_chunk_size}; set 0)")
+            raise _not_ported(f"chunked prefill (prefill_chunk_size="
+                              f"{config.prefill_chunk_size}; set 0)")
         if config.speculative is not None:
-            raise _not_ported(2, "speculative decoding")
+            raise _not_ported("speculative decoding")
         if not config.use_paged_attention:
-            raise _not_ported(3, "the dense decode (use_paged_attention="
-                                 "False; set True)")
+            raise _not_ported("the dense decode (use_paged_attention="
+                              "False; set True)")
         self.device = resolve_device(device)
         self.config = config
         reg = adapters()

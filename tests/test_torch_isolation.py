@@ -48,6 +48,8 @@ def test_port_files_exist():
                                        "flash_attention.cu"))
     assert os.path.exists(os.path.join(ROOT, "ray_tpu_torch", "csrc",
                                        "paged_attention.cu"))
+    assert os.path.exists(os.path.join(ROOT, "ray_tpu_torch", "csrc",
+                                       "flash_attention_bwd.cu"))
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -58,7 +60,8 @@ def test_no_jax_or_ray_tpu_import(path):
 
 
 def test_serving_import_leaves_jax_unloaded():
-    code = ("import sys, ray_tpu_torch.serve.llm, ray_tpu_torch.interop\n"
+    code = ("import sys, ray_tpu_torch.serve.llm, ray_tpu_torch.interop, "
+            "ray_tpu_torch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu'))\n"
             "assert not bad, bad\n")
@@ -72,7 +75,7 @@ def test_import_builds_nothing():
     """Importing the port compiles no kernel: the build directory is
     touched only at a wrapper's first launch on a card."""
     code = ("import ray_tpu_torch._build as b, ray_tpu_torch.ops.attention,"
-            " ray_tpu_torch.ops.paged_attention\n"
+            " ray_tpu_torch.ops.paged_attention, ray_tpu_torch.train\n"
             "assert not b._libs, b._libs\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
