@@ -10,17 +10,30 @@ Phases, each of which exits non-zero on any failure:
 
 1. device: the card's name and power limit (nvidia-smi), the torch and
    nvcc versions; every kernel of the port is built from ``csrc/``
-   (one nvcc per source, all started together).
+   (one nvcc per source, all started together), ptxas's registers and
+   spills printed (the Hopper bf16 kernels K1 and K3 must not spill),
+   and the wgmma (HGMMA) and TMA (UTMALDG) instructions of each library
+   counted in its SASS (K1's and K3's libraries must have both). Then
+   each Hopper building block (TMA loads, wgmma with K-major and
+   MN-major operands) is held alone against torch.matmul.
 2. kernels: each kernel is held against its plain PyTorch version at
    the shapes GPT-2-small serving and training give it (K1 forward,
    K2/K3 backward at B=8 T=1024, K4 decode), and beside them, in f32
-   and bf16, with the tolerance printed beside the error, and timed
+   and bf16 (K1 also on q, k, v as column slices of one fused qkv
+   tensor, at T = 12, 17, 731 and 1024, as K2/K3 always are, and at both
+   of its block heights), with the tolerance printed beside the error,
+   and timed
    (CUDA events around a captured CUDA graph of many calls) beside its
    plain version, one PyTorch library call computing the same function
    (a yardstick the port never calls: SDPA, its fused backward) and the
    card's bound for the work (published H100 SXM peaks: 989 TFLOP/s
-   bf16, 67 TFLOP/s f32 without tensor cores, 3.35 TB/s). TF32 is off
-   for every comparison.
+   bf16, 67 TFLOP/s f32 without tensor cores, 3.35 TB/s), with the
+   achieved TFLOP/s and the share of the bound (the main-shape rows also
+   quote the first designs' times, not measured here). K1's 64
+   and 128 q rows a block are held against each other at both main
+   shapes and at BLOCK_ROWS_SHAPES, and the host time of one K1 and K3
+   launch (tensor-map encoding included) is timed.
+   TF32 is off for every comparison.
 3. engine: LLMEngine serves GPT-2-small in bf16 with seeded random
    weights (block_size 16, max_model_len 1024, max_batch_size 8,
    monolithic prefill, paged decode) for 8 greedy requests of 32
@@ -37,8 +50,9 @@ Phases, each of which exits non-zero on any failure:
    warm-up and 20 timed steps on one fixed batch), with the launch
    counters zeroed around the timed steps: tokens/s, step ms, MFU, peak
    memory, the losses; every loss and grad norm must be finite, the
-   last loss below the first, and the launches exactly 24 K1, 12 K2
-   and 12 K3 a step. Then 3 steps under torch.profiler.
+   last loss below the first, the launches exactly 24 K1, 12 K2 and 12
+   K3 a step, and no q, k or v copied to fix its layout. Then 3 steps
+   under torch.profiler.
 6. parity: one f32 train step of GPT-2-small at full width, B=1 T=256,
    from the same params on the card (kernels) and on the CPU (plain
    versions): the loss, every leaf's grad and updated value within the
@@ -60,6 +74,24 @@ import time
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# bf16 times of the first designs of the kernels (mma.sync, synchronous
+# loads), measured by an earlier version of this script on an NVIDIA
+# H100 80GB HBM3 at 700 W: quoted as "earlier_ms" beside each main-shape
+# row, never measured by this run and left out of the "kernels" line
+EARLIER_SOURCE = ("the first design's time, quoted from EARLIER_MS, not "
+                  "measured in this run")
+EARLIER_MS = {("flash_fwd", 8): 0.2736, ("flash_fwd", 1): 0.0693,
+              ("flash_dq", 8): 0.3225, ("flash_dkv", 8): 0.4264,
+              ("paged_attention", 8): 0.0196}
+# the Hopper building blocks alone against torch.matmul on the same bf16
+# values: f32 sums of at most 128 products differ in order only
+HOPPER_TOL = 1e-3
+# K1 bf16 shapes, beside the main ones, at which 64 and 128 q rows a
+# block are held against each other (the launch's choice between them,
+# `default_block_rows` in csrc/flash_attention.cu, rests on these):
+# (B, T, causal) at H=12 D=64, no mask, long and many short sequences
+BLOCK_ROWS_SHAPES = ((8, 1024, False), (2, 4096, True), (2, 4096, False),
+                     (32, 256, True))
 # tolerances of each kernel against its plain version: f32 differs in
 # summation order only; bf16 also rounds the softmax weights and the
 # output to bf16 (half an ulp at 1.0 is 0.004)
@@ -159,6 +191,27 @@ def dname(torch, dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def rate(row: dict, flops: float) -> None:
+    """Add the achieved TFLOP/s and the share of the bound to a timed
+    row."""
+    row["tflops"] = flops / row["kernel_ms"] / 1e9
+    row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+
+
+def host_us(torch, fn, iters: int = 200) -> float:
+    """Host microseconds to enqueue one call (the device left to run
+    behind): the wrapper's checks, its tensor-map encoding and the
+    ctypes launch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / iters
+    torch.cuda.synchronize()
+    return us
+
+
 # ------------------------------------------------------------ phase 1
 
 
@@ -179,16 +232,94 @@ def phase_device(torch) -> None:
           f"nvcc: {ver.stdout.strip().splitlines()[-1]}", flush=True)
     t0 = time.perf_counter()
     try:
-        built = _build.build_all()
+        built = _build.build_all(_build.KERNELS + ("hopper_check",))
     except RuntimeError as e:
         fail(str(e))
+    build_s = time.perf_counter() - t0
+    sass = {}
     for name, info in built.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning")):
                 print(f"  {name}: {line.strip()}", flush=True)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+        for fn, spilled in spills(info["log"]).items():
+            if spilled and any(k in fn for k in HOPPER_KERNELS):
+                fail(f"{name}: {fn} spills {spilled} bytes")
+        sass[name] = sass_counts(_build, info["path"])
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if not all(sass[name].values()):
+            fail(f"{name}: no wgmma or TMA instruction in its SASS: "
+                 f"{sass[name]}")
+    emit({"phase": "build", "seconds": build_s,
           "libraries": {n: os.path.basename(i["path"])
-                        for n, i in built.items()}})
+                        for n, i in built.items()},
+          "sass_counts": sass})
+
+
+# the kernels written for Hopper (wgmma, TMA): ptxas must not spill them
+HOPPER_KERNELS = ("flash_fwd_bf16_kernel", "flash_dkv_bf16_kernel",
+                  "hopper_check_kernel")
+
+
+def spills(log: str) -> dict[str, int]:
+    """Bytes of spill stores plus loads per function in ptxas -v output."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[-1].strip()
+        elif fn and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[fn] = nums[1] + nums[2]  # stack frame, stores, loads
+            fn = None
+    return out
+
+
+def sass_counts(_build, path: str) -> dict[str, int]:
+    """wgmma (HGMMA) and TMA load (UTMALDG) instructions in a library's
+    SASS, by cuobjdump from nvcc's toolkit."""
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, timeout=300, check=False)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass {path}: {res.stderr.strip()}")
+    lines = res.stdout.splitlines()
+    return {op: sum(1 for ln in lines if op in ln)
+            for op in ("HGMMA", "UTMALDG")}
+
+
+def check_hopper(torch, gen) -> None:
+    """Each Hopper building block alone (csrc/hopper_check.cu): TMA
+    loads with the 128-byte swizzle, wgmma from K-major shared-memory
+    operands (form 0: a b^T) and from a register A with an MN-major B
+    (form 1: a b), against torch.matmul on the same bf16 values."""
+    import ctypes
+
+    from ray_tpu_torch import _build
+
+    lib = _build.load("hopper_check")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _build.bind(lib.rt_hopper_check, [P, P, P, I, I, I, P])
+    describe = _build.bind(lib.rt_hopper_check_error_string, [I],
+                           ctypes.c_char_p)
+    stream = torch.cuda.current_stream().cuda_stream
+    errs = {}
+    for form, n, k in ((0, 64, 64), (0, 64, 128), (0, 128, 64),
+                       (0, 128, 128), (1, 64, 64), (1, 128, 64)):
+        a = torch.randn((64, k), generator=gen, device="cuda").bfloat16()
+        b = torch.randn((n, k) if form == 0 else (k, n), generator=gen,
+                        device="cuda").bfloat16()
+        c = torch.full((64, n), float("nan"), device="cuda")
+        _build.check(fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), form, n,
+                        k, stream), "hopper_check", describe)
+        torch.cuda.synchronize()
+        ref = a.float() @ (b.float().T if form == 0 else b.float())
+        err = (c - ref).abs().max().item()
+        errs[f"form{form}_n{n}_k{k}"] = err
+    emit({"phase": "hopper_check", "max_abs_err": errs, "tol": HOPPER_TOL})
+    bad = {k: e for k, e in errs.items() if not e <= HOPPER_TOL}
+    if bad:
+        fail(f"hopper building blocks against torch.matmul: max abs err "
+             f"{bad} (tol {HOPPER_TOL})")
 
 
 # ------------------------------------------------------------ phase 2
@@ -215,17 +346,23 @@ def check_flash(torch, gen) -> dict:
             q, k, v = (torch.randn((B, T, H, D), generator=gen,
                                    device="cuda").to(dtype)
                        for _ in range(3))
-            o, lse = fa._fwd(q, k, v, causal, scale)
             o_ref, lse_ref = fa._fwd_plain(q, k, v, causal, scale)
-            torch.cuda.synchronize()
-            err_o = (o.float() - o_ref.float()).abs().max().item()
-            err_lse = (lse - lse_ref).abs().max().item()
             tol = TOL["flash_fwd"][dn]
-            if not (math.isfinite(err_o) and err_o <= tol["o"]
-                    and err_lse <= tol["lse"]):
-                fail(f"flash_fwd {dn} T={T} D={D} causal={causal}: o err "
-                     f"{err_o} (tol {tol['o']}), lse err {err_lse} (tol "
-                     f"{tol['lse']})")
+            # the launch's own choice, then (bf16) both block heights
+            for rows in (0, 64, 128) if dtype == torch.bfloat16 else (0,):
+                o, lse = fa._fwd(q, k, v, causal, scale, block_rows=rows)
+                torch.cuda.synchronize()
+                err_o = (o.float() - o_ref.float()).abs().max().item()
+                err_lse = (lse - lse_ref).abs().max().item()
+                if not (math.isfinite(err_o) and err_o <= tol["o"]
+                        and err_lse <= tol["lse"]):
+                    fail(f"flash_fwd {dn} T={T} D={D} causal={causal} "
+                         f"block_rows={rows or 'default'}: o err {err_o} "
+                         f"(tol {tol['o']}), lse err {err_lse} (tol "
+                         f"{tol['lse']})")
+                if rows == 0:
+                    row_err = (err_o, err_lse)
+            err_o, err_lse = row_err
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             ms = cuda_ms(torch, lambda: fa._fwd(q, k, v, causal, scale), 50)
             plain_ms = cuda_ms(
@@ -246,10 +383,112 @@ def check_flash(torch, gen) -> dict:
                    "kernel_ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": b_ms,
                    "bound_by": b_by}
-            emit(row)
+            rate(row, flops)
+            if T == 1024:
+                row["host_us"] = host_us(
+                    torch, lambda: fa._fwd(q, k, v, causal, scale))
             if dtype == torch.bfloat16 and T == 1024:
+                row["earlier_ms"] = EARLIER_MS[("flash_fwd", B)]
+                row["earlier_ms_source"] = EARLIER_SOURCE
+                # 64 against 128 q rows a block (two warpgroups share
+                # each k/v tile, but half as many blocks fill the SMs)
+                row["ms_by_block_rows"] = {
+                    r: cuda_ms(torch, lambda r=r: fa._fwd(
+                        q, k, v, causal, scale, block_rows=r), 50)
+                    for r in (64, 128)}
                 main["serve" if B == 1 else "train"] = row
+            emit(row)
+    check_flash_views(torch, gen, main)
+    check_flash_block_rows(torch, gen)
     return main
+
+
+def check_flash_block_rows(torch, gen) -> None:
+    """K1 in bf16 at BLOCK_ROWS_SHAPES with 64 and with 128 q rows a
+    block: each held against the plain version and timed, beside SDPA
+    and the launch's own choice."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    H, D, scale = 12, 64, 0.125
+    tol = TOL["flash_fwd"]["bfloat16"]
+    for B, T, causal in BLOCK_ROWS_SHAPES:
+        q, k, v = (torch.randn((B, T, H, D), generator=gen,
+                               device="cuda").bfloat16() for _ in range(3))
+        o_ref, lse_ref = fa._fwd_plain(q, k, v, causal, scale)
+        errs = {}
+        for rows in (64, 128):
+            o, lse = fa._fwd(q, k, v, causal, scale, block_rows=rows)
+            torch.cuda.synchronize()
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            err_lse = (lse - lse_ref).abs().max().item()
+            if not (math.isfinite(err_o) and err_o <= tol["o"]
+                    and err_lse <= tol["lse"]):
+                fail(f"flash_fwd bf16 B={B} T={T} causal={causal} "
+                     f"block_rows={rows}: o err {err_o} (tol {tol['o']}), "
+                     f"lse err {err_lse} (tol {tol['lse']})")
+            errs[rows] = err_o
+        del o_ref, lse_ref
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = T * (T + 1) / 2 if causal else T * T
+        flops = 4.0 * B * H * D * pairs
+        nbytes = 4.0 * B * T * H * D * 2 + 4.0 * B * H * T
+        b_ms, b_by = bound(flops, nbytes, "bfloat16")
+        ms = {r: cuda_ms(torch, lambda r=r: fa._fwd(
+            q, k, v, causal, scale, block_rows=r), 50) for r in (64, 128)}
+        row = {"kernel": "flash_fwd", "dtype": "bfloat16",
+               "shape": {"B": B, "T": T, "H": H, "D": D, "causal": causal},
+               "max_abs_err_o_by_block_rows": errs, "tol_o": tol["o"],
+               "kernel_ms": cuda_ms(torch, lambda: fa._fwd(
+                   q, k, v, causal, scale), 50),
+               "ms_by_block_rows": ms,
+               "tflops_by_block_rows": {r: flops / t / 1e9
+                                        for r, t in ms.items()},
+               "library_ms": cuda_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       qh, kh, vh, is_causal=causal), 50),
+               "bound_ms": b_ms, "bound_by": b_by}
+        row["library_tflops"] = flops / row["library_ms"] / 1e9
+        emit(row)
+
+
+def check_flash_views(torch, gen, main: dict) -> None:
+    """K1 in bf16 on q, k, v as the model hands them over, column slices
+    of one (B, T, 3 H D) projection: at the training shape (timed) and
+    at the short and ragged prompt lengths. TMA reads the slices as they
+    are: no layout copy may be made."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    H, D, scale = 12, 64, 0.125
+    tol = TOL["flash_fwd"]["bfloat16"]
+    for B, T in ((8, 1024), (1, 12), (1, 17), (1, 731)):
+        qkv = torch.randn((B, T, 3 * H * D), generator=gen,
+                          device="cuda").bfloat16()
+        q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+        copies = fa.LAYOUT_COPIES.count
+        o, lse = fa._fwd(q, k, v, True, scale)
+        o_ref, lse_ref = fa._fwd_plain(q, k, v, True, scale)
+        torch.cuda.synchronize()
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        if not (math.isfinite(err_o) and err_o <= tol["o"]
+                and err_lse <= tol["lse"]):
+            fail(f"flash_fwd bf16 qkv views B={B} T={T}: o err {err_o} "
+                 f"(tol {tol['o']}), lse err {err_lse} (tol {tol['lse']})")
+        if fa.LAYOUT_COPIES.count != copies:
+            fail(f"flash_fwd bf16 qkv views B={B} T={T}: the wrapper "
+                 f"copied the model's views")
+        row = {"kernel": "flash_fwd", "dtype": "bfloat16",
+               "layout": "qkv column slices",
+               "shape": {"B": B, "T": T, "H": H, "D": D, "causal": True},
+               "max_abs_err_o": err_o, "tol_o": tol["o"],
+               "max_abs_err_lse": err_lse, "tol_lse": tol["lse"]}
+        if B == 8:
+            row["kernel_ms"] = cuda_ms(
+                torch, lambda: fa._fwd(q, k, v, True, scale), 50)
+            row["contiguous_ms"] = main["train"]["kernel_ms"]
+        emit(row)
 
 
 def check_paged(torch, gen) -> dict:
@@ -330,10 +569,13 @@ def check_paged(torch, gen) -> dict:
                    "kernel_ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": b_ms,
                    "bound_by": b_by}
-            emit(row)
+            rate(row, flops)
             if dtype == torch.bfloat16 and (H, HK, W, bs, D) == (
                     12, 12, 1, 16, 64):
+                row["earlier_ms"] = EARLIER_MS[("paged_attention", S)]
+                row["earlier_ms_source"] = EARLIER_SOURCE
                 main = row
+            emit(row)
     return main
 
 
@@ -430,9 +672,14 @@ def check_flash_bwd(torch, gen) -> dict:
                        "kernel_ms": ms, "plain_ms": plain_ms,
                        "library_ms": lib_ms, "bound_ms": b_ms,
                        "bound_by": b_by}
-                emit(row)
+                rate(row, flops)
+                if B == 8:
+                    row["host_us"] = host_us(torch, launch)
                 if dtype == torch.bfloat16 and B == 8:
+                    row["earlier_ms"] = EARLIER_MS[(name, B)]
+                    row["earlier_ms_source"] = EARLIER_SOURCE
                     main[name] = row
+                emit(row)
     return main
 
 
@@ -615,6 +862,8 @@ def profile_engine(torch, engine, prompts) -> dict:
 
 
 def _reset_counters():
+    """Zero the launch counters and the count of layout copies; returns
+    the launch counters by kernel name."""
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import paged_attention as pa
 
@@ -623,6 +872,7 @@ def _reset_counters():
                 "paged_attention": pa.LAUNCHES}
     for c in counters.values():
         c.reset()
+    fa.LAYOUT_COPIES.reset()
     return counters
 
 
@@ -638,6 +888,7 @@ def phase_train(torch) -> dict:
         gpt2_loss,
         init_gpt2,
     )
+    from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.train import TrainState, adamw, make_train_step
 
     cfg = GPT2Config.small()
@@ -677,6 +928,7 @@ def phase_train(torch) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: c.count for k, c in counters.items()}
+    copies = fa.LAYOUT_COPIES.count
     peak = torch.cuda.max_memory_allocated()
     step_ms = sorted(events[i].elapsed_time(events[i + 1])
                      for i in range(TRAIN_STEPS))
@@ -693,6 +945,8 @@ def phase_train(torch) -> dict:
             "flash_dkv": cfg.n_layer, "paged_attention": 0}
     if per_step != want:
         fail(f"train: launches per step {per_step}, want {want}")
+    if copies:
+        fail(f"train: {copies} q, k or v copied to fix its layout")
     if state.step != TRAIN_WARMUP + TRAIN_STEPS:
         fail(f"train: state.step {state.step}")
 
@@ -711,7 +965,8 @@ def phase_train(torch) -> dict:
            "max_memory_allocated": peak, "loss_first": losses[0],
            "loss_last": losses[-1], "losses": losses,
            "grad_norm_first": norms[0], "grad_norm_last": norms[-1],
-           "launches": launches, "launches_per_step": per_step}
+           "launches": launches, "launches_per_step": per_step,
+           "layout_copies": copies}
     emit(row)
     emit(profile)
     return launches
@@ -773,6 +1028,7 @@ def phase_parity(torch) -> dict:
     import dataclasses
 
     from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_loss, init_gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.train import TrainState, adamw, make_train_step
     from ray_tpu_torch.util import tree
 
@@ -801,6 +1057,7 @@ def phase_parity(torch) -> dict:
         stepped[dev] = [t.cpu() for t in tree.leaves(state.params)]
     torch.cuda.synchronize()
     launches = {k: c.count for k, c in counters.items()}
+    copies = fa.LAYOUT_COPIES.count
     names = [path for path, _ in _paths(params["cpu"])]
     if abs(loss["cuda"] - loss["cpu"]) > PARITY_TOL["loss"]:
         fail(f"parity: loss {loss['cuda']} on the card, {loss['cpu']} on "
@@ -823,7 +1080,7 @@ def phase_parity(torch) -> dict:
            "batch": B, "seq": T, "seconds": time.perf_counter() - t0,
            "loss_cuda": loss["cuda"], "loss_cpu": loss["cpu"],
            "loss_tol": PARITY_TOL["loss"], "launches": launches,
-           "leaves": rows}
+           "layout_copies": copies, "leaves": rows}
     emit(row)
     return row
 
@@ -854,6 +1111,7 @@ def main() -> int:
     phase_device(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    check_hopper(torch, gen)
     k1 = check_flash(torch, gen)
     k23 = check_flash_bwd(torch, gen)
     k4 = check_paged(torch, gen)
@@ -889,6 +1147,8 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
+            "tflops": main_row["tflops"],
+            "share_of_bound": main_row["share_of_bound"],
             "shape": main_row["shape"], "dtype": main_row["dtype"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

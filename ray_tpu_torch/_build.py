@@ -24,6 +24,8 @@ import time
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
+# the libraries the package launches; csrc/ also holds hopper_check.cu,
+# the Hopper building blocks alone, which chip_smoke.py builds by name
 KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -15,20 +15,30 @@
 // runs three (K2) or four (K3) T^2 D products per head against ~5-6
 // T D elements moved, far above the card's ops-per-byte line, so they
 // are bound by operations and belong on the tensor cores. The design:
-//  - K2 takes K1's structure: one block per (b * h, 64-row q tile), four
-//    warps of 16 q rows, a loop over the 64-key k/v tiles up to the
-//    diagonal. q and do stay in registers as mma A fragments for
-//    s = q k^T and dp = do v^T; the accumulators of s become p and then
-//    ds in place, and ds rounded to bf16 is already the A operand of
-//    ds k (k staged as the B operand in [key, d] orientation, as v is
-//    for K1's p v), so p and ds never touch shared memory.
-//  - K3 works in the transposed orientation, so that nothing goes
-//    through shared memory twice: one block per (b * h, 64-row k tile),
-//    four warps of 16 keys, k and v in registers as A fragments, a loop
-//    over the q tiles from the diagonal down; s^T = k q^T and
-//    dp^T = v do^T come out with keys as rows, lse and delta are indexed
-//    by column, and p^T and ds^T in registers are the A operands of
-//    p^T do and ds^T q.
+//  - K2 takes the structure of K1's first (mma.sync) version: one block
+//    per (b * h, 64-row q tile), four warps of 16 q rows, a loop over
+//    the 64-key k/v tiles up to the diagonal. q and do stay in registers
+//    as mma A fragments for s = q k^T and dp = do v^T; the accumulators
+//    of s become p and then ds in place, and ds rounded to bf16 is
+//    already the A operand of ds k (k staged as the B operand in [key,
+//    d] orientation), so p and ds never touch shared memory.
+//  - K3 (bf16) is written for Hopper: one block per (b * h, 128-key
+//    tile), two consumer warpgroups of 64 keys and one producer
+//    warpgroup that gives them its registers (setmaxnreg). k and v are
+//    loaded once by TMA and stay in shared memory; one producer thread
+//    streams the q and do tiles of the causal range through a two-stage
+//    ring (TMA, 4-D tensor maps over (D, H, T, B) from the tensors'
+//    strides, full/empty mbarriers) while the producer warp's lanes copy
+//    the tiles' lse and delta beside them. Each warpgroup runs four
+//    wgmma products per q tile in the transposed orientation:
+//    s^T = k q^T and dp^T = v do^T (both operands K-major in shared
+//    memory), then dv += p^T do and dk += ds^T q with p^T and ds^T,
+//    rounded to bf16 in registers, as the register A operand and do, q
+//    as MN-major B operands. dk and dv stay in registers and are written
+//    once. Only the tiles on the diagonal or at the ragged edge are
+//    masked, and p is exp2 with log2(e) folded into scale and lse.
+//  - K2 (bf16) keeps the first design: mma.sync m16n8k16, q and do as
+//    register A fragments, k/v tiles staged synchronously.
 //  - f32 keeps K1's scalar FMA path (TF32 would lose f32's digits), with
 //    each warp's p and ds rows passed through shared memory.
 //  - The ragged edge (T not a multiple of 64) is masked, so any T that
@@ -36,9 +46,10 @@
 // Strides are passed per tensor for q, k, v and do (the head dimension
 // contiguous), so q, k and v may stay column slices of the fused qkv
 // projection; lse and delta are (B, H, T) f32, the outputs (B, T, H, D)
-// contiguous. cp.async/TMA pipelining and wgmma are for a later version.
+// contiguous. K2's redesign on K3's lines is the next step.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -511,77 +522,217 @@ __global__ void __launch_bounds__(kThreads) flash_dq_bf16_kernel(Args a) {
   store_rows<D>(a, a.g0, b, h, rows, acc, tig);
 }
 
+// K3, bf16: one block per (b * h, 128-key tile); two consumer
+// warpgroups of 64 keys each and one producer warpgroup.
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory from a 1024-byte aligned base: the block's k and v (two
+// 64-row tiles each, one per consumer warpgroup), kStages q and do
+// tiles of 64 rows, kStages rows of lse (times log2 e) and delta, then
+// the barriers kv_full, full[kStages], empty[kStages].
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_bf16_kernel(Args a) {
-  constexpr int LD = D + 8, NT = kBlock / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char tiles[];
-  bf16* ks = reinterpret_cast<bf16*>(tiles);
-  bf16* vs = ks + kBlock * LD;
-  bf16* qs = vs + kBlock * LD;
-  bf16* dos = qs + kBlock * LD;
-  float* lse_s = reinterpret_cast<float*>(dos + kBlock * LD);
-  float* dlt_s = lse_s + kBlock;
+struct DkvLayout {
+  static constexpr int kWG = 2;  // consumer warpgroups, 64 keys each
+  static constexpr int kStages = 2;
+  static constexpr int kT = hop::tile_bytes<D>(64);
+  static constexpr int v_off = kWG * kT;
+  static constexpr int q_off = 2 * kWG * kT;
+  static constexpr int do_off = q_off + kStages * kT;
+  static constexpr int rows_off = do_off + kStages * kT;  // float [kStages][2][64]
+  static constexpr int bar_off = rows_off + kStages * 2 * 64 * 4;
+  static constexpr int bytes = bar_off + 8 * (1 + 2 * kStages) + 1024;  // + alignment
+  static constexpr int kThreads = (kWG + 1) * 128;
+  // 384 threads launch with 168 registers; 128 * 40 + 256 * 232 of them
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = 232;
+};
 
-  const int seq = a.seq;
-  const int n_tiles = (seq + kBlock - 1) / kBlock;
-  const int kt = blockIdx.x;  // the first k tiles see the most q tiles
-  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
-  const int k0 = kt * kBlock;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int grp = lane >> 2, tig = lane & 3;
+struct DkvParams {
+  CUtensorMap q, k, v, dout;  // (B, T, H, D) maps, boxes of 64 rows
+  const float *lse, *delta;   // (B, H, T)
+  bf16 *dk, *dv;              // (B, T, H, D) contiguous
+  int seq, heads, causal;
+  float scale;
+};
 
-  stage<D>(ks, static_cast<const bf16*>(a.k) + b * a.kb + h * a.kh, a.kt, k0, seq, tid);
-  stage<D>(vs, static_cast<const bf16*>(a.v) + b * a.vb + h * a.vh, a.vt, k0, seq, tid);
-  __syncthreads();
-  uint32_t kf[D / 16][4], vf[D / 16][4];  // kept all along
-  load_a<D>(kf, ks, warp, grp, tig);
-  load_a<D>(vf, vs, warp, grp, tig);
-  const int keys[2] = {k0 + warp * kRows + grp, k0 + warp * kRows + grp + 8};
-  float gk[DT][4], gv[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) gk[dt][e] = gv[dt][e] = 0.f;
-  const int first = a.causal ? kt : 0;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qb + h * a.qh;
-  const bf16* ob = static_cast<const bf16*>(a.dout) + b * a.ob + h * a.oh;
+template <int D>
+__global__ void __launch_bounds__(DkvLayout<D>::kThreads, 1)
+flash_dkv_bf16_kernel(const __grid_constant__ DkvParams p) {
+  using L = DkvLayout<D>;
+  constexpr int S = L::kStages;
+  extern __shared__ __align__(1024) unsigned char ring[];
+  const uint32_t raw = hop::smem_addr(ring);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  float* rows_s = reinterpret_cast<float*>(ring + (base - raw) + L::rows_off);
+  const uint32_t kv_full = base + L::bar_off;
+  const auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+  const auto empty = [&](int s) { return kv_full + 8 * (1 + S + s); };
 
-  for (int qt = first; qt < n_tiles; ++qt) {
-    const int q0 = qt * kBlock;
-    __syncthreads();  // the previous tile is consumed
-    stage<D>(qs, qb, a.qt, q0, seq, tid);
-    stage<D>(dos, ob, a.ot, q0, seq, tid);
-    for (int r = tid; r < kBlock; r += kThreads) {
-      const int t = q0 + r;
-      lse_s[r] = t < seq ? a.lse[static_cast<long long>(bh) * seq + t] : 0.f;
-      dlt_s[r] = t < seq ? a.delta[static_cast<long long>(bh) * seq + t] : 0.f;
+  const int seq = p.seq;
+  const int bh = blockIdx.x, b = bh / p.heads, h = bh % p.heads;
+  const int k0 = blockIdx.y * L::kWG * 64;  // the first k tiles see the most q tiles
+  const int n_qt = (seq + kBlock - 1) / kBlock;
+  // causal: q tiles before this k tile hold no row that sees its keys
+  const int first = p.causal ? k0 / kBlock : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hop::mbar_init(full(s), 1 + 32);  // the TMA thread, then each lane's lse/delta
+      hop::mbar_init(empty(s), L::kWG * 128);
     }
-    __syncthreads();
-
-    float sf[NT][4], dpf[NT][4];
-    rows_by_rows<D>(sf, kf, qs, grp, tig);  // s^T = k q^T
-    // element e of tile nt: key keys[e / 2], q row q0 + 8 nt + 2 tig + e % 2
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        sf[nt][e] = visible(a, q0 + col, keys[e >> 1])
-                        ? expf(sf[nt][e] * a.scale - lse_s[col]) : 0.f;  // p^T
-      }
-    weights_by_tile<D>(gv, sf, dos, grp, tig);  // dv += p^T do
-    rows_by_rows<D>(dpf, vf, dos, grp, tig);    // dp^T = v do^T
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        sf[nt][e] *= (dpf[nt][e] - dlt_s[col]) * a.scale;  // ds^T
-      }
-    weights_by_tile<D>(gk, sf, qs, grp, tig);  // dk += ds^T q
+    hop::mbar_fence_init();
   }
-  store_rows<D>(a, a.g0, b, h, keys, gk, tig);
-  store_rows<D>(a, a.g1, b, h, keys, gv, tig);
+  __syncthreads();
+
+  if (wg == L::kWG) {
+    // producer warp: lane 0 issues the TMA loads, every lane copies two
+    // entries of lse and of delta for each q tile
+    hop::regs_dec<L::kProducerRegs>();
+    const int lane = threadIdx.x % 128;
+    if (lane < 32) {
+      if (lane == 0) {
+        hop::mbar_arrive_expect_tx(kv_full, 2 * L::kWG * L::kT);
+        for (int w = 0; w < L::kWG; ++w) {
+          hop::tma_tile<D>(base + w * L::kT, &p.k, kv_full, 64, h, k0 + 64 * w, b);
+          hop::tma_tile<D>(base + L::v_off + w * L::kT, &p.v, kv_full, 64, h, k0 + 64 * w, b);
+        }
+      }
+      const long long row0 = static_cast<long long>(bh) * seq;
+      for (int i = 0; i < n_qt - first; ++i) {
+        const int s = i % S, q0 = (first + i) * kBlock;
+        hop::mbar_wait(empty(s), ((i / S) & 1) ^ 1);
+        if (lane == 0) {
+          hop::mbar_arrive_expect_tx(full(s), 2 * L::kT);
+          hop::tma_tile<D>(base + L::q_off + s * L::kT, &p.q, full(s), 64, h, q0, b);
+          hop::tma_tile<D>(base + L::do_off + s * L::kT, &p.dout, full(s), 64, h, q0, b);
+        }
+        float* lse_s = rows_s + s * 128;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = lane + 32 * c, t = q0 + r;
+          lse_s[r] = t < seq ? p.lse[row0 + t] * kLog2e : 0.f;
+          lse_s[64 + r] = t < seq ? p.delta[row0 + t] : 0.f;
+        }
+        hop::mbar_arrive(full(s));
+      }
+    }
+  } else {
+    // consumer warpgroup `wg`: keys kw .. kw + 63
+    hop::regs_inc<L::kConsumerRegs>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int grp = lane / 4, tig = lane % 4;
+    const int kw = k0 + 64 * wg;
+    const int keys[2] = {kw + 16 * warp + grp, kw + 16 * warp + grp + 8};
+    const uint32_t k_tile = base + wg * L::kT, v_tile = base + L::v_off + wg * L::kT;
+    const float scale_log2 = p.scale * kLog2e;
+    float gk[D / 2], gv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
+    hop::mbar_wait(kv_full, 0);
+
+    for (int i = 0; i < n_qt - first; ++i) {
+      const int s = i % S, q0 = (first + i) * kBlock;
+      hop::mbar_wait(full(s), (i / S) & 1);
+      // a warpgroup past T, or whose keys all lie after this tile's rows,
+      // only releases the stage
+      if (kw < seq && !(p.causal && q0 + kBlock - 1 < kw)) {
+        const uint32_t q_tile = base + L::q_off + s * L::kT;
+        const uint32_t do_tile = base + L::do_off + s * L::kT;
+        const float* lse_s = rows_s + s * 128;
+        const float* dlt_s = lse_s + 64;
+
+        // s^T = k q^T: keys as rows, q rows as columns
+        float st[32];
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hop::wgmma_ss<0>(st, hop::desc_k(k_tile, 64, kk), hop::desc_k(q_tile, 64, kk), kk);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(st);
+
+        // p^T = exp2(s^T scale log2 e - lse log2 e); exactly 0 where the
+        // key is masked, which only a tile on the diagonal or at the
+        // ragged edge holds. Element i: key keys[(i >> 1) & 1], q row
+        // q0 + 8 (i / 4) + 2 tig + (i & 1).
+        const bool edge = (p.causal && q0 < kw + 63) || q0 + kBlock > seq;
+#pragma unroll
+        for (int i2 = 0; i2 < 32; ++i2) {
+          const int col = 8 * (i2 / 4) + 2 * tig + (i2 & 1);
+          const float pv = exp2f(st[i2] * scale_log2 - lse_s[col]);
+          const bool ok = !edge || (q0 + col < seq &&
+                                    (!p.causal || keys[(i2 >> 1) & 1] <= q0 + col));
+          st[i2] = ok ? pv : 0.f;
+        }
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          pa[kk][0] = rt::pack_f32(st[8 * kk], st[8 * kk + 1]);
+          pa[kk][1] = rt::pack_f32(st[8 * kk + 2], st[8 * kk + 3]);
+          pa[kk][2] = rt::pack_f32(st[8 * kk + 4], st[8 * kk + 5]);
+          pa[kk][3] = rt::pack_f32(st[8 * kk + 6], st[8 * kk + 7]);
+        }
+        // dv += p^T do (p rounded to bf16, do MN-major) and
+        // dp^T = v do^T (both K-major), in one group
+        float dpt[32];
+        hop::fence_regs(gv);
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_rs<1>(gv, pa[kk], hop::desc_mn(do_tile, 64, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hop::wgmma_ss<0>(dpt, hop::desc_k(v_tile, 64, kk), hop::desc_k(do_tile, 64, kk), kk);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(gv);
+        hop::fence_regs(dpt);
+        hop::fence_frag(pa);
+
+        // ds^T = p^T (dp^T - delta) scale, rounded to bf16 (q's type)
+        uint32_t da[4][4];
+#pragma unroll
+        for (int i2 = 0; i2 < 32; ++i2) {
+          const int col = 8 * (i2 / 4) + 2 * tig + (i2 & 1);
+          st[i2] *= (dpt[i2] - dlt_s[col]) * p.scale;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          da[kk][0] = rt::pack_f32(st[8 * kk], st[8 * kk + 1]);
+          da[kk][1] = rt::pack_f32(st[8 * kk + 2], st[8 * kk + 3]);
+          da[kk][2] = rt::pack_f32(st[8 * kk + 4], st[8 * kk + 5]);
+          da[kk][3] = rt::pack_f32(st[8 * kk + 6], st[8 * kk + 7]);
+        }
+        // dk += ds^T q, q MN-major
+        hop::fence_regs(gk);
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_rs<1>(gk, da[kk], hop::desc_mn(q_tile, 64, kk), 1);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(gk);
+        hop::fence_frag(da);
+      }
+      hop::mbar_arrive(empty(s));
+    }
+
+    // dk and dv, written once, in bf16
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (keys[r] >= seq) continue;
+      const long long at = ((static_cast<long long>(b) * seq + keys[r]) * p.heads + h) * D + 2 * tig;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        *reinterpret_cast<uint32_t*>(p.dk + at + 8 * jj) =
+            rt::pack_f32(gk[4 * jj + 2 * r], gk[4 * jj + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(p.dv + at + 8 * jj) =
+            rt::pack_f32(gv[4 * jj + 2 * r], gv[4 * jj + 2 * r + 1]);
+      }
+    }
+  }
 }
 
 // --------------------------------------------------------------- launch
@@ -608,13 +759,39 @@ cudaError_t launch_dq(const Args& a, int batch, int is_bf16, cudaStream_t s) {
   return launch(flash_dq_f32_kernel<D>, dq_f32_smem_bytes<D>(), attr, a, batch, s);
 }
 
+// K3 in bf16: the tensor maps are encoded here, on every call, and
+// passed by value
+template <int D>
+cudaError_t launch_dkv_bf16(const Args& a, int batch, cudaStream_t stream) {
+  using L = DkvLayout<D>;
+  static const cudaError_t attr = rt::allow_smem(flash_dkv_bf16_kernel<D>, L::bytes);
+  if (attr != cudaSuccess) return attr;
+  DkvParams p;
+  cudaError_t err = hop::make_map(&p.q, a.q, batch, a.seq, a.heads, D, a.qb, a.qt, a.qh, 64);
+  if (err == cudaSuccess)
+    err = hop::make_map(&p.k, a.k, batch, a.seq, a.heads, D, a.kb, a.kt, a.kh, 64);
+  if (err == cudaSuccess)
+    err = hop::make_map(&p.v, a.v, batch, a.seq, a.heads, D, a.vb, a.vt, a.vh, 64);
+  if (err == cudaSuccess)
+    err = hop::make_map(&p.dout, a.dout, batch, a.seq, a.heads, D, a.ob, a.ot, a.oh, 64);
+  if (err != cudaSuccess) return err;
+  p.lse = a.lse;
+  p.delta = a.delta;
+  p.dk = static_cast<bf16*>(a.g0);
+  p.dv = static_cast<bf16*>(a.g1);
+  p.seq = a.seq;
+  p.heads = a.heads;
+  p.causal = a.causal;
+  p.scale = a.scale;
+  const int keys = L::kWG * 64;
+  const dim3 grid(batch * a.heads, (a.seq + keys - 1) / keys);
+  flash_dkv_bf16_kernel<D><<<grid, L::kThreads, L::bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dkv(const Args& a, int batch, int is_bf16, cudaStream_t s) {
-  if (is_bf16) {
-    static const cudaError_t attr =
-        rt::allow_smem(flash_dkv_bf16_kernel<D>, bf16_smem_bytes<D>());
-    return launch(flash_dkv_bf16_kernel<D>, bf16_smem_bytes<D>(), attr, a, batch, s);
-  }
+  if (is_bf16) return launch_dkv_bf16<D>(a, batch, s);
   static const cudaError_t attr =
       rt::allow_smem(flash_dkv_f32_kernel<D>, dkv_f32_smem_bytes<D>());
   return launch(flash_dkv_f32_kernel<D>, dkv_f32_smem_bytes<D>(), attr, a, batch, s);
@@ -635,8 +812,9 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 // q, k, v, dout: (B, T, H, D) with the strides given (in elements) for
 // the batch, time and head axes, in that order for q, k, v, dout; D
-// contiguous (bf16: strides even, pointers 4-byte aligned). lse, delta:
-// (B, H, T) f32 contiguous. Outputs (B, T, H, D) contiguous, in the
+// contiguous (bf16: pointers 16-byte aligned, strides multiples of 8
+// elements, the TMA rules K3 needs; K2 needs only 4-byte alignment and
+// even strides). lse, delta: (B, H, T) f32 contiguous. Outputs (B, T, H, D) contiguous, in the
 // input type. is_bf16 != 0 selects __nv_bfloat16, else float. Each returns
 // the CUDA error code of its launch (0 on success).
 extern "C" int rt_flash_dq(const void* q, const void* k, const void* v,

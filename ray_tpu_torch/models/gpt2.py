@@ -91,19 +91,27 @@ class GPT2Config:
         )
 
 
-def init_gpt2(generator: torch.Generator, cfg: GPT2Config) -> Params:
-    """Initialize parameters (float32 master copy) on the generator's
-    device, GPT-2 init scheme: normal(0.02), residual projections scaled
-    by 1/sqrt(2*n_layer), biases zero, layer norms one/zero. The draws
-    follow torch's generator, not jax.random: the tests convert JAX
-    parameters through `interop` instead of re-initialising."""
+def init_gpt2(generator: torch.Generator, cfg: GPT2Config,
+              device: str | torch.device | None = None) -> Params:
+    """Initialize parameters (float32 master copy) on `device` (None:
+    "cuda"; "cpu" must be asked for), GPT-2 init scheme: normal(0.02),
+    residual projections scaled by 1/sqrt(2*n_layer), biases zero, layer
+    norms one/zero. The draws are made on the generator's device and then
+    moved, so one seeded generator gives the same params on either
+    device. They follow torch's generator, not jax.random: the tests
+    convert JAX parameters through `interop` instead of re-initialising."""
     L, E, V = cfg.n_layer, cfg.n_embd, cfg.padded_vocab
-    dev = generator.device
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "init_gpt2: the params go to the card by default, and no card "
+            "is available; pass device='cpu' to make them on the CPU")
     std = 0.02
     resid_std = 0.02 / math.sqrt(2 * cfg.n_layer)
 
     def normal(shape, scale):
-        return torch.randn(shape, generator=generator, device=dev) * scale
+        return (torch.randn(shape, generator=generator,
+                            device=generator.device) * scale).to(dev)
 
     def zeros(*shape):
         return torch.zeros(shape, device=dev)

@@ -10,6 +10,14 @@ with the plain PyTorch versions `_fwd_plain` and `_bwd_plain`, which are
 also what chip_smoke.py holds the kernels against on the card. There is
 no fallback: a CUDA tensor the kernels do not take raises.
 
+The bf16 K1 and K3 load their tiles with TMA, which needs each
+operand's base 16-byte aligned and its strides multiples of 16 bytes
+(`_tma_ok`; the C launch encodes each operand's tensor map from the
+strides `_strides` gives). The model's q, k, v (column slices of the
+fused qkv projection) meet that and go in as they are; an operand that
+does not is copied once into a contiguous tensor (`_kernel_operand`,
+counted by `LAYOUT_COPIES`), a layout fix and not a fallback.
+
 `flash_attention` goes through `_FlashAttention`, the counterpart of
 the JAX module's custom VJP: its forward runs `_fwd` and saves
 ``(q, k, v, o, lse)`` (lse laid out (B, H, T) in f32), its backward runs
@@ -29,12 +37,18 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 LAUNCHES = _build.LaunchCounter("flash_fwd")
 LAUNCHES_DQ = _build.LaunchCounter("flash_dq")
 LAUNCHES_DKV = _build.LaunchCounter("flash_dkv")
+# q, k or v copied to a layout TMA can read (not a launch: a count of the
+# copies `_kernel_operand` makes, which the model's path must not make)
+LAYOUT_COPIES = _build.LaunchCounter("flash_layout_copy")
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_HEAD_DIMS = (64, 128)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 9 \
     + [ctypes.c_float, _I, _I, _P]
+# rt_flash_fwd_rows: rt_flash_fwd's arguments, then the q rows a block
+_ROWS_ARGTYPES = _ARGTYPES + [_I]
+TMA_ALIGN = 16  # bytes: TMA's rule for the base and every stride
 _STRIDES = _L * 12
 # rt_flash_dq(q, k, v, do, lse, delta, dq, B, T, H, D, strides, scale,
 # causal, bf16, stream); rt_flash_dkv takes dk, dv in place of dq
@@ -113,34 +127,76 @@ def _check_kernel_operands(q, k, v) -> None:
     if T < 1 or B * H < 1 or B * H > 65535:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} "
                          f"out of the kernel's range")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
+    if q.dtype == torch.float32 and any(t.stride(-1) != 1
+                                        for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 4 or any(s % 2 for s in t.stride()[:3])
-            for t in (q, k, v)):
-        raise ValueError("flash_attention: the bf16 kernel moves element "
-                         "pairs; pointers must be 4-byte aligned and "
-                         "strides even")
 
 
-def _fwd(q, k, v, causal: bool, sm_scale: float):
+def _strides(t) -> tuple[int, int, int]:
+    """(batch, time, head) strides of a (B, T, H, D) tensor in elements.
+    An axis of size 1 gets the stride it would have if the tensor were
+    contiguous over the axes inside it: its stride is never followed,
+    but TMA checks it."""
+    B, T, H, D = t.shape
+    sb, st, sh, _ = t.stride()
+    if H == 1:
+        sh = D
+    if T == 1:
+        st = H * sh
+    if B == 1:
+        sb = T * st
+    return sb, st, sh
+
+
+def _tma_ok(t) -> bool:
+    """Whether TMA can read `t` as it is: the head dim contiguous, the
+    base 16-byte aligned, every stride a positive multiple of 16 bytes
+    below 2^40."""
+    if t.stride(-1) != 1 or t.data_ptr() % TMA_ALIGN:
+        return False
+    return all(0 < s * t.element_size() < 2 ** 40
+               and s * t.element_size() % TMA_ALIGN == 0
+               for s in _strides(t))
+
+
+def _kernel_operand(t):
+    """A bf16 q, k or v as the TMA kernels read it: `t` itself when
+    `_tma_ok`, else a contiguous copy in a fresh (aligned) allocation,
+    made once and counted in `LAYOUT_COPIES`."""
+    if t.dtype != torch.bfloat16 or _tma_ok(t):
+        return t
+    LAYOUT_COPIES.add()
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _fwd(q, k, v, causal: bool, sm_scale: float, block_rows: int = 0):
     """(o (B, T, H, D) in q's dtype, lse (B, H, T) f32): K1 on CUDA
-    tensors, `_fwd_plain` on CPU tensors."""
+    tensors, `_fwd_plain` on CPU tensors. `block_rows` (64 or 128) fixes
+    the bf16 kernel's q rows a block; 0 lets the launch choose by the
+    grid's size."""
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return _fwd_plain(q, k, v, causal, sm_scale)
     _check_kernel_operands(q, k, v)
+    if not sm_scale > 0:
+        raise ValueError(f"flash_attention: the kernel takes a positive "
+                         f"sm_scale, got {sm_scale}")
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
     B, T, H, D = q.shape
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
     fn = _build.bind(lib.rt_flash_fwd, _ARGTYPES)
-    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    extra = []
+    if block_rows:
+        fn = _build.bind(lib.rt_flash_fwd_rows, _ROWS_ARGTYPES)
+        extra = [int(block_rows)]
+    strides = [s for t in (q, k, v) for s in _strides(t)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), B, T, H, D, *strides, float(sm_scale),
-                 int(causal), int(q.dtype == torch.bfloat16), stream)
+                 int(causal), int(q.dtype == torch.bfloat16), stream, *extra)
     _build.check(err, "flash_attention", _build.bind(
         lib.rt_flash_error_string, [_I], ctypes.c_char_p))
     LAUNCHES.add()
@@ -149,17 +205,18 @@ def _fwd(q, k, v, causal: bool, sm_scale: float):
 
 def _kernel_grad_output(do, q):
     """`do` as the backward kernels take it: q's shape and dtype, the
-    head dim contiguous, and for bf16 aligned element pairs. Strides are
-    passed, so the usual gradient (contiguous, or a strided view) goes
-    in as it is; only a layout the kernels cannot read is copied once."""
+    head dim contiguous, and for bf16 a layout TMA can read (`_tma_ok`).
+    Strides are passed, so the usual gradient (contiguous, or a strided
+    view) goes in as it is; only a layout the kernels cannot read is
+    copied once."""
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(
             f"flash_attention backward: do {tuple(do.shape)} {do.dtype} on "
             f"{do.device} does not match q {tuple(q.shape)} {q.dtype} on "
             f"{q.device}")
-    if do.stride(-1) != 1 or (q.dtype == torch.bfloat16 and (
-            do.data_ptr() % 4 or any(s % 2 for s in do.stride()[:3]))):
-        do = do.contiguous()
+    if do.stride(-1) != 1 or (q.dtype == torch.bfloat16
+                              and not _tma_ok(do)):
+        do = do.clone(memory_format=torch.contiguous_format)
     return do
 
 
@@ -172,6 +229,7 @@ def _bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float,
         return _bwd_plain(q, k, v, o, lse, do, causal, sm_scale,
                           want_dq, want_dkv)
     _check_kernel_operands(q, k, v)
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
     do = _kernel_grad_output(do, q)
     B, T, H, _ = q.shape
     if lse.shape != (B, H, T) or lse.dtype != torch.float32 \
@@ -194,7 +252,7 @@ def _launch_bwd(entry: str, outs, q, k, v, do, lse, delta, causal: bool,
     lib = _build.load("flash_attention_bwd")
     fn = _build.bind(getattr(lib, entry), _DQ_ARGTYPES if len(outs) == 1
                      else _DKV_ARGTYPES)
-    strides = _STRIDES(*(s for t in (q, k, v, do) for s in t.stride()[:3]))
+    strides = _STRIDES(*(s for t in (q, k, v, do) for s in _strides(t)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

@@ -156,7 +156,7 @@ class LLMEngine:
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            params = adapter.init_fn(gen, cfg)
+            params = adapter.init_fn(gen, cfg, device=self.device)
 
         num_blocks = config.num_blocks
         if num_blocks is None:

@@ -43,7 +43,7 @@ class ModelAdapter:
 
     name: str
     presets: dict[str, Callable[[], Any]]
-    init_fn: Callable  # (generator, cfg) -> params (f32 masters)
+    init_fn: Callable  # (generator, cfg, device=) -> params (f32 masters)
     serving_params_fn: Callable  # (params, cfg) -> compute-dtype copies
     prefill_fn: Callable  # (params, tokens, cfg) -> (logits, k, v)
     # (params, toks, pos, k_pages, v_pages, tables, cfg) -> (logits, k, v)

@@ -84,12 +84,47 @@ def test_serving_params_bit_equal_to_jax_casts(models):
 def test_init_tree_matches_jax_layout(models):
     jcfg, tcfg, jp, _ = models
     gen = torch.Generator().manual_seed(0)
-    tp = t_gpt2.init_gpt2(gen, tcfg)
+    tp = t_gpt2.init_gpt2(gen, tcfg, device="cpu")
     jl, tl = list(_leaves(jp)), list(_leaves(tp))
     assert [p for p, _ in jl] == [p for p, _ in tl]
     for (path, a), (_, b) in zip(jl, tl):
         assert tuple(b.shape) == a.shape and b.dtype == torch.float32, path
     assert abs(float(tp["wte"].std()) - 0.02) < 2e-3
+
+
+def test_init_on_the_cpu_keeps_the_generator_draws():
+    """device="cpu" gives CPU tensors equal to the generator's draws, in
+    init order, from the same seed (the params before `device` existed)."""
+    cfg = t_gpt2.GPT2Config.tiny()
+    tp = t_gpt2.init_gpt2(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    L, E, V = cfg.n_layer, cfg.n_embd, cfg.padded_vocab
+    resid = 0.02 / (2 * L) ** 0.5
+    want = [("blocks", "attn_qkv", (L, E, 3 * E), 0.02),
+            ("blocks", "attn_proj", (L, E, E), resid),
+            ("blocks", "mlp_fc", (L, E, 4 * E), 0.02),
+            ("blocks", "mlp_proj", (L, 4 * E, E), resid),
+            ("wte", None, (V, E), 0.02),
+            ("wpe", None, (cfg.block_size, E), 0.02)]
+    for top, name, shape, scale in want:
+        leaf = tp[top][name]["kernel"] if name else tp[top]
+        assert leaf.device.type == "cpu"
+        assert torch.equal(leaf, torch.randn(shape, generator=gen) * scale)
+    assert all(t.device.type == "cpu" for _, t in _leaves(tp))
+
+
+def test_init_goes_to_the_card_by_default():
+    """device=None asks for "cuda": without a card it raises and never
+    quietly returns CPU tensors."""
+    cfg = t_gpt2.GPT2Config.tiny()
+    gen = torch.Generator().manual_seed(0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            t_gpt2.init_gpt2(gen, cfg)
+        return
+    tp = t_gpt2.init_gpt2(gen, cfg)
+    assert all(t.is_cuda for _, t in _leaves(tp))
 
 
 @pytest.mark.parametrize("preset", ["small", "medium", "large", "xl",
