@@ -11,28 +11,33 @@ Phases, each of which exits non-zero on any failure:
 1. device: the card's name and power limit (nvidia-smi), the torch and
    nvcc versions; every kernel of the port is built from ``csrc/``
    (one nvcc per source, all started together), ptxas's registers and
-   spills printed (the Hopper bf16 kernels K1 and K3 must not spill),
-   and the wgmma (HGMMA) and TMA (UTMALDG) instructions of each library
-   counted in its SASS (K1's and K3's libraries must have both). Then
-   each Hopper building block (TMA loads, wgmma with K-major and
-   MN-major operands) is held alone against torch.matmul.
+   spills printed (the Hopper bf16 kernels K1, K2 and K3 must not
+   spill), and the wgmma (HGMMA) and TMA (UTMALDG) instructions of each
+   kernel function counted in its SASS (every instantiation of K1's,
+   K2's and K3's bf16 kernels must hold both on its own). Then each
+   Hopper building block (TMA loads, wgmma with K-major and MN-major
+   operands) is held alone against torch.matmul.
 2. kernels: each kernel is held against its plain PyTorch version at
    the shapes GPT-2-small serving and training give it (K1 forward,
    K2/K3 backward at B=8 T=1024, K4 decode), and beside them, in f32
    and bf16 (K1 also on q, k, v as column slices of one fused qkv
    tensor, at T = 12, 17, 731 and 1024, as K2/K3 always are, and at both
-   of its block heights), with the tolerance printed beside the error,
-   and timed
-   (CUDA events around a captured CUDA graph of many calls) beside its
-   plain version, one PyTorch library call computing the same function
-   (a yardstick the port never calls: SDPA, its fused backward) and the
-   card's bound for the work (published H100 SXM peaks: 989 TFLOP/s
-   bf16, 67 TFLOP/s f32 without tensor cores, 3.35 TB/s), with the
-   achieved TFLOP/s and the share of the bound (the main-shape rows also
-   quote the first designs' times, not measured here). K1's 64
-   and 128 q rows a block are held against each other at both main
-   shapes and at BLOCK_ROWS_SHAPES, and the host time of one K1 and K3
-   launch (tensor-map encoding included) is timed.
+   of its block heights; K2/K3 also at T=17, shorter than one tile; K4
+   also at one request of 1023 cached tokens and at eight), with the
+   tolerance printed beside the error; K2, K3 and K4 run twice on the
+   same inputs and must give the same bits. Each is timed (CUDA events
+   around a captured CUDA graph of many calls) beside its plain
+   version, one PyTorch library call computing the same function (a
+   yardstick the port never calls: SDPA; for K2/K3 SDPA's fused
+   backward, which computes dq, dk and dv together, timed by
+   torch.profiler's device time of its kernels and printed beside
+   K2 + K3) and the card's bound for the work (published H100 SXM
+   peaks: 989 TFLOP/s bf16, 67 TFLOP/s f32 without tensor cores, 3.35
+   TB/s), with the achieved TFLOP/s and the share of the bound (the
+   main-shape rows also quote the first designs' times, not measured
+   here). K1's 64 and 128 q rows a block are held against each other at
+   both main shapes and at BLOCK_ROWS_SHAPES, and the host time of one
+   K1, K2 and K3 launch (tensor-map encoding included) is timed.
    TF32 is off for every comparison.
 3. engine: LLMEngine serves GPT-2-small in bf16 with seeded random
    weights (block_size 16, max_model_len 1024, max_batch_size 8,
@@ -161,22 +166,39 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def event_ms(torch, fn, iters: int) -> float:
-    """Mean device milliseconds per call over `iters` calls launched one
-    after another from Python, between two CUDA events: for a call that
-    cannot be captured in a CUDA graph (autograd runs a backward on the
-    stream of its forward) and takes long enough to keep the queue full."""
-    for _ in range(2):
-        fn()
+def profiled_ms(torch, fn, iters: int) -> float | None:
+    """Mean device milliseconds per call of the kernels `fn` launches,
+    summed from torch.profiler's device time over `iters` calls (CUDA
+    activity only): for a call that cannot be captured in a CUDA graph
+    (autograd runs a backward on the stream of its forward), where
+    events around the Python launches would time the host's gaps.
+    None when the profiler sees no device time."""
+    ms = sum(profiled_by_kernel(torch, fn, iters).values())
+    return ms if ms > 0 else None
+
+
+def profiled_by_kernel(torch, fn, iters: int) -> dict[str, float]:
+    """Mean device milliseconds per call of `fn`, by kernel name, from
+    torch.profiler over `iters` calls (CUDA activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for ev in prof.key_averages():
+        us = device_us(ev)
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            out[ev.key[:80]] = out.get(ev.key[:80], 0.0) + us / 1e3 / iters
+    return out
+
+
+def device_us(ev) -> float:
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0.0))
 
 
 def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -245,19 +267,28 @@ def phase_device(torch) -> None:
             if spilled and any(k in fn for k in HOPPER_KERNELS):
                 fail(f"{name}: {fn} spills {spilled} bytes")
         sass[name] = sass_counts(_build, info["path"])
-    for name in ("flash_attention", "flash_attention_bwd"):
-        if not all(sass[name].values()):
-            fail(f"{name}: no wgmma or TMA instruction in its SASS: "
-                 f"{sass[name]}")
+    # each TMA/wgmma kernel on its own: every instantiation must hold
+    # both, so that one kernel of a library cannot stand in for another
+    for kernel in TMA_KERNELS:
+        found = {fn: c for by_fn in sass.values() for fn, c in by_fn.items()
+                 if kernel in fn}
+        if not found:
+            fail(f"{kernel}: not found in any library's SASS")
+        for fn, counts in found.items():
+            if not all(counts.values()):
+                fail(f"{fn}: no wgmma or TMA instruction in its SASS: "
+                     f"{counts}")
     emit({"phase": "build", "seconds": build_s,
           "libraries": {n: os.path.basename(i["path"])
                         for n, i in built.items()},
           "sass_counts": sass})
 
 
-# the kernels written for Hopper (wgmma, TMA): ptxas must not spill them
-HOPPER_KERNELS = ("flash_fwd_bf16_kernel", "flash_dkv_bf16_kernel",
-                  "hopper_check_kernel")
+# the kernels written for Hopper (wgmma, TMA): ptxas must not spill them,
+# and each of TMA_KERNELS must hold both in its own SASS
+TMA_KERNELS = ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel",
+               "flash_dkv_bf16_kernel")
+HOPPER_KERNELS = TMA_KERNELS + ("hopper_check_kernel",)
 
 
 def spills(log: str) -> dict[str, int]:
@@ -274,17 +305,25 @@ def spills(log: str) -> dict[str, int]:
     return out
 
 
-def sass_counts(_build, path: str) -> dict[str, int]:
-    """wgmma (HGMMA) and TMA load (UTMALDG) instructions in a library's
-    SASS, by cuobjdump from nvcc's toolkit."""
+def sass_counts(_build, path: str) -> dict[str, dict[str, int]]:
+    """wgmma (HGMMA) and TMA load (UTMALDG) instructions of each kernel
+    function in a library's SASS (cuobjdump from nvcc's toolkit, split
+    at its ``Function :`` headers), by mangled name."""
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     res = subprocess.run([tool, "-sass", path], capture_output=True,
                          text=True, timeout=300, check=False)
     if res.returncode != 0:
         fail(f"cuobjdump -sass {path}: {res.stderr.strip()}")
-    lines = res.stdout.splitlines()
-    return {op: sum(1 for ln in lines if op in ln)
-            for op in ("HGMMA", "UTMALDG")}
+    out: dict[str, dict[str, int]] = {}
+    counts = None
+    for ln in res.stdout.splitlines():
+        if "Function :" in ln:
+            counts = out.setdefault(ln.split("Function :")[-1].strip(),
+                                    {"HGMMA": 0, "UTMALDG": 0})
+        elif counts is not None:
+            for op in counts:
+                counts[op] += op in ln
+    return out
 
 
 def check_hopper(torch, gen) -> None:
@@ -491,91 +530,114 @@ def check_flash_views(torch, gen, main: dict) -> None:
         emit(row)
 
 
+# K4's decode batch: context lengths from an empty lane to a full table
+PAGED_CTX = (0, 1, 17, 130, 511, 640, 1000, 1023)
+
+
+def paged_inputs(torch, gen, dtype, ctx_list, H, HK, W, bs, D, C=1024):
+    """Seeded operands of paged_attention for len(ctx_list) sequences of
+    up to C cached tokens (a random permutation of the pool's pages,
+    page 0 left as the null page)."""
+    S = len(ctx_list)
+    maxB = C // bs
+    npages = S * maxB + 1
+    k_pages, v_pages = (torch.randn((npages, bs, HK, D), generator=gen,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+    perm = torch.randperm(npages - 1, generator=gen, device="cuda") + 1
+    tables = perm[:S * maxB].reshape(S, maxB).int().contiguous()
+    ctx_len = torch.tensor(ctx_list, dtype=torch.int32, device="cuda")
+    q = torch.randn((S, W, H, D), generator=gen, device="cuda").to(dtype)
+    ok, ov = (torch.randn((S, W, HK, D), generator=gen,
+                          device="cuda").to(dtype) for _ in range(2))
+    return q, ok, ov, k_pages, v_pages, tables, ctx_len
+
+
 def check_paged(torch, gen) -> dict:
     """K4 against its plain version; returns the bf16 decode row."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import paged_attention as pa
 
-    S, C = 8, 1024
-    ctx_list = [0, 1, 17, 130, 511, 640, 1000, 1023]
+    C = 1024
     main = None
-    for dtype in (torch.float32, torch.bfloat16):
+    cases = [(dtype, PAGED_CTX, H, HK, W, bs, D)
+             for dtype in (torch.float32, torch.bfloat16)
+             # decode, a verify window, GQA; then the other page sizes,
+             # D = 128
+             for H, HK, W, bs, D in ((12, 12, 1, 16, 64), (12, 12, 5, 16, 64),
+                                     (12, 4, 5, 16, 64), (12, 12, 1, 8, 64),
+                                     (12, 4, 5, 32, 64), (8, 8, 1, 16, 128))]
+    # one long request, and a decode batch of full contexts
+    cases += [(torch.bfloat16, ctx, 12, 12, 1, 16, 64)
+              for ctx in ((1023,), (1023,) * 8)]
+    for dtype, ctx_list, H, HK, W, bs, D in cases:
         dn = dname(torch, dtype)
-        # decode, a verify window, GQA; then the other page sizes, D = 128
-        for H, HK, W, bs, D in ((12, 12, 1, 16, 64), (12, 12, 5, 16, 64),
-                                (12, 4, 5, 16, 64), (12, 12, 1, 8, 64),
-                                (12, 4, 5, 32, 64), (8, 8, 1, 16, 128)):
-            maxB = C // bs
-            npages = S * maxB + 1
-            k_pages, v_pages = (torch.randn(
-                (npages, bs, HK, D), generator=gen, device="cuda").to(dtype)
-                for _ in range(2))
-            perm = torch.randperm(npages - 1, generator=gen,
-                                  device="cuda") + 1
-            tables = perm[:S * maxB].reshape(S, maxB).int().contiguous()
-            ctx_len = torch.tensor(ctx_list, dtype=torch.int32,
-                                   device="cuda")
-            q = torch.randn((S, W, H, D), generator=gen,
-                            device="cuda").to(dtype)
-            ok, ov = (torch.randn((S, W, HK, D), generator=gen,
-                                  device="cuda").to(dtype)
-                      for _ in range(2))
-            args = (q, ok, ov, k_pages, v_pages, tables, ctx_len)
-            out = pa.paged_attention(*args)
-            ref = pa.paged_attention_reference(*args)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = TOL["paged_attention"][dn]["o"]
-            if not (math.isfinite(err) and err <= tol):
-                fail(f"paged_attention {dn} H={H} H_kv={HK} W={W} "
-                     f"bs={bs} D={D}: err {err} (tol {tol})")
-            # yardstick: one SDPA call over the context gathered ahead
-            # of time, with the length and own-window masks as one mask
-            rep = H // HK
-            k_all = torch.cat([k_pages[tables.long()].reshape(S, C, HK, D),
-                               ok], 1).repeat_interleave(rep, 2)
-            v_all = torch.cat([v_pages[tables.long()].reshape(S, C, HK, D),
-                               ov], 1).repeat_interleave(rep, 2)
-            kh, vh = (t.transpose(1, 2).contiguous() for t in (k_all, v_all))
-            qh = q.transpose(1, 2).contiguous()
-            ctx_ok = torch.arange(C, device="cuda")[None, :] \
-                < ctx_len.long()[:, None]
-            own_ok = torch.ones(W, W, dtype=torch.bool,
-                                device="cuda").tril()
-            mask = torch.cat([ctx_ok[:, None, :].expand(S, W, C),
-                              own_ok[None].expand(S, W, W)], -1)[:, None]
-            lib = F.scaled_dot_product_attention(qh, kh, vh,
-                                                 attn_mask=mask)
-            lib_err = (lib.transpose(1, 2).float() - ref.float()).abs().max()
-            ms = cuda_ms(torch, lambda: pa.paged_attention(*args), 100)
-            plain_ms = cuda_ms(
-                torch, lambda: pa.paged_attention_reference(*args), 20)
-            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask), 100)
-            esz = q.element_size()
-            n_ctx = sum(ctx_list)
-            pages_read = sum((c + bs - 1) // bs for c in ctx_list)
-            flops = 4.0 * H * D * W * (n_ctx + S * (W + 1) / 2)
-            nbytes = esz * (2 * S * W * H * D + 2 * S * W * HK * D
-                            + 2 * n_ctx * HK * D) + 4 * (pages_read + S)
-            b_ms, b_by = bound(flops, nbytes, dn)
-            row = {"kernel": "paged_attention", "dtype": dn,
-                   "shape": {"S": S, "W": W, "H": H, "H_kv": HK, "D": D,
-                             "block_size": bs, "max_blocks": maxB,
-                             "ctx_len": ctx_list},
-                   "max_abs_err": err, "tol": tol,
-                   "library_err": lib_err.item(),
-                   "kernel_ms": ms, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, "bound_ms": b_ms,
-                   "bound_by": b_by}
-            rate(row, flops)
-            if dtype == torch.bfloat16 and (H, HK, W, bs, D) == (
-                    12, 12, 1, 16, 64):
-                row["earlier_ms"] = EARLIER_MS[("paged_attention", S)]
-                row["earlier_ms_source"] = EARLIER_SOURCE
-                main = row
-            emit(row)
+        S = len(ctx_list)
+        args = paged_inputs(torch, gen, dtype, ctx_list, H, HK, W, bs, D, C)
+        q, ok, ov, k_pages, v_pages, tables, ctx_len = args
+        out = pa.paged_attention(*args)
+        ref = pa.paged_attention_reference(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL["paged_attention"][dn]["o"]
+        shape = {"S": S, "W": W, "H": H, "H_kv": HK, "D": D,
+                 "block_size": bs, "max_blocks": C // bs,
+                 "ctx_len": list(ctx_list)}
+        if not (math.isfinite(err) and err <= tol):
+            fail(f"paged_attention {dn} {shape}: err {err} (tol {tol})")
+        # no atomics: the splits merge in a fixed order, so a second run
+        # gives the same bits
+        if not torch.equal(pa.paged_attention(*args), out):
+            fail(f"paged_attention {dn} {shape}: two runs differ")
+        # yardstick: one SDPA call over the context gathered ahead of
+        # time, with the length and own-window masks as one mask
+        rep = H // HK
+        k_all = torch.cat([k_pages[tables.long()].reshape(S, C, HK, D),
+                           ok], 1).repeat_interleave(rep, 2)
+        v_all = torch.cat([v_pages[tables.long()].reshape(S, C, HK, D),
+                           ov], 1).repeat_interleave(rep, 2)
+        kh, vh = (t.transpose(1, 2).contiguous() for t in (k_all, v_all))
+        qh = q.transpose(1, 2).contiguous()
+        ctx_ok = torch.arange(C, device="cuda")[None, :] \
+            < ctx_len.long()[:, None]
+        own_ok = torch.ones(W, W, dtype=torch.bool, device="cuda").tril()
+        mask = torch.cat([ctx_ok[:, None, :].expand(S, W, C),
+                          own_ok[None].expand(S, W, W)], -1)[:, None]
+        lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        lib_err = (lib.transpose(1, 2).float() - ref.float()).abs().max()
+        ms = cuda_ms(torch, lambda: pa.paged_attention(*args), 100)
+        plain_ms = cuda_ms(
+            torch, lambda: pa.paged_attention_reference(*args), 20)
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask), 100)
+        esz = q.element_size()
+        n_ctx = sum(ctx_list)
+        pages_read = sum((c + bs - 1) // bs for c in ctx_list)
+        flops = 4.0 * H * D * W * (n_ctx + S * (W + 1) / 2)
+        nbytes = esz * (2 * S * W * H * D + 2 * S * W * HK * D
+                        + 2 * n_ctx * HK * D) + 4 * (pages_read + S)
+        b_ms, b_by = bound(flops, nbytes, dn)
+        n_split, pages = pa.split_plan(S, HK, C // bs, bs)
+        row = {"kernel": "paged_attention", "dtype": dn, "shape": shape,
+               "split_plan": {"n_split": n_split, "pages_per_split": pages},
+               "max_abs_err": err, "tol": tol, "bitwise_repeat": True,
+               "library_err": lib_err.item(),
+               "kernel_ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+        rate(row, flops)
+        if dtype == torch.bfloat16 and (H, HK, W, bs, D) == (
+                12, 12, 1, 16, 64):
+            # the kernel's device time by the profiler, beside the
+            # graph-timed mean
+            row["device_ms_by_kernel"] = profiled_by_kernel(
+                torch, lambda: pa.paged_attention(*args), 20)
+        if dtype == torch.bfloat16 and ctx_list == PAGED_CTX and (
+                H, HK, W, bs, D) == (12, 12, 1, 16, 64):
+            row["earlier_ms"] = EARLIER_MS[("paged_attention", S)]
+            row["earlier_ms_source"] = EARLIER_SOURCE
+            main = row
+        emit(row)
     return main
 
 
@@ -614,9 +676,12 @@ def check_flash_bwd(torch, gen) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         dn = dname(torch, dtype)
         tol = BWD_TOL[dn]
-        # the training shape; then a ragged length, no mask, D = 128
+        # the training shape; then a ragged length, one shorter than a
+        # tile (TMA's zero fill stands in for masked loads), no mask,
+        # D = 128
         for B, T, D, causal in ((8, 1024, 64, True), (1, 731, 64, True),
-                                (1, 256, 64, False), (1, 256, 128, True)):
+                                (2, 17, 64, True), (1, 256, 64, False),
+                                (1, 256, 128, True)):
             scale = 1.0 / math.sqrt(D)
             # q, k, v as column slices of one fused projection, as the
             # model hands them over
@@ -641,8 +706,16 @@ def check_flash_bwd(torch, gen) -> dict:
                     fail(f"flash bwd {name} {dn} B={B} T={T} D={D} "
                          f"causal={causal}: max abs err {errs[name]} "
                          f"(tol {tol})")
+            # no atomics: a second run on the same inputs gives the same
+            # bits
+            again = fa._bwd(q, k, v, o, lse, do, causal, scale)
+            for name, g, g2 in zip(("dq", "dk", "dv"), got, again):
+                if not torch.equal(g, g2):
+                    fail(f"flash bwd {name} {dn} B={B} T={T} D={D} "
+                         f"causal={causal}: two runs differ")
             lib = sdpa_bwd(torch, q, k, v, do, causal)
-            lib_ms = event_ms(torch, lib, 10) if lib else None
+            lib_ms = profiled_ms(torch, lib, 10) if lib else None
+            pair_ms = {}
             esz = q.element_size()
             pairs = B * H * (T * (T + 1) / 2 if causal else T * T)
             n = B * T * H * D
@@ -679,7 +752,17 @@ def check_flash_bwd(torch, gen) -> dict:
                     row["earlier_ms"] = EARLIER_MS[(name, B)]
                     row["earlier_ms_source"] = EARLIER_SOURCE
                     main[name] = row
+                pair_ms[name] = ms
                 emit(row)
+            # K2 + K3 beside the one library call that computes all of
+            # dq, dk and dv
+            emit({"kernel": "flash_dq+flash_dkv", "dtype": dn,
+                  "shape": {"B": B, "T": T, "H": H, "D": D,
+                            "causal": causal},
+                  "kernel_ms": pair_ms["flash_dq"] + pair_ms["flash_dkv"],
+                  "library_ms": lib_ms,
+                  "library_source": "torch.profiler device time of the "
+                                    "kernels of SDPA's backward"})
     return main
 
 
@@ -999,8 +1082,7 @@ def device_time(torch, prof, wall_us: float) -> dict:
     by_name: dict[str, float] = {}
     launches = 0
     for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
+        us = device_us(ev)
         if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         by_class[kernel_class(ev.key)] = \

@@ -14,15 +14,23 @@
 // What bounds them: at GPT-2-small training (T = 1024, D = 64) each
 // runs three (K2) or four (K3) T^2 D products per head against ~5-6
 // T D elements moved, far above the card's ops-per-byte line, so they
-// are bound by operations and belong on the tensor cores. The design:
-//  - K2 takes the structure of K1's first (mma.sync) version: one block
-//    per (b * h, 64-row q tile), four warps of 16 q rows, a loop over
-//    the 64-key k/v tiles up to the diagonal. q and do stay in registers
-//    as mma A fragments for s = q k^T and dp = do v^T; the accumulators
-//    of s become p and then ds in place, and ds rounded to bf16 is
-//    already the A operand of ds k (k staged as the B operand in [key,
-//    d] orientation), so p and ds never touch shared memory.
-//  - K3 (bf16) is written for Hopper: one block per (b * h, 128-key
+// are bound by operations and belong on the tensor cores at their full
+// rate, which on Hopper only the warpgroup product (wgmma) reaches. Both
+// bf16 kernels share one design, in two orientations:
+//  - K2 (bf16): one block per (b * h, 128-row q tile), the tiles with
+//    the longest causal rows first; two consumer warpgroups of 64 q rows
+//    and one producer warpgroup that gives them its registers
+//    (setmaxnreg). One producer thread loads the block's q and do tiles
+//    once by TMA and streams the k/v tiles (128 keys for D = 64, as in
+//    K1; 64 for D = 128) up to the diagonal through a four-stage ring
+//    (full/empty mbarriers); both consumer warpgroups read every stage.
+//    Each warpgroup keeps lse log2(e) and delta of its accumulator rows
+//    in registers and runs, per k/v tile, s = q k^T and dp = do v^T as
+//    one group of wgmma (all four operands K-major in shared memory),
+//    ds = p (dp - delta) scale in registers, and dq += ds k with ds,
+//    rounded to bf16, as the register A operand and k as the MN-major B
+//    operand. dq stays in registers and is written once.
+//  - K3 (bf16): one block per (b * h, 128-key
 //    tile), two consumer warpgroups of 64 keys and one producer
 //    warpgroup that gives them its registers (setmaxnreg). k and v are
 //    loaded once by TMA and stay in shared memory; one producer thread
@@ -35,18 +43,28 @@
 //    memory), then dv += p^T do and dk += ds^T q with p^T and ds^T,
 //    rounded to bf16 in registers, as the register A operand and do, q
 //    as MN-major B operands. dk and dv stay in registers and are written
-//    once. Only the tiles on the diagonal or at the ragged edge are
-//    masked, and p is exp2 with log2(e) folded into scale and lse.
-//  - K2 (bf16) keeps the first design: mma.sync m16n8k16, q and do as
-//    register A fragments, k/v tiles staged synchronously.
+//    once.
+//  - In both, only the tiles on the diagonal or at the ragged edge are
+//    masked, and p is exp2 with log2(e) folded into scale and lse. Rows
+//    and keys past T arrive from TMA as zeros, and a warpgroup whose
+//    rows or keys lie wholly past T, or wholly on the masked side of the
+//    diagonal, only releases the stage.
 //  - f32 keeps K1's scalar FMA path (TF32 would lose f32's digits), with
 //    each warp's p and ds rows passed through shared memory.
-//  - The ragged edge (T not a multiple of 64) is masked, so any T that
+//  - The ragged edge (T not a multiple of the tile) is masked, so any T that
 //    K1 takes works here.
 // Strides are passed per tensor for q, k, v and do (the head dimension
 // contiguous), so q, k and v may stay column slices of the fused qkv
 // projection; lse and delta are (B, H, T) f32, the outputs (B, T, H, D)
-// contiguous. K2's redesign on K3's lines is the next step.
+// contiguous.
+// What holds them back now: at B=8 T=1024 both run at 130-210 TFLOP/s,
+// a fifth of the tensor cores' peak or less; each warpgroup waits on
+// every product before the elementwise step that follows it. K2 gained
+// nothing from K1's remedies (tile j's products issued beside tile
+// j-1's, ping-pong between the warpgroups, one 64-row warpgroup per
+// block at two blocks an SM, deeper rings: each within a few per cent,
+// most slower; PERF.md), so what remains is neither the loads nor the
+// issue order; persistent blocks are the untried step.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -371,160 +389,209 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(Args a) {
 // ------------------------------------------------------------ bf16 path
 
 using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
-constexpr int bf16_smem_bytes() {  // four 64-row tiles, rows padded by 8
-  return 4 * kBlock * (D + 8) * static_cast<int>(sizeof(bf16)) +
-         2 * kBlock * static_cast<int>(sizeof(float));
+// The bf16 kernels' operands as (B, T, H, D) tensor maps, encoded on the
+// host from each operand's strides, with boxes of 64 rows for q and do
+// and of `kv_rows` rows for k and v.
+cudaError_t make_maps(const Args& a, int batch, int head_dim, int kv_rows, CUtensorMap* q,
+                      CUtensorMap* k, CUtensorMap* v, CUtensorMap* dout) {
+  cudaError_t err = hop::make_map(q, a.q, batch, a.seq, a.heads, head_dim, a.qb, a.qt, a.qh, 64);
+  if (err == cudaSuccess)
+    err = hop::make_map(k, a.k, batch, a.seq, a.heads, head_dim, a.kb, a.kt, a.kh, kv_rows);
+  if (err == cudaSuccess)
+    err = hop::make_map(v, a.v, batch, a.seq, a.heads, head_dim, a.vb, a.vt, a.vh, kv_rows);
+  if (err == cudaSuccess)
+    err = hop::make_map(dout, a.dout, batch, a.seq, a.heads, head_dim, a.ob, a.ot, a.oh, 64);
+  return err;
 }
 
-template <int D>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src, long long rs,
-                                      int t0, int seq, int tid) {
-  rt::stage_bf16<D, kBlock, kThreads>(dst, src, rs, t0, seq, tid);
-}
+// K2, bf16: one block per (b * h, 128-row q tile); two consumer
+// warpgroups of 64 q rows each and one producer warpgroup; k/v tiles of
+// BN keys.
+//
+// Shared memory from a 1024-byte aligned base: the block's q and do
+// (one 64-row tile of each per consumer warpgroup), kStages k and v
+// tiles of BN keys, then the barriers q_full, full[kStages],
+// empty[kStages].
+template <int D, int BN>
+struct DqLayout {
+  static constexpr int kWG = 2;  // consumer warpgroups, 64 q rows each
+  static constexpr int kStages = 4;
+  static constexpr int kQ = hop::tile_bytes<D>(64);
+  static constexpr int kKV = hop::tile_bytes<D>(BN);
+  static constexpr int do_off = kWG * kQ;
+  static constexpr int k_off = 2 * kWG * kQ;
+  static constexpr int v_off = k_off + kStages * kKV;
+  static constexpr int bar_off = v_off + kStages * kKV;
+  static constexpr int bytes = bar_off + 8 * (1 + 2 * kStages) + 1024;  // + alignment
+  static constexpr int kThreads = (kWG + 1) * 128;
+  // 384 threads launch with 168 registers; 128 * 40 + 256 * 232 of them
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = 232;
+};
 
-// A fragments of this warp's 16 rows of a staged tile (row-major, 16
-// columns per k-step)
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4], const bf16* tile,
-                                       int warp, int grp, int tig) {
-  constexpr int LD = D + 8;
-  const bf16* lo = tile + (warp * kRows + grp) * LD + 2 * tig;
-  const bf16* hi = lo + 8 * LD;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    f[kk][0] = rt::ld32(lo + kk * 16);
-    f[kk][1] = rt::ld32(hi + kk * 16);
-    f[kk][2] = rt::ld32(lo + kk * 16 + 8);
-    f[kk][3] = rt::ld32(hi + kk * 16 + 8);
+struct DqParams {
+  CUtensorMap q, k, v, dout;  // (B, T, H, D) maps, boxes of 64 (q, do) and BN (k, v) rows
+  const float *lse, *delta;  // (B, H, T)
+  bf16* dq;                  // (B, T, H, D) contiguous
+  int seq, heads, causal;
+  float scale;
+};
+
+template <int D, int BN>
+__global__ void __launch_bounds__(DqLayout<D, BN>::kThreads, 1)
+flash_dq_bf16_kernel(const __grid_constant__ DqParams p) {
+  using L = DqLayout<D, BN>;
+  constexpr int S = L::kStages;
+  constexpr int NK = BN / 16;  // k16 steps of dq += ds k
+  extern __shared__ __align__(1024) unsigned char ring[];
+  const uint32_t base = (hop::smem_addr(ring) + 1023) & ~1023u;
+  const uint32_t q_full = base + L::bar_off;
+  const auto full = [&](int s) { return q_full + 8 * (1 + s); };
+  const auto empty = [&](int s) { return q_full + 8 * (1 + S + s); };
+
+  const int seq = p.seq;
+  const int bh = blockIdx.x, b = bh / p.heads, h = bh % p.heads;
+  // the q tiles with the longest causal rows first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kWG * 64;
+  // causal: k tiles past the block's last row hold no key it may see
+  const int n_k = p.causal ? (min(q0 + L::kWG * 64, seq) - 1) / BN + 1 : (seq + BN - 1) / BN;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hop::mbar_init(full(s), 1);
+      hop::mbar_init(empty(s), L::kWG * 128);
+    }
+    hop::mbar_fence_init();
   }
-}
+  __syncthreads();
 
-// acc = a x^T over the head dim: a's 16 rows (fragments `a`) against
-// the 64 rows of the staged tile `x`, as 8 accumulator tiles of 8
-// columns
-template <int D>
-__device__ __forceinline__ void rows_by_rows(float (&acc)[kBlock / 8][4],
-                                             const uint32_t (&a)[D / 16][4],
-                                             const bf16* x, int grp, int tig) {
-  constexpr int LD = D + 8;
+  if (wg == L::kWG) {
+    // producer: one thread loads q and do once, for the warpgroups whose
+    // rows start before T, then streams the k/v tiles through the ring
+    hop::regs_dec<L::kProducerRegs>();
+    if (threadIdx.x == L::kWG * 128) {
+      const int live = min(L::kWG, (seq - q0 + 63) / 64);
+      hop::mbar_arrive_expect_tx(q_full, 2 * live * L::kQ);
+      for (int w = 0; w < live; ++w) {
+        hop::tma_tile<D>(base + w * L::kQ, &p.q, q_full, 64, h, q0 + 64 * w, b);
+        hop::tma_tile<D>(base + L::do_off + w * L::kQ, &p.dout, q_full, 64, h, q0 + 64 * w, b);
+      }
+      for (int j = 0; j < n_k; ++j) {
+        const int s = j % S;
+        hop::mbar_wait(empty(s), ((j / S) & 1) ^ 1);
+        hop::mbar_arrive_expect_tx(full(s), 2 * L::kKV);
+        hop::tma_tile<D>(base + L::k_off + s * L::kKV, &p.k, full(s), BN, h, BN * j, b);
+        hop::tma_tile<D>(base + L::v_off + s * L::kKV, &p.v, full(s), BN, h, BN * j, b);
+      }
+    }
+  } else {
+    // consumer warpgroup `wg`: q rows qw .. qw + 63
+    hop::regs_inc<L::kConsumerRegs>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int grp = lane / 4, tig = lane % 4;
+    const int qw = q0 + 64 * wg;
+    const int rows[2] = {qw + 16 * warp + grp, qw + 16 * warp + grp + 8};
+    const uint32_t q_tile = base + wg * L::kQ, do_tile = base + L::do_off + wg * L::kQ;
+    const float scale_log2 = p.scale * kLog2e;
+    // lse (times log2 e) and delta of this thread's two accumulator rows
+    float lse2[2], dlt[2];
 #pragma unroll
-  for (int nt = 0; nt < kBlock / 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    const bf16* xr = x + (nt * 8 + grp) * LD + 2 * tig;
+    for (int r = 0; r < 2; ++r) {
+      const long long at = static_cast<long long>(bh) * seq + rows[r];
+      lse2[r] = rows[r] < seq ? p.lse[at] * kLog2e : 0.f;
+      dlt[r] = rows[r] < seq ? p.delta[at] : 0.f;
+    }
+    float dq[D / 2];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      rt::mma_bf16(acc[nt], a[kk], rt::ld32(xr + kk * 16), rt::ld32(xr + kk * 16 + 8));
-  }
-}
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    hop::mbar_wait(q_full, 0);
 
-// out += w x: the 16 x 64 weights `w` (accumulator layout, rounded to
-// bf16 here) against the staged 64-row tile `x` in [row, d] orientation
-template <int D>
-__device__ __forceinline__ void weights_by_tile(float (&out)[D / 8][4],
-                                                const float (&w)[kBlock / 8][4],
-                                                const bf16* x, int grp, int tig) {
-  constexpr int LD = D + 8;
+    const auto k_tile = [&](int j) { return base + L::k_off + (j % S) * L::kKV; };
+    uint32_t da[NK][4];  // ds of the tile, the A operand of dq += ds k
+    for (int j = 0; j < n_k; ++j) {
+      const int k0 = BN * j;
+      // a warpgroup past T, or whose rows all lie before this tile's
+      // keys, has no work on it and only releases the stage
+      const bool work = qw < seq && !(p.causal && k0 > qw + 63);
+      const uint32_t v_tile = base + L::v_off + (j % S) * L::kKV;
+      hop::mbar_wait(full(j % S), (j / S) & 1);
+
+      // s = q k^T and dp = do v^T, all four operands K-major, one group
+      float sc[BN / 2], dp[BN / 2];
+      hop::fence_regs(dq);
+      hop::wgmma_fence();
+      if (work) {
 #pragma unroll
-  for (int kk = 0; kk < kBlock / 16; ++kk) {
-    // two accumulator tiles, rounded to bf16, are exactly one A fragment
-    const uint32_t wa[4] = {rt::pack_f32(w[2 * kk][0], w[2 * kk][1]),
-                            rt::pack_f32(w[2 * kk][2], w[2 * kk][3]),
-                            rt::pack_f32(w[2 * kk + 1][0], w[2 * kk + 1][1]),
-                            rt::pack_f32(w[2 * kk + 1][2], w[2 * kk + 1][3])};
-    const bf16* xr = x + (kk * 16 + 2 * tig) * LD + grp;
+        for (int kk = 0; kk < D / 16; ++kk)
+          hop::wgmma_ss<0>(sc, hop::desc_k(q_tile, 64, kk), hop::desc_k(k_tile(j), BN, kk), kk);
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const bf16* xc = xr + dt * 8;
-      rt::mma_bf16(out[dt], wa, rt::pack_bf16(xc[0], xc[LD]),
-                   rt::pack_bf16(xc[8 * LD], xc[9 * LD]));
+        for (int kk = 0; kk < D / 16; ++kk)
+          hop::wgmma_ss<0>(dp, hop::desc_k(do_tile, 64, kk), hop::desc_k(v_tile, BN, kk), kk);
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(sc);
+      hop::fence_regs(dp);
+
+      // ds = p (dp - delta) scale with p = exp2(s scale log2 e - lse
+      // log2 e), exactly 0 where the key is masked, which only a tile
+      // on the diagonal or at the ragged edge holds. Element i: row
+      // rows[(i >> 1) & 1], key k0 + 8 (i / 4) + 2 tig + (i & 1).
+      if (work) {
+        const bool edge = (p.causal && k0 + BN - 1 > qw) || k0 + BN > seq;
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int r = (i >> 1) & 1, key = k0 + 8 * (i / 4) + 2 * tig + (i & 1);
+          const float pv = exp2f(fmaf(sc[i], scale_log2, -lse2[r]));
+          const bool ok = !edge || (key < seq && (!p.causal || key <= rows[r]));
+          sc[i] = ok ? pv * (dp[i] - dlt[r]) * p.scale : 0.f;
+        }
+      }
+      // ds rounded to bf16 (k's type): two accumulator column blocks are
+      // one A fragment of a k16 step over the keys
+      if (work) {
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          da[kk][0] = rt::pack_f32(sc[8 * kk], sc[8 * kk + 1]);
+          da[kk][1] = rt::pack_f32(sc[8 * kk + 2], sc[8 * kk + 3]);
+          da[kk][2] = rt::pack_f32(sc[8 * kk + 4], sc[8 * kk + 5]);
+          da[kk][3] = rt::pack_f32(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+      }
+      // dq += ds k, k MN-major (its rows are the keys)
+      if (work) {
+        hop::fence_regs(dq);
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk)
+          hop::wgmma_rs<1>(dq, da[kk], hop::desc_mn(k_tile(j), BN, kk), 1);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(dq);
+        hop::fence_frag(da);
+      }
+      hop::mbar_arrive(empty(j % S));
+    }
+
+    // dq, written once, in bf16
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= seq) continue;
+      const long long at = ((static_cast<long long>(b) * seq + rows[r]) * p.heads + h) * D + 2 * tig;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<uint32_t*>(p.dq + at + 8 * jj) =
+            rt::pack_f32(dq[4 * jj + 2 * r], dq[4 * jj + 2 * r + 1]);
     }
   }
 }
 
-// rows `rows[0]`, `rows[1]` of an accumulator in (B, T, H, D) layout
-template <int D>
-__device__ __forceinline__ void store_rows(const Args& a, void* base, int b, int h,
-                                           const int (&rows)[2],
-                                           const float (&acc)[D / 8][4], int tig) {
-  bf16* out = static_cast<bf16*>(base);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= a.seq) continue;
-    bf16* r = out + out_row(a, b, h, rows[i]) * D + 2 * tig;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(r + dt * 8) = rt::pack_f32(acc[dt][2 * i], acc[dt][2 * i + 1]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_bf16_kernel(Args a) {
-  constexpr int LD = D + 8, NT = kBlock / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char tiles[];
-  bf16* qs = reinterpret_cast<bf16*>(tiles);
-  bf16* dos = qs + kBlock * LD;
-  bf16* ks = dos + kBlock * LD;
-  bf16* vs = ks + kBlock * LD;
-
-  const int seq = a.seq;
-  const int n_tiles = (seq + kBlock - 1) / kBlock;
-  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);
-  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
-  const int q0 = qt * kBlock;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int grp = lane >> 2, tig = lane & 3;
-
-  stage<D>(qs, static_cast<const bf16*>(a.q) + b * a.qb + h * a.qh, a.qt, q0, seq, tid);
-  stage<D>(dos, static_cast<const bf16*>(a.dout) + b * a.ob + h * a.oh, a.ot, q0, seq,
-           tid);
-  __syncthreads();
-  uint32_t qf[D / 16][4], df[D / 16][4];  // kept all along
-  load_a<D>(qf, qs, warp, grp, tig);
-  load_a<D>(df, dos, warp, grp, tig);
-  const int rows[2] = {q0 + warp * kRows + grp, q0 + warp * kRows + grp + 8};
-  float lse[2], dlt[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long at = static_cast<long long>(bh) * seq + rows[i];
-    lse[i] = rows[i] < seq ? a.lse[at] : 0.f;
-    dlt[i] = rows[i] < seq ? a.delta[at] : 0.f;
-  }
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  const int last = a.causal ? qt : n_tiles - 1;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.kb + h * a.kh;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vb + h * a.vh;
-
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * kBlock;
-    __syncthreads();  // the previous tile is consumed
-    stage<D>(ks, kb, a.kt, k0, seq, tid);
-    stage<D>(vs, vb, a.vt, k0, seq, tid);
-    __syncthreads();
-
-    float sf[NT][4], dpf[NT][4];
-    rows_by_rows<D>(sf, qf, ks, grp, tig);   // s = q k^T
-    rows_by_rows<D>(dpf, df, vs, grp, tig);  // dp = do v^T
-    // element e of tile nt: row rows[e / 2], key k0 + 8 nt + 2 tig + e % 2
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * tig + (e & 1);
-        const float p = visible(a, rows[e >> 1], key) ? expf(sf[nt][e] * a.scale - lse[e >> 1]) : 0.f;
-        sf[nt][e] = p * (dpf[nt][e] - dlt[e >> 1]) * a.scale;  // ds
-      }
-    weights_by_tile<D>(acc, sf, ks, grp, tig);  // dq += ds k
-  }
-  store_rows<D>(a, a.g0, b, h, rows, acc, tig);
-}
-
 // K3, bf16: one block per (b * h, 128-key tile); two consumer
 // warpgroups of 64 keys each and one producer warpgroup.
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory from a 1024-byte aligned base: the block's k and v (two
 // 64-row tiles each, one per consumer warpgroup), kStages q and do
@@ -747,13 +814,35 @@ cudaError_t launch(Kernel kernel, int smem, cudaError_t attr, const Args& a,
   return cudaGetLastError();
 }
 
+// K2 in bf16: the tensor maps are encoded here, on every call, and
+// passed by value
+template <int D, int BN>
+cudaError_t launch_dq_bf16(const Args& a, int batch, cudaStream_t stream) {
+  using L = DqLayout<D, BN>;
+  const auto kernel = flash_dq_bf16_kernel<D, BN>;
+  static const cudaError_t attr = rt::allow_smem(kernel, L::bytes);
+  if (attr != cudaSuccess) return attr;
+  DqParams p;
+  const cudaError_t err = make_maps(a, batch, D, BN, &p.q, &p.k, &p.v, &p.dout);
+  if (err != cudaSuccess) return err;
+  p.lse = a.lse;
+  p.delta = a.delta;
+  p.dq = static_cast<bf16*>(a.g0);
+  p.seq = a.seq;
+  p.heads = a.heads;
+  p.causal = a.causal;
+  p.scale = a.scale;
+  const int rows = L::kWG * 64;
+  const dim3 grid(batch * a.heads, (a.seq + rows - 1) / rows);
+  kernel<<<grid, L::kThreads, L::bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dq(const Args& a, int batch, int is_bf16, cudaStream_t s) {
-  if (is_bf16) {
-    static const cudaError_t attr =
-        rt::allow_smem(flash_dq_bf16_kernel<D>, bf16_smem_bytes<D>());
-    return launch(flash_dq_bf16_kernel<D>, bf16_smem_bytes<D>(), attr, a, batch, s);
-  }
+  // k/v tiles of 128 keys for D = 64 (as K1's), 64 for D = 128, where
+  // dq, s and dp of 128 keys would not fit the consumers' registers
+  if (is_bf16) return launch_dq_bf16<D, D == 64 ? 128 : 64>(a, batch, s);
   static const cudaError_t attr =
       rt::allow_smem(flash_dq_f32_kernel<D>, dq_f32_smem_bytes<D>());
   return launch(flash_dq_f32_kernel<D>, dq_f32_smem_bytes<D>(), attr, a, batch, s);
@@ -767,13 +856,7 @@ cudaError_t launch_dkv_bf16(const Args& a, int batch, cudaStream_t stream) {
   static const cudaError_t attr = rt::allow_smem(flash_dkv_bf16_kernel<D>, L::bytes);
   if (attr != cudaSuccess) return attr;
   DkvParams p;
-  cudaError_t err = hop::make_map(&p.q, a.q, batch, a.seq, a.heads, D, a.qb, a.qt, a.qh, 64);
-  if (err == cudaSuccess)
-    err = hop::make_map(&p.k, a.k, batch, a.seq, a.heads, D, a.kb, a.kt, a.kh, 64);
-  if (err == cudaSuccess)
-    err = hop::make_map(&p.v, a.v, batch, a.seq, a.heads, D, a.vb, a.vt, a.vh, 64);
-  if (err == cudaSuccess)
-    err = hop::make_map(&p.dout, a.dout, batch, a.seq, a.heads, D, a.ob, a.ot, a.oh, 64);
+  const cudaError_t err = make_maps(a, batch, D, 64, &p.q, &p.k, &p.v, &p.dout);
   if (err != cudaSuccess) return err;
   p.lse = a.lse;
   p.delta = a.delta;
@@ -812,11 +895,11 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 // q, k, v, dout: (B, T, H, D) with the strides given (in elements) for
 // the batch, time and head axes, in that order for q, k, v, dout; D
-// contiguous (bf16: pointers 16-byte aligned, strides multiples of 8
-// elements, the TMA rules K3 needs; K2 needs only 4-byte alignment and
-// even strides). lse, delta: (B, H, T) f32 contiguous. Outputs (B, T, H, D) contiguous, in the
-// input type. is_bf16 != 0 selects __nv_bfloat16, else float. Each returns
-// the CUDA error code of its launch (0 on success).
+// contiguous (bf16: pointers 16-byte aligned and strides multiples of 8
+// elements, the TMA rules both bf16 kernels need). lse, delta: (B, H, T)
+// f32 contiguous. Outputs (B, T, H, D) contiguous, in the input type.
+// is_bf16 != 0 selects __nv_bfloat16, else float. Each returns the CUDA
+// error code of its launch (0 on success).
 extern "C" int rt_flash_dq(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse, const void* delta,
                            void* dq, int batch, int seq, int heads, int head_dim,

@@ -10,13 +10,14 @@ with the plain PyTorch versions `_fwd_plain` and `_bwd_plain`, which are
 also what chip_smoke.py holds the kernels against on the card. There is
 no fallback: a CUDA tensor the kernels do not take raises.
 
-The bf16 K1 and K3 load their tiles with TMA, which needs each
-operand's base 16-byte aligned and its strides multiples of 16 bytes
-(`_tma_ok`; the C launch encodes each operand's tensor map from the
-strides `_strides` gives). The model's q, k, v (column slices of the
-fused qkv projection) meet that and go in as they are; an operand that
-does not is copied once into a contiguous tensor (`_kernel_operand`,
-counted by `LAYOUT_COPIES`), a layout fix and not a fallback.
+The bf16 K1, K2 and K3 load their tiles with TMA and multiply them with
+wgmma, so each operand's base must be 16-byte aligned and its strides
+multiples of 16 bytes (`_tma_ok`; the C launch encodes each operand's
+tensor map from the strides `_strides` gives). The model's q, k, v
+(column slices of the fused qkv projection) meet that and go in as they
+are; an operand that does not is copied once into a contiguous tensor
+(`_kernel_operand`, counted by `LAYOUT_COPIES`; `do` through
+`_kernel_grad_output`), a layout fix and not a fallback.
 
 `flash_attention` goes through `_FlashAttention`, the counterpart of
 the JAX module's custom VJP: its forward runs `_fwd` and saves

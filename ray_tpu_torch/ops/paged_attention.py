@@ -16,9 +16,15 @@ layout (one layer at a time):
 - ``ctx_len``             (S,) int32: positions < ctx_len[s] are cached.
 
 On CUDA tensors `paged_attention` launches K4
-(``csrc/paged_attention.cu``, hand-written CUDA C++ for Hopper, sm_90a),
-which reads each page once per KV head for all of its grouped query
-heads and every window row. On CPU tensors it runs the plain version,
+(``csrc/paged_attention.cu``, hand-written CUDA C++ for Hopper, sm_90a):
+one thread-block cluster per (KV head, sequence), whose blocks each
+walk one chunk of the sequence's pages (every page read once for all
+of the head's grouped query heads and window rows, several pages in
+flight), one more block attending the own window; the blocks then merge
+their partial states in order, through each other's shared memory, and
+normalise. The chunks come from `split_plan`, which reads shapes only,
+never ctx_len, so the launch needs no value from the card and can be
+captured in a CUDA graph. On CPU tensors it runs the plain version,
 `paged_attention_reference`, the dense oracle of the JAX module (gather
 pages through the table, mask by ctx_len, causal own window). There is
 no fallback: a CUDA operand the kernel does not take raises.
@@ -42,10 +48,22 @@ KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_BLOCK_SIZES = (8, 16, 32)
 MAX_WINDOW = 32
 MAX_SMEM_BYTES = 232448
-_WARPS = 8
+# the split plan: a cluster of blocks per (KV head, sequence), the page
+# splits and the own window's block, with about seven blocks for each of
+# an H100's 132 SMs in all (larger clusters than the card holds at once
+# cost more than they gain), at most 15 page splits (a cluster of 16 is
+# the H100's most), and at least 64 tokens a split
+SPLIT_TARGET_BLOCKS = 7 * 132
+MIN_SPLIT_TOKENS = 64
+MAX_SPLITS = 15
+_TABLE_CACHE = 1024  # table entries a block keeps in shared memory
+_STAGES = 5  # pages in a block's ring
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P]
+# rt_paged_attention(q, own_k, own_v, k_pages, v_pages, tables, ctx_len,
+# out, S, W, H, H_kv, D, block_size, max_blocks, scale, bf16, stream,
+# n_split, pages_per_split)
+_ARGTYPES = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P, _I, _I]
 
 
 def paged_attention_reference(q, own_k, own_v, k_pages, v_pages, tables,
@@ -80,11 +98,31 @@ def paged_attention_reference(q, own_k, own_v, k_pages, v_pages, tables,
     return att.to(q.dtype)
 
 
-def smem_bytes(rows: int, head_dim: int) -> int:
-    """Shared memory one K4 block needs for `rows` = (H / H_kv) * W
-    query rows (mirrors the kernel's layout)."""
-    state = rows * head_dim + 2 * rows
-    return 4 * (rows * head_dim + (_WARPS + 1) * state)
+def split_plan(num_seqs: int, num_kv_heads: int, max_blocks: int,
+               block_size: int) -> tuple[int, int]:
+    """(n_split, pages_per_split) of K4: split i walks pages
+    [i c, (i + 1) c) of each sequence's table, c = pages_per_split; the
+    grid of (n_split + 1, H_kv, S) blocks holds about
+    SPLIT_TARGET_BLOCKS, in clusters of n_split + 1 <= 16. It depends on
+    these shapes only, never on ctx_len, so the launch reads nothing
+    back from the card."""
+    clusters = max(num_seqs * num_kv_heads, 1)
+    want = min(max(SPLIT_TARGET_BLOCKS // clusters - 1, 1), MAX_SPLITS)
+    pages = max(-(-max_blocks // want), -(-MIN_SPLIT_TOKENS // block_size))
+    pages = max(1, min(pages, max_blocks))
+    return -(-max(max_blocks, 1) // pages), pages
+
+
+def smem_bytes(rows: int, head_dim: int, block_size: int, elem_size: int,
+               pages_per_split: int) -> int:
+    """Shared memory one block of K4 needs for `rows` = (H / H_kv) * W
+    query rows (mirrors `smem_bytes` in the kernel): a ring of _STAGES
+    pages of k and v, q and acc (R, D), scores (R, block_size), m, l and
+    alpha (R,) in f32, and its chunk's first _TABLE_CACHE table
+    entries."""
+    ring = _STAGES * 2 * block_size * head_dim * elem_size
+    return ring + 4 * (2 * rows * head_dim + rows * block_size + 3 * rows
+                       + min(pages_per_split, _TABLE_CACHE))
 
 
 def _check_kernel_operands(q, own_k, own_v, k_pages, v_pages, tables,
@@ -125,7 +163,9 @@ def _check_kernel_operands(q, own_k, own_v, k_pages, v_pages, tables,
             f"paged_attention: needs H % H_kv == 0, block_size in "
             f"{KERNEL_BLOCK_SIZES}, W <= {MAX_WINDOW}; got H={H}, "
             f"H_kv={HK}, block_size={bs}, W={W}")
-    if S < 1 or S > 65535 or smem_bytes((H // HK) * W, D) > MAX_SMEM_BYTES:
+    _, pages = split_plan(S, HK, tables.shape[1], bs)
+    if S < 1 or S > 65535 or smem_bytes(
+            (H // HK) * W, D, bs, q.element_size(), pages) > MAX_SMEM_BYTES:
         raise ValueError(
             f"paged_attention: S={S}, {H // HK} heads per group x W={W} "
             f"out of the kernel's range")
@@ -153,6 +193,8 @@ def paged_attention(q, own_k, own_v, k_pages, v_pages, tables, ctx_len,
     S, W, H, D = q.shape
     _, bs, HK, _ = k_pages.shape
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    max_blocks = tables.shape[1]
+    n_split, pages = split_plan(S, HK, max_blocks, bs)
     out = torch.empty_like(q)
     lib = _build.load("paged_attention")
     fn = _build.bind(lib.rt_paged_attention, _ARGTYPES)
@@ -161,8 +203,8 @@ def paged_attention(q, own_k, own_v, k_pages, v_pages, tables, ctx_len,
         err = fn(q.data_ptr(), own_k.data_ptr(), own_v.data_ptr(),
                  k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
                  ctx_len.data_ptr(), out.data_ptr(), S, W, H, HK, D, bs,
-                 tables.shape[1], float(scale),
-                 int(q.dtype == torch.bfloat16), stream)
+                 max_blocks, float(scale), int(q.dtype == torch.bfloat16),
+                 stream, n_split, pages)
     _build.check(err, "paged_attention", _build.bind(
         lib.rt_paged_error_string, [_I], ctypes.c_char_p))
     LAUNCHES.add()
