@@ -47,9 +47,25 @@ Phases, each of which exits non-zero on any failure:
    kernels must have launched, and the pool must drain. Then the
    decode-step logits of one request (through the paged-attention
    kernel) are held against one fresh prefill over prompt + generated
-   tokens (through the flash kernel) at the same positions.
-4. profile: the same requests again under torch.profiler, for the
-   device's busy share and its time by kernel class.
+   tokens (through the flash kernel) at the same positions; and the
+   same requests run again under torch.profiler, for the device's busy
+   share and its time by kernel class.
+4. serving paths, each on its own engine, freed before the next:
+   engine_default, GPT-2-small at the JAX engine's defaults (chunked
+   prefill at 256, the prefix cache, dense decode): the same 8 requests
+   (exactly 12 K1 launches per prompt of at most one chunk, no K4), then
+   4 requests sharing the first 512 tokens of the 700-token prompt
+   (at least 128 pages from the prefix cache, no launch), the pool
+   drained, the chunked-prefill + dense-decode logits against a
+   monolithic prefill, and a profiled pass; engine_spec, GPT-2-small
+   paged with speculative decoding (4 drafts, so K4 at W=5) on 8
+   prompts of a repeated 8-token motif, 64 tokens each: accepted <=
+   proposed, every committed token the argmax of a fresh prefill's row
+   or within LOGITS_TOL["max_abs"] of it (a bf16 near-tie), then the
+   same prompts with speculation off; engine_llama, Llama-small paged
+   (K1 on K/V repeated to 12 heads, K4 at H_kv=4): both kernels
+   launched, decode logits against a prefill. Each of the three also
+   serves its requests once more under torch.profiler.
 5. train: GPT-2-small training through `make_train_step` (bf16 compute,
    f32 masters, B=8 T=1024, adamw(3e-4, weight_decay=0.1), remat on, 3
    warm-up and 20 timed steps on one fixed batch), with the launch
@@ -63,19 +79,24 @@ Phases, each of which exits non-zero on any failure:
    versions): the loss, every leaf's grad and updated value within the
    printed tolerances.
 
-It prints one JSON line per kernel shape and per phase, then a
-``{"kernels": [...]}`` line, and as its last line
+It prints one JSON line per kernel shape and per phase, K4's rows on
+the serving paths with their launches there (by window and heads), then
+a ``{"kernels": [...]}`` line whose launches are split by path, and as
+its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -119,6 +140,12 @@ BWD_TOL = {"float32": {"atol": 1e-4, "rtol": 1e-4},
 LOGITS_TOL = {"max_abs": 0.1, "mean_abs": 0.01}
 ENGINE_PROMPTS = (700, 600, 530, 300, 90, 40, 17, 12)
 MAX_TOKENS = 32
+# engine_default's second wave: the first SHARED_PREFIX tokens of wave
+# 1's longest prompt, each with its own random SUFFIX
+SHARED_PREFIX, SUFFIX, WAVE2 = 512, 64, 4
+# engine_spec: K drafts, prompts of a SPEC_MOTIF-token motif repeated to
+# SPEC_PROMPT tokens
+SPEC_K, SPEC_REQUESTS, SPEC_MOTIF, SPEC_PROMPT, SPEC_TOKENS = 4, 8, 8, 64, 64
 # the training recipe of bench.py's GPT-2-small flagship, on one card
 TRAIN_BATCH = (8, 1024)
 TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 3, 20, 3
@@ -553,24 +580,63 @@ def paged_inputs(torch, gen, dtype, ctx_list, H, HK, W, bs, D, C=1024):
     return q, ok, ov, k_pages, v_pages, tables, ctx_len
 
 
+# The engine's speculative verify runs K4 one lane at a time (S=1, W=5)
+# over the lane's context; engine_spec's contexts run from 64 to 127
+# tokens, VERIFY_CTX is their middle
+VERIFY_CTX = (96,)
+
+# K4's bf16 rows that the serving paths run: GPT-2's decode batch (the
+# kernel's main row), GPT-2's verify window of four drafts on one lane,
+# and Llama-small's grouped-query decode batch (three query heads a KV
+# head); (ctx_len per sequence, (H, H_kv, W, block_size, D))
+PAGED_PATH_ROWS = {"decode": (PAGED_CTX, (12, 12, 1, 16, 64)),
+                   "verify": (VERIFY_CTX, (12, 12, 5, 16, 64)),
+                   "gqa_decode": (PAGED_CTX, (12, 4, 1, 16, 64))}
+
+
+def k4_launches(by_shape: dict, W: int, H: int, HK: int,
+                S: int | None = None) -> int:
+    """K4's launches in `by_shape` (labels of launch_shape) at window W
+    over H query and HK KV heads, at S sequences or at any S."""
+    want = {"W": W, "H": H, "H_kv": HK}
+    if S is not None:
+        want["S"] = S
+    n = 0
+    for label, count in by_shape.items():
+        have = {k: int(v) for k, v in
+                (kv.split("=") for kv in label.split())}
+        if all(have.get(k) == v for k, v in want.items()):
+            n += count
+    return n
+
+
 def check_paged(torch, gen) -> dict:
-    """K4 against its plain version; returns the bf16 decode row."""
+    """K4 against its plain version; returns the bf16 rows of
+    PAGED_PATH_ROWS by name."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import paged_attention as pa
 
     C = 1024
-    main = None
+    main = {}
     cases = [(dtype, PAGED_CTX, H, HK, W, bs, D)
              for dtype in (torch.float32, torch.bfloat16)
-             # decode, a verify window, GQA; then the other page sizes,
-             # D = 128
+             # decode, a verify window, GQA decode and window; then the
+             # other page sizes, D = 128
              for H, HK, W, bs, D in ((12, 12, 1, 16, 64), (12, 12, 5, 16, 64),
-                                     (12, 4, 5, 16, 64), (12, 12, 1, 8, 64),
-                                     (12, 4, 5, 32, 64), (8, 8, 1, 16, 128))]
+                                     (12, 4, 1, 16, 64), (12, 4, 5, 16, 64),
+                                     (12, 12, 1, 8, 64), (12, 4, 5, 32, 64),
+                                     (8, 8, 1, 16, 128))]
     # one long request, and a decode batch of full contexts
     cases += [(torch.bfloat16, ctx, 12, 12, 1, 16, 64)
               for ctx in ((1023,), (1023,) * 8)]
+    # the verify window on one lane, as the engine launches it: S=1
+    # splits each (sequence, KV head) far finer than S=8 does, under the
+    # causal own window, for GPT-2's heads and for grouped-query heads
+    cases += [(torch.bfloat16, ctx, 12, HK, 5, 16, 64)
+              for HK, ctxs in ((12, ((17,), VERIFY_CTX, (130,), (1023,))),
+                               (4, ((17,), (130,), (1023,))))
+              for ctx in ctxs]
     for dtype, ctx_list, H, HK, W, bs, D in cases:
         dn = dname(torch, dtype)
         S = len(ctx_list)
@@ -632,11 +698,13 @@ def check_paged(torch, gen) -> dict:
             # graph-timed mean
             row["device_ms_by_kernel"] = profiled_by_kernel(
                 torch, lambda: pa.paged_attention(*args), 20)
-        if dtype == torch.bfloat16 and ctx_list == PAGED_CTX and (
-                H, HK, W, bs, D) == (12, 12, 1, 16, 64):
-            row["earlier_ms"] = EARLIER_MS[("paged_attention", S)]
-            row["earlier_ms_source"] = EARLIER_SOURCE
-            main = row
+        if dtype == torch.bfloat16:
+            for name, path_row in PAGED_PATH_ROWS.items():
+                if (ctx_list, (H, HK, W, bs, D)) == path_row:
+                    main[name] = row
+            if (ctx_list, (H, HK, W, bs, D)) == PAGED_PATH_ROWS["decode"]:
+                row["earlier_ms"] = EARLIER_MS[("paged_attention", S)]
+                row["earlier_ms_source"] = EARLIER_SOURCE
         emit(row)
     return main
 
@@ -782,18 +850,129 @@ def drain(stream, first_at: dict, counts: dict, now: float) -> None:
         counts[stream.seq_id] = counts.get(stream.seq_id, 0) + 1
 
 
-def phase_engine(torch) -> dict:
-    import numpy as np
+def serve(torch, engine, prompts, max_tokens: int) -> dict:
+    """Submit every prompt at once (greedy, `max_tokens` each) and step
+    the engine until all finish: the finals, the token events per
+    request, TTFT (ms from submission to the first token event), the
+    wall time and the step times by kind of work, as the engine's own
+    step histogram (serve_llm_step_ms, tagged by kind) times them; an
+    idle step adds to neither. Fails if the engine makes no progress in
+    600 s."""
+    from ray_tpu_torch.serve.llm import SamplingParams
 
-    from ray_tpu_torch.models.gpt2 import gpt2_prefill_kv
-    from ray_tpu_torch.ops import flash_attention as fa
-    from ray_tpu_torch.ops import paged_attention as pa
-    from ray_tpu_torch.serve.llm import (
-        EngineConfig,
-        LLMEngine,
-        SamplingParams,
-    )
+    step_hist = engine._m_step
+    t_submit = time.perf_counter()
+    streams = [engine.add_request(p, SamplingParams(max_tokens=max_tokens))
+               for p in prompts]
+    first_at: dict = {}
+    counts: dict = {}
+    steps = 0
+    step_ms: dict[str, list[float]] = {"prefill": [], "decode": []}
+    deadline = t_submit + 600
+    while any(s.final() is None for s in streams):
+        before = step_hist.sums_by_tag("kind")
+        engine.step()
+        steps += 1
+        now = time.perf_counter()
+        for kind, total in step_hist.sums_by_tag("kind").items():
+            if total != before.get(kind, 0.0):
+                step_ms[kind].append(total - before.get(kind, 0.0))
+        for s in streams:
+            drain(s, first_at, counts, now)
+        if now > deadline:
+            fail(f"engine made no progress in 600 s ({steps} steps)")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_submit
+    for s in streams:
+        drain(s, first_at, counts, time.perf_counter())
+    finals = [s.final() for s in streams]
+    for p, s, f in zip(prompts, streams, finals):
+        if str(f["finish_reason"]).startswith("error"):
+            fail(f"request of {len(p)} tokens: {f['finish_reason']}")
+        if f["finish_reason"] != "length" \
+                or f["num_generated"] != max_tokens \
+                or len(f["token_ids"]) != max_tokens \
+                or counts.get(s.seq_id) != max_tokens:
+            fail(f"request of {len(p)} tokens: {f['finish_reason']}, "
+                 f"{f['num_generated']} generated, "
+                 f"{counts.get(s.seq_id)} token events")
+    ttft = sorted((first_at[s.seq_id] - t_submit) * 1e3 for s in streams)
+    n_tokens = sum(f["num_generated"] for f in finals)
+    return {"finals": finals, "wall_s": wall, "steps": steps,
+            "tokens": n_tokens, "tokens_per_s": n_tokens / wall,
+            "ttft_ms_p50": float(np.median(ttft)), "ttft_ms_max": ttft[-1],
+            "step_ms": {k: {"n": len(v), "p50": float(np.median(v)),
+                            "max": max(v)} for k, v in step_ms.items() if v}}
+
+
+def check_drained(engine, what: str) -> None:
+    st = engine.stats()
+    if st["blocks_used"] != 0 or st["running"] or st["waiting"]:
+        fail(f"{what}: pool not drained: {st['blocks_used']} blocks used, "
+             f"{st['running']} running, {st['waiting']} waiting")
+
+
+def decode_consistency(torch, engine, prompt, gen, prefill_fn,
+                       chunk: int = 0) -> dict:
+    """Decode logits of one request (prefill, then one decode step per
+    generated token, through the engine's own runner: its decode path,
+    paged or dense) held against one fresh monolithic prefill over the
+    same tokens (prefill_fn, through K1) at the same positions, within
+    LOGITS_TOL. With `chunk` the request prefills in chunks of that many
+    tokens, as the engine does a long prompt."""
     from ray_tpu_torch.serve.llm.runner import DecodeItem
+
+    runner, pool = engine.runner, engine.pool
+    table = pool.alloc(pool.blocks_for_tokens(len(prompt) + len(gen)))
+    if chunk:
+        for start in range(0, len(prompt), chunk):
+            _, last = runner.prefill_chunk(prompt[start:start + chunk],
+                                           start, table, 0.0)
+    else:
+        _, last = runner.prefill(prompt, table, 0.0)
+    rows = [last]
+    for i in range(1, len(gen)):
+        _, lg = runner.decode(
+            [DecodeItem(gen[i - 1], len(prompt) + i - 1, table, 0.0)])
+        rows.append(lg[0])
+    pool.free(table)
+    full = torch.tensor([prompt + gen[:-1]], device="cuda")
+    with torch.no_grad():
+        ref, _, _ = prefill_fn(runner._compute, full, engine.model_cfg)
+    vocab = engine.model_cfg.vocab_size
+    ref = ref[0, len(prompt) - 1:].cpu().numpy()[:, :vocab]
+    got = np.stack(rows)[:, :vocab]
+    diff = np.abs(got - ref)
+    out = {"rows": len(rows), "max_abs": float(diff.max()),
+           "mean_abs": float(diff.mean()),
+           "argmax_agree": int((got.argmax(-1) == ref.argmax(-1)).sum()),
+           "tol": LOGITS_TOL}
+    if not (np.isfinite(got).all() and diff.max() <= LOGITS_TOL["max_abs"]
+            and diff.mean() <= LOGITS_TOL["mean_abs"]):
+        fail(f"{engine.config.model} decode logits vs prefill: {out}")
+    return out
+
+
+def launch_counts(counters) -> dict:
+    """The counters' launches, and K4's by window and heads."""
+    out = {k: c.count for k, c in counters.items()}
+    out["paged_attention_by_shape"] = dict(
+        counters["paged_attention"].by_shape)
+    return out
+
+
+def release(torch) -> None:
+    """Give a deleted engine's memory (its pool is 0.3 of the card) back
+    before the next one is built."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_engine(torch) -> dict:
+    """GPT-2-small on the paged engine: monolithic prefill (K1), paged
+    decode (K4). Returns its row."""
+    from ray_tpu_torch.models.gpt2 import gpt2_prefill_kv
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
 
     t0 = time.perf_counter()
     engine = LLMEngine(EngineConfig(
@@ -805,105 +984,262 @@ def phase_engine(torch) -> dict:
     shapes = engine.warmup()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    cfg = engine.model_cfg
-
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
-               for n in ENGINE_PROMPTS]
+    prompts = engine_prompts(engine.model_cfg.vocab_size, 0)
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES.reset()
-    pa.LAUNCHES.reset()
-    t_submit = time.perf_counter()
-    streams = [engine.add_request(p, SamplingParams(max_tokens=MAX_TOKENS))
-               for p in prompts]
-    first_at: dict = {}
-    counts: dict = {}
-    steps = 0
-    step_ms: dict[str, list[float]] = {"prefill": [], "decode": []}
-    deadline = t_submit + 600
-    while any(s.final() is None for s in streams):
-        # every request fits the batch and the pool, so admission (one
-        # prefill per step) runs exactly while requests wait
-        kind = "prefill" if engine.scheduler.waiting else "decode"
-        t_step = time.perf_counter()
-        engine.step()
-        steps += 1
-        now = time.perf_counter()
-        step_ms[kind].append((now - t_step) * 1e3)
-        for s in streams:
-            drain(s, first_at, counts, now)
-        if now > deadline:
-            fail(f"engine made no progress in 600 s ({steps} steps)")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_submit
-    launches = {"flash_fwd": fa.LAUNCHES.count,
-                "paged_attention": pa.LAUNCHES.count}
+    counters = _reset_counters()
+    run = serve(torch, engine, prompts, MAX_TOKENS)
+    launches = launch_counts(counters)
     peak = torch.cuda.max_memory_allocated()
-    for s in streams:
-        drain(s, first_at, counts, time.perf_counter())
-
-    finals = [s.final() for s in streams]
-    for p, s, f in zip(prompts, streams, finals):
-        if str(f["finish_reason"]).startswith("error"):
-            fail(f"request of {len(p)} tokens: {f['finish_reason']}")
-        if f["finish_reason"] != "length" \
-                or f["num_generated"] != MAX_TOKENS \
-                or len(f["token_ids"]) != MAX_TOKENS \
-                or counts.get(s.seq_id) != MAX_TOKENS:
-            fail(f"request of {len(p)} tokens: {f['finish_reason']}, "
-                 f"{f['num_generated']} generated, "
-                 f"{counts.get(s.seq_id)} token events")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("flash_fwd", "paged_attention"):
+        if launches[name] <= 0:
             fail(f"{name} was not launched on the main path")
-    st = engine.stats()
-    if st["blocks_used"] != 0 or st["running"] or st["waiting"]:
-        fail(f"pool not drained: {st['blocks_used']} blocks used, "
-             f"{st['running']} running, {st['waiting']} waiting")
-    ttft = sorted((first_at[s.seq_id] - t_submit) * 1e3 for s in streams)
-
-    # decode logits (paged kernel) vs one prefill (flash kernel) over the
-    # same tokens, for the longest request
-    prompt, gen = prompts[0], finals[0]["token_ids"]
-    runner, pool = engine.runner, engine.pool
-    table = pool.alloc(pool.blocks_for_tokens(len(prompt) + len(gen)))
-    _, last = runner.prefill(prompt, table, 0.0)
-    rows = [last]
-    for i in range(1, len(gen)):
-        _, lg = runner.decode(
-            [DecodeItem(gen[i - 1], len(prompt) + i - 1, table, 0.0)])
-        rows.append(lg[0])
-    pool.free(table)
-    full = torch.tensor([prompt + gen[:-1]], device="cuda")
-    with torch.no_grad():
-        ref, _, _ = gpt2_prefill_kv(runner._compute, full, cfg)
-    ref = ref[0, len(prompt) - 1:].cpu().numpy()
-    got = np.stack(rows)
-    diff = np.abs(got - ref)[:, :cfg.vocab_size]
-    agree = int((got[:, :cfg.vocab_size].argmax(-1)
-                 == ref[:, :cfg.vocab_size].argmax(-1)).sum())
-    if not (np.isfinite(got).all() and diff.max() <= LOGITS_TOL["max_abs"]
-            and diff.mean() <= LOGITS_TOL["mean_abs"]):
-        fail(f"decode logits vs prefill: max {diff.max()}, mean "
-             f"{diff.mean()} (tol {LOGITS_TOL})")
-
+    check_drained(engine, "engine")
+    finals = run.pop("finals")
+    consistency = decode_consistency(torch, engine, prompts[0],
+                                     finals[0]["token_ids"],
+                                     gpt2_prefill_kv)
     profile = profile_engine(torch, engine, prompts)
-    n_tokens = sum(f["num_generated"] for f in finals)
-    row = {"phase": "engine", "model": "gpt2-small", "dtype": "bfloat16",
+    row = {"phase": "engine", "model": "gpt2-small",
+           "dtype": dname(torch, engine.model_cfg.dtype),
            "requests": len(prompts), "prompt_lens": list(ENGINE_PROMPTS),
            "max_tokens": MAX_TOKENS, "num_blocks": engine.pool.num_blocks,
            "init_s": init_s, "warmup_s": warm_s, "warmup_shapes": shapes,
-           "wall_s": wall, "steps": steps, "tokens": n_tokens,
-           "tokens_per_s": n_tokens / wall,
-           "ttft_ms_p50": float(np.median(ttft)), "ttft_ms_max": ttft[-1],
-           "step_ms": {k: {"n": len(v), "p50": float(np.median(v)),
-                           "max": max(v)} for k, v in step_ms.items()},
-           "max_memory_allocated": peak, "launches": launches,
-           "consistency": {"rows": len(rows), "max_abs": float(diff.max()),
-                           "mean_abs": float(diff.mean()),
-                           "argmax_agree": agree, "tol": LOGITS_TOL}}
+           **run, "max_memory_allocated": peak, "launches": launches,
+           "consistency": consistency}
     emit(row)
     emit(profile)
+    del engine
+    release(torch)
+    return row
+
+
+def engine_prompts(vocab: int, seed: int) -> list[list[int]]:
+    """Random prompts of the ENGINE_PROMPTS lengths."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, vocab, size=n).tolist() for n in ENGINE_PROMPTS]
+
+
+def phase_engine_default(torch, paged_row: dict) -> dict:
+    """GPT-2-small at the JAX engine's defaults: chunked prefill at 256
+    (prompts of at most one chunk prefill monolithically through K1),
+    the prefix cache, dense decode. Wave 1 is the paged phase's requests;
+    wave 2 shares the first 512 tokens of its 700-token prompt, which
+    must come from the cache. Returns the launches of both waves."""
+    from ray_tpu_torch.models.gpt2 import gpt2_prefill_kv
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+
+    t0 = time.perf_counter()
+    engine = LLMEngine(EngineConfig(model="gpt2", preset="small",
+                                    max_model_len=1024, max_batch_size=8,
+                                    seed=0))
+    cfg = engine.model_cfg
+    chunk = engine.runner.prefill_chunk_size
+    if not (chunk == 256 and engine.pool.enable_prefix_cache
+            and not engine.runner.use_paged_attention
+            and engine.runner.spec_width == 0):
+        fail(f"engine_default: not the JAX defaults (chunk {chunk}, "
+             f"prefix cache {engine.pool.enable_prefix_cache}, paged "
+             f"{engine.runner.use_paged_attention})")
+    shapes = engine.warmup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompts = engine_prompts(cfg.vocab_size, 0)
+
+    counters = _reset_counters()
+    wave1 = serve(torch, engine, prompts, MAX_TOKENS)
+    launches1 = launch_counts(counters)
+    mono = sum(1 for n in ENGINE_PROMPTS if n <= chunk)
+    want = {"flash_fwd": mono * cfg.n_layer, "paged_attention": 0}
+    got = {k: launches1[k] for k in want}
+    if got != want:
+        fail(f"engine_default wave 1: launches {got}, want {want} "
+             f"({mono} monolithic prefills of {cfg.n_layer} layers)")
+    check_drained(engine, "engine_default wave 1")
+
+    rng = np.random.RandomState(1)
+    shared = prompts[0][:SHARED_PREFIX]
+    wave2_prompts = [shared + rng.randint(0, cfg.vocab_size,
+                                          SUFFIX).tolist()
+                     for _ in range(WAVE2)]
+    hits0 = engine.stats()["prefix_hit_pages"]
+    counters = _reset_counters()
+    wave2 = serve(torch, engine, wave2_prompts, MAX_TOKENS)
+    launches2 = launch_counts(counters)
+    hits = engine.stats()["prefix_hit_pages"] - hits0
+    want_hits = WAVE2 * SHARED_PREFIX // engine.pool.block_size
+    if hits < want_hits:
+        fail(f"engine_default wave 2: {hits} prefix-hit pages, want at "
+             f"least {want_hits}")
+    if launches2["paged_attention"] or launches2["flash_fwd"]:
+        fail(f"engine_default wave 2: launches {launches2}; every prompt "
+             f"starts past its cached prefix, so none is monolithic")
+    check_drained(engine, "engine_default wave 2")
+    cached = [f["cached_tokens"] for f in wave2["finals"]]
+
+    f1 = wave1.pop("finals")
+    wave2.pop("finals")
+    consistency = decode_consistency(torch, engine, prompts[0],
+                                     f1[0]["token_ids"], gpt2_prefill_kv,
+                                     chunk=chunk)
+    profile = profile_engine(torch, engine,
+                             engine_prompts(cfg.vocab_size, 2),
+                             "engine_default_profile")
+    row = {"phase": "engine_default", "model": "gpt2-small",
+           "dtype": dname(torch, cfg.dtype),
+           "config": "EngineConfig defaults: prefill_chunk_size=256, "
+           "enable_prefix_cache=True, use_paged_attention=False",
+           "num_blocks": engine.pool.num_blocks,
+           "setup_s": setup_s, "warmup_shapes": shapes,
+           "wave1": {"prompt_lens": list(ENGINE_PROMPTS), **wave1,
+                     "launches": launches1},
+           "wave2": {"prompt_lens": [len(p) for p in wave2_prompts],
+                     **wave2, "prefix_hit_pages": hits,
+                     "cached_tokens": cached, "launches": launches2},
+           "paged_engine_same_requests": {
+               k: paged_row[k] for k in ("tokens_per_s", "ttft_ms_p50",
+                                         "ttft_ms_max", "step_ms")},
+           "consistency_chunked_dense": consistency}
+    emit(row)
+    emit(profile)
+    del engine
+    release(torch)
+    return {k: launches1[k] + launches2[k]
+            for k in ("flash_fwd", "paged_attention")}  # K4: none
+
+
+def phase_engine_spec(torch) -> dict:
+    """GPT-2-small on the paged engine with speculative decoding (K=4):
+    each drafted lane's window of 5 goes through K4 at W=5. Every
+    committed token must be the argmax of a fresh prefill's logits row
+    at its position, or within LOGITS_TOL["max_abs"] of it (a near-tie
+    in bf16 may break either way). The same requests then run with
+    speculation off. Returns the launches with speculation on."""
+    from ray_tpu_torch.models.gpt2 import gpt2_prefill_kv
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+
+    def build(spec):
+        engine = LLMEngine(EngineConfig(
+            model="gpt2", preset="small", max_model_len=1024,
+            max_batch_size=8, prefill_chunk_size=0,
+            use_paged_attention=True, speculative=spec, seed=0))
+        engine.warmup()
+        torch.cuda.synchronize()
+        return engine
+
+    engine = build({"num_draft_tokens": SPEC_K})
+    cfg = engine.model_cfg
+    rng = np.random.RandomState(0)
+    prompts = []
+    for _ in range(SPEC_REQUESTS):
+        motif = rng.randint(0, cfg.vocab_size, SPEC_MOTIF).tolist()
+        prompts.append((motif * (SPEC_PROMPT // SPEC_MOTIF))[:SPEC_PROMPT])
+    counters = _reset_counters()
+    run = serve(torch, engine, prompts, SPEC_TOKENS)
+    launches = launch_counts(counters)
+    # the engine verifies one lane at a time: every W=5 launch is S=1,
+    # the shape of PAGED_PATH_ROWS["verify"]
+    by_shape = launches["paged_attention_by_shape"]
+    verify_launches = k4_launches(by_shape, SPEC_K + 1, cfg.n_head,
+                                  cfg.n_head, S=1)
+    if verify_launches <= 0 or verify_launches % cfg.n_layer \
+            or verify_launches != k4_launches(by_shape, SPEC_K + 1,
+                                              cfg.n_head, cfg.n_head):
+        fail(f"engine_spec: {verify_launches} K4 launches at S=1 "
+             f"W={SPEC_K + 1}: {launches}")
+    st = engine.stats()
+    if not 0 <= st["spec_accepted"] <= st["spec_proposed"]:
+        fail(f"engine_spec: accepted {st['spec_accepted']} of "
+             f"{st['spec_proposed']} proposed")
+    check_drained(engine, "engine_spec")
+    finals = run.pop("finals")
+    streams = [f["token_ids"] for f in finals]
+    ties, worst = 0, 0.0
+    for prompt, gen in zip(prompts, streams):
+        full = torch.tensor([prompt + gen[:-1]], device="cuda")
+        with torch.no_grad():
+            ref, _, _ = gpt2_prefill_kv(engine.runner._compute, full, cfg)
+        rows = ref[0, len(prompt) - 1:, :cfg.vocab_size].float()
+        gap = rows.max(-1).values - rows.gather(
+            -1, torch.tensor(gen, device="cuda")[:, None])[:, 0]
+        ties += int((gap > 0).sum())
+        worst = max(worst, float(gap.max()))
+    if not worst <= LOGITS_TOL["max_abs"]:
+        fail(f"engine_spec: a committed token's logit is {worst} below "
+             f"its row's max (tol {LOGITS_TOL['max_abs']})")
+    profile = profile_engine(torch, engine, prompts,
+                             "engine_spec_profile")
+    del engine
+    release(torch)
+    engine = build(None)
+    off = serve(torch, engine, prompts, SPEC_TOKENS)
+    same = sum(a == b["token_ids"] for a, b in zip(streams, off.pop("finals")))
+    check_drained(engine, "engine_spec (speculation off)")
+    del engine
+    release(torch)
+    row = {"phase": "engine_spec", "model": "gpt2-small",
+           "dtype": dname(torch, cfg.dtype), "num_draft_tokens": SPEC_K,
+           "requests": SPEC_REQUESTS, "prompt": f"{SPEC_MOTIF}-token motif "
+           f"repeated to {SPEC_PROMPT} tokens", "max_tokens": SPEC_TOKENS,
+           **run, "launches": launches,
+           "verify_steps": verify_launches // cfg.n_layer,
+           "spec_proposed": st["spec_proposed"],
+           "spec_accepted": st["spec_accepted"],
+           "accept_ratio": st["spec_accepted"] / max(1, st["spec_proposed"]),
+           "tokens_not_argmax": ties, "max_gap_to_argmax": worst,
+           "gap_tol": LOGITS_TOL["max_abs"],
+           "spec_off": off, "streams_equal_to_spec_off": same}
+    emit(row)
+    emit(profile)
+    return launches
+
+
+def phase_engine_llama(torch) -> dict:
+    """Llama-small (12 layers, E=768, H=12 over H_kv=4, SwiGLU 2048,
+    vocab 32000) in bf16 on the paged engine: prefill through K1 on K/V
+    repeated to 12 heads, grouped-query decode through K4. Returns its
+    launches."""
+    from ray_tpu_torch.models.llama import llama_prefill_kv
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+
+    t0 = time.perf_counter()
+    engine = LLMEngine(EngineConfig(
+        model="llama", preset="small", max_model_len=1024,
+        max_batch_size=8, prefill_chunk_size=0, use_paged_attention=True,
+        seed=0))
+    engine.warmup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = engine.model_cfg
+    prompts = engine_prompts(cfg.vocab_size, 0)
+    counters = _reset_counters()
+    run = serve(torch, engine, prompts, MAX_TOKENS)
+    launches = launch_counts(counters)
+    if launches["flash_fwd"] != len(prompts) * cfg.n_layer \
+            or k4_launches(launches["paged_attention_by_shape"], 1,
+                           cfg.n_head, cfg.n_kv_head) <= 0:
+        fail(f"engine_llama: launches {launches}, want "
+             f"{len(prompts) * cfg.n_layer} flash_fwd and K4 at W=1 "
+             f"H={cfg.n_head} H_kv={cfg.n_kv_head}")
+    check_drained(engine, "engine_llama")
+    finals = run.pop("finals")
+    consistency = decode_consistency(torch, engine, prompts[0],
+                                     finals[0]["token_ids"],
+                                     llama_prefill_kv)
+    profile = profile_engine(torch, engine, prompts,
+                             "engine_llama_profile")
+    row = {"phase": "engine_llama", "model": "llama-small",
+           "dtype": dname(torch, cfg.dtype), "shape": {
+               "n_layer": cfg.n_layer, "n_embd": cfg.n_embd,
+               "n_head": cfg.n_head, "n_kv_head": cfg.n_kv_head,
+               "intermediate": cfg.intermediate,
+               "vocab_size": cfg.vocab_size},
+           "requests": len(prompts), "prompt_lens": list(ENGINE_PROMPTS),
+           "max_tokens": MAX_TOKENS, "setup_s": setup_s, **run,
+           "launches": launches, "consistency": consistency}
+    emit(row)
+    emit(profile)
+    del engine
+    release(torch)
     return launches
 
 
@@ -919,7 +1255,7 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_engine(torch, engine, prompts) -> dict:
+def profile_engine(torch, engine, prompts, phase: str = "profile") -> dict:
     """Serve the same requests again under torch.profiler: device time
     by kernel class and the device's busy share of the wall time (the
     profiler's own cost slows the host side of this pass)."""
@@ -937,7 +1273,7 @@ def profile_engine(torch, engine, prompts) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     out = device_time(torch, prof, wall_us)
-    out["phase"] = "profile"
+    out["phase"] = phase
     return out
 
 
@@ -1197,14 +1533,35 @@ def main() -> int:
     k1 = check_flash(torch, gen)
     k23 = check_flash_bwd(torch, gen)
     k4 = check_paged(torch, gen)
-    serve = phase_engine(torch)
-    train = phase_train(torch)
+    paged = phase_engine(torch)
+    paths = {"serve": paged["launches"],
+             "serve_default": phase_engine_default(torch, paged),
+             "serve_spec": phase_engine_spec(torch),
+             "serve_llama": phase_engine_llama(torch),
+             "train": phase_train(torch)}
     phase_parity(torch)
 
-    # flash_fwd runs on both paths: its row is the training shape, its
-    # launches those of both runs
-    by_path = {name: {"serve": serve.get(name, 0),
-                      "train": train.get(name, 0)}
+    # K4's rows on the serving paths, each with its launches there
+    for name, path in (("decode", "serve"), ("verify", "serve_spec"),
+                       ("gqa_decode", "serve_llama")):
+        ctx_list, (H, HK, W, _, _) = PAGED_PATH_ROWS[name]
+        row = k4[name]
+        by_shape = paths[path]["paged_attention_by_shape"]
+        emit({"kernel": "paged_attention", "row": name,
+              "shape": row["shape"], "max_abs_err": row["max_abs_err"],
+              "kernel_ms": row["kernel_ms"],
+              "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+              "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+              "path": path,
+              "launches_at_this_width_and_heads": k4_launches(
+                  by_shape, W, H, HK),
+              "launches_at_this_shape": k4_launches(
+                  by_shape, W, H, HK, S=len(ctx_list))})
+
+    # flash_fwd runs on the serving and training paths: its row is the
+    # training shape, its launches those of every path
+    by_path = {name: {path: launches.get(name, 0)
+                      for path, launches in paths.items()}
                for name in ("flash_fwd", "flash_dq", "flash_dkv",
                             "paged_attention")}
     kernels = []
@@ -1218,7 +1575,8 @@ def main() -> int:
             (k23["flash_dkv"], "flash_dkv",
              "ray_tpu_torch/csrc/flash_attention_bwd.cu",
              "ray_tpu/ops/flash_attention.py:192", "max_abs_err"),
-            (k4, "paged_attention", "ray_tpu_torch/csrc/paged_attention.cu",
+            (k4["decode"], "paged_attention",
+             "ray_tpu_torch/csrc/paged_attention.cu",
              "ray_tpu/ops/paged_attention.py:73", "max_abs_err")):
         kernels.append({
             "name": name, "route": "cuda", "source": src,

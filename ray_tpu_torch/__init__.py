@@ -8,7 +8,9 @@ use, never at import. Entry points run on the card unless the caller
 passes ``device="cpu"``, where each kernel's wrapper runs its plain
 PyTorch version instead.
 
-Ported so far: GPT-2 serving (``ray_tpu_torch.serve.llm``), through the
+Ported so far: GPT-2 and Llama serving (``ray_tpu_torch.serve.llm``) at
+the JAX engine's defaults (chunked prefill, prefix caching, dense
+decode) and with paged decode and speculative decoding, through the
 flash-attention forward (``ops/flash_attention.py``) and the paged
 attention kernel (``ops/paged_attention.py``); GPT-2 training on one
 card (``ray_tpu_torch.train``), through the flash-attention forward and

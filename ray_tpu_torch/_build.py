@@ -37,17 +37,22 @@ _libs: dict[str, ctypes.CDLL] = {}  # guarded_by(_lock)
 class LaunchCounter:
     """Launches of one kernel in this process. Its wrapper adds one
     where it launches the kernel, and nowhere else, so a run can show
-    that its main path went through the kernel."""
+    that its main path went through the kernel; `by_shape` tallies the
+    same launches by the shape label the wrapper passes, if any."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.by_shape: dict[str, int] = {}
 
-    def add(self) -> None:
+    def add(self, shape: str | None = None) -> None:
         self.count += 1
+        if shape is not None:
+            self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
 
     def reset(self) -> None:
         self.count = 0
+        self.by_shape = {}
 
 
 def nvcc() -> str:

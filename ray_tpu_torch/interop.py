@@ -2,7 +2,9 @@
 
 A tree is nested dicts whose leaves are arrays: JAX arrays or numpy
 arrays, with the stacked ``[L, ...]`` block leaves the JAX models build
-(``ray_tpu/models/gpt2.py`` `init_gpt2`). Every leaf goes through a
+(``ray_tpu/models/gpt2.py`` `init_gpt2`, ``ray_tpu/models/llama.py``
+`init_llama`, whose block leaves are arrays directly under their
+names). Every leaf goes through a
 float32 numpy array, so bf16 leaves need no ``ml_dtypes`` here. Torch
 seeds cannot reproduce ``jax.random`` draws, so this is how a test
 makes both sides compute with the same weights.

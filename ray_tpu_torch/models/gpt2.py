@@ -12,13 +12,17 @@ a float32 tensor to bf16 rounds to nearest even in both frameworks, so
 its copies are bit-equal to JAX's per-call ``.astype(dt)``.
 
 Attention goes through ``ops/attention.py`` (kernel K1 forward, K2 and
-K3 backward) in the full-sequence forward and prefill, and through
-``ops/paged_attention.py`` (kernel K4) in paged decode. `gpt2_loss` is
-the training loss; with ``cfg.remat`` (the default) each block of
-`gpt2_forward` is recomputed in the backward, as the JAX model's "full"
-remat policy does. The selective policies ``save_flash`` and
-``save_dots``, the chunked-prefill and verify entry points and the
-partition rules come with later slices (ROADMAP.md).
+K3 backward) in the full-sequence forward and monolithic prefill, and
+through ``ops/paged_attention.py`` (kernel K4) in paged decode and the
+speculative verify window. Chunked prefill and dense decode attend over
+a gathered context with the JAX model's plain einsum math, which runs
+outside any kernel there too. Every serving path shares the block's
+projections and MLP; the paged ones swap the attention core through
+the JAX model's ``attend`` hook. `gpt2_loss` is the training loss; with
+``cfg.remat`` (the default) each block of `gpt2_forward` is recomputed
+in the backward, as the JAX model's "full" remat policy does. The
+selective policies ``save_flash`` and ``save_dots`` and the partition
+rules come with later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,8 +37,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ray_tpu_torch.ops.attention import causal_attention
-from ray_tpu_torch.ops.paged_attention import paged_attention
+from ray_tpu_torch.ops.attention import (
+    causal_attention,
+    context_attention,
+    context_decode_attention,
+)
+from ray_tpu_torch.ops.paged_attention import decode_hook, window_hook
 from ray_tpu_torch.util import tree
 
 Params = Any
@@ -150,18 +158,6 @@ def serving_params(params: Params, cfg: GPT2Config) -> Params:
             "blocks": blocks, "lnf": params["lnf"]}
 
 
-def _layers(params: Params) -> list[Params]:
-    """Every layer's parameters out of the stacked block tree, with one
-    ``unbind(0)`` per stacked leaf: its backward stacks the layers'
-    grads once, where indexing ``t[i]`` per layer would add a zero
-    tensor the size of the whole stack for each layer."""
-    per = {name: {k: t.unbind(0) for k, t in leaf.items()}
-           for name, leaf in params["blocks"].items()}
-    n = len(tree.leaves(per)[0])
-    return [{name: {k: ts[i] for k, ts in leaf.items()}
-             for name, leaf in per.items()} for i in range(n)]
-
-
 def _layer_norm(x, scale, bias, eps=1e-5):
     y = F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(),
                      eps)
@@ -180,17 +176,30 @@ def _mlp(x, p, cfg: GPT2Config):
     return x + _dense(h, p["mlp_proj"], cfg.dtype)
 
 
+def _attn_out(x, att, p, cfg: GPT2Config):
+    """The rest of a block after its attention core: output projection,
+    residual, MLP (shared by every serving path, as in the JAX model)."""
+    x = x + _dense(att, p["attn_proj"], cfg.dtype)
+    return _mlp(x, p, cfg)
+
+
+def _qkv(x, p, cfg: GPT2Config):
+    """ln1 and the fused projection of x (..., E) -> q, k, v (..., H, D),
+    column slices of one tensor."""
+    E = cfg.n_embd
+    h = _layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"])
+    qkv = _dense(h, p["attn_qkv"], cfg.dtype)
+    return (t.reshape(*x.shape[:-1], cfg.n_head, cfg.head_dim)
+            for t in qkv.split(E, dim=-1))
+
+
 def _block_kv(x, p, cfg: GPT2Config):
     """One transformer block on x (B, T, E); also returns this layer's
     attention K/V heads (B, T, H, D) for the serving cache."""
     B, T, E = x.shape
-    H, D = cfg.n_head, cfg.head_dim
-    h = _layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"])
-    qkv = _dense(h, p["attn_qkv"], cfg.dtype)
-    q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(E, dim=-1))
+    q, k, v = _qkv(x, p, cfg)
     att = causal_attention(q, k, v).reshape(B, T, E)
-    x = x + _dense(att, p["attn_proj"], cfg.dtype)
-    return _mlp(x, p, cfg), (k, v)
+    return _attn_out(x, att, p, cfg), (k, v)
 
 
 def _block(x, p, cfg: GPT2Config):
@@ -240,7 +249,7 @@ def gpt2_forward(params: Params, tokens: torch.Tensor,
     T = tokens.shape[1]
     block = _remat_block(cfg)
     x = _embed(params, tokens, torch.arange(T, device=tokens.device), cfg)
-    for p in _layers(params):
+    for p in tree.unstack(params["blocks"]):
         x = block(x, p, cfg)
     return _logits(params, x, cfg)
 
@@ -267,27 +276,95 @@ def gpt2_prefill_kv(params: Params, tokens: torch.Tensor, cfg: GPT2Config
     """tokens (B, T) -> (logits (B, T, Vp) f32, k, v (L, B, T, H, D))."""
     T = tokens.shape[1]
     x = _embed(params, tokens, torch.arange(T, device=tokens.device), cfg)
-    ks, vs = [], []
-    for p in _layers(params):
-        x, (k, v) = _block_kv(x, p, cfg)
-        ks.append(k)
-        vs.append(v)
-    return _logits(params, x, cfg), torch.stack(ks), torch.stack(vs)
+    x, k, v = tree.scan_layers(params["blocks"], x,
+                               lambda i, p, x: _block_kv(x, p, cfg))
+    return _logits(params, x, cfg), k, v
 
 
-def _decode_block(x, p, k_pages, v_pages, tables, positions,
-                  cfg: GPT2Config):
-    """Single-token block step on x (B, E) against one layer's pages.
-    Returns (x, (k_new, v_new)) with k_new/v_new (B, H, D)."""
+def _chunk_block(x, p, k_ctx, v_ctx, ctx_mask, chunk_mask, cfg: GPT2Config,
+                 attend=None):
+    """Chunked-prefill block step. x (B, T, E) holds a chunk of the
+    sequence at absolute positions start..start+T-1; k_ctx/v_ctx
+    (B, C, H, D) hold the cached context for positions < start (ctx_mask
+    (B, C) marks valid slots); chunk_mask (B, T) marks the chunk's real
+    positions. Returns (x, (k, v)) with k/v (B, T, H, D), the chunk's
+    cache contribution.
+
+    With ``attend`` set (the paged path) the dense context math is
+    replaced by ``attend(q, k, v) -> (B, T, H, D)``, which reads this
+    layer's pages itself; projections and MLP stay shared."""
+    B, T, E = x.shape
+    q, k, v = _qkv(x, p, cfg)
+    if attend is not None:
+        att = attend(q, k, v)
+    else:
+        att = context_attention(q, k, v, k_ctx, v_ctx, ctx_mask,
+                                chunk_mask)
+    return _attn_out(x, att.reshape(B, T, E), p, cfg), (k, v)
+
+
+def _chunk_positions(start: int, T: int, block_size: int, device):
+    """Absolute positions start..start+T-1, clipped to the position
+    range. Gathered by, never sliced: a slice would clamp its start when
+    bucket padding runs past n_positions and shift every real token's
+    embedding; only padded tail rows clip, and their K/V lands in the
+    null page."""
+    return (start + torch.arange(T, device=device)).clamp(0, block_size - 1)
+
+
+def gpt2_prefill_chunk_kv(params: Params, tokens: torch.Tensor, start: int,
+                          k_ctx: torch.Tensor, v_ctx: torch.Tensor,
+                          ctx_mask: torch.Tensor, chunk_mask: torch.Tensor,
+                          cfg: GPT2Config
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Prefill a chunk from a position offset. tokens (B, T) sit at
+    absolute positions start..start+T-1; k_ctx/v_ctx (L, B, C, H, D)
+    hold the gathered context for positions < start, ctx_mask (B, C)
+    its valid slots and chunk_mask (B, T) the chunk's real tokens.
+    Returns (logits (B, T, Vp) f32, k, v (L, B, T, H, D)); the caller
+    scatters k/v into the pages."""
+    def step(i, p, x):
+        return _chunk_block(x, p, k_ctx[i], v_ctx[i], ctx_mask,
+                            chunk_mask, cfg)
+
+    pos = _chunk_positions(start, tokens.shape[1], cfg.block_size,
+                           tokens.device)
+    x = _embed(params, tokens, pos, cfg)
+    x, k, v = tree.scan_layers(params["blocks"], x, step)
+    return _logits(params, x, cfg), k, v
+
+
+def _decode_block(x, p, k_ctx, v_ctx, ctx_mask, cfg: GPT2Config,
+                  attend=None):
+    """Single-token block step. x (B, E); k_ctx/v_ctx (B, C, H, D) hold
+    the cached context (ctx_mask (B, C) marks valid slots). Returns
+    (x, (k_new, v_new)) with k_new/v_new (B, H, D). ``attend(q, k, v)
+    -> (B, H, D)`` swaps in the paged kernel (see `_chunk_block`)."""
     B, E = x.shape
-    H, D = cfg.n_head, cfg.head_dim
-    h = _layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"])
-    qkv = _dense(h, p["attn_qkv"], cfg.dtype)
-    q, k, v = (t.reshape(B, 1, H, D).contiguous()
-               for t in qkv.split(E, dim=-1))
-    att = paged_attention(q, k, v, k_pages, v_pages, tables, positions)
-    x = x + _dense(att.reshape(B, E), p["attn_proj"], cfg.dtype)
-    return _mlp(x, p, cfg), (k[:, 0], v[:, 0])
+    q, k, v = _qkv(x, p, cfg)
+    if attend is not None:
+        att = attend(q, k, v)
+    else:
+        att = context_decode_attention(q, k, v, k_ctx, v_ctx, ctx_mask)
+    return _attn_out(x, att.reshape(B, E), p, cfg), (k, v)
+
+
+def gpt2_decode_kv(params: Params, tokens: torch.Tensor,
+                   positions: torch.Tensor, k_ctx: torch.Tensor,
+                   v_ctx: torch.Tensor, ctx_mask: torch.Tensor,
+                   cfg: GPT2Config
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One dense decode step. tokens/positions (B,); k_ctx/v_ctx
+    (L, B, C, H, D) the gathered context; ctx_mask (B, C). Returns
+    (logits (B, Vp) f32, k_new, v_new (L, B, H, D)); the caller
+    scatters k_new/v_new at each sequence's position."""
+    def step(i, p, x):
+        return _decode_block(x, p, k_ctx[i], v_ctx[i], ctx_mask, cfg)
+
+    x = _embed(params, tokens, positions.long(), cfg)
+    x, k, v = tree.scan_layers(params["blocks"], x, step)
+    return _logits(params, x, cfg), k, v
 
 
 def gpt2_decode_paged_kv(params: Params, tokens: torch.Tensor,
@@ -296,18 +373,44 @@ def gpt2_decode_paged_kv(params: Params, tokens: torch.Tensor,
                          cfg: GPT2Config
                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step against the page pool (L, num_blocks, block_size,
-    H, D). tokens/positions (B,) with positions int32 (it is also the
-    kernel's ctx_len); tables (B, max_blocks_per_seq) int32. Returns
-    (logits (B, Vp) f32, k_new, v_new (L, B, H, D)); the caller scatters
-    k_new/v_new into the pages after the step."""
+    H, D) through kernel K4. tokens/positions (B,) with positions int32
+    (it is also the kernel's ctx_len); tables (B, max_blocks_per_seq)
+    int32. Returns (logits (B, Vp) f32, k_new, v_new (L, B, H, D)); the
+    caller scatters k_new/v_new into the pages after the step."""
+    def step(i, p, x):
+        return _decode_block(x, p, None, None, None, cfg, attend=decode_hook(
+            k_pages[i], v_pages[i], tables, positions))
+
     x = _embed(params, tokens, positions.long(), cfg)
-    ks, vs = [], []
-    for i, p in enumerate(_layers(params)):
-        x, (k, v) = _decode_block(x, p, k_pages[i], v_pages[i], tables,
-                                  positions, cfg)
-        ks.append(k)
-        vs.append(v)
-    return _logits(params, x, cfg), torch.stack(ks), torch.stack(vs)
+    x, k, v = tree.scan_layers(params["blocks"], x, step)
+    return _logits(params, x, cfg), k, v
+
+
+def gpt2_verify_paged_kv(params: Params, tokens: torch.Tensor, start: int,
+                         k_pages: torch.Tensor, v_pages: torch.Tensor,
+                         table: torch.Tensor, cfg: GPT2Config
+                         ) -> tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """Speculative verify window against the page pool: tokens (1, W) at
+    absolute positions start..start+W-1, table (max_blocks_per_seq,)
+    int32 covering cached positions < start, through kernel K4 with
+    ctx_len = start. Causal within the window (no chunk mask: a row only
+    attends rows before it, and rows past the draft count are discarded
+    by the caller). Returns (logits (1, W, Vp) f32, k, v
+    (L, 1, W, H, D))."""
+    dev = tokens.device
+    pos = _chunk_positions(start, tokens.shape[1], cfg.block_size, dev)
+    x = _embed(params, tokens, pos, cfg)
+    tables = table[None]
+    ctx_len = torch.full((1,), start, dtype=torch.int32, device=dev)
+
+    def step(i, p, x):
+        return _chunk_block(x, p, None, None, None, None, cfg,
+                            attend=window_hook(k_pages[i], v_pages[i],
+                                               tables, ctx_len))
+
+    x, k, v = tree.scan_layers(params["blocks"], x, step)
+    return _logits(params, x, cfg), k, v
 
 
 def count_params(params: Params) -> int:

@@ -8,6 +8,12 @@
   its plain version on a CPU tensor, and is differentiable: its
   backward launches K2 and K3 on the card and runs their plain version
   on the CPU.
+- `context_attention` and `context_decode_attention`: the serving
+  paths' attention over a dense gathered context (chunked prefill,
+  dense decode), the JAX models' plain einsum math, which runs outside
+  any Pallas kernel there too. K/V with fewer heads than q (grouped
+  queries) are repeated up to q's heads, query head h reading KV head
+  h // (H / H_kv), as ``jnp.repeat`` does.
 
 Deviation from the JAX module: it sends only T >= 512 to the flash
 kernel (`_FLASH_MIN_SEQ`, a cost decision for the TPU) and uses the
@@ -41,3 +47,50 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor,
     """Causal attention through the flash kernels at every length: K1
     forward, K2 and K3 backward."""
     return flash_attention(q, k, v, causal=True)
+
+
+def _repeat_kv(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """t (..., H_kv, D) with each KV head repeated up to `heads`, in the
+    order of ``jnp.repeat`` (never ``.repeat``, which tiles)."""
+    rep = heads // t.shape[-2]
+    return t if rep == 1 else t.repeat_interleave(rep, dim=-2)
+
+
+def context_attention(q, k, v, k_ctx, v_ctx, ctx_mask, chunk_mask):
+    """Attention of a chunk q (B, T, H, D) over the cached context
+    k_ctx/v_ctx (B, C, H_kv, D), the slots where ctx_mask (B, C) is set,
+    plus the chunk's own k/v (B, T, H_kv, D), causally among its real
+    positions (chunk_mask (B, T)). f32 scores, mask -1e30, probabilities
+    cast to q's dtype before the PV products. Returns (B, T, H, D)."""
+    B, T, H, D = q.shape
+    C = k_ctx.shape[1]
+    k_ctx, v_ctx, k, v = (_repeat_kv(t, H) for t in (k_ctx, v_ctx, k, v))
+    scale = 1.0 / (D ** 0.5)
+    s_ctx = torch.einsum("bthd,bchd->bhtc", q, k_ctx).float()
+    s_own = torch.einsum("bthd,bshd->bhts", q, k).float()
+    s = torch.cat([s_ctx, s_own], dim=-1) * scale
+    causal = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    valid = torch.cat([ctx_mask[:, None, :].expand(B, T, C),
+                       causal[None] & chunk_mask[:, None, :]], dim=-1)
+    s = torch.where(valid[:, None, :, :], s, -1e30)
+    probs = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhtc,bchd->bthd", probs[..., :C], v_ctx) \
+        + torch.einsum("bhts,bshd->bthd", probs[..., C:], v)
+
+
+def context_decode_attention(q, k, v, k_ctx, v_ctx, ctx_mask):
+    """Attention of one token a sequence, q (B, H, D), over the cached
+    context k_ctx/v_ctx (B, C, H_kv, D), the slots where ctx_mask (B, C)
+    is set, plus its own k/v (B, H_kv, D). Returns (B, H, D)."""
+    B, H, D = q.shape
+    k_ctx, v_ctx, k, v = (_repeat_kv(t, H) for t in (k_ctx, v_ctx, k, v))
+    scale = 1.0 / (D ** 0.5)
+    s_ctx = torch.einsum("bhd,bchd->bhc", q, k_ctx).float()
+    s_own = (q * k).sum(dim=-1, dtype=torch.float32)
+    s = torch.cat([s_ctx, s_own[:, :, None]], dim=-1) * scale
+    valid = torch.cat([ctx_mask, torch.ones(B, 1, dtype=torch.bool,
+                                            device=q.device)], dim=-1)
+    s = torch.where(valid[:, None, :], s, -1e30)
+    probs = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhc,bchd->bhd", probs[..., :-1], v_ctx) \
+        + probs[..., -1:] * v

@@ -98,6 +98,14 @@ def paged_attention_reference(q, own_k, own_v, k_pages, v_pages, tables,
     return att.to(q.dtype)
 
 
+def launch_shape(S: int, W: int, H: int, HK: int) -> str:
+    """The label `LAUNCHES.by_shape` counts a launch under: the
+    sequences, the window width and the query and KV heads (W=5 is a
+    verify window of four drafts; H_kv < H is grouped-query
+    attention)."""
+    return f"S={S} W={W} H={H} H_kv={HK}"
+
+
 def split_plan(num_seqs: int, num_kv_heads: int, max_blocks: int,
                block_size: int) -> tuple[int, int]:
     """(n_split, pages_per_split) of K4: split i walks pages
@@ -207,5 +215,32 @@ def paged_attention(q, own_k, own_v, k_pages, v_pages, tables, ctx_len,
                  stream, n_split, pages)
     _build.check(err, "paged_attention", _build.bind(
         lib.rt_paged_error_string, [_I], ctypes.c_char_p))
-    LAUNCHES.add()
+    LAUNCHES.add(launch_shape(S, W, H, HK))
     return out
+
+
+def decode_hook(k_pages, v_pages, tables, positions):
+    """A model block's ``attend(q, k, v)`` for a decode step through K4:
+    one query row a sequence, q (B, H, D) with its own k/v (B, H_kv, D),
+    over its pages < positions[s] (the kernel's ctx_len) in this layer's
+    k_pages/v_pages. Returns (B, H, D)."""
+    def attend(q, k, v):
+        return paged_attention(
+            q[:, None].contiguous(), k[:, None].contiguous(),
+            v[:, None].contiguous(), k_pages, v_pages, tables,
+            positions)[:, 0]
+
+    return attend
+
+
+def window_hook(k_pages, v_pages, tables, ctx_len):
+    """A model block's ``attend(q, k, v)`` for a verify window through
+    K4: W query rows q (S, W, H, D) with the window's own k/v
+    (S, W, H_kv, D), causally, over the pages < ctx_len[s] in this
+    layer's k_pages/v_pages. Returns (S, W, H, D)."""
+    def attend(q, k, v):
+        return paged_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), k_pages, v_pages, tables,
+                               ctx_len)
+
+    return attend

@@ -5,16 +5,16 @@ optional concrete model config object) so it round-trips through
 cloudpickle into serve replicas and through JSON into HTTP payloads.
 
 The port's own copy of ``ray_tpu/serve/llm/config.py`` with the same
-fields and defaults. The `speculative` field is validated here, against
-the keys and ranges of the JAX package's ``SpeculativeConfig``, because
-the proposer module arrives with the verify slice; until then the
-port's engine refuses a non-None value.
+fields and defaults; `speculative` becomes the port's own
+`spec.SpeculativeConfig`, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Sequence
+
+from ray_tpu_torch.serve.llm.spec import SpeculativeConfig
 
 
 @dataclasses.dataclass
@@ -94,10 +94,11 @@ class EngineConfig:
     enable_prefix_cache: bool = True
     seed: int = 0  # weight init seed when no params are passed
     # speculative decoding: SpeculativeConfig | dict | None (off).
-    # See serve/llm/spec.py — greedy outputs stay bit-identical.
+    # See serve/llm/spec.py: greedy outputs equal spec-off's in f32 on
+    # the CPU; in bf16 on the card a near-tie may break the other way.
     speculative: Any = None
-    # paged-attention kernel for decode + verify. Off => dense
-    # gathered-context math (not ported yet: the engine refuses it).
+    # paged-attention kernel (K4) for decode + verify. Off => dense
+    # gathered-context math in plain torch.
     use_paged_attention: bool = False
 
     def __post_init__(self):
@@ -107,7 +108,7 @@ class EngineConfig:
             raise ValueError("max_batch_size must be >= 1")
         if self.prefill_chunk_size < 0:
             raise ValueError("prefill_chunk_size must be >= 0")
-        self.speculative = _check_speculative(self.speculative)
+        self.speculative = SpeculativeConfig.from_payload(self.speculative)
 
     @staticmethod
     def from_dict(d: dict) -> "EngineConfig":
@@ -117,28 +118,3 @@ class EngineConfig:
             raise ValueError(f"unknown EngineConfig keys: {sorted(bad)}")
         return EngineConfig(**d)
 
-
-_SPEC_DEFAULTS = {"num_draft_tokens": 4, "method": "ngram",
-                  "max_ngram": 3, "min_ngram": 1}
-
-
-def _check_speculative(spec: Any) -> dict | None:
-    """None, or a dict of speculative-decoding knobs checked like the
-    JAX package's ``SpeculativeConfig`` and filled with its defaults."""
-    if spec is None:
-        return None
-    if not isinstance(spec, dict):
-        raise TypeError(
-            f"speculative must be a dict of {sorted(_SPEC_DEFAULTS)} or "
-            f"None, got {type(spec).__name__}")
-    unknown = set(spec) - set(_SPEC_DEFAULTS)
-    if unknown:
-        raise ValueError(f"unknown speculative keys: {sorted(unknown)}")
-    out = {**_SPEC_DEFAULTS, **spec}
-    if out["num_draft_tokens"] < 1:
-        raise ValueError("num_draft_tokens must be >= 1")
-    if out["method"] != "ngram":
-        raise ValueError(f"unknown speculative method: {out['method']!r}")
-    if out["min_ngram"] < 1 or out["max_ngram"] < out["min_ngram"]:
-        raise ValueError("need 1 <= min_ngram <= max_ngram")
-    return out

@@ -10,12 +10,15 @@ carries the per-phase accounting kept on each `Sequence`.
 The engine runs on CUDA unless the caller passes ``device="cpu"`` (the
 tests do); without a card it raises instead of dropping to the CPU.
 
-This slice serves monolithic prefill (kernel K1) and paged decode
-(kernel K4). Chunked prefill with prefix caching, speculative decoding
-and the dense decode path are not ported yet: a config that asks for
-them raises NotImplementedError naming the ROADMAP.md item. The JAX
-engine's tracing spans need the core runtime and wait for its port;
-its metrics go to the port's own registry (``ray_tpu_torch.util``).
+It serves at the JAX engine's defaults: prompts that fit one chunk
+prefill monolithically (kernel K1), longer ones and prefix-cache hits
+in page-aligned chunks against the gathered context, and decode runs
+over a dense gathered context; with ``use_paged_attention`` decode and
+the speculative verify window run through kernel K4 instead. With
+``speculative`` set, a host-side proposer drafts tokens for each lane
+and one verify step a lane scores them. The JAX engine's tracing spans
+need the core runtime and wait for its port; its metrics go to the
+port's own registry (``ray_tpu_torch.util``).
 """
 
 from __future__ import annotations
@@ -42,14 +45,9 @@ from ray_tpu_torch.serve.llm.scheduler import (
     Scheduler,
     Sequence,
 )
+from ray_tpu_torch.serve.llm.spec import build_proposer
 
 _FINAL = object()
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1, 'Serving, the "
-        f"rest')")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -122,14 +120,6 @@ class LLMEngine:
 
     def __init__(self, config: EngineConfig, *, params: Any = None,
                  device=None):
-        if config.prefill_chunk_size > 0:
-            raise _not_ported(f"chunked prefill (prefill_chunk_size="
-                              f"{config.prefill_chunk_size}; set 0)")
-        if config.speculative is not None:
-            raise _not_ported("speculative decoding")
-        if not config.use_paged_attention:
-            raise _not_ported("the dense decode (use_paged_attention="
-                              "False; set True)")
         self.device = resolve_device(device)
         self.config = config
         reg = adapters()
@@ -180,10 +170,17 @@ class LLMEngine:
                 f"({max_blocks_per_seq} blocks needed); raise num_blocks "
                 f"or lower max_model_len")
 
-        # prefix reuse needs the prefill-from-offset program, which this
-        # slice does not have: the pool runs as a plain allocator
-        self.pool = BlockPool(num_blocks, config.block_size,
-                              enable_prefix_cache=False)
+        # prefix reuse needs the prefill-from-offset (chunk) step: with
+        # chunking disabled the pool runs as a plain allocator
+        chunking = config.prefill_chunk_size > 0
+        self.pool = BlockPool(
+            num_blocks, config.block_size,
+            enable_prefix_cache=(config.enable_prefix_cache and chunking))
+        # speculative decoding: proposer on the host, verify step on the
+        # device
+        spec_cfg = config.speculative
+        self._proposer = build_proposer(spec_cfg) if spec_cfg else None
+        self._spec_k = spec_cfg.num_draft_tokens if spec_cfg else 0
         self.runner = ModelRunner(
             adapter, cfg, params,
             block_size=config.block_size,
@@ -192,11 +189,19 @@ class LLMEngine:
             max_batch_size=config.max_batch_size,
             device=self.device,
             prefill_bucket_min=config.prefill_bucket_min,
+            prefill_chunk_size=(config.prefill_chunk_size if chunking
+                                else None),
             sample_seed=config.seed + 1,
+            num_draft_tokens=self._spec_k,
+            use_paged_attention=config.use_paged_attention,
         )
         self.scheduler = Scheduler(
             self.pool, max_batch_size=config.max_batch_size,
-            max_model_len=max_len, chunk_size=0, spec_tokens=0)
+            max_model_len=max_len,
+            # the runner rounds the chunk to a page-aligned size; reuse
+            # its value so scheduler chunks match its buckets
+            chunk_size=(self.runner.prefill_chunk_size or 0),
+            spec_tokens=self._spec_k)
 
         self._ids = itertools.count()
         self._streams: dict[int, RequestStream] = {}  # guarded_by(_lock)
@@ -248,6 +253,23 @@ class LLMEngine:
             "serve_llm_step_ms", "Engine step latency",
             boundaries=(1, 5, 10, 25, 50, 100, 250, 500, 1000),
             tag_keys=("model", "kind"))
+        self._m_prefix_hits = Counter(
+            "serve_llm_prefix_cache_hits_total",
+            "KV pages served from the prefix cache at admission",
+            tag_keys=tags)
+        self._m_prefix_misses = Counter(
+            "serve_llm_prefix_cache_misses_total",
+            "KV pages that had to be prefilled at admission",
+            tag_keys=tags)
+        self._m_prefix_evict = Counter(
+            "serve_llm_prefix_cache_evictions_total",
+            "Cached refcount-0 pages evicted for reuse", tag_keys=tags)
+        self._m_cached_blocks = Gauge(
+            "serve_llm_prefix_cached_blocks",
+            "Refcount-0 pages retained for prefix reuse", tag_keys=tags)
+        self._m_chunks = Counter(
+            "serve_llm_prefill_chunks_total",
+            "Prefill chunks executed", tag_keys=tags)
         self._m_stall = Histogram(
             "serve_llm_prefill_stall_ms",
             "Decode stall imposed by a prefill step that ran while "
@@ -271,10 +293,42 @@ class LLMEngine:
             tag_keys=("model", "phase"))
         self._m_slo_tpot = Histogram(
             "serve_slo_tpot_ms",
-            "Time per output token after the first (decode phase "
-            "seconds / tokens committed after the first)",
+            "Time per output token after the first (decode + verify "
+            "phase seconds / tokens committed after the first: a "
+            "speculative step commits several tokens)",
             boundaries=(0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500),
             tag_keys=tags)
+        # speculative decoding: proposed = draft tokens sent to verify;
+        # accepted + rejected = proposed
+        self._m_spec_proposed = Counter(
+            "serve_llm_spec_proposed_total",
+            "Draft tokens proposed to the verify step", tag_keys=tags)
+        self._m_spec_accepted = Counter(
+            "serve_llm_spec_accepted_total",
+            "Draft tokens accepted by the verify step", tag_keys=tags)
+        self._m_spec_rejected = Counter(
+            "serve_llm_spec_rejected_total",
+            "Draft tokens rejected by the verify step", tag_keys=tags)
+        self._m_spec_ratio = Gauge(
+            "serve_llm_spec_accept_ratio",
+            "Cumulative draft acceptance ratio (accepted / proposed)",
+            tag_keys=tags)
+        self._m_verify_ms = Histogram(
+            "serve_llm_verify_step_ms",
+            "Speculative verify step latency (one drafted run)",
+            boundaries=(1, 5, 10, 25, 50, 100, 250, 500, 1000),
+            tag_keys=tags)
+        self._m_paged = Gauge(
+            "serve_llm_paged_attn_enabled",
+            "1 when decode/verify run the paged-attention kernel, 0 on "
+            "the dense gathered context", tag_keys=tags)
+        self._m_paged.set(
+            1.0 if self.runner.use_paged_attention else 0.0,
+            tags=self._m_tags)
+        self._spec_proposed_total = 0
+        self._spec_accepted_total = 0
+        # counter deltas are computed against the last pump
+        self._last_prefix = (0, 0, 0)
 
     def _note_tokens(self, n: int) -> None:
         self._m_tokens.inc(n, tags=self._m_tags)
@@ -376,23 +430,47 @@ class LLMEngine:
             self._m_running.set(depth["running"], tags=self._m_tags)
             self._m_cache.set(depth["cache_utilization"],
                               tags=self._m_tags)
+            self._m_cached_blocks.set(depth["blocks_cached"],
+                                      tags=self._m_tags)
+            now = (depth["prefix_hit_pages"], depth["prefix_miss_pages"],
+                   depth["prefix_evictions"])
+            for counter, last, cur in zip(
+                    (self._m_prefix_hits, self._m_prefix_misses,
+                     self._m_prefix_evict), self._last_prefix, now):
+                if cur > last:
+                    counter.inc(cur - last, tags=self._m_tags)
+            self._last_prefix = now
             return True
 
     def _do_prefill(self, work: PrefillWork) -> None:
         seq = work.seq
         sp = seq.sampling
         ver = self._weight_version  # stable: step holds _step_lock
-        # chunking is off, so every prefill covers the whole prompt
         tokens = seq.refill_tokens[work.start:work.end]
         try:
-            nxt, last = self.runner.prefill(
-                tokens, seq.table, sp.temperature, sp.top_k, sp.top_p)
+            if work.start == 0 and work.is_last:
+                # whole prompt in one go and nothing cached: the
+                # monolithic step needs no context gather
+                nxt, last = self.runner.prefill(
+                    tokens, seq.table, sp.temperature, sp.top_k, sp.top_p)
+            else:
+                nxt, last = self.runner.prefill_chunk(
+                    tokens, work.start, seq.table, sp.temperature,
+                    sp.top_k, sp.top_p)
         except Exception as e:  # noqa: BLE001
             with self._lock:
                 self.scheduler.abort(seq, f"error:{e!r}")
             self._finalize(seq)
             return
-        seq.note_phase("prefill")
+        self._m_chunks.inc(tags=self._m_tags)
+        seq.note_phase("prefill")  # chunk + its scheduling gap
+        with self._lock:
+            # full pages covered by this chunk are now shareable (the
+            # state check skips sequences aborted mid-flight: their
+            # pages may already belong to someone else)
+            self.scheduler.register_prefilled_pages(seq, work.end)
+        if not work.is_last:
+            return  # intermediate chunk: no token was produced
         if seq.first_token_at is None:
             now = time.monotonic()
             self._m_ttft.observe(
@@ -421,10 +499,40 @@ class LLMEngine:
 
     def _do_decode(self, work: DecodeWork) -> None:
         ver = self._weight_version  # stable: step holds _step_lock
-        seqs = list(work.seqs)
+        plain: list[Sequence] = []
+        drafted: list[tuple[Sequence, list[int]]] = []
+        for s in work.seqs:
+            d = self._propose_for(s) if self._proposer is not None else []
+            if d:
+                drafted.append((s, d))
+            else:
+                plain.append(s)
+        if plain:
+            self._decode_plain(plain, ver)
+        for s, d in drafted:
+            self._verify_one(s, d, ver)
+
+    def _propose_for(self, seq: Sequence) -> list[int]:
+        """Draft tokens for one lane, clamped so every drafted write
+        position fits the pages the lane owns, stays below
+        max_model_len, and cannot overshoot the request's max_tokens:
+        under cache pressure the clamp hits zero and the lane decodes
+        exactly as without spec."""
+        room = min(
+            len(seq.table) * self.pool.block_size - seq.pos,
+            self.runner.max_model_len - seq.pos,
+            seq.sampling.max_tokens - len(seq.generated) - 1)
+        k = min(self._spec_k, room)
+        if k <= 0:
+            return []
+        return self._proposer.propose(
+            list(seq.prompt) + list(seq.generated), k)[:k]
+
+    def _decode_plain(self, seqs: list[Sequence], ver: int) -> None:
         # the lane feeds generated[-1], which LIVES at absolute position
-        # pos-1 (it was sampled but never cached): the wpe index, the
-        # context length and the KV scatter all key off that position
+        # pos-1 (it was sampled but never cached): the position
+        # embedding, the context length and the KV scatter all key off
+        # that position
         items = [DecodeItem(s.last_token, s.pos - 1, s.table,
                             s.sampling.temperature, s.sampling.top_k,
                             s.sampling.top_p) for s in seqs]
@@ -456,6 +564,60 @@ class LLMEngine:
         for s in finished:
             self._finalize(s)
 
+    def _verify_one(self, seq: Sequence, draft: list[int],
+                    ver: int) -> None:
+        """One speculative step for one lane: a single verify step
+        scores the frontier token plus the drafts, the acceptance rule
+        runs on the device, and every returned token is already backed
+        by KV; commit them in order (stopping if the lane retires
+        mid-run on eos / max_tokens) and emit with explicit indices."""
+        sp = seq.sampling
+        t0 = time.perf_counter()
+        try:
+            tokens, logits = self.runner.verify(
+                seq.last_token, seq.pos - 1, draft, seq.table,
+                sp.temperature, sp.top_k, sp.top_p)
+        except Exception as e:  # noqa: BLE001
+            with self._lock:
+                self.scheduler.abort(seq, f"error:{e!r}")
+            self._finalize(seq)
+            return
+        self._m_verify_ms.observe(
+            (time.perf_counter() - t0) * 1e3, tags=self._m_tags)
+        n_acc = len(tokens) - 1
+        self._spec_proposed_total += len(draft)
+        self._spec_accepted_total += n_acc
+        self._m_spec_proposed.inc(len(draft), tags=self._m_tags)
+        if n_acc:
+            self._m_spec_accepted.inc(n_acc, tags=self._m_tags)
+        if len(draft) > n_acc:
+            self._m_spec_rejected.inc(len(draft) - n_acc,
+                                      tags=self._m_tags)
+        self._m_spec_ratio.set(
+            self._spec_accepted_total
+            / max(1, self._spec_proposed_total), tags=self._m_tags)
+        seq.note_phase("verify", time.monotonic())
+        # the rows stay on the card unless the request wants logprobs
+        rows = logits.cpu().numpy() if sp.logprobs else None
+        committed: list[int] = []
+        done = False
+        with self._lock:
+            for i, tok in enumerate(tokens):
+                if sp.logprobs:
+                    seq.logprobs.append(self._logprob_of(
+                        rows[i], tok, sp.temperature))
+                seq.token_versions.append(ver)
+                committed.append(tok)
+                if self.scheduler.commit_token(seq, tok):
+                    done = True
+                    break
+        base = len(seq.generated) - len(committed)
+        for j, tok in enumerate(committed):
+            self._emit_token(seq, tok, ver, index=base + j)
+        self._note_tokens(len(committed))
+        if done:
+            self._finalize(seq)
+
     # ------------------------------------------------------------ output
 
     def _logprob_of(self, logits, token: int, temperature: float) -> float:
@@ -463,13 +625,17 @@ class LLMEngine:
         return logprob_at(logits, token, temperature,
                           self.model_cfg.vocab_size)
 
-    def _emit_token(self, seq: Sequence, token: int, version: int) -> None:
+    def _emit_token(self, seq: Sequence, token: int,
+                    version: int, index: int | None = None) -> None:
         """`version` is the step-stable weight version the caller read
-        under `_step_lock`."""
+        under `_step_lock`. `index` is the token's stream position; None
+        means the latest (single-token commits): a speculative step
+        commits several tokens before emitting and passes each one's
+        index."""
         with self._lock:
             stream = self._streams.get(seq.seq_id)
         if stream is not None:
-            idx = len(seq.generated) - 1
+            idx = len(seq.generated) - 1 if index is None else index
             ev = {"token": int(token), "index": idx}
             if seq.sampling.logprobs:
                 ev["logprob"] = seq.logprobs[idx]
@@ -492,7 +658,10 @@ class LLMEngine:
         e2e = now - seq.enqueued_at
         breakdown = {k: round(v, 6) for k, v in seq.phases.items()}
         breakdown["e2e"] = round(e2e, 6)
-        dec_s = seq.phases.get("decode", 0.0)
+        # speculative steps commit several tokens a verify step, so the
+        # verify phase and the full token count both enter TPOT
+        dec_s = seq.phases.get("decode", 0.0) + seq.phases.get(
+            "verify", 0.0)
         if len(seq.generated) > 1 and dec_s > 0:
             self._m_slo_tpot.observe(
                 dec_s * 1e3 / (len(seq.generated) - 1),
@@ -508,6 +677,8 @@ class LLMEngine:
             "num_generated": len(seq.generated),
             "token_ids": list(seq.generated),
             "preemptions": seq.preemptions,
+            # prompt tokens served from the prefix cache at the last
+            # admission (vLLM/OpenAI `cached_tokens` usage field)
             "cached_tokens": seq.cached_tokens,
             # weight-version contract (RL.md): `stale` means the tokens
             # (or the KV they were decoded against) span more than one
@@ -536,7 +707,9 @@ class LLMEngine:
         Taking `_step_lock` means no device step is in flight, so every
         token sampled by one decode step carries one weight version.
         Running sequences keep their old-version KV pages and are
-        tagged ``stale``; `version` must be strictly increasing."""
+        tagged ``stale``; the prefix cache is invalidated, so that no
+        later admission matches old-weight KV, and stale sequences stop
+        registering pages; `version` must be strictly increasing."""
         t0 = time.perf_counter()
         with self._step_lock:
             if version <= self._weight_version:
@@ -565,6 +738,10 @@ class LLMEngine:
         with self._step_lock:
             return self.runner.warmup()
 
+    def has_work(self) -> bool:
+        with self._lock:
+            return bool(self.scheduler.waiting or self.scheduler.running)
+
     def stats(self) -> dict:
         d = self.scheduler.depth()
         with self._lock:
@@ -579,7 +756,9 @@ class LLMEngine:
             "weight_version": self._weight_version,
             "phase_seconds": phase_totals,
             "finished_requests": finished,
-            "paged_attention": True,  # the only decode path so far
+            "spec_proposed": self._spec_proposed_total,
+            "spec_accepted": self._spec_accepted_total,
+            "paged_attention": self.runner.use_paged_attention,
         })
         return d
 

@@ -1,30 +1,38 @@
-"""ModelRunner: paged prefill and decode steps on one device.
+"""ModelRunner: prefill, chunked prefill, decode and speculative verify
+steps on one device.
 
 The port of ``ray_tpu/serve/llm/runner.py``. It owns the device half of
 the KV cache, one K and one V tensor of shape
-``(L, num_blocks, block_size, H_kv, D)`` in the JAX layout, and the two
+``(L, num_blocks, block_size, H_kv, D)`` in the JAX layout, and the
 steps that touch it:
 
 - **prefill**: full-sequence forward of one prompt, padded to a length
   bucket, through kernel K1; every position's K/V is scattered into its
   page and the first generated token is sampled from the last valid
   position's logits;
+- **prefill_chunk**: a chunk of one prompt from a page-aligned offset,
+  its context gathered through the block table and attended with the
+  model's plain math (prefix-cache hits and long prompts);
 - **decode**: one token for a batch of sequences, padded to a batch
-  bucket, through kernel K4, which reads the pages in place through
-  each lane's block table; the new K/V is scattered at the lane's
-  position after the step.
+  bucket: with paged attention through kernel K4, which reads the
+  pages in place through each lane's block table; otherwise (the JAX
+  default) over each lane's context gathered into a dense
+  (L, S, C, H_kv, D) tensor with the plain math. The new K/V is
+  scattered at the lane's position after the step;
+- **verify**: one sequence's speculative window of W = K+1 tokens
+  scored in one step (through K4 on the paged path, the chunk math
+  otherwise), the acceptance rule applied on the device and one copy
+  of its result to the host.
 
 PyTorch runs eagerly, so the JAX runner's compiled-program bookkeeping
-becomes plain shape padding: prompt lengths still round up to powers of
-two from ``prefill_bucket_min`` to ``max_model_len`` and decode batches
-to powers of two up to ``max_batch_size``, which keeps the kernels'
-shapes to a small set. Padded lanes and positions point at page 0, the
-pool's null sink, so every scatter is in bounds and the attention masks
-keep its contents out of the softmax. The pages are updated in place
-(the JAX runner replaces them functionally each step).
-
-Not ported yet (ROADMAP.md): the chunked prefill-from-offset step, the
-speculative verify step, the dense gathered-context decode, meshes.
+becomes plain shape padding: prompt and chunk lengths still round up to
+powers of two from ``prefill_bucket_min``, decode batches to powers of
+two up to ``max_batch_size``, and the verify window is always K+1 wide,
+which keeps the kernels' shapes to a small set. Padded lanes and
+positions point at page 0, the pool's null sink, so every scatter is in
+bounds and the attention masks keep its contents out of the softmax.
+The pages are updated in place (the JAX runner replaces them
+functionally each step). Meshes are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,15 +54,22 @@ class ModelAdapter:
     init_fn: Callable  # (generator, cfg, device=) -> params (f32 masters)
     serving_params_fn: Callable  # (params, cfg) -> compute-dtype copies
     prefill_fn: Callable  # (params, tokens, cfg) -> (logits, k, v)
-    # (params, toks, pos, k_pages, v_pages, tables, cfg) -> (logits, k, v)
-    decode_paged_fn: Callable
+    decode_fn: Callable  # (params, toks, pos, kc, vc, mask, cfg) -> ...
+    # (params, toks, start, kc, vc, ctx_mask, chunk_mask, cfg) -> ...
+    chunk_fn: Callable
     kv_heads: Callable[[Any], int]
+    # paged-attention entry points (kernel K4 in the attention core
+    # instead of a dense gathered context)
+    # (params, toks, pos, k_pages, v_pages, tables, cfg) -> ...
+    decode_paged_fn: Callable
+    # (params, toks, start, k_pages, v_pages, table, cfg) -> ...
+    verify_paged_fn: Callable
 
 
 def adapters() -> dict[str, ModelAdapter]:
-    """Model registry (a lazy import keeps `import ray_tpu_torch.serve`
-    light). Llama comes with the next serving slice."""
-    from ray_tpu_torch.models import gpt2
+    """Model registry (lazy imports keep `import ray_tpu_torch.serve`
+    light)."""
+    from ray_tpu_torch.models import gpt2, llama
 
     return {
         "gpt2": ModelAdapter(
@@ -69,8 +84,26 @@ def adapters() -> dict[str, ModelAdapter]:
             init_fn=gpt2.init_gpt2,
             serving_params_fn=gpt2.serving_params,
             prefill_fn=gpt2.gpt2_prefill_kv,
-            decode_paged_fn=gpt2.gpt2_decode_paged_kv,
+            decode_fn=gpt2.gpt2_decode_kv,
+            chunk_fn=gpt2.gpt2_prefill_chunk_kv,
             kv_heads=lambda cfg: cfg.n_head,
+            decode_paged_fn=gpt2.gpt2_decode_paged_kv,
+            verify_paged_fn=gpt2.gpt2_verify_paged_kv,
+        ),
+        "llama": ModelAdapter(
+            name="llama",
+            presets={
+                "tiny": llama.LlamaConfig.tiny,
+                "small": llama.LlamaConfig.small,
+            },
+            init_fn=llama.init_llama,
+            serving_params_fn=llama.serving_params,
+            prefill_fn=llama.llama_prefill_kv,
+            decode_fn=llama.llama_decode_kv,
+            chunk_fn=llama.llama_prefill_chunk_kv,
+            kv_heads=lambda cfg: cfg.n_kv_head,
+            decode_paged_fn=llama.llama_decode_paged_kv,
+            verify_paged_fn=llama.llama_verify_paged_kv,
         ),
     }
 
@@ -129,9 +162,9 @@ def truncation_cut(logits: torch.Tensor, safe: torch.Tensor,
 
 
 class ModelRunner:
-    """Executes prefill/decode for one model instance on one device.
-    Not thread-safe: exactly one step-loop thread drives it (the engine
-    enforces this); construction may happen on another thread."""
+    """Executes prefill/decode/verify for one model instance on one
+    device. Not thread-safe: exactly one step-loop thread drives it (the
+    engine enforces this); construction may happen on another thread."""
 
     def __init__(
         self,
@@ -145,7 +178,10 @@ class ModelRunner:
         max_batch_size: int,
         device: torch.device,
         prefill_bucket_min: int = 16,
+        prefill_chunk_size: int | None = None,
         sample_seed: int = 0,
+        num_draft_tokens: int = 0,
+        use_paged_attention: bool = False,
     ):
         self.adapter = adapter
         self.cfg = cfg
@@ -155,8 +191,21 @@ class ModelRunner:
         self.max_model_len = max_model_len
         self.max_batch_size = max_batch_size
         self.prefill_bucket_min = prefill_bucket_min
+        # chunked prefill: offsets and chunks stay page-aligned, so the
+        # chunk size rounds up to a block multiple (and never exceeds
+        # max_model_len). None disables chunking (monolithic prefill).
+        if prefill_chunk_size is not None:
+            c = max(block_size, prefill_chunk_size)
+            c = ((c + block_size - 1) // block_size) * block_size
+            prefill_chunk_size = min(c, max_model_len)
+        self.prefill_chunk_size = prefill_chunk_size
         self.max_blocks_per_seq = (
             max_model_len + block_size - 1) // block_size
+        # speculative verify: ONE step of fixed width K+1 (row 0 the last
+        # committed token, rows 1..K the drafts) serves every outcome
+        self.num_draft_tokens = num_draft_tokens
+        self.spec_width = num_draft_tokens + 1 if num_draft_tokens else 0
+        self.use_paged_attention = bool(use_paged_attention)
         page_shape = (cfg.n_layer, num_blocks, block_size,
                       adapter.kv_heads(cfg), cfg.head_dim)
         self.k_pages = torch.zeros(page_shape, dtype=cfg.dtype,
@@ -216,10 +265,35 @@ class ModelRunner:
     def decode_bucket(self, n: int) -> int:
         return min(_next_pow2(n, 1), self.max_batch_size)
 
+    def chunk_bucket(self, n: int) -> int:
+        cap = self.prefill_chunk_size or self.max_model_len
+        if n > cap:
+            raise ValueError(f"chunk of {n} tokens exceeds chunk size {cap}")
+        return min(_next_pow2(n, self.prefill_bucket_min), cap)
+
     # ------------------------------------------------------------- steps
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _gather(self, tables: np.ndarray) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+        """The cached context of each table row (S, max_blocks_per_seq),
+        gathered dense: k, v (L, S, C, H_kv, D), C = max_model_len
+        rounded up to whole pages."""
+        L, _, bs, hk, d = self.k_pages.shape
+        S, maxb = tables.shape
+        idx = self._tensor(tables.astype(np.int64))
+        return tuple(pages[:, idx].reshape(L, S, maxb * bs, hk, d)
+                     for pages in (self.k_pages, self.v_pages))
+
+    def _scatter(self, k: torch.Tensor, v: torch.Tensor,
+                 block_ids: np.ndarray, offsets: np.ndarray) -> None:
+        """Write k, v (L, N, H_kv, D) into the pages at (block, offset)."""
+        bid = self._tensor(block_ids.astype(np.int64))
+        off = self._tensor(offsets.astype(np.int64))
+        self.k_pages[:, bid, off] = k
+        self.v_pages[:, bid, off] = v
 
     @torch.no_grad()
     def prefill(self, token_ids: Sequence[int], table: Sequence[int],
@@ -240,15 +314,56 @@ class ModelRunner:
         with self._lock:
             logits, k, v = self.adapter.prefill_fn(
                 self._compute, self._tensor(toks), self.cfg)
-            bid, off = self._tensor(block_ids), self._tensor(offsets)
-            self.k_pages[:, bid, off] = k[:, 0]
-            self.v_pages[:, bid, off] = v[:, 0]
-            last = logits[0, n - 1]
-            nxt = self._sample(last[None, :],
-                               np.asarray([temperature], np.float32),
-                               np.asarray([top_k], np.int32),
-                               np.asarray([top_p], np.float32))
+            self._scatter(k[:, 0], v[:, 0], block_ids, offsets)
+            return self._first_token(logits[0, n - 1], temperature, top_k,
+                                     top_p)
+
+    def _first_token(self, last: torch.Tensor, temperature: float,
+                     top_k: int, top_p: float) -> tuple[int, np.ndarray]:
+        nxt = self._sample(last[None, :],
+                           np.asarray([temperature], np.float32),
+                           np.asarray([top_k], np.int32),
+                           np.asarray([top_p], np.float32))
         return int(nxt[0]), last.cpu().numpy()
+
+    @torch.no_grad()
+    def prefill_chunk(self, token_ids: Sequence[int], start: int,
+                      table: Sequence[int], temperature: float,
+                      top_k: int = 0, top_p: float = 1.0
+                      ) -> tuple[int, np.ndarray]:
+        """Prefill-from-offset: run `token_ids` (<= prefill_chunk_size)
+        at absolute positions start..start+n-1 against the cached
+        context in `table`, which must already hold valid KV for every
+        position < start and own the pages the chunk writes. `start`
+        must be page-aligned. Returns (sampled next token, last chunk
+        position's logits); the caller uses them on the final chunk
+        only."""
+        n = len(token_ids)
+        if start % self.block_size:
+            raise ValueError(
+                f"chunk start {start} not page-aligned "
+                f"(block_size={self.block_size})")
+        Tb = self.chunk_bucket(n)
+        toks = np.zeros((1, Tb), np.int64)
+        toks[0, :n] = token_ids
+        tab = np.zeros((1, self.max_blocks_per_seq), np.int32)
+        tab[0, :len(table)] = table
+        block_ids = np.zeros((Tb,), np.int64)
+        block_ids[:n] = tab[0, (start + np.arange(n)) // self.block_size]
+        # padded tail positions keep in-range offsets but target page 0
+        offsets = (start + np.arange(Tb)) % self.block_size
+        dev = self.device
+        with self._lock:
+            k_ctx, v_ctx = self._gather(tab)
+            C = k_ctx.shape[2]
+            ctx_mask = torch.arange(C, device=dev)[None, :] < start
+            chunk_mask = torch.arange(Tb, device=dev)[None, :] < n
+            logits, k, v = self.adapter.chunk_fn(
+                self._compute, self._tensor(toks), start, k_ctx, v_ctx,
+                ctx_mask, chunk_mask, self.cfg)
+            self._scatter(k[:, 0], v[:, 0], block_ids, offsets)
+            return self._first_token(logits[0, n - 1], temperature, top_k,
+                                     top_p)
 
     @torch.no_grad()
     def decode(self, items: Sequence[DecodeItem]
@@ -277,31 +392,111 @@ class ModelRunner:
         block_ids = tables[np.arange(Sb), poss // self.block_size]
         offsets = poss % self.block_size
         with self._lock:
-            logits, k_new, v_new = self.adapter.decode_paged_fn(
-                self._compute, self._tensor(toks), self._tensor(poss),
-                self.k_pages, self.v_pages, self._tensor(tables), self.cfg)
-            bid = self._tensor(block_ids.astype(np.int64))
-            off = self._tensor(offsets.astype(np.int64))
-            self.k_pages[:, bid, off] = k_new
-            self.v_pages[:, bid, off] = v_new
+            tok_t, pos_t = self._tensor(toks), self._tensor(poss)
+            if self.use_paged_attention:
+                logits, k_new, v_new = self.adapter.decode_paged_fn(
+                    self._compute, tok_t, pos_t, self.k_pages,
+                    self.v_pages, self._tensor(tables), self.cfg)
+            else:
+                k_ctx, v_ctx = self._gather(tables)
+                C = k_ctx.shape[2]
+                ctx_mask = torch.arange(C, device=self.device)[None, :] \
+                    < pos_t[:, None]
+                logits, k_new, v_new = self.adapter.decode_fn(
+                    self._compute, tok_t, pos_t, k_ctx, v_ctx, ctx_mask,
+                    self.cfg)
+                del k_ctx, v_ctx
+            self._scatter(k_new, v_new, block_ids, offsets)
             nxt = self._sample(logits, temps, topks, topps)
             out = logits[:S].cpu().numpy()
         return [int(t) for t in nxt[:S].tolist()], out
 
+    @torch.no_grad()
+    def verify(self, token: int, pos: int, draft: Sequence[int],
+               table: Sequence[int], temperature: float,
+               top_k: int = 0, top_p: float = 1.0
+               ) -> tuple[list[int], torch.Tensor]:
+        """Verify a drafted run for one sequence: one step scores `token`
+        (at position pos, the frontier) plus up to num_draft_tokens
+        drafts at pos+1.., accepts the longest prefix of drafts that
+        equal the model's own samples on the device, and returns
+        (committed tokens, their logits rows (n, Vp) on the device).
+        len(result[0]) is 1 (all rejected) .. len(draft)+1 (full accept
+        plus the bonus token); the KV of every committed token is in the
+        pages when this returns. Slots past the accepted frontier hold
+        garbage that stays masked (the context covers positions < the
+        frontier only) and is overwritten as it advances."""
+        if not self.spec_width:
+            raise RuntimeError("runner built without num_draft_tokens")
+        n_draft = len(draft)
+        W = self.spec_width
+        if not 0 < n_draft < W:
+            raise ValueError(f"draft of {n_draft} tokens (max {W - 1})")
+        if pos + n_draft >= self.max_model_len:
+            raise ValueError(
+                f"drafted run past max_model_len: pos {pos} + "
+                f"{n_draft} drafts >= {self.max_model_len}")
+        toks = np.zeros((1, W), np.int64)
+        toks[0, 0] = token
+        toks[0, 1:1 + n_draft] = draft
+        tab = np.zeros((1, self.max_blocks_per_seq), np.int32)
+        tab[0, :len(table)] = table
+        positions = pos + np.arange(W)
+        # padded tail rows write to the null page at in-range offsets
+        block_ids = np.where(
+            np.arange(W) <= n_draft,
+            tab[0, np.minimum(positions, self.max_model_len - 1)
+                // self.block_size], 0)
+        offsets = positions % self.block_size
+        temps = np.full((W,), temperature, np.float32)
+        topks = np.full((W,), top_k, np.int32)
+        topps = np.full((W,), top_p, np.float32)
+        dev = self.device
+        with self._lock:
+            tok_t = self._tensor(toks)
+            if self.use_paged_attention:
+                logits, k, v = self.adapter.verify_paged_fn(
+                    self._compute, tok_t, pos, self.k_pages, self.v_pages,
+                    self._tensor(tab[0]), self.cfg)
+            else:
+                k_ctx, v_ctx = self._gather(tab)
+                C = k_ctx.shape[2]
+                ctx_mask = torch.arange(C, device=dev)[None, :] < pos
+                chunk_mask = torch.arange(W, device=dev)[None, :] <= n_draft
+                logits, k, v = self.adapter.chunk_fn(
+                    self._compute, tok_t, pos, k_ctx, v_ctx, ctx_mask,
+                    chunk_mask, self.cfg)
+                del k_ctx, v_ctx
+            self._scatter(k[:, 0], v[:, 0], block_ids, offsets)
+            lg = logits[0]  # (W, Vp)
+            target = self._sample(lg, temps, topks, topps)  # (W,)
+            # target[j] is the model's own token for position pos+j+1;
+            # keep drafts while they match it, longest-prefix semantics
+            match = (target[:-1] == tok_t[0, 1:]) \
+                & (torch.arange(W - 1, device=dev) < n_draft)
+            n_acc = torch.cumprod(match.long(), dim=0).sum()
+            host = torch.cat([target, n_acc[None]]).cpu()  # one copy
+        n_em = int(host[-1]) + 1
+        return [int(t) for t in host[:n_em].tolist()], lg[:n_em]
+
     def warmup(self) -> int:
-        """Run every prefill length bucket and decode batch bucket once
-        against the null page, so that first-call costs (kernel builds,
-        library handles, allocator growth) are paid before any request.
-        Returns the number of step shapes run."""
+        """Run every step shape once against the null page (prefill and
+        chunk length buckets, decode batch buckets, the verify width),
+        so that first-call costs (kernel builds, library handles,
+        allocator growth) are paid before any request. With chunked
+        prefill the engine runs monolithic prefill only on prompts that
+        fit one chunk, so both caps are prefill_chunk_size. Returns the
+        number of step shapes run."""
         null_table = [0] * self.max_blocks_per_seq
-        n = 0
-        b = min(self.prefill_bucket_min, self.max_model_len)
-        while True:
+        cap = self.prefill_chunk_size or self.max_model_len
+        lengths = [min(self.prefill_bucket_min, cap)]
+        while lengths[-1] < cap:
+            lengths.append(min(lengths[-1] * 2, cap))
+        for b in lengths:
             self.prefill([1] * b, null_table, 0.0)
-            n += 1
-            if b >= self.max_model_len:
-                break
-            b = min(b * 2, self.max_model_len)
+            if self.prefill_chunk_size is not None:
+                self.prefill_chunk([1] * b, 0, null_table, 0.0)
+        n = len(lengths) * (1 + (self.prefill_chunk_size is not None))
         s = 1
         while True:
             self.decode([DecodeItem(1, 0, null_table, 0.0)] * s)
@@ -309,8 +504,11 @@ class ModelRunner:
             if s >= self.max_batch_size:
                 break
             s = min(s * 2, self.max_batch_size)
+        if self.spec_width:
+            # one fixed-width window covers every draft length
+            self.verify(1, 0, [1], null_table, 0.0)
+            n += 1
         return n
-
     def set_params(self, params: Any) -> None:
         """Install a new parameter tree (weight hot-swap). The tree
         structure and leaf shapes must match the resident params; leaves

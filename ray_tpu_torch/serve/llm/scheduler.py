@@ -4,8 +4,7 @@ caching and chunked prefill.
 
 The port's own copy of ``ray_tpu/serve/llm/scheduler.py``, unchanged
 but for its imports: the policy is host-side bookkeeping and holds no
-device code. The port's engine runs it with chunking and prefix caching
-off until the prefill-from-offset program lands (see ROADMAP.md).
+device code.
 
 State machine per sequence::
 

@@ -1,0 +1,139 @@
+"""Speculative decoding: draft proposers and their config.
+
+The port's own copy of ``ray_tpu/serve/llm/spec.py``, unchanged but for
+its docstrings: the proposers are host-side and hold no device code.
+
+Decode emits one token per step, so tokens/s is pinned to the step's
+floor. Speculative decoding amortizes it: a cheap host-side *proposer*
+guesses the next K tokens, a single ``verify`` step (runner.py) scores
+all K+1 positions at once, and an acceptance rule on the device keeps
+the longest prefix of drafts that match what the target model would
+have sampled anyway, then emits the model's own token at the first
+mismatch. Under greedy sampling the output stream equals spec-off
+decode where both reduce in the same order (f32 on the CPU, tested in
+tests/test_torch_serve_defaults.py); spec is an execution strategy,
+never a semantics change.
+
+The proposer contract is deliberately tiny so alternatives (small draft
+models, Medusa-style heads) can slot in later: a proposer sees the
+committed token stream (prompt + generated) and returns up to ``k``
+guessed continuation tokens. It must be pure (same context, same
+drafts) because preemption-recompute re-runs the whole pipeline and
+greedy identity has to survive that.
+
+``NGramProposer`` is the zero-model-memory starter (prompt-lookup
+decoding): match the trailing n-gram of the context against earlier
+occurrences and propose whatever followed the most recent one. On
+incompressible streams it proposes nothing and the engine decodes that
+lane plainly, so the worst case is the plain path plus a failed probe.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Sequence
+
+__all__ = ["SpeculativeConfig", "DraftProposer", "NGramProposer",
+           "build_proposer"]
+
+
+@dataclasses.dataclass
+class SpeculativeConfig:
+    """Knobs for speculative decoding, hung off ``EngineConfig.speculative``.
+
+    num_draft_tokens — K, max drafts proposed (and verified) per step.
+        The verify step has the fixed width K+1, so one kernel shape
+        serves every accept/reject outcome.
+    method — proposer family; only "ngram" (prompt-lookup) for now.
+    max_ngram / min_ngram — longest/shortest trailing n-gram to match
+        against the context, tried longest-first.
+    """
+
+    num_draft_tokens: int = 4
+    method: str = "ngram"
+    max_ngram: int = 3
+    min_ngram: int = 1
+
+    def __post_init__(self) -> None:
+        if self.num_draft_tokens < 1:
+            raise ValueError("num_draft_tokens must be >= 1")
+        if self.method not in ("ngram",):
+            raise ValueError(f"unknown speculative method: {self.method!r}")
+        if self.min_ngram < 1 or self.max_ngram < self.min_ngram:
+            raise ValueError("need 1 <= min_ngram <= max_ngram")
+
+    @staticmethod
+    def from_payload(payload: Any) -> "SpeculativeConfig | None":
+        if payload is None or isinstance(payload, SpeculativeConfig):
+            return payload
+        if isinstance(payload, dict):
+            known = {f.name for f in dataclasses.fields(SpeculativeConfig)}
+            unknown = set(payload) - known
+            if unknown:
+                raise ValueError(
+                    f"unknown SpeculativeConfig keys: {sorted(unknown)}")
+            return SpeculativeConfig(**payload)
+        raise TypeError(
+            f"speculative must be SpeculativeConfig | dict | None, "
+            f"got {type(payload).__name__}")
+
+
+class DraftProposer:
+    """Base proposer: committed context in, up to ``k`` draft tokens out.
+
+    Implementations must be pure functions of ``tokens`` (no step
+    counters, no RNG) so preemption-recompute and failover replay
+    propose the same drafts and greedy outputs stay bit-identical.
+    """
+
+    def propose(self, tokens: Sequence[int], k: int) -> List[int]:
+        raise NotImplementedError
+
+
+class NGramProposer(DraftProposer):
+    """Prompt-lookup decoding: propose the continuation that followed
+    the most recent earlier occurrence of the context's trailing
+    n-gram, trying the longest n-gram first. The copy is self-
+    extending: drafts past the end of history are read back out of the
+    draft itself, so a period-p cycle always yields k tokens, not
+    k mod p."""
+
+    def __init__(self, max_ngram: int = 3, min_ngram: int = 1) -> None:
+        if min_ngram < 1 or max_ngram < min_ngram:
+            raise ValueError("need 1 <= min_ngram <= max_ngram")
+        self.max_ngram = max_ngram
+        self.min_ngram = min_ngram
+
+    def propose(self, tokens: Sequence[int], k: int) -> List[int]:
+        toks = list(tokens)
+        n_tok = len(toks)
+        if k <= 0 or n_tok < self.min_ngram + 1:
+            return []
+        for n in range(min(self.max_ngram, n_tok - 1),
+                       self.min_ngram - 1, -1):
+            pat = toks[-n:]
+            # Most recent occurrence strictly before the trailing one.
+            for i in range(n_tok - n - 1, -1, -1):
+                if toks[i:i + n] == pat:
+                    # Copy forward from the match. The source cursor may
+                    # run off the end of history into the draft being
+                    # built — reading the copy's own output extends
+                    # periodic cycles to the full k instead of clamping
+                    # at the history boundary (a greedy model stuck in a
+                    # short loop is exactly the high-accept case, and the
+                    # most recent match sits right at the tail there).
+                    cont: List[int] = []
+                    src = i + n
+                    while len(cont) < k:
+                        cont.append(toks[src] if src < n_tok
+                                    else cont[src - n_tok])
+                        src += 1
+                    return cont
+        return []
+
+
+def build_proposer(cfg: SpeculativeConfig) -> DraftProposer:
+    if cfg.method == "ngram":
+        return NGramProposer(max_ngram=cfg.max_ngram,
+                             min_ngram=cfg.min_ngram)
+    raise ValueError(f"unknown speculative method: {cfg.method!r}")

@@ -1,8 +1,9 @@
 """Parameter trees: nested dicts whose leaves are tensors.
 
 The port's stand-in for the parts of ``jax.tree_util`` the train path
-uses. Leaves are visited in sorted-key order, so two trees with the same
-keys flatten to matching lists.
+uses, and for ``jax.lax.scan`` over a model's stacked layers. Leaves
+are visited in sorted-key order, so two trees with the same keys
+flatten to matching lists.
 """
 
 from __future__ import annotations
@@ -35,3 +36,27 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def unstack(tree: Any) -> list:
+    """The trees of a tree of stacked ``[L, ...]`` leaves, one per index
+    of the leading axis, with one ``unbind(0)`` per leaf: its backward
+    stacks the L grads once, where indexing ``t[i]`` per layer would add
+    a zero tensor the size of the whole stack for each layer."""
+    per = [t.unbind(0) for t in leaves(tree)]
+    return [unflatten(tree, [u[i] for u in per])
+            for i in range(len(per[0]))]
+
+
+def scan_layers(blocks: Any, x, step: Callable):
+    """x through every layer of the stacked tree `blocks`:
+    ``step(i, p, x) -> (x, (k, v))`` runs layer i with its params p.
+    Returns (x, k, v) with each layer's k and v stacked (L, ...)."""
+    import torch
+
+    ks, vs = [], []
+    for i, p in enumerate(unstack(blocks)):
+        x, (k, v) = step(i, p, x)
+        ks.append(k)
+        vs.append(v)
+    return x, torch.stack(ks), torch.stack(vs)

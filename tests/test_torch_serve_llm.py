@@ -3,7 +3,8 @@ package's: the same scheduling and pool decisions over one scripted
 request sequence, identical greedy token streams (with a forced
 preemption) and prefill/decode logits at 1e-4 on GPT-2 tiny in float32
 with the same converted parameters, the same top-k/top-p kept sets,
-and the engine's device and unported-feature rules."""
+the engine's device rule, and chunked prefill, speculative decoding and
+dense decode each serving like the JAX engine's."""
 
 import dataclasses
 import types
@@ -310,12 +311,27 @@ def test_engine_defaults_to_cuda(tiny):
     {"speculative": {"num_draft_tokens": 4}},
     {"use_paged_attention": False},
 ])
-def test_unported_features_raise(tiny, over):
-    _, tcfg, _, tp = tiny
-    cfg = t_config.EngineConfig(model_config=tcfg,
-                                **_engine_kwargs(**over))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_engine.LLMEngine(cfg, params=tp, device="cpu")
+def test_once_unported_features_serve_like_jax(tiny, over):
+    """Chunked prefill, speculative decoding and the dense decode, each
+    turned on alone over the paged monolithic engine, serve on the CPU
+    with the JAX engine's greedy streams."""
+    jcfg, tcfg, jp, tp = tiny
+    kw = _engine_kwargs(num_blocks=32, **over)
+    je = jax_engine.LLMEngine(jax_config.EngineConfig(
+        model_config=jcfg, **kw), params=jp)
+    te = t_engine.LLMEngine(t_config.EngineConfig(
+        model_config=tcfg, **kw), params=tp, device="cpu")
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(1, jcfg.vocab_size, n).tolist()
+               for n in (5, 9, 7)]
+    prompts.append(prompts[0] * 3)  # a repeat the proposer drafts for
+    want, _ = _drive(je, prompts, jax_config.SamplingParams(max_tokens=8))
+    got, _ = _drive(te, prompts, t_config.SamplingParams(max_tokens=8))
+    assert [g["token_ids"] for g in got] == [w["token_ids"] for w in want]
+    st = te.stats()
+    assert st["blocks_used"] == 0 and st["running"] == 0
+    assert st["paged_attention"] == kw["use_paged_attention"]
+    assert st["spec_proposed"] == je.stats()["spec_proposed"]
 
 
 def test_engine_config_matches_jax_fields_and_checks():
@@ -325,8 +341,10 @@ def test_engine_config_matches_jax_fields_and_checks():
           dataclasses.fields(t_config.EngineConfig)}
     assert tf == jf
     spec = t_config.EngineConfig(speculative={"num_draft_tokens": 3})
-    assert spec.speculative == {"num_draft_tokens": 3, "method": "ngram",
-                                "max_ngram": 3, "min_ngram": 1}
+    want = jax_config.EngineConfig(speculative={"num_draft_tokens": 3})
+    assert dataclasses.asdict(spec.speculative) \
+        == dataclasses.asdict(want.speculative)
+    assert type(spec.speculative).__name__ == "SpeculativeConfig"
     for bad in ({"num_draft_tokens": 0}, {"bogus": 1},
                 {"method": "eagle"}, {"max_ngram": 1, "min_ngram": 2}):
         with pytest.raises(ValueError):
