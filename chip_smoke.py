@@ -20,7 +20,10 @@ Phases, each of which exits non-zero on any failure:
 2. kernels: each kernel is held against its plain PyTorch version at
    the shapes GPT-2-small serving and training give it (K1 forward,
    K2/K3 backward at B=8 T=1024, K4 decode), and beside them, in f32
-   and bf16 (K1 also on q, k, v as column slices of one fused qkv
+   and bf16: K1-K3 at the tiny presets' head dim 32 (causal, ragged,
+   full) and, in bf16, at the XL-class training shape B=8 T=1024 H=16
+   D=128; K4 on 64- and 128-token pages and at head dim 32 (K1 also
+   on q, k, v as column slices of one fused qkv
    tensor, at T = 12, 17, 731 and 1024, as K2/K3 always are, and at both
    of its block heights; K2/K3 also at T=17, shorter than one tile; K4
    also at one request of 1023 cached tokens and at eight), with the
@@ -66,18 +69,35 @@ Phases, each of which exits non-zero on any failure:
    (K1 on K/V repeated to 12 heads, K4 at H_kv=4): both kernels
    launched, decode logits against a prefill. Each of the three also
    serves its requests once more under torch.profiler.
-5. train: GPT-2-small training through `make_train_step` (bf16 compute,
+5. tiny: GPT-2 tiny and Llama tiny (head dim 32) through
+   ``LLMEngine(EngineConfig(model=m, preset="tiny"))`` at the defaults,
+   paged, and paged with 4 drafts, each request finishing by length,
+   the pool drained and decode logits held against a prefill; 3 train
+   steps of each preset (K1-K3 launches exactly as its remat setting
+   says); an engine with 40 drafts and paged attention must raise at
+   construction, naming the window. engine_large_pages: GPT-2-small's
+   paged engine on 64- and on 128-token pages serving the 8 requests,
+   logits against a prefill.
+6. train: GPT-2-small training through `make_train_step` (bf16 compute,
    f32 masters, B=8 T=1024, adamw(3e-4, weight_decay=0.1), remat on, 3
    warm-up and 20 timed steps on one fixed batch), with the launch
    counters zeroed around the timed steps: tokens/s, step ms, MFU, peak
    memory, the losses; every loss and grad norm must be finite, the
    last loss below the first, the launches exactly 24 K1, 12 K2 and 12
    K3 a step, and no q, k or v copied to fix its layout. Then 3 steps
-   under torch.profiler.
-6. parity: one f32 train step of GPT-2-small at full width, B=1 T=256,
-   from the same params on the card (kernels) and on the CPU (plain
-   versions): the loss, every leaf's grad and updated value within the
-   printed tolerances.
+   under torch.profiler. train_llama: Llama-small on the same recipe,
+   3 warm-up and 10 timed steps, launches exactly 24/12/12 a step, the
+   loss falling, then a profile. remat: each RAY_TPU_REMAT_POLICY
+   (full, save_flash, save_dots, none) on GPT-2-small and on bench.py's
+   XL-class config (E=2048, 16 heads, 12 layers) at B=8 T=1024, 2
+   warm-up and 5 timed steps and a profiled step each: tokens/s, step
+   ms, MFU, peak memory; K1 must launch 2 L times a step under full and
+   L under the others, K2 and K3 L each, and the four first-step losses
+   agree.
+7. parity: one f32 train step of GPT-2-small and of Llama-small at full
+   width, B=1 T=256, from the same params on the card (kernels) and on
+   the CPU (plain versions): the loss, every leaf's grad and updated
+   value within the printed tolerances.
 
 It prints one JSON line per kernel shape and per phase, K4's rows on
 the serving paths with their launches there (by window and heads), then
@@ -156,6 +176,28 @@ TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 3, 20, 3
 # what a near-zero grad flipping sign could cost
 PARITY_BATCH = (1, 256)
 PARITY_TOL = {"loss": 1e-4, "grad_rel": 1e-3, "param": 1e-3}
+# Llama-small on bench.py's recipe: 3 warm-up and LLAMA_STEPS timed steps
+LLAMA_STEPS = 10
+# the remat phase: each RAY_TPU_REMAT_POLICY on GPT-2-small and on
+# bench.py's XL-class config (E=2048, 16 heads, 12 layers, one card), 2
+# warm-up and 5 timed steps each. Every policy starts from the same
+# params and batch and changes only what the backward keeps, not what it
+# computes: each step's loss and grad norm (the later losses read the
+# updates, so a wrong backward shows there) must equal "full"'s within
+# REMAT_TRAJ_RTOL, relative. The runs are deterministic: on an H100 all
+# four policies gave the same bits at both sizes
+REMAT_POLICIES = ("full", "save_flash", "save_dots", "none")
+# bench.py's GPT-2 "XL-class" config for one card (~709 M parameters)
+XL_CLASS = {"n_layer": 12, "n_head": 16, "n_embd": 2048}
+REMAT_WARMUP, REMAT_STEPS = 2, 5
+REMAT_TRAJ_RTOL = 1e-4
+# the tiny presets: prompts of these lengths (of the presets' 128
+# positions), TINY_TOKENS new tokens each; TINY_TRAIN_STEPS train steps
+# on a (B, T) batch
+TINY_PROMPTS = (90, 47, 20, 9, 3)
+TINY_TOKENS = 16
+TINY_TRAIN_BATCH = (4, 128)
+TINY_TRAIN_STEPS = 3
 
 
 def fail(msg: str) -> None:
@@ -391,79 +433,109 @@ def check_hopper(torch, gen) -> None:
 # ------------------------------------------------------------ phase 2
 
 
+# K1, K2 and K3 at the shapes of the tiny presets (H=4, D=32; the
+# tiny train step's B and T, a ragged length, no mask) and, in bf16, at
+# the XL-class training shape of the remat phase (H=16, D=128);
+# (B, T, H, D, causal)
+FLASH_TINY_SHAPES = ((4, 128, 4, 32, True), (2, 77, 4, 32, True),
+                     (1, 128, 4, 32, False))
+# K1 alone at the tiny engines' prefill: one prompt padded to its bucket,
+# a power of two from 16 to max_model_len 128
+FLASH_TINY_PREFILL = tuple((1, T, 4, 32, True) for T in (16, 32, 64, 128))
+FLASH_XL_SHAPE = (8, 1024, 16, 128, True)
+
+
+def flash_cases(torch, shapes) -> list:
+    """(dtype, B, T, H, D, causal): `shapes` at H=12 and the tiny shapes
+    in f32 and bf16, then the XL-class shape in bf16."""
+    cases = [(dtype, B, T, 12, D, causal)
+             for dtype in (torch.float32, torch.bfloat16)
+             for B, T, D, causal in shapes]
+    cases += [(dtype, *shape) for dtype in (torch.float32, torch.bfloat16)
+              for shape in FLASH_TINY_SHAPES]
+    return cases + [(torch.bfloat16, *FLASH_XL_SHAPE)]
+
+
 def check_flash(torch, gen) -> dict:
     """K1 against its plain version; returns the bf16 T=1024 rows of the
-    serving prefill (B=1) and of training (B=8) as "serve" and "train"."""
+    serving prefill (B=1) and of training (B=8) as "serve" and "train",
+    the XL-class training row as "train_xl", and the tiny train step's
+    in bf16 (GPT-2 tiny) and f32 (Llama tiny) as "tiny" and
+    "tiny_f32"."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import flash_attention as fa
 
-    H = 12
     main = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    # the prefill buckets, the training shape; then a ragged length, no
+    # mask, D = 128
+    for dtype, B, T, H, D, causal in flash_cases(torch, (
+            (1, 64, 64, True), (1, 512, 64, True), (1, 1024, 64, True),
+            (8, 1024, 64, True), (1, 731, 64, True), (1, 256, 64, False),
+            (1, 256, 128, True))) + [
+                (dtype, *shape) for dtype in (torch.float32, torch.bfloat16)
+                for shape in FLASH_TINY_PREFILL]:
         dn = dname(torch, dtype)
-        # the prefill buckets, the training shape; then a ragged length,
-        # no mask, D = 128
-        for B, T, D, causal in ((1, 64, 64, True), (1, 512, 64, True),
-                                (1, 1024, 64, True), (8, 1024, 64, True),
-                                (1, 731, 64, True), (1, 256, 64, False),
-                                (1, 256, 128, True)):
-            scale = 1.0 / math.sqrt(D)
-            q, k, v = (torch.randn((B, T, H, D), generator=gen,
-                                   device="cuda").to(dtype)
-                       for _ in range(3))
-            o_ref, lse_ref = fa._fwd_plain(q, k, v, causal, scale)
-            tol = TOL["flash_fwd"][dn]
-            # the launch's own choice, then (bf16) both block heights
-            for rows in (0, 64, 128) if dtype == torch.bfloat16 else (0,):
-                o, lse = fa._fwd(q, k, v, causal, scale, block_rows=rows)
-                torch.cuda.synchronize()
-                err_o = (o.float() - o_ref.float()).abs().max().item()
-                err_lse = (lse - lse_ref).abs().max().item()
-                if not (math.isfinite(err_o) and err_o <= tol["o"]
-                        and err_lse <= tol["lse"]):
-                    fail(f"flash_fwd {dn} T={T} D={D} causal={causal} "
-                         f"block_rows={rows or 'default'}: o err {err_o} "
-                         f"(tol {tol['o']}), lse err {err_lse} (tol "
-                         f"{tol['lse']})")
-                if rows == 0:
-                    row_err = (err_o, err_lse)
-            err_o, err_lse = row_err
-            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            ms = cuda_ms(torch, lambda: fa._fwd(q, k, v, causal, scale), 50)
-            plain_ms = cuda_ms(
-                torch, lambda: fa._fwd_plain(q, k, v, causal, scale),
-                20 if B == 1 else 5)
-            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=causal), 50)
-            esz = q.element_size()
-            pairs = T * (T + 1) / 2 if causal else T * T
-            flops = 4.0 * B * H * D * pairs
-            nbytes = 4.0 * B * T * H * D * esz + 4.0 * B * H * T
-            b_ms, b_by = bound(flops, nbytes, dn)
-            row = {"kernel": "flash_fwd", "dtype": dn,
-                   "shape": {"B": B, "T": T, "H": H, "D": D,
-                             "causal": causal},
-                   "max_abs_err_o": err_o, "tol_o": tol["o"],
-                   "max_abs_err_lse": err_lse, "tol_lse": tol["lse"],
-                   "kernel_ms": ms, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, "bound_ms": b_ms,
-                   "bound_by": b_by}
-            rate(row, flops)
-            if T == 1024:
-                row["host_us"] = host_us(
-                    torch, lambda: fa._fwd(q, k, v, causal, scale))
-            if dtype == torch.bfloat16 and T == 1024:
-                row["earlier_ms"] = EARLIER_MS[("flash_fwd", B)]
-                row["earlier_ms_source"] = EARLIER_SOURCE
-                # 64 against 128 q rows a block (two warpgroups share
-                # each k/v tile, but half as many blocks fill the SMs)
-                row["ms_by_block_rows"] = {
-                    r: cuda_ms(torch, lambda r=r: fa._fwd(
-                        q, k, v, causal, scale, block_rows=r), 50)
-                    for r in (64, 128)}
-                main["serve" if B == 1 else "train"] = row
-            emit(row)
+        scale = 1.0 / math.sqrt(D)
+        q, k, v = (torch.randn((B, T, H, D), generator=gen,
+                               device="cuda").to(dtype)
+                   for _ in range(3))
+        o_ref, lse_ref = fa._fwd_plain(q, k, v, causal, scale)
+        tol = TOL["flash_fwd"][dn]
+        # the launch's own choice, then (bf16) both block heights
+        for rows in (0, 64, 128) if dtype == torch.bfloat16 else (0,):
+            o, lse = fa._fwd(q, k, v, causal, scale, block_rows=rows)
+            torch.cuda.synchronize()
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            err_lse = (lse - lse_ref).abs().max().item()
+            if not (math.isfinite(err_o) and err_o <= tol["o"]
+                    and err_lse <= tol["lse"]):
+                fail(f"flash_fwd {dn} T={T} D={D} causal={causal} "
+                     f"block_rows={rows or 'default'}: o err {err_o} "
+                     f"(tol {tol['o']}), lse err {err_lse} (tol "
+                     f"{tol['lse']})")
+            if rows == 0:
+                row_err = (err_o, err_lse)
+        err_o, err_lse = row_err
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ms = cuda_ms(torch, lambda: fa._fwd(q, k, v, causal, scale), 50)
+        plain_ms = cuda_ms(
+            torch, lambda: fa._fwd_plain(q, k, v, causal, scale),
+            20 if B == 1 else 5)
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal), 50)
+        esz = q.element_size()
+        pairs = T * (T + 1) / 2 if causal else T * T
+        flops = 4.0 * B * H * D * pairs
+        nbytes = 4.0 * B * T * H * D * esz + 4.0 * B * H * T
+        b_ms, b_by = bound(flops, nbytes, dn)
+        row = {"kernel": "flash_fwd", "dtype": dn,
+               "shape": {"B": B, "T": T, "H": H, "D": D,
+                         "causal": causal},
+               "max_abs_err_o": err_o, "tol_o": tol["o"],
+               "max_abs_err_lse": err_lse, "tol_lse": tol["lse"],
+               "kernel_ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": b_ms,
+               "bound_by": b_by}
+        rate(row, flops)
+        if T == 1024:
+            row["host_us"] = host_us(
+                torch, lambda: fa._fwd(q, k, v, causal, scale))
+        if dtype == torch.bfloat16 and (B, T, H, D) == FLASH_XL_SHAPE[:4]:
+            main["train_xl"] = row
+        if (B, T, H, D, causal) == FLASH_TINY_SHAPES[0]:
+            main["tiny" if dtype == torch.bfloat16 else "tiny_f32"] = row
+        if dtype == torch.bfloat16 and T == 1024 and D == 64:
+            row["earlier_ms"] = EARLIER_MS[("flash_fwd", B)]
+            row["earlier_ms_source"] = EARLIER_SOURCE
+            # 64 against 128 q rows a block (two warpgroups share
+            # each k/v tile, but half as many blocks fill the SMs)
+            row["ms_by_block_rows"] = {
+                r: cuda_ms(torch, lambda r=r: fa._fwd(
+                    q, k, v, causal, scale, block_rows=r), 50)
+                for r in (64, 128)}
+            main["serve" if B == 1 else "train"] = row
+        emit(row)
     check_flash_views(torch, gen, main)
     check_flash_block_rows(torch, gen)
     return main
@@ -585,13 +657,37 @@ def paged_inputs(torch, gen, dtype, ctx_list, H, HK, W, bs, D, C=1024):
 # tokens, VERIFY_CTX is their middle
 VERIFY_CTX = (96,)
 
+# The tiny engines' layout: max_model_len 128 on 16-token pages, a table
+# of 8 pages. Their decode batch is 5 prompts of TINY_PROMPTS padded to
+# 8 lanes (the padding at context 0), contexts below 128; their verify
+# runs one lane at contexts from 3 to 123 (pos + 4 drafts < 128), whose
+# middle is TINY_VERIFY_CTX
+TINY_C = 128
+TINY_DECODE_CTX = (0, 3, 9, 20, 47, 90, 105, 127)
+TINY_VERIFY_CTX = (47,)
+
 # K4's bf16 rows that the serving paths run: GPT-2's decode batch (the
 # kernel's main row), GPT-2's verify window of four drafts on one lane,
 # and Llama-small's grouped-query decode batch (three query heads a KV
-# head); (ctx_len per sequence, (H, H_kv, W, block_size, D))
-PAGED_PATH_ROWS = {"decode": (PAGED_CTX, (12, 12, 1, 16, 64)),
-                   "verify": (VERIFY_CTX, (12, 12, 5, 16, 64)),
-                   "gqa_decode": (PAGED_CTX, (12, 4, 1, 16, 64))}
+# head); (ctx_len per sequence, (H, H_kv, W, block_size, D, C), dtype),
+# C the cached tokens a table holds
+PAGED_PATH_ROWS = {
+    "decode": (PAGED_CTX, (12, 12, 1, 16, 64, 1024), "bfloat16"),
+    "verify": (VERIFY_CTX, (12, 12, 5, 16, 64, 1024), "bfloat16"),
+    "gqa_decode": (PAGED_CTX, (12, 4, 1, 16, 64, 1024), "bfloat16"),
+    # GPT-2-small's decode batch on 64- and 128-token pages (phase_tiny's
+    # large-page engines)
+    "decode_bs64": (PAGED_CTX, (12, 12, 1, 64, 64, 1024), "bfloat16"),
+    "decode_bs128": (PAGED_CTX, (12, 12, 1, 128, 64, 1024), "bfloat16"),
+    # the tiny presets' decode and verify (D=32) in their engines'
+    # layout: GPT-2 tiny's four heads in bf16, Llama tiny's two query
+    # heads a KV head in f32
+    "tiny_decode": (TINY_DECODE_CTX, (4, 4, 1, 16, 32, TINY_C), "bfloat16"),
+    "tiny_gqa_decode": (TINY_DECODE_CTX, (4, 2, 1, 16, 32, TINY_C),
+                        "float32"),
+    "tiny_verify": (TINY_VERIFY_CTX, (4, 4, 5, 16, 32, TINY_C), "bfloat16"),
+    "tiny_gqa_verify": (TINY_VERIFY_CTX, (4, 2, 5, 16, 32, TINY_C),
+                        "float32")}
 
 
 def k4_launches(by_shape: dict, W: int, H: int, HK: int,
@@ -611,33 +707,55 @@ def k4_launches(by_shape: dict, W: int, H: int, HK: int,
 
 
 def check_paged(torch, gen) -> dict:
-    """K4 against its plain version; returns the bf16 rows of
-    PAGED_PATH_ROWS by name."""
+    """K4 against its plain version; returns the rows of PAGED_PATH_ROWS
+    by name."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import paged_attention as pa
 
-    C = 1024
     main = {}
-    cases = [(dtype, PAGED_CTX, H, HK, W, bs, D)
-             for dtype in (torch.float32, torch.bfloat16)
+    dtypes = (torch.float32, torch.bfloat16)
+    # (dtype, ctx_len per sequence, H, H_kv, W, block_size, D, C)
+    cases = [(dtype, PAGED_CTX, H, HK, W, bs, D, 1024)
+             for dtype in dtypes
              # decode, a verify window, GQA decode and window; then the
              # other page sizes, D = 128
              for H, HK, W, bs, D in ((12, 12, 1, 16, 64), (12, 12, 5, 16, 64),
                                      (12, 4, 1, 16, 64), (12, 4, 5, 16, 64),
                                      (12, 12, 1, 8, 64), (12, 4, 5, 32, 64),
                                      (8, 8, 1, 16, 128))]
+    # 64- and 128-token pages, each walked as tiles of 32 rows, at D 64
+    # and 128; head dim 32 over a full table
+    cases += [(dtype, PAGED_CTX, 12, HK, W, bs, 64, 1024)
+              for dtype in dtypes
+              for bs in (64, 128) for HK in (12, 4) for W in (1, 5)]
+    cases += [(dtype, PAGED_CTX, 8, HK, W, bs, 128, 1024)
+              for dtype in dtypes
+              for bs in (64, 128) for HK, W in ((8, 1), (2, 5))]
+    cases += [(dtype, PAGED_CTX, 4, HK, W, bs, 32, 1024)
+              for dtype in dtypes
+              for HK, W, bs in ((4, 1, 16), (4, 5, 16), (2, 1, 16),
+                                (2, 5, 16), (4, 1, 64), (2, 5, 128))]
+    # the tiny engines' own layout (TINY_C), for GPT-2 tiny's heads and
+    # Llama tiny's grouped-query heads: their decode batch of 8 lanes,
+    # one lane's decode (the logits check replays one request), and the
+    # verify window on one lane over its range of contexts
+    cases += [(dtype, ctx, 4, HK, W, 16, 32, TINY_C)
+              for dtype in dtypes for HK in (4, 2)
+              for W, ctx in ((1, TINY_DECODE_CTX), (1, (3,)), (1, (105,)),
+                             (5, (3,)), (5, TINY_VERIFY_CTX), (5, (96,)),
+                             (5, (123,)))]
     # one long request, and a decode batch of full contexts
-    cases += [(torch.bfloat16, ctx, 12, 12, 1, 16, 64)
+    cases += [(torch.bfloat16, ctx, 12, 12, 1, 16, 64, 1024)
               for ctx in ((1023,), (1023,) * 8)]
     # the verify window on one lane, as the engine launches it: S=1
     # splits each (sequence, KV head) far finer than S=8 does, under the
     # causal own window, for GPT-2's heads and for grouped-query heads
-    cases += [(torch.bfloat16, ctx, 12, HK, 5, 16, 64)
+    cases += [(torch.bfloat16, ctx, 12, HK, 5, 16, 64, 1024)
               for HK, ctxs in ((12, ((17,), VERIFY_CTX, (130,), (1023,))),
                                (4, ((17,), (130,), (1023,))))
               for ctx in ctxs]
-    for dtype, ctx_list, H, HK, W, bs, D in cases:
+    for dtype, ctx_list, H, HK, W, bs, D, C in cases:
         dn = dname(torch, dtype)
         S = len(ctx_list)
         args = paged_inputs(torch, gen, dtype, ctx_list, H, HK, W, bs, D, C)
@@ -698,13 +816,12 @@ def check_paged(torch, gen) -> dict:
             # graph-timed mean
             row["device_ms_by_kernel"] = profiled_by_kernel(
                 torch, lambda: pa.paged_attention(*args), 20)
-        if dtype == torch.bfloat16:
-            for name, path_row in PAGED_PATH_ROWS.items():
-                if (ctx_list, (H, HK, W, bs, D)) == path_row:
-                    main[name] = row
-            if (ctx_list, (H, HK, W, bs, D)) == PAGED_PATH_ROWS["decode"]:
-                row["earlier_ms"] = EARLIER_MS[("paged_attention", S)]
-                row["earlier_ms_source"] = EARLIER_SOURCE
+        for name, path_row in PAGED_PATH_ROWS.items():
+            if (ctx_list, (H, HK, W, bs, D, C), dn) == path_row:
+                main[name] = row
+        if (ctx_list, (H, HK, W, bs, D, C), dn) == PAGED_PATH_ROWS["decode"]:
+            row["earlier_ms"] = EARLIER_MS[("paged_attention", S)]
+            row["earlier_ms_source"] = EARLIER_SOURCE
         emit(row)
     return main
 
@@ -739,98 +856,102 @@ def check_flash_bwd(torch, gen) -> dict:
     beside it; returns the bf16 training-shape rows by kernel name."""
     from ray_tpu_torch.ops import flash_attention as fa
 
-    H = 12
     main = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    # the training shape; then a ragged length, one shorter than a tile
+    # (TMA's zero fill stands in for masked loads), no mask, D = 128
+    for dtype, B, T, H, D, causal in flash_cases(torch, (
+            (8, 1024, 64, True), (1, 731, 64, True), (2, 17, 64, True),
+            (1, 256, 64, False), (1, 256, 128, True))):
         dn = dname(torch, dtype)
         tol = BWD_TOL[dn]
-        # the training shape; then a ragged length, one shorter than a
-        # tile (TMA's zero fill stands in for masked loads), no mask,
-        # D = 128
-        for B, T, D, causal in ((8, 1024, 64, True), (1, 731, 64, True),
-                                (2, 17, 64, True), (1, 256, 64, False),
-                                (1, 256, 128, True)):
-            scale = 1.0 / math.sqrt(D)
-            # q, k, v as column slices of one fused projection, as the
-            # model hands them over
-            qkv = torch.randn((B, T, 3 * H * D), generator=gen,
-                              device="cuda").to(dtype)
-            q, k, v = (t.reshape(B, T, H, D)
-                       for t in qkv.split(H * D, dim=-1))
-            do = torch.randn((B, T, H, D), generator=gen,
-                             device="cuda").to(dtype)
-            o, lse = fa._fwd(q, k, v, causal, scale)
-            delta = fa._delta(o, do)
-            got = fa._bwd(q, k, v, o, lse, do, causal, scale)
-            ref = fa._bwd_plain(q, k, v, o, lse, do, causal, scale)
-            torch.cuda.synchronize()
-            errs = {}
-            for name, g, r in zip(("dq", "dk", "dv"), got, ref):
-                diff = (g.float() - r.float()).abs()
-                errs[name] = diff.max().item()
-                excess = (diff - tol["atol"]
-                          - tol["rtol"] * r.float().abs()).max().item()
-                if not (math.isfinite(errs[name]) and excess <= 0):
-                    fail(f"flash bwd {name} {dn} B={B} T={T} D={D} "
-                         f"causal={causal}: max abs err {errs[name]} "
-                         f"(tol {tol})")
-            # no atomics: a second run on the same inputs gives the same
-            # bits
-            again = fa._bwd(q, k, v, o, lse, do, causal, scale)
-            for name, g, g2 in zip(("dq", "dk", "dv"), got, again):
-                if not torch.equal(g, g2):
-                    fail(f"flash bwd {name} {dn} B={B} T={T} D={D} "
-                         f"causal={causal}: two runs differ")
-            lib = sdpa_bwd(torch, q, k, v, do, causal)
-            lib_ms = profiled_ms(torch, lib, 10) if lib else None
-            pair_ms = {}
-            esz = q.element_size()
-            pairs = B * H * (T * (T + 1) / 2 if causal else T * T)
-            n = B * T * H * D
-            rows_f32 = 2 * 4 * B * H * T  # lse and delta
-            for name, products, n_out, launch, plain, err in (
-                    ("flash_dq", 3, 1,
-                     lambda: fa._launch_dq(q, k, v, do, lse, delta,
-                                           causal, scale),
-                     lambda: fa._bwd_plain(q, k, v, o, lse, do, causal,
-                                           scale, want_dkv=False),
-                     errs["dq"]),
-                    ("flash_dkv", 4, 2,
-                     lambda: fa._launch_dkv(q, k, v, do, lse, delta,
-                                            causal, scale),
-                     lambda: fa._bwd_plain(q, k, v, o, lse, do, causal,
-                                           scale, want_dq=False),
-                     max(errs["dk"], errs["dv"]))):
-                ms = cuda_ms(torch, launch, 20)
-                plain_ms = cuda_ms(torch, plain, 3 if B > 1 else 10)
-                flops = 2.0 * D * pairs * products
-                nbytes = esz * n * (4 + n_out) + rows_f32
-                b_ms, b_by = bound(flops, nbytes, dn)
-                row = {"kernel": name, "dtype": dn,
-                       "shape": {"B": B, "T": T, "H": H, "D": D,
-                                 "causal": causal},
-                       "max_abs_err": err, "errors": errs, "tol": tol,
-                       "kernel_ms": ms, "plain_ms": plain_ms,
-                       "library_ms": lib_ms, "bound_ms": b_ms,
-                       "bound_by": b_by}
-                rate(row, flops)
-                if B == 8:
-                    row["host_us"] = host_us(torch, launch)
-                if dtype == torch.bfloat16 and B == 8:
-                    row["earlier_ms"] = EARLIER_MS[(name, B)]
-                    row["earlier_ms_source"] = EARLIER_SOURCE
-                    main[name] = row
-                pair_ms[name] = ms
-                emit(row)
-            # K2 + K3 beside the one library call that computes all of
-            # dq, dk and dv
-            emit({"kernel": "flash_dq+flash_dkv", "dtype": dn,
-                  "shape": {"B": B, "T": T, "H": H, "D": D,
-                            "causal": causal},
-                  "kernel_ms": pair_ms["flash_dq"] + pair_ms["flash_dkv"],
-                  "library_ms": lib_ms,
-                  "library_source": "torch.profiler device time of the "
-                                    "kernels of SDPA's backward"})
+        scale = 1.0 / math.sqrt(D)
+        # q, k, v as column slices of one fused projection, as the
+        # model hands them over
+        qkv = torch.randn((B, T, 3 * H * D), generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = (t.reshape(B, T, H, D)
+                   for t in qkv.split(H * D, dim=-1))
+        do = torch.randn((B, T, H, D), generator=gen,
+                         device="cuda").to(dtype)
+        o, lse = fa._fwd(q, k, v, causal, scale)
+        delta = fa._delta(o, do)
+        got = fa._bwd(q, k, v, o, lse, do, causal, scale)
+        ref = fa._bwd_plain(q, k, v, o, lse, do, causal, scale)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            diff = (g.float() - r.float()).abs()
+            errs[name] = diff.max().item()
+            excess = (diff - tol["atol"]
+                      - tol["rtol"] * r.float().abs()).max().item()
+            if not (math.isfinite(errs[name]) and excess <= 0):
+                fail(f"flash bwd {name} {dn} B={B} T={T} D={D} "
+                     f"causal={causal}: max abs err {errs[name]} "
+                     f"(tol {tol})")
+        # no atomics: a second run on the same inputs gives the same
+        # bits
+        again = fa._bwd(q, k, v, o, lse, do, causal, scale)
+        for name, g, g2 in zip(("dq", "dk", "dv"), got, again):
+            if not torch.equal(g, g2):
+                fail(f"flash bwd {name} {dn} B={B} T={T} D={D} "
+                     f"causal={causal}: two runs differ")
+        lib = sdpa_bwd(torch, q, k, v, do, causal)
+        lib_ms = profiled_ms(torch, lib, 10) if lib else None
+        pair_ms = {}
+        esz = q.element_size()
+        pairs = B * H * (T * (T + 1) / 2 if causal else T * T)
+        n = B * T * H * D
+        rows_f32 = 2 * 4 * B * H * T  # lse and delta
+        for name, products, n_out, launch, plain, err in (
+                ("flash_dq", 3, 1,
+                 lambda: fa._launch_dq(q, k, v, do, lse, delta,
+                                       causal, scale),
+                 lambda: fa._bwd_plain(q, k, v, o, lse, do, causal,
+                                       scale, want_dkv=False),
+                 errs["dq"]),
+                ("flash_dkv", 4, 2,
+                 lambda: fa._launch_dkv(q, k, v, do, lse, delta,
+                                        causal, scale),
+                 lambda: fa._bwd_plain(q, k, v, o, lse, do, causal,
+                                       scale, want_dq=False),
+                 max(errs["dk"], errs["dv"]))):
+            ms = cuda_ms(torch, launch, 20)
+            plain_ms = cuda_ms(torch, plain, 3 if B > 1 else 10)
+            flops = 2.0 * D * pairs * products
+            nbytes = esz * n * (4 + n_out) + rows_f32
+            b_ms, b_by = bound(flops, nbytes, dn)
+            row = {"kernel": name, "dtype": dn,
+                   "shape": {"B": B, "T": T, "H": H, "D": D,
+                             "causal": causal},
+                   "max_abs_err": err, "errors": errs, "tol": tol,
+                   "kernel_ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            rate(row, flops)
+            if B == 8 and D == 64:
+                row["host_us"] = host_us(torch, launch)
+            if dtype == torch.bfloat16 and (B, T, H, D) == (8, 1024, 12,
+                                                            64):
+                row["earlier_ms"] = EARLIER_MS[(name, B)]
+                row["earlier_ms_source"] = EARLIER_SOURCE
+                main[name] = row
+            if dtype == torch.bfloat16 and (B, T, H, D) \
+                    == FLASH_XL_SHAPE[:4]:
+                main[name + "_xl"] = row
+            if (B, T, H, D, causal) == FLASH_TINY_SHAPES[0]:
+                main[name + ("_tiny" if dtype == torch.bfloat16
+                             else "_tiny_f32")] = row
+            pair_ms[name] = ms
+            emit(row)
+        # K2 + K3 beside the one library call that computes all of
+        # dq, dk and dv
+        emit({"kernel": "flash_dq+flash_dkv", "dtype": dn,
+              "shape": {"B": B, "T": T, "H": H, "D": D,
+                        "causal": causal},
+              "kernel_ms": pair_ms["flash_dq"] + pair_ms["flash_dkv"],
+              "library_ms": lib_ms,
+              "library_source": "torch.profiler device time of the "
+                                "kernels of SDPA's backward"})
     return main
 
 
@@ -1307,7 +1428,6 @@ def phase_train(torch) -> dict:
         gpt2_loss,
         init_gpt2,
     )
-    from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.train import TrainState, adamw, make_train_step
 
     cfg = GPT2Config.small()
@@ -1326,89 +1446,55 @@ def phase_train(torch) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
 
-    metrics = []
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_WARMUP):
-        state, m = step(state, batch)
-        metrics.append(m)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-
-    torch.cuda.reset_peak_memory_stats()
-    counters = _reset_counters()
-    events = [torch.cuda.Event(enable_timing=True)
-              for _ in range(TRAIN_STEPS + 1)]
-    t0 = time.perf_counter()
-    events[0].record()
-    for i in range(TRAIN_STEPS):
-        state, m = step(state, batch)
-        metrics.append(m)
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: c.count for k, c in counters.items()}
-    copies = fa.LAYOUT_COPIES.count
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = sorted(events[i].elapsed_time(events[i + 1])
-                     for i in range(TRAIN_STEPS))
-
-    losses = [float(m["loss"]) for m in metrics]
-    norms = [float(m["grad_norm"]) for m in metrics]
-    if not all(math.isfinite(x) for x in losses + norms):
-        fail(f"train: non-finite loss or grad norm: {losses} {norms}")
+    state, losses, norms, wall, step_ms, launches, copies, peak = \
+        _train_steps(torch, step, state, batch, TRAIN_WARMUP, TRAIN_STEPS)
+    row = {"phase": "train", "model": "gpt2-small", "dtype": "bfloat16",
+           "masters": "float32", "batch": B, "seq": T, "remat": cfg.remat,
+           "optimizer": "adamw(3e-4, weight_decay=0.1)", "init_s": init_s,
+           "warmup_steps": TRAIN_WARMUP,
+           **_train_row("train", n_params, B * T, TRAIN_STEPS, wall,
+                        step_ms, launches, peak, losses, norms),
+           "losses": losses, "grad_norm_first": norms[0],
+           "grad_norm_last": norms[-1], "launches": launches,
+           "layout_copies": copies}
     if not losses[-1] < losses[0]:
         fail(f"train: the loss on the fixed batch did not fall: "
              f"{losses[0]} -> {losses[-1]}")
-    per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
     want = {"flash_fwd": 2 * cfg.n_layer, "flash_dq": cfg.n_layer,
             "flash_dkv": cfg.n_layer, "paged_attention": 0}
-    if per_step != want:
-        fail(f"train: launches per step {per_step}, want {want}")
+    if row["launches_per_step"] != want:
+        fail(f"train: launches per step {row['launches_per_step']}, want "
+             f"{want}")
     if copies:
         fail(f"train: {copies} q, k or v copied to fix its layout")
     if state.step != TRAIN_WARMUP + TRAIN_STEPS:
         fail(f"train: state.step {state.step}")
 
     profile = profile_train(torch, step, state, batch)
-    tok_s = B * T * TRAIN_STEPS / wall
-    row = {"phase": "train", "model": "gpt2-small", "dtype": "bfloat16",
-           "masters": "float32", "batch": B, "seq": T, "remat": cfg.remat,
-           "optimizer": "adamw(3e-4, weight_decay=0.1)",
-           "n_params": n_params, "init_s": init_s, "warmup_steps":
-           TRAIN_WARMUP, "warmup_s": warm_s, "steps": TRAIN_STEPS,
-           "wall_s": wall, "tokens_per_s": tok_s,
-           "step_ms": {"p50": step_ms[len(step_ms) // 2],
-                       "max": step_ms[-1], "min": step_ms[0]},
-           "mfu": 6.0 * n_params * tok_s / PEAK_FLOPS["bfloat16"],
-           "mfu_formula": "6 N tokens/s / 989e12 (bf16 dense peak)",
-           "max_memory_allocated": peak, "loss_first": losses[0],
-           "loss_last": losses[-1], "losses": losses,
-           "grad_norm_first": norms[0], "grad_norm_last": norms[-1],
-           "launches": launches, "launches_per_step": per_step,
-           "layout_copies": copies}
     emit(row)
     emit(profile)
     return launches
 
 
-def profile_train(torch, step, state, batch) -> dict:
-    """PROFILE_STEPS more train steps under torch.profiler, tracing the
-    device only (tracing the host's operator calls as well more than
-    doubles the step's wall time): device time by kernel class and per
-    step, and the device's busy share of the wall time."""
+def profile_train(torch, step, state, batch,
+                  steps: int = PROFILE_STEPS) -> dict:
+    """`steps` more train steps under torch.profiler, tracing the device
+    only (tracing the host's operator calls as well more than doubles
+    the step's wall time): device time by kernel class and per step, and
+    the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     out = device_time(torch, prof, wall_us)
-    out.update({"phase": "train_profile", "steps": PROFILE_STEPS,
-                "step_wall_ms": wall_us / 1e3 / PROFILE_STEPS})
+    out.update({"phase": "train_profile", "steps": steps,
+                "step_wall_ms": wall_us / 1e3 / steps})
     if out["device_busy_ms"] != "not measured":
-        out["device_ms_per_step"] = out["device_busy_ms"] / PROFILE_STEPS
+        out["device_ms_per_step"] = out["device_busy_ms"] / steps
     return out
 
 
@@ -1435,26 +1521,406 @@ def device_time(torch, prof, wall_us: float) -> dict:
             "top_kernels_ms": {k: v / 1e3 for k, v in top}}
 
 
+# ------------------------------------------------------------ phase 5b
+
+
+def _train_steps(torch, step, state, batch, warmup: int, steps: int):
+    """`warmup` steps, then `steps` timed steps with the launch counters
+    zeroed just before and read just after: (state, losses, grad norms,
+    wall s, step ms sorted, launches, layout copies, peak bytes)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    metrics = []
+    for _ in range(warmup):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _reset_counters()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(steps + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(steps):
+        state, m = step(state, batch)
+        metrics.append(m)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    step_ms = sorted(events[i].elapsed_time(events[i + 1])
+                     for i in range(steps))
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    return (state, losses, norms, wall, step_ms, launches,
+            fa.LAYOUT_COPIES.count, torch.cuda.max_memory_allocated())
+
+
+def _train_row(what: str, n_params: int, tokens: int, steps: int,
+               wall: float, step_ms, launches: dict, peak: int,
+               losses, norms) -> dict:
+    """The numbers of a timed training run, its checks left to the
+    caller: every loss and grad norm finite."""
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"{what}: non-finite loss or grad norm: {losses} {norms}")
+    tok_s = tokens * steps / wall
+    return {"n_params": n_params, "steps": steps, "wall_s": wall,
+            "tokens_per_s": tok_s,
+            "step_ms": {"p50": step_ms[len(step_ms) // 2],
+                        "max": step_ms[-1], "min": step_ms[0]},
+            "mfu": 6.0 * n_params * tok_s / PEAK_FLOPS["bfloat16"],
+            "mfu_formula": "6 N tokens/s / 989e12 (bf16 dense peak)",
+            "max_memory_allocated": peak,
+            "launches_per_step": {k: n / steps for k, n in launches.items()},
+            "loss_first": losses[0], "loss_last": losses[-1]}
+
+
+def phase_train_llama(torch) -> dict:
+    """Llama-small (12 layers, E=768, H=12 over H_kv=4, SwiGLU 2048,
+    vocab 32000) on bench.py's recipe: bf16 compute, f32 masters, B=8
+    T=1024 random tokens (seed 0), one fixed batch, adamw(3e-4,
+    weight_decay=0.1), full remat; TRAIN_WARMUP then LLAMA_STEPS timed
+    steps, then a profile. K1 runs on K/V repeated to 12 heads; the
+    launches must be exactly 24/12/12 a step and the loss must fall."""
+    from ray_tpu_torch.models.gpt2 import count_params
+    from ray_tpu_torch.models.llama import LlamaConfig, init_llama, llama_loss
+    from ray_tpu_torch.train import TrainState, adamw, make_train_step
+
+    cfg = LlamaConfig.small()
+    B, T = TRAIN_BATCH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_llama(gen, cfg)
+    n_params = count_params(params)
+    tx = adamw(3e-4, weight_decay=0.1)
+    step = make_train_step(lambda p, b: llama_loss(p, b, cfg), tx)
+    toks = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    state, losses, norms, wall, step_ms, launches, copies, peak = \
+        _train_steps(torch, step, TrainState.create(params, tx), batch,
+                     TRAIN_WARMUP, LLAMA_STEPS)
+    row = {"phase": "train_llama", "model": "llama-small",
+           "dtype": "bfloat16", "masters": "float32", "batch": B, "seq": T,
+           "remat": cfg.remat, "optimizer": "adamw(3e-4, weight_decay=0.1)",
+           **_train_row("train_llama", n_params, B * T, LLAMA_STEPS, wall,
+                        step_ms, launches, peak, losses, norms),
+           "losses": losses, "launches": launches, "layout_copies": copies}
+    want = {"flash_fwd": 2 * cfg.n_layer, "flash_dq": cfg.n_layer,
+            "flash_dkv": cfg.n_layer, "paged_attention": 0}
+    if row["launches_per_step"] != want:
+        fail(f"train_llama: launches per step {row['launches_per_step']}, "
+             f"want {want}")
+    if not losses[-1] < losses[0]:
+        fail(f"train_llama: the loss on the fixed batch did not fall: "
+             f"{losses[0]} -> {losses[-1]}")
+    profile = profile_train(torch, step, state, batch)
+    profile["phase"] = "train_llama_profile"
+    emit(row)
+    emit(profile)
+    del state, step, params
+    release(torch)
+    return launches
+
+
+def phase_remat(torch) -> dict:
+    """Every RAY_TPU_REMAT_POLICY on GPT-2-small and on bench.py's
+    XL-class config at B=8 T=1024 (bf16, f32 masters, adamw), from the
+    same seeded params and batch: REMAT_WARMUP then REMAT_STEPS timed
+    steps each, then a profiled step. K1 must launch 2 L times a step
+    under "full" (the replay runs it again) and L times under the others
+    (save_flash and save_dots keep its (o, lse), none keeps
+    everything), K2 and K3 L times each; every step's loss and grad norm
+    equal "full"'s within REMAT_TRAJ_RTOL. Returns the launches of every
+    timed step."""
+    from ray_tpu_torch.models.gpt2 import (
+        GPT2Config,
+        count_params,
+        gpt2_loss,
+        init_gpt2,
+    )
+    from ray_tpu_torch.train import TrainState, adamw, make_train_step
+
+    B, T = TRAIN_BATCH
+    total: dict = {}
+    before = os.environ.get("RAY_TPU_REMAT_POLICY")
+    try:
+        for name, cfg in (("gpt2-small", GPT2Config.small()),
+                          ("gpt2-xl-class", GPT2Config(**XL_CLASS))):
+            rows = {}
+            for policy in REMAT_POLICIES:
+                os.environ["RAY_TPU_REMAT_POLICY"] = policy
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(0)
+                params = init_gpt2(gen, cfg)
+                n_params = count_params(params)
+                tx = adamw(3e-4, weight_decay=0.1)
+                step = make_train_step(lambda p, b, c=cfg: gpt2_loss(p, b, c),
+                                       tx)
+                toks = torch.randint(0, cfg.vocab_size, (B, T + 1),
+                                     generator=gen, device="cuda")
+                batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+                state, losses, norms, wall, step_ms, launches, _, peak = \
+                    _train_steps(torch, step, TrainState.create(params, tx),
+                                 batch, REMAT_WARMUP, REMAT_STEPS)
+                row = _train_row(f"remat {name} {policy}", n_params, B * T,
+                                 REMAT_STEPS, wall, step_ms, launches, peak,
+                                 losses, norms)
+                row["losses"], row["grad_norms"] = losses, norms
+                L = cfg.n_layer
+                want = {"flash_fwd": (2 if policy == "full" else 1) * L,
+                        "flash_dq": L, "flash_dkv": L, "paged_attention": 0}
+                if row["launches_per_step"] != want:
+                    fail(f"remat {name} {policy}: launches per step "
+                         f"{row['launches_per_step']}, want {want}")
+                prof = profile_train(torch, step, state, batch, steps=1)
+                row["profile"] = {k: prof[k] for k in (
+                    "device_busy_share", "device_ms_by_class",
+                    "step_wall_ms") if k in prof}
+                row["device_ms_per_step"] = prof.get("device_ms_per_step",
+                                                     "not measured")
+                rows[policy] = row
+                for k, n in launches.items():
+                    total[k] = total.get(k, 0) + n
+                del state, step, params, batch
+                release(torch)
+            want = rows["full"]
+            worst = {}
+            for policy, row in rows.items():
+                worst[policy] = max(
+                    abs(x - y) / abs(y)
+                    for key in ("losses", "grad_norms")
+                    for x, y in zip(row[key], want[key]))
+                if worst[policy] > REMAT_TRAJ_RTOL:
+                    fail(f"remat {name} {policy}: losses {row['losses']} "
+                         f"and grad norms {row['grad_norms']} against "
+                         f"full's {want['losses']} and {want['grad_norms']}"
+                         f" (rtol {REMAT_TRAJ_RTOL})")
+            first = {p: r["loss_first"] for p, r in rows.items()}
+            emit({"phase": "remat", "model": name, "dtype": "bfloat16",
+                  "masters": "float32", "batch": B, "seq": T,
+                  "shape": {"n_layer": cfg.n_layer, "n_head": cfg.n_head,
+                            "n_embd": cfg.n_embd},
+                  "optimizer": "adamw(3e-4, weight_decay=0.1)",
+                  "warmup_steps": REMAT_WARMUP, "first_step_losses": first,
+                  "max_rel_diff_from_full": worst,
+                  "rtol": REMAT_TRAJ_RTOL, "policies": rows})
+    finally:
+        if before is None:
+            os.environ.pop("RAY_TPU_REMAT_POLICY", None)
+        else:
+            os.environ["RAY_TPU_REMAT_POLICY"] = before
+    return total
+
+
+# ------------------------------------------------------------ phase 5c
+
+
+def tiny_prompts(vocab: int, seed: int, motif: bool = False):
+    """Random prompts of TINY_PROMPTS lengths, or (`motif`) an 8-token
+    motif repeated to each length, which the n-gram proposer drafts
+    from."""
+    rng = np.random.RandomState(seed)
+    if not motif:
+        return [rng.randint(0, vocab, n).tolist() for n in TINY_PROMPTS]
+    out = []
+    for n in TINY_PROMPTS:
+        m = rng.randint(0, vocab, 8).tolist()
+        out.append((m * (n // 8 + 1))[:n])
+    return out
+
+
+def serve_checked(torch, engine, prompts, max_tokens: int, what: str,
+                  prefill_fn) -> dict:
+    """Serve `prompts` (every request must finish by length), check the
+    pool drains and hold one request's decode logits against a fresh
+    prefill; returns the run's numbers without its finals."""
+    run = serve(torch, engine, prompts, max_tokens)
+    check_drained(engine, what)
+    finals = run.pop("finals")
+    run["consistency"] = decode_consistency(
+        torch, engine, prompts[0], finals[0]["token_ids"], prefill_fn)
+    return run
+
+
+def _add_launches(total: dict, launches: dict) -> dict:
+    """Add a run's launches (and K4's by shape, if there) to `total`."""
+    for k, v in launches.items():
+        if isinstance(v, dict):
+            into = total.setdefault(k, {})
+            for shape, n in v.items():
+                into[shape] = into.get(shape, 0) + n
+        else:
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_tiny(torch) -> tuple[dict, dict]:
+    """The tiny presets (head dim 32) on the card, and GPT-2-small on 64-
+    and 128-token pages. For GPT-2 tiny and Llama tiny, each through
+    ``LLMEngine(EngineConfig(model=m, preset="tiny"))``: the defaults,
+    paged decode (K4 at D=32), paged decode with speculation (K4 at W=5),
+    each serving TINY_PROMPTS with its logits held against a prefill;
+    then TINY_TRAIN_STEPS train steps of the preset through K1-K3 at
+    D=32. An engine whose verify window K4 cannot take must raise at
+    construction, naming the window. Then GPT-2-small serves the
+    engine phase's 8 prompts on 64- and on 128-token pages. Returns the
+    launches of the tiny presets and of the large pages."""
+    from ray_tpu_torch.models.gpt2 import (
+        GPT2Config,
+        gpt2_loss,
+        gpt2_prefill_kv,
+        init_gpt2,
+    )
+    from ray_tpu_torch.models.llama import (
+        LlamaConfig,
+        init_llama,
+        llama_loss,
+        llama_prefill_kv,
+    )
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.train import TrainState, adamw, make_train_step
+
+    tiny: dict = {}
+    rows = {}
+    for model, cfg, init, prefill_fn, loss_fn in (
+            ("gpt2", GPT2Config.tiny(), init_gpt2, gpt2_prefill_kv,
+             gpt2_loss),
+            ("llama", LlamaConfig.tiny(), init_llama, llama_prefill_kv,
+             llama_loss)):
+        kv = getattr(cfg, "n_kv_head", cfg.n_head)
+        for kind, over in (("defaults", {}),
+                           ("paged", {"use_paged_attention": True}),
+                           ("paged_spec", {"use_paged_attention": True,
+                                           "speculative": {
+                                               "num_draft_tokens": SPEC_K}})):
+            engine = LLMEngine(EngineConfig(model=model, preset="tiny",
+                                            **over))
+            counters = _reset_counters()
+            run = serve_checked(torch, engine,
+                                tiny_prompts(cfg.vocab_size, 0,
+                                             motif=kind == "paged_spec"),
+                                TINY_TOKENS, f"tiny {model} {kind}",
+                                prefill_fn)
+            got = launch_counts(counters)
+            _add_launches(tiny, got)
+            if got["flash_fwd"] <= 0 or (got["paged_attention"] > 0) \
+                    != (kind != "defaults"):
+                fail(f"tiny {model} {kind}: launches {got}")
+            if kind == "paged_spec":
+                if k4_launches(got["paged_attention_by_shape"], SPEC_K + 1,
+                               cfg.n_head, kv) <= 0:
+                    fail(f"tiny {model} {kind}: no K4 launch at "
+                         f"W={SPEC_K + 1}")
+                st = engine.stats()
+                run["spec_proposed"] = st["spec_proposed"]
+                run["spec_accepted"] = st["spec_accepted"]
+            rows[f"{model}_{kind}"] = {
+                "dtype": dname(torch, engine.model_cfg.dtype),
+                "head_dim": cfg.head_dim, **run, "launches": got}
+            del engine
+            release(torch)
+        # train steps of the preset as it is (GPT-2 tiny in bf16 with
+        # remat, Llama tiny in f32 without, as in JAX)
+        B, T = TINY_TRAIN_BATCH
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init(gen, cfg)
+        tx = adamw(1e-3)
+        step = make_train_step(lambda p, b, c=cfg, f=loss_fn: f(p, b, c), tx)
+        toks = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen,
+                             device="cuda")
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        _, losses, norms, _, step_ms, launches, _, _ = _train_steps(
+            torch, step, TrainState.create(params, tx), batch, 0,
+            TINY_TRAIN_STEPS)
+        _add_launches(tiny, launches)
+        per_step = {k: n / TINY_TRAIN_STEPS for k, n in launches.items()}
+        L = cfg.n_layer
+        want = {"flash_fwd": (2 if cfg.remat else 1) * L, "flash_dq": L,
+                "flash_dkv": L, "paged_attention": 0}
+        if per_step != want or not all(math.isfinite(x)
+                                       for x in losses + norms):
+            fail(f"tiny {model} train: launches per step {per_step} (want "
+                 f"{want}), losses {losses}, grad norms {norms}")
+        rows[f"{model}_train"] = {"dtype": dname(torch, cfg.dtype),
+                                  "remat": cfg.remat, "batch": B, "seq": T,
+                                  "losses": losses, "step_ms": step_ms,
+                                  "launches_per_step": per_step}
+        del params, step
+        release(torch)
+
+    # a verify window past K4's W <= 32 is refused when the engine is
+    # built, not at its first step
+    try:
+        LLMEngine(EngineConfig(model="gpt2", preset="tiny",
+                               use_paged_attention=True,
+                               speculative={"num_draft_tokens": 40}))
+    except ValueError as e:
+        if "W=41" not in str(e):
+            fail(f"tiny: the refusal does not name the window: {e}")
+        rows["refused_at_construction"] = str(e)
+    else:
+        fail("tiny: an engine with 40 drafts and paged attention was built")
+    release(torch)
+    emit({"phase": "tiny", "prompt_lens": list(TINY_PROMPTS),
+          "max_tokens": TINY_TOKENS, "runs": rows, "launches": tiny})
+
+    # GPT-2-small's paged engine on 64- and 128-token pages
+    large: dict = {}
+    pages = {}
+    for bs in (64, 128):
+        engine = LLMEngine(EngineConfig(
+            model="gpt2", preset="small", block_size=bs, max_model_len=1024,
+            max_batch_size=8, prefill_chunk_size=0, use_paged_attention=True,
+            speculative=None, seed=0))
+        engine.warmup()
+        counters = _reset_counters()
+        run = serve_checked(torch, engine,
+                            engine_prompts(engine.model_cfg.vocab_size, 0),
+                            MAX_TOKENS, f"engine block_size={bs}",
+                            gpt2_prefill_kv)
+        got = launch_counts(counters)
+        _add_launches(large, got)
+        if k4_launches(got["paged_attention_by_shape"], 1, 12, 12) <= 0:
+            fail(f"engine block_size={bs}: K4 was not launched: {got}")
+        pages[bs] = {"num_blocks": engine.pool.num_blocks, **run,
+                     "launches": got}
+        del engine
+        release(torch)
+    emit({"phase": "engine_large_pages", "model": "gpt2-small",
+          "prompt_lens": list(ENGINE_PROMPTS), "max_tokens": MAX_TOKENS,
+          "by_block_size": pages, "launches": large})
+    return tiny, large
+
+
 # ------------------------------------------------------------ phase 6
 
 
-def phase_parity(torch) -> dict:
-    """One train step of GPT-2-small at full width in f32, B=1 T=256,
-    from the same seeded params: on the card through the kernels, on the
-    CPU through their plain versions. The loss, each leaf's gradient and
-    each leaf's updated value must agree within PARITY_TOL."""
+def phase_parity(torch, model: str = "gpt2") -> dict:
+    """One train step of GPT-2-small or Llama-small at full width in f32,
+    B=1 T=256, from the same seeded params: on the card through the
+    kernels, on the CPU through their plain versions. The loss, each
+    leaf's gradient and each leaf's updated value must agree within
+    PARITY_TOL."""
     import dataclasses
 
-    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_loss, init_gpt2
+    from ray_tpu_torch.models import gpt2, llama
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.train import TrainState, adamw, make_train_step
     from ray_tpu_torch.util import tree
 
-    cfg = dataclasses.replace(GPT2Config.small(), dtype=torch.float32)
+    if model == "gpt2":
+        cfg, init, loss_fn = gpt2.GPT2Config.small(), gpt2.init_gpt2, \
+            gpt2.gpt2_loss
+    else:
+        cfg, init, loss_fn = llama.LlamaConfig.small(), llama.init_llama, \
+            llama.llama_loss
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
     B, T = PARITY_BATCH
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    params = {"cuda": init_gpt2(gen, cfg)}
+    params = {"cuda": init(gen, cfg)}
     params["cpu"] = tree.tree_map(lambda t: t.cpu(), params["cuda"])
     toks = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen,
                          device="cuda")
@@ -1466,11 +1932,11 @@ def phase_parity(torch) -> dict:
                  "targets": toks[:, 1:].to(dev)}
         leaves = [t.detach().requires_grad_()
                   for t in tree.leaves(params[dev])]
-        value = gpt2_loss(tree.unflatten(params[dev], leaves), batch, cfg)
+        value = loss_fn(tree.unflatten(params[dev], leaves), batch, cfg)
         loss[dev] = float(value.detach())
         grads[dev] = [g.cpu() for g in torch.autograd.grad(value, leaves)]
         tx = adamw(3e-4, weight_decay=0.1)
-        step = make_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx)
+        step = make_train_step(lambda p, b: loss_fn(p, b, cfg), tx)
         state, _ = step(TrainState.create(params[dev], tx), batch)
         stepped[dev] = [t.cpu() for t in tree.leaves(state.params)]
     torch.cuda.synchronize()
@@ -1478,8 +1944,8 @@ def phase_parity(torch) -> dict:
     copies = fa.LAYOUT_COPIES.count
     names = [path for path, _ in _paths(params["cpu"])]
     if abs(loss["cuda"] - loss["cpu"]) > PARITY_TOL["loss"]:
-        fail(f"parity: loss {loss['cuda']} on the card, {loss['cpu']} on "
-             f"the CPU (tol {PARITY_TOL['loss']})")
+        fail(f"parity {model}: loss {loss['cuda']} on the card, "
+             f"{loss['cpu']} on the CPU (tol {PARITY_TOL['loss']})")
     rows = {}
     for name, gc, gp, pc, pp in zip(names, grads["cuda"], grads["cpu"],
                                     stepped["cuda"], stepped["cpu"]):
@@ -1489,12 +1955,12 @@ def phase_parity(torch) -> dict:
         rows[name] = {"grad_err": g_err, "grad_tol": g_tol,
                       "param_err": p_err, "param_tol": PARITY_TOL["param"]}
         if not (g_err <= g_tol and p_err <= PARITY_TOL["param"]):
-            fail(f"parity: {name}: grad err {g_err} (tol {g_tol}), "
+            fail(f"parity {model}: {name}: grad err {g_err} (tol {g_tol}), "
                  f"updated param err {p_err} (tol {PARITY_TOL['param']})")
     for k in ("flash_fwd", "flash_dq", "flash_dkv"):
         if launches[k] <= 0:
-            fail(f"parity: {k} was not launched on the card")
-    row = {"phase": "parity", "model": "gpt2-small", "dtype": "float32",
+            fail(f"parity {model}: {k} was not launched on the card")
+    row = {"phase": "parity", "model": f"{model}-small", "dtype": "float32",
            "batch": B, "seq": T, "seconds": time.perf_counter() - t0,
            "loss_cuda": loss["cuda"], "loss_cpu": loss["cpu"],
            "loss_tol": PARITY_TOL["loss"], "launches": launches,
@@ -1537,14 +2003,25 @@ def main() -> int:
     paths = {"serve": paged["launches"],
              "serve_default": phase_engine_default(torch, paged),
              "serve_spec": phase_engine_spec(torch),
-             "serve_llama": phase_engine_llama(torch),
-             "train": phase_train(torch)}
-    phase_parity(torch)
+             "serve_llama": phase_engine_llama(torch)}
+    paths["tiny"], paths["serve_large_pages"] = phase_tiny(torch)
+    paths["train"] = phase_train(torch)
+    release(torch)
+    paths["train_llama"] = phase_train_llama(torch)
+    paths["remat"] = phase_remat(torch)
+    for model in ("gpt2", "llama"):
+        phase_parity(torch, model)
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),
-                       ("gqa_decode", "serve_llama")):
-        ctx_list, (H, HK, W, _, _) = PAGED_PATH_ROWS[name]
+                       ("gqa_decode", "serve_llama"),
+                       ("decode_bs64", "serve_large_pages"),
+                       ("decode_bs128", "serve_large_pages"),
+                       ("tiny_decode", "tiny"),
+                       ("tiny_gqa_decode", "tiny"),
+                       ("tiny_verify", "tiny"),
+                       ("tiny_gqa_verify", "tiny")):
+        ctx_list, (H, HK, W, _, _, _), _ = PAGED_PATH_ROWS[name]
         row = k4[name]
         by_shape = paths[path]["paged_attention_by_shape"]
         emit({"kernel": "paged_attention", "row": name,
@@ -1557,6 +2034,28 @@ def main() -> int:
                   by_shape, W, H, HK),
               "launches_at_this_shape": k4_launches(
                   by_shape, W, H, HK, S=len(ctx_list))})
+
+    # K1-K3's rows on the tiny and XL-class training paths, with the
+    # launches of the paths that run them (the tiny path's launches are
+    # those of both presets, in both dtypes)
+    for key, name in (("tiny", "flash_fwd"), ("tiny_f32", "flash_fwd"),
+                      ("train_xl", "flash_fwd"),
+                      ("flash_dq_tiny", "flash_dq"),
+                      ("flash_dkv_tiny", "flash_dkv"),
+                      ("flash_dq_tiny_f32", "flash_dq"),
+                      ("flash_dkv_tiny_f32", "flash_dkv"),
+                      ("flash_dq_xl", "flash_dq"),
+                      ("flash_dkv_xl", "flash_dkv")):
+        row = (k1 if name == "flash_fwd" else k23)[key]
+        path = "tiny" if "tiny" in key else "remat"
+        emit({"kernel": name, "row": key, "shape": row["shape"],
+              "dtype": row["dtype"],
+              "max_abs_err": row.get("max_abs_err",
+                                     row.get("max_abs_err_o")),
+              "kernel_ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+              "library_ms": row["library_ms"], "bound_ms": row["bound_ms"],
+              "bound_by": row["bound_by"], "path": path,
+              "launches_on_path": paths[path].get(name, 0)})
 
     # flash_fwd runs on the serving and training paths: its row is the
     # training shape, its launches those of every path

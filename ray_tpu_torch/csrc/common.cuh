@@ -1,6 +1,8 @@
 // Helpers shared by the port's attention kernels: float <-> element
 // type conversion, warp reductions, the mask value of the TPU kernels,
-// shared-memory opt-in, and bf16 packing for the tensor-core operands.
+// shared-memory opt-in, bf16 packing for the tensor-core operands, and
+// the warp-level tensor-core product (mma.sync m16n8k16) with its tile
+// staging, which the bf16 kernels at head dim 32 use.
 #pragma once
 
 #include <stdint.h>
@@ -67,6 +69,38 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// c += a b for a 16x16 (row) by 16x8 (col) bf16 tile, f32 accumulate.
+// Lane l holds rows l / 4 and l / 4 + 8 of a and c, at columns
+// 2 (l % 4) and 2 (l % 4) + 1 of each 8-wide column tile; b0, b1 hold
+// rows 2 (l % 4) (+1) and 2 (l % 4) + 8 (+9) of b's column l / 4.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Copy rows [t0, t0 + ROWS) of a (T, D) slice with row stride `rs` into
+// a shared tile whose rows are padded by 8 elements, 32 bits at a time,
+// by THREADS threads; rows past `seq` become zero.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           long long rs, int t0, int seq, int tid) {
+  constexpr int kWords = D / 2;
+  for (int i = tid; i < ROWS * kWords; i += THREADS) {
+    const int r = i / kWords, c = (i % kWords) * 2, t = t0 + r;
+    const uint32_t w = t < seq ? ld32(src + t * rs + c) : 0u;
+    *reinterpret_cast<uint32_t*>(dst + r * (D + 8) + c) = w;
+  }
 }
 
 }  // namespace rt

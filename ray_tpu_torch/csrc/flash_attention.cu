@@ -37,7 +37,10 @@
 //    cores run p_{j-1} v_{j-1} (three k/v stages for D = 64);
 //  - f32 keeps the first design: the same tiling as scalar f32 FMAs from
 //    shared memory (TF32 tensor cores would lose the f32 result's
-//    digits), four warps of 16 q rows, synchronous loads.
+//    digits), four warps of 16 q rows, synchronous loads;
+//  - bf16 at D = 32 (a 64-byte row, below the 128-byte swizzle the TMA
+//    and wgmma layouts here assume) runs the first bf16 design,
+//    mma.sync m16n8k16 from padded shared tiles (flash_fwd_mma_kernel).
 // What holds it back at B=8 T=1024 causal (PERF.md): a block of 64 or
 // 128 causal rows runs only 1-8 k/v tiles, so its prologue (q's load,
 // the first q k^T alone) and epilogue weigh; persistent blocks that
@@ -487,6 +490,171 @@ flash_fwd_bf16_kernel(const __grid_constant__ FwdParams p) {
   }
 }
 
+// --------------------------------------------- bf16 at head dim 32
+
+// A 32-column bf16 row is 64 bytes, half the 128-byte swizzle span that
+// the TMA boxes and wgmma descriptors of the kernel above are built on.
+// At D = 32 (the tiny presets, test-sized) the bf16 forward is the
+// warp-level design instead: one block per (b * h, 64-row q tile), four
+// warps of 16 q rows, mma.sync m16n8k16 with f32 accumulate, q kept as
+// A fragments, each 64-key k/v tile staged in shared memory with rows
+// padded by 8 elements, p rounded to bf16 in registers as the A operand
+// of p v. Loads are synchronous: at D = 32 a tile is 4 KB.
+
+template <int D>
+constexpr int mma_smem_bytes() {  // q, k, v tiles, rows padded by 8
+  return 3 * kBlockQ * (D + 8) * static_cast<int>(sizeof(__nv_bfloat16));
+}
+
+// one 64-row tile of q, k or v into shared memory
+template <int D>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
+                                      const __nv_bfloat16* src, long long rs,
+                                      int t0, int seq, int tid) {
+  rt::stage_bf16<D, kBlockQ, kWarps * 32>(dst, src, rs, t0, seq, tid);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      int seq, int heads, Strides st, float scale,
+                      int causal) {
+  constexpr int LD = D + 8;        // padded row, in elements
+  constexpr int KS = D / 16;       // k-steps of q k^T over the head dim
+  constexpr int NT = kBlockK / 8;  // 8-key column tiles of s
+  constexpr int DT = D / 8;        // 8-wide column tiles of o
+  extern __shared__ __align__(16) unsigned char tiles[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tiles);
+  __nv_bfloat16* ks = qs + kBlockQ * LD;
+  __nv_bfloat16* vs = ks + kBlockK * LD;
+
+  const int n_tiles = (seq + kBlockQ - 1) / kBlockQ;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);
+  const int bh = blockIdx.y;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = qt * kBlockQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // mma fragment coordinates: lane holds rows grp and grp + 8 of its
+  // warp's 16, at columns 2 * tig and 2 * tig + 1 of each 8-wide tile
+  const int grp = lane >> 2, tig = lane & 3;
+
+  stage_tile<D>(qs, q + b * st.qb + h * st.qh, st.qt, q0, seq, tid);
+  __syncthreads();
+  uint32_t qf[KS][4];  // this warp's q rows as A fragments, kept all along
+  {
+    const __nv_bfloat16* q_lo = qs + (warp * kRows + grp) * LD + 2 * tig;
+    const __nv_bfloat16* q_hi = q_lo + 8 * LD;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      qf[kk][0] = rt::ld32(q_lo + kk * 16);
+      qf[kk][1] = rt::ld32(q_hi + kk * 16);
+      qf[kk][2] = rt::ld32(q_lo + kk * 16 + 8);
+      qf[kk][3] = rt::ld32(q_hi + kk * 16 + 8);
+    }
+  }
+  float of[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) of[dt][0] = of[dt][1] = of[dt][2] = of[dt][3] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  const int rows[2] = {q0 + warp * kRows + grp, q0 + warp * kRows + grp + 8};
+  const int last = causal ? qt : n_tiles - 1;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    const int k0 = kt * kBlockK;
+    __syncthreads();  // the previous tile is consumed
+    stage_tile<D>(ks, k + b * st.kb + h * st.kh, st.kt, k0, seq, tid);
+    stage_tile<D>(vs, v + b * st.vb + h * st.vh, st.vt, k0, seq, tid);
+    __syncthreads();
+
+    // s = q k^T: 16 rows x 64 keys per warp, as NT accumulator tiles
+    float sf[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      sf[nt][0] = sf[nt][1] = sf[nt][2] = sf[nt][3] = 0.f;
+      const __nv_bfloat16* kr = ks + (nt * 8 + grp) * LD + 2 * tig;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        rt::mma_bf16(sf[nt], qf[kk], rt::ld32(kr + kk * 16), rt::ld32(kr + kk * 16 + 8));
+    }
+
+    // mask and scale; element e of a tile is row rows[e / 2], key
+    // k0 + 8 nt + 2 tig + e % 2
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + nt * 8 + 2 * tig + (e & 1);
+        const bool ok = key < seq && (!causal || key <= rows[e >> 1]);
+        sf[nt][e] = ok ? sf[nt][e] * scale : rt::kMaskValue;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sf[nt][e]);
+      }
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(rt::kFullMask, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(rt::kFullMask, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sf[nt][e] = expf(sf[nt][e] - m[e >> 1]);
+        rsum[e >> 1] += sf[nt][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rsum[i] += __shfl_xor_sync(rt::kFullMask, rsum[i], 1);
+      rsum[i] += __shfl_xor_sync(rt::kFullMask, rsum[i], 2);
+      l[i] = alpha[i] * l[i] + rsum[i];
+    }
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      of[dt][0] *= alpha[0];
+      of[dt][1] *= alpha[0];
+      of[dt][2] *= alpha[1];
+      of[dt][3] *= alpha[1];
+    }
+
+    // o += p v, 16 keys per step: two s tiles, rounded to bf16, are
+    // exactly one A fragment
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      const uint32_t pa[4] = {rt::pack_f32(sf[2 * kk][0], sf[2 * kk][1]),
+                              rt::pack_f32(sf[2 * kk][2], sf[2 * kk][3]),
+                              rt::pack_f32(sf[2 * kk + 1][0], sf[2 * kk + 1][1]),
+                              rt::pack_f32(sf[2 * kk + 1][2], sf[2 * kk + 1][3])};
+      const __nv_bfloat16* vr = vs + (kk * 16 + 2 * tig) * LD + grp;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const __nv_bfloat16* vc = vr + dt * 8;
+        rt::mma_bf16(of[dt], pa, rt::pack_bf16(vc[0], vc[LD]),
+                     rt::pack_bf16(vc[8 * LD], vc[9 * LD]));
+      }
+    }
+  }
+
+  // emit o and lse; a row with l == 0 divides by 1
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= seq) continue;
+    const float ls = l[i] == 0.f ? 1.f : l[i];
+    __nv_bfloat16* orow =
+        o + ((static_cast<long long>(b) * seq + rows[i]) * heads + h) * D + 2 * tig;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
+          rt::pack_f32(of[dt][2 * i] / ls, of[dt][2 * i + 1] / ls);
+    if (tig == 0) lse[static_cast<long long>(bh) * seq + rows[i]] = m[i] + logf(ls);
+  }
+}
+
 // --------------------------------------------------------------- launch
 
 template <typename Kernel, typename T>
@@ -513,6 +681,18 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return launch<decltype(&flash_fwd_f32_kernel<D>), float>(
       flash_fwd_f32_kernel<D>, f32_smem_bytes<D>(), q, k, v, o, lse, batch,
       seq, heads, st, scale, causal, stream);
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, void* lse,
+                       int batch, int seq, int heads, const Strides& st, float scale,
+                       int causal, cudaStream_t stream) {
+  static const cudaError_t attr =
+      rt::allow_smem(flash_fwd_mma_kernel<D>, mma_smem_bytes<D>());
+  if (attr != cudaSuccess) return attr;
+  return launch<decltype(&flash_fwd_mma_kernel<D>), __nv_bfloat16>(
+      flash_fwd_mma_kernel<D>, mma_smem_bytes<D>(), q, k, v, o, lse, batch, seq, heads, st,
+      scale, causal, stream);
 }
 
 int sm_count();
@@ -575,9 +755,10 @@ int default_block_rows(int batch, int seq, int heads) {
 // q, k, v: (B, T, H, D) with the strides given (in elements) for the
 // batch, time and head axes, D contiguous (bf16: pointers 16-byte
 // aligned, strides multiples of 8 elements, the TMA rules); o: (B, T,
-// H, D) contiguous; lse: (B, H, T) f32. bf16 != 0 selects
-// __nv_bfloat16, else float. block_rows picks 64 or 128 q rows a block
-// for bf16 (0: by the grid's size). Returns the CUDA error code of the
+// H, D) contiguous; lse: (B, H, T) f32; D in {32, 64, 128}. bf16 != 0
+// selects __nv_bfloat16, else float. block_rows picks 64 or 128 q rows a
+// block for the bf16 wgmma kernel at D = 64, 128 (0: by the grid's size;
+// ignored at D = 32). Returns the CUDA error code of the
 // launch (0 on success).
 extern "C" int rt_flash_fwd_rows(const void* q, const void* k, const void* v, void* o,
                                  void* lse, int batch, int seq, int heads, int head_dim,
@@ -588,11 +769,18 @@ extern "C" int rt_flash_fwd_rows(const void* q, const void* k, const void* v, vo
                                  int block_rows) {
   const Strides st{sqb, sqt, sqh, skb, skt, skh, svb, svt, svh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim != 64 && head_dim != 128) return cudaErrorInvalidValue;
-  if (!bf16)
+  if (head_dim != 32 && head_dim != 64 && head_dim != 128) return cudaErrorInvalidValue;
+  if (!bf16) {
+    if (head_dim == 32)
+      return launch_f32<32>(q, k, v, o, lse, batch, seq, heads, st, scale, causal, s);
     return head_dim == 64
                ? launch_f32<64>(q, k, v, o, lse, batch, seq, heads, st, scale, causal, s)
                : launch_f32<128>(q, k, v, o, lse, batch, seq, heads, st, scale, causal, s);
+  }
+  // block_rows is the wgmma kernel's choice; the D = 32 kernel has one
+  // height, 64
+  if (head_dim == 32)
+    return launch_mma<32>(q, k, v, o, lse, batch, seq, heads, st, scale, causal, s);
   if (block_rows == 0) block_rows = default_block_rows(batch, seq, heads);
   if (block_rows != 64 && block_rows != 128) return cudaErrorInvalidValue;
   const bool two = block_rows == 128;

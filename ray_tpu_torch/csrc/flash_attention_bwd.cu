@@ -51,6 +51,10 @@
 //    diagonal, only releases the stage.
 //  - f32 keeps K1's scalar FMA path (TF32 would lose f32's digits), with
 //    each warp's p and ds rows passed through shared memory.
+//  - bf16 at D = 32 (a 64-byte row, below the 128-byte swizzle the TMA
+//    and wgmma layouts here assume) runs the first bf16 design, mma.sync
+//    m16n8k16 from padded shared tiles (flash_dq_mma_kernel,
+//    flash_dkv_mma_kernel).
 //  - The ragged edge (T not a multiple of the tile) is masked, so any T that
 //    K1 takes works here.
 // Strides are passed per tensor for q, k, v and do (the head dimension
@@ -802,6 +806,243 @@ flash_dkv_bf16_kernel(const __grid_constant__ DkvParams p) {
   }
 }
 
+// ------------------------------------------- bf16 at head dim 32
+
+// A 32-column bf16 row is 64 bytes, half the 128-byte swizzle span that
+// the TMA boxes and wgmma descriptors of the kernels above are built on.
+// At D = 32 (the tiny presets, test-sized) K2 and K3 in bf16 run the
+// warp-level design instead: one block per (b * h, 64-row tile), four
+// warps of 16 rows, mma.sync m16n8k16 with f32 accumulate. K2 keeps q
+// and do as A fragments and loops over the k/v tiles up to the diagonal;
+// K3 keeps k and v as A fragments and loops over the q/do tiles from the
+// diagonal down, in the transposed orientation, so that p, p^T, ds and
+// ds^T stay in registers as the A operands of the next products. Tiles
+// are staged in shared memory with rows padded by 8 elements;
+// synchronous loads.
+
+template <int D>
+constexpr int mma_smem_bytes() {  // four 64-row tiles, rows padded by 8
+  return 4 * kBlock * (D + 8) * static_cast<int>(sizeof(bf16)) +
+         2 * kBlock * static_cast<int>(sizeof(float));
+}
+
+template <int D>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, long long rs,
+                                      int t0, int seq, int tid) {
+  rt::stage_bf16<D, kBlock, kThreads>(dst, src, rs, t0, seq, tid);
+}
+
+// A fragments of this warp's 16 rows of a staged tile (row-major, 16
+// columns per k-step)
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4], const bf16* tile,
+                                       int warp, int grp, int tig) {
+  constexpr int LD = D + 8;
+  const bf16* lo = tile + (warp * kRows + grp) * LD + 2 * tig;
+  const bf16* hi = lo + 8 * LD;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    f[kk][0] = rt::ld32(lo + kk * 16);
+    f[kk][1] = rt::ld32(hi + kk * 16);
+    f[kk][2] = rt::ld32(lo + kk * 16 + 8);
+    f[kk][3] = rt::ld32(hi + kk * 16 + 8);
+  }
+}
+
+// acc = a x^T over the head dim: a's 16 rows (fragments `a`) against
+// the 64 rows of the staged tile `x`, as 8 accumulator tiles of 8
+// columns
+template <int D>
+__device__ __forceinline__ void rows_by_rows(float (&acc)[kBlock / 8][4],
+                                             const uint32_t (&a)[D / 16][4],
+                                             const bf16* x, int grp, int tig) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int nt = 0; nt < kBlock / 8; ++nt) {
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    const bf16* xr = x + (nt * 8 + grp) * LD + 2 * tig;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      rt::mma_bf16(acc[nt], a[kk], rt::ld32(xr + kk * 16), rt::ld32(xr + kk * 16 + 8));
+  }
+}
+
+// out += w x: the 16 x 64 weights `w` (accumulator layout, rounded to
+// bf16 here) against the staged 64-row tile `x` in [row, d] orientation
+template <int D>
+__device__ __forceinline__ void weights_by_tile(float (&out)[D / 8][4],
+                                                const float (&w)[kBlock / 8][4],
+                                                const bf16* x, int grp, int tig) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < kBlock / 16; ++kk) {
+    // two accumulator tiles, rounded to bf16, are exactly one A fragment
+    const uint32_t wa[4] = {rt::pack_f32(w[2 * kk][0], w[2 * kk][1]),
+                            rt::pack_f32(w[2 * kk][2], w[2 * kk][3]),
+                            rt::pack_f32(w[2 * kk + 1][0], w[2 * kk + 1][1]),
+                            rt::pack_f32(w[2 * kk + 1][2], w[2 * kk + 1][3])};
+    const bf16* xr = x + (kk * 16 + 2 * tig) * LD + grp;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const bf16* xc = xr + dt * 8;
+      rt::mma_bf16(out[dt], wa, rt::pack_bf16(xc[0], xc[LD]),
+                   rt::pack_bf16(xc[8 * LD], xc[9 * LD]));
+    }
+  }
+}
+
+// rows `rows[0]`, `rows[1]` of an accumulator in (B, T, H, D) layout
+template <int D>
+__device__ __forceinline__ void store_rows(const Args& a, void* base, int b, int h,
+                                           const int (&rows)[2],
+                                           const float (&acc)[D / 8][4], int tig) {
+  bf16* out = static_cast<bf16*>(base);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= a.seq) continue;
+    bf16* r = out + out_row(a, b, h, rows[i]) * D + 2 * tig;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<uint32_t*>(r + dt * 8) = rt::pack_f32(acc[dt][2 * i], acc[dt][2 * i + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dq_mma_kernel(Args a) {
+  constexpr int LD = D + 8, NT = kBlock / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char tiles[];
+  bf16* qs = reinterpret_cast<bf16*>(tiles);
+  bf16* dos = qs + kBlock * LD;
+  bf16* ks = dos + kBlock * LD;
+  bf16* vs = ks + kBlock * LD;
+
+  const int seq = a.seq;
+  const int n_tiles = (seq + kBlock - 1) / kBlock;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);
+  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int q0 = qt * kBlock;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+
+  stage_tile<D>(qs, static_cast<const bf16*>(a.q) + b * a.qb + h * a.qh, a.qt, q0, seq, tid);
+  stage_tile<D>(dos, static_cast<const bf16*>(a.dout) + b * a.ob + h * a.oh, a.ot, q0, seq,
+           tid);
+  __syncthreads();
+  uint32_t qf[D / 16][4], df[D / 16][4];  // kept all along
+  load_a<D>(qf, qs, warp, grp, tig);
+  load_a<D>(df, dos, warp, grp, tig);
+  const int rows[2] = {q0 + warp * kRows + grp, q0 + warp * kRows + grp + 8};
+  float lse[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long at = static_cast<long long>(bh) * seq + rows[i];
+    lse[i] = rows[i] < seq ? a.lse[at] : 0.f;
+    dlt[i] = rows[i] < seq ? a.delta[at] : 0.f;
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  const int last = a.causal ? qt : n_tiles - 1;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.kb + h * a.kh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vb + h * a.vh;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    const int k0 = kt * kBlock;
+    __syncthreads();  // the previous tile is consumed
+    stage_tile<D>(ks, kb, a.kt, k0, seq, tid);
+    stage_tile<D>(vs, vb, a.vt, k0, seq, tid);
+    __syncthreads();
+
+    float sf[NT][4], dpf[NT][4];
+    rows_by_rows<D>(sf, qf, ks, grp, tig);   // s = q k^T
+    rows_by_rows<D>(dpf, df, vs, grp, tig);  // dp = do v^T
+    // element e of tile nt: row rows[e / 2], key k0 + 8 nt + 2 tig + e % 2
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + nt * 8 + 2 * tig + (e & 1);
+        const float p = visible(a, rows[e >> 1], key) ? expf(sf[nt][e] * a.scale - lse[e >> 1]) : 0.f;
+        sf[nt][e] = p * (dpf[nt][e] - dlt[e >> 1]) * a.scale;  // ds
+      }
+    weights_by_tile<D>(acc, sf, ks, grp, tig);  // dq += ds k
+  }
+  store_rows<D>(a, a.g0, b, h, rows, acc, tig);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dkv_mma_kernel(Args a) {
+  constexpr int LD = D + 8, NT = kBlock / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char tiles[];
+  bf16* ks = reinterpret_cast<bf16*>(tiles);
+  bf16* vs = ks + kBlock * LD;
+  bf16* qs = vs + kBlock * LD;
+  bf16* dos = qs + kBlock * LD;
+  float* lse_s = reinterpret_cast<float*>(dos + kBlock * LD);
+  float* dlt_s = lse_s + kBlock;
+
+  const int seq = a.seq;
+  const int n_tiles = (seq + kBlock - 1) / kBlock;
+  const int kt = blockIdx.x;  // the first k tiles see the most q tiles
+  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int k0 = kt * kBlock;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+
+  stage_tile<D>(ks, static_cast<const bf16*>(a.k) + b * a.kb + h * a.kh, a.kt, k0, seq, tid);
+  stage_tile<D>(vs, static_cast<const bf16*>(a.v) + b * a.vb + h * a.vh, a.vt, k0, seq, tid);
+  __syncthreads();
+  uint32_t kf[D / 16][4], vf[D / 16][4];  // kept all along
+  load_a<D>(kf, ks, warp, grp, tig);
+  load_a<D>(vf, vs, warp, grp, tig);
+  const int keys[2] = {k0 + warp * kRows + grp, k0 + warp * kRows + grp + 8};
+  float gk[DT][4], gv[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[dt][e] = gv[dt][e] = 0.f;
+  const int first = a.causal ? kt : 0;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qb + h * a.qh;
+  const bf16* ob = static_cast<const bf16*>(a.dout) + b * a.ob + h * a.oh;
+
+  for (int qt = first; qt < n_tiles; ++qt) {
+    const int q0 = qt * kBlock;
+    __syncthreads();  // the previous tile is consumed
+    stage_tile<D>(qs, qb, a.qt, q0, seq, tid);
+    stage_tile<D>(dos, ob, a.ot, q0, seq, tid);
+    for (int r = tid; r < kBlock; r += kThreads) {
+      const int t = q0 + r;
+      lse_s[r] = t < seq ? a.lse[static_cast<long long>(bh) * seq + t] : 0.f;
+      dlt_s[r] = t < seq ? a.delta[static_cast<long long>(bh) * seq + t] : 0.f;
+    }
+    __syncthreads();
+
+    float sf[NT][4], dpf[NT][4];
+    rows_by_rows<D>(sf, kf, qs, grp, tig);  // s^T = k q^T
+    // element e of tile nt: key keys[e / 2], q row q0 + 8 nt + 2 tig + e % 2
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = nt * 8 + 2 * tig + (e & 1);
+        sf[nt][e] = visible(a, q0 + col, keys[e >> 1])
+                        ? expf(sf[nt][e] * a.scale - lse_s[col]) : 0.f;  // p^T
+      }
+    weights_by_tile<D>(gv, sf, dos, grp, tig);  // dv += p^T do
+    rows_by_rows<D>(dpf, vf, dos, grp, tig);    // dp^T = v do^T
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = nt * 8 + 2 * tig + (e & 1);
+        sf[nt][e] *= (dpf[nt][e] - dlt_s[col]) * a.scale;  // ds^T
+      }
+    weights_by_tile<D>(gk, sf, qs, grp, tig);  // dk += ds^T q
+  }
+  store_rows<D>(a, a.g0, b, h, keys, gk, tig);
+  store_rows<D>(a, a.g1, b, h, keys, gv, tig);
+}
+
 // --------------------------------------------------------------- launch
 
 // Each kernel is opted into its shared memory once, at its first launch.
@@ -840,9 +1081,17 @@ cudaError_t launch_dq_bf16(const Args& a, int batch, cudaStream_t stream) {
 
 template <int D>
 cudaError_t launch_dq(const Args& a, int batch, int is_bf16, cudaStream_t s) {
-  // k/v tiles of 128 keys for D = 64 (as K1's), 64 for D = 128, where
-  // dq, s and dp of 128 keys would not fit the consumers' registers
-  if (is_bf16) return launch_dq_bf16<D, D == 64 ? 128 : 64>(a, batch, s);
+  if (is_bf16) {
+    if constexpr (D == 32) {
+      static const cudaError_t attr =
+          rt::allow_smem(flash_dq_mma_kernel<D>, mma_smem_bytes<D>());
+      return launch(flash_dq_mma_kernel<D>, mma_smem_bytes<D>(), attr, a, batch, s);
+    } else {
+      // k/v tiles of 128 keys for D = 64 (as K1's), 64 for D = 128, where
+      // dq, s and dp of 128 keys would not fit the consumers' registers
+      return launch_dq_bf16<D, D == 64 ? 128 : 64>(a, batch, s);
+    }
+  }
   static const cudaError_t attr =
       rt::allow_smem(flash_dq_f32_kernel<D>, dq_f32_smem_bytes<D>());
   return launch(flash_dq_f32_kernel<D>, dq_f32_smem_bytes<D>(), attr, a, batch, s);
@@ -874,7 +1123,15 @@ cudaError_t launch_dkv_bf16(const Args& a, int batch, cudaStream_t stream) {
 
 template <int D>
 cudaError_t launch_dkv(const Args& a, int batch, int is_bf16, cudaStream_t s) {
-  if (is_bf16) return launch_dkv_bf16<D>(a, batch, s);
+  if (is_bf16) {
+    if constexpr (D == 32) {
+      static const cudaError_t attr =
+          rt::allow_smem(flash_dkv_mma_kernel<D>, mma_smem_bytes<D>());
+      return launch(flash_dkv_mma_kernel<D>, mma_smem_bytes<D>(), attr, a, batch, s);
+    } else {
+      return launch_dkv_bf16<D>(a, batch, s);
+    }
+  }
   static const cudaError_t attr =
       rt::allow_smem(flash_dkv_f32_kernel<D>, dkv_f32_smem_bytes<D>());
   return launch(flash_dkv_f32_kernel<D>, dkv_f32_smem_bytes<D>(), attr, a, batch, s);
@@ -896,7 +1153,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // q, k, v, dout: (B, T, H, D) with the strides given (in elements) for
 // the batch, time and head axes, in that order for q, k, v, dout; D
 // contiguous (bf16: pointers 16-byte aligned and strides multiples of 8
-// elements, the TMA rules both bf16 kernels need). lse, delta: (B, H, T)
+// elements, the TMA rules both bf16 kernels need); D in {32, 64, 128}. lse, delta: (B, H, T)
 // f32 contiguous. Outputs (B, T, H, D) contiguous, in the input type.
 // is_bf16 != 0 selects __nv_bfloat16, else float. Each returns the CUDA
 // error code of its launch (0 on success).
@@ -908,6 +1165,7 @@ extern "C" int rt_flash_dq(const void* q, const void* k, const void* v,
   const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, seq, heads,
                            strides, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 32) return launch_dq<32>(a, batch, is_bf16, s);
   if (head_dim == 64) return launch_dq<64>(a, batch, is_bf16, s);
   if (head_dim == 128) return launch_dq<128>(a, batch, is_bf16, s);
   return cudaErrorInvalidValue;
@@ -921,6 +1179,7 @@ extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v,
   const Args a = make_args(q, k, v, dout, lse, delta, dk, dv, seq, heads, strides,
                            scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 32) return launch_dkv<32>(a, batch, is_bf16, s);
   if (head_dim == 64) return launch_dkv<64>(a, batch, is_bf16, s);
   if (head_dim == 128) return launch_dkv<128>(a, batch, is_bf16, s);
   return cudaErrorInvalidValue;

@@ -26,15 +26,19 @@
 //  - a split block reads its table entries once (into shared memory, up
 //    to kTableCache of them) beside ctx_len, then streams its pages'
 //    slices for its KV head (bs rows of D elements, row stride H_kv D)
-//    through a ring of kStages pages with 16-byte cp.async copies,
-//    consuming each page as it lands while the next four are in flight;
-//    it never reads pages at or past ceil(ctx_len / block_size), so a
-//    chunk past the context (ctx_len = 0, a padded decode lane, among
-//    them) reads no page and leaves an empty state;
-//  - each page is read once for all H / H_kv grouped query heads and all
+//    through a ring of kStages tiles with 16-byte cp.async copies,
+//    consuming each tile as it lands while the next four are in flight.
+//    A tile is KT = min(bs, 32) rows of one page: pages of 8 to 32
+//    tokens are one tile each, pages of 64 and 128 tokens two and four,
+//    so the ring's shared memory does not grow with the page (five
+//    128-token f32 pages at D = 128 would be 640 KB). It never reads
+//    tokens at or past ctx_len rounded up to a tile, so a chunk past the
+//    context (ctx_len = 0, a padded decode lane, among them) reads
+//    nothing and leaves an empty state;
+//  - each tile is read once for all H / H_kv grouped query heads and all
 //    W window rows: a row's scores and its online softmax in one warp
-//    (32 / bs lanes a key), p v one thread per output element, two
-//    block barriers a page; the products stay on the CUDA cores (at
+//    (32 / KT lanes a key), p v one thread per output element, two
+//    block barriers a tile; the products stay on the CUDA cores (at
 //    W = 1 they are matrix-vector);
 //  - each block keeps its partial state (acc (R, D), row max m, row sum
 //    l, f32) in its shared memory; after a cluster barrier the blocks
@@ -57,18 +61,23 @@ namespace {
 
 constexpr int kMaxWindow = 32;    // largest W
 constexpr int kMaxSmem = 232448;  // 227 KB: the most a block may opt into
-constexpr int kStages = 5;        // pages in the ring: four in flight, one read
+constexpr int kStages = 5;        // tiles in the ring: four in flight, one read
+constexpr int kMaxTile = 32;      // page rows a tile: one warp's lanes
 constexpr int kThreads = 128;
 constexpr int kTableCache = 1024;  // table entries a block keeps in shared memory
 constexpr int kMaxCluster = 16;    // blocks of a cluster (H100's non-portable most)
 
+// Page rows a tile of the ring: the whole page up to 32 rows, else 32.
+__host__ __device__ constexpr int tile_rows(int bs) { return bs < kMaxTile ? bs : kMaxTile; }
+
 // Shared memory of one block, in bytes (mirrored by smem_bytes in
-// ops/paged_attention.py): the ring [kStages][k, v][bs][D] in the
-// element type, then in f32 q [R][D], acc [R][D], scores [R][bs], m, l
+// ops/paged_attention.py): the ring [kStages][k, v][KT][D] in the
+// element type, then in f32 q [R][D], acc [R][D], scores [R][KT], m, l
 // and alpha [R], then the chunk's first kTableCache page indices.
 inline int smem_bytes(int rows, int d, int bs, int esz, int chunk) {
-  return kStages * 2 * bs * d * esz +
-         4 * (2 * rows * d + rows * bs + 3 * rows + (chunk < kTableCache ? chunk : kTableCache));
+  const int kt = tile_rows(bs);
+  return kStages * 2 * kt * d * esz +
+         4 * (2 * rows * d + rows * kt + 3 * rows + (chunk < kTableCache ? chunk : kTableCache));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -185,7 +194,8 @@ __device__ __forceinline__ void own_window(const T* __restrict__ q, const T* __r
 
 // One cluster per (KV head g, sequence s), blockIdx = (split, g, s):
 // block `split` < n_split runs the online softmax over the cached keys
-// of pages [split chunk, split chunk + chunk), the last block over the
+// of pages [split chunk, split chunk + chunk), a tile of KT page rows at
+// a time, the last block over the
 // own window, each for the R = (H / H_kv) W query rows of the head's
 // group; then the blocks merge the states in split order, each a slice
 // of the R D outputs.
@@ -196,10 +206,12 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ own_k,
              const T* __restrict__ v_pages, const int* __restrict__ tables,
              const int* __restrict__ ctx_len, T* __restrict__ out, int W, int H, int HK,
              int max_blocks, int chunk, float scale) {
-  constexpr int PAGE = BS * D;                            // elements of one slice
-  constexpr int COPIES = PAGE * sizeof(T) / 16;           // 16-byte copies a slice
+  constexpr int KT = tile_rows(BS);                       // page rows a tile
+  constexpr int TPP = BS / KT;                            // tiles a page
+  constexpr int TILE = KT * D;                            // elements of one slice
+  constexpr int COPIES = TILE * sizeof(T) / 16;           // 16-byte copies a slice
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // elements a copy
-  constexpr int GL = 32 / BS;                             // lanes a key
+  constexpr int GL = 32 / KT;                             // lanes a key
   constexpr int DL = D / GL;                              // dims a lane
   const int split = blockIdx.x, g = blockIdx.y, s = blockIdx.z;
   const int n_states = gridDim.x;  // the page splits, then the own window
@@ -208,10 +220,10 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ own_k,
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
-  float* qs = reinterpret_cast<float*>(ring + kStages * 2 * PAGE);
+  float* qs = reinterpret_cast<float*>(ring + kStages * 2 * TILE);
   float* acc = qs + R * D;
   float* sc = acc + R * D;
-  float* m_s = sc + R * BS;
+  float* m_s = sc + R * KT;
   float* l_s = m_s + R;
   float* a_s = l_s + R;
   int* pages = reinterpret_cast<int*>(a_s + R);
@@ -226,6 +238,8 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ own_k,
     for (int i = tid; i < min(n_table, kTableCache); i += kThreads) pages[i] = table[i];
     const int ctx = max(ctx_len[s], 0);
     const int n_local = min(n_table, min((ctx + BS - 1) / BS, max_blocks) - p0);
+    // tiles of the chunk's pages up to ctx_len
+    const int n_tiles = n_local > 0 ? (min(n_local * BS, ctx - p0 * BS) + KT - 1) / KT : 0;
     for (int i = tid; i < R * D && n_local > 0; i += kThreads) {
       qs[i] = rt::to_f(q[rw.q_at(s, g, i / D) * D + i % D]);
       acc[i] = 0.f;
@@ -236,34 +250,36 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ own_k,
     }
     __syncthreads();
 
-    // page i of the chunk, k and v slices of head g, into stage i % kStages
+    // tile i of the chunk (rows (i % TPP) KT.. of its page i / TPP), k
+    // and v slices of head g, into stage i % kStages
     const long long row_stride = static_cast<long long>(HK) * D;  // between page rows
     const auto issue = [&](int i) {
-      if (i < n_local) {
-        const int page = i < kTableCache ? pages[i] : table[i];
-        const long long base = static_cast<long long>(page) * BS * row_stride + g * D;
-        T* dst = ring + (i % kStages) * 2 * PAGE;
+      if (i < n_tiles) {
+        const int pi = i / TPP;
+        const int page = pi < kTableCache ? pages[pi] : table[pi];
+        const long long base = (static_cast<long long>(page) * BS + (i % TPP) * KT) * row_stride + g * D;
+        T* dst = ring + (i % kStages) * 2 * TILE;
         for (int c = tid; c < 2 * COPIES; c += kThreads) {
           const int kv = c / COPIES, e = (c % COPIES) * VEC;
           const T* src = (kv ? v_pages : k_pages) + base + (e / D) * row_stride + e % D;
-          cp_async16(dst + kv * PAGE + e, src);
+          cp_async16(dst + kv * TILE + e, src);
         }
       }
-      cp_async_commit();  // one group a page, empty past the chunk
+      cp_async_commit();  // one group a tile, empty past the chunk
     };
 #pragma unroll
     for (int i = 0; i < kStages - 1; ++i) issue(i);
 
-    for (int i = 0; i < n_local; ++i) {
+    for (int i = 0; i < n_tiles; ++i) {
       cp_async_wait<kStages - 2>();
-      __syncthreads();  // page i is in for every thread; stage (i - 1) is free
+      __syncthreads();  // tile i is in for every thread; stage (i - 1) is free
       issue(i + kStages - 1);
-      const T* kp = ring + (i % kStages) * 2 * PAGE;
-      const T* vp = kp + PAGE;
-      const int valid = ctx - (p0 + i) * BS;  // keys of the page below ctx_len
+      const T* kp = ring + (i % kStages) * 2 * TILE;
+      const T* vp = kp + TILE;
+      const int valid = ctx - p0 * BS - i * KT;  // keys of the tile below ctx_len
 
       // scores and the online softmax, one warp a row: lane (key, part)
-      // takes GL = 32 / BS lanes a key, DL = D / GL dims each; p is
+      // takes GL = 32 / KT lanes a key, DL = D / GL dims each; p is
       // rounded to the element type before p v, as the TPU kernel casts
       // it to v's type
       for (int r = warp; r < R; r += kThreads / 32) {
@@ -286,7 +302,7 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ own_k,
         const float m_new = fmaxf(m_prev, rt::warp_max(x));
         const float p = expf(x - m_new);
         const float psum = rt::warp_sum(part == 0 ? p : 0.f);
-        if (part == 0) sc[r * BS + key] = rt::round_to<T>(p);
+        if (part == 0) sc[r * KT + key] = rt::round_to<T>(p);
         if (lane == 0) {
           const float alpha = expf(m_prev - m_new);
           a_s[r] = alpha;
@@ -299,10 +315,10 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ own_k,
       // acc = acc alpha + p v, one thread an element
       for (int e = tid; e < R * D; e += kThreads) {
         const int r = e / D, d = e % D;
-        const float* pr = sc + r * BS;
+        const float* pr = sc + r * KT;
         float a = acc[e] * a_s[r];
 #pragma unroll
-        for (int j = 0; j < BS; ++j) a = fmaf(pr[j], rt::to_f(vp[j * D + d]), a);
+        for (int j = 0; j < KT; ++j) a = fmaf(pr[j], rt::to_f(vp[j * D + d]), a);
         acc[e] = a;
       }
     }
@@ -379,6 +395,10 @@ cudaError_t launch_bs(int bs, const void* q, const void* own_k, const void* own_
       return launch<T, D, 16>(q, own_k, own_v, k_pages, v_pages, tables, ctx_len, out, S, W, H, HK, max_blocks, n_split, chunk, scale, stream);
     case 32:
       return launch<T, D, 32>(q, own_k, own_v, k_pages, v_pages, tables, ctx_len, out, S, W, H, HK, max_blocks, n_split, chunk, scale, stream);
+    case 64:
+      return launch<T, D, 64>(q, own_k, own_v, k_pages, v_pages, tables, ctx_len, out, S, W, H, HK, max_blocks, n_split, chunk, scale, stream);
+    case 128:
+      return launch<T, D, 128>(q, own_k, own_v, k_pages, v_pages, tables, ctx_len, out, S, W, H, HK, max_blocks, n_split, chunk, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -388,7 +408,7 @@ cudaError_t launch_bs(int bs, const void* q, const void* own_k, const void* own_
 
 // All operands contiguous, in the layout above; bf16 != 0 selects
 // __nv_bfloat16, else float. Needs H % H_kv == 0, block_size in
-// {8, 16, 32}, W <= 32, D in {64, 128}. Split i < n_split covers pages
+// {8, 16, 32, 64, 128}, W <= 32, D in {32, 64, 128}. Split i < n_split covers pages
 // [i chunk, (i + 1) chunk) of each sequence, n_split chunk >= max_blocks
 // and n_split + 1 <= 16 (one cluster of blocks per KV head and
 // sequence). Returns the CUDA error code of the launch (0 on success).
@@ -403,6 +423,9 @@ extern "C" int rt_paged_attention(const void* q, const void* own_k,
   if (n_split < 1 || chunk < 1 || static_cast<long long>(n_split) * chunk < max_blocks)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 32)
+    return bf16 ? launch_bs<__nv_bfloat16, 32>(bs, q, own_k, own_v, k_pages, v_pages, tables, ctx_len, out, S, W, H, HK, max_blocks, n_split, chunk, scale, st)
+                : launch_bs<float, 32>(bs, q, own_k, own_v, k_pages, v_pages, tables, ctx_len, out, S, W, H, HK, max_blocks, n_split, chunk, scale, st);
   if (head_dim == 64)
     return bf16 ? launch_bs<__nv_bfloat16, 64>(bs, q, own_k, own_v, k_pages, v_pages, tables, ctx_len, out, S, W, H, HK, max_blocks, n_split, chunk, scale, st)
                 : launch_bs<float, 64>(bs, q, own_k, own_v, k_pages, v_pages, tables, ctx_len, out, S, W, H, HK, max_blocks, n_split, chunk, scale, st);

@@ -19,10 +19,12 @@ a gathered context with the JAX model's plain einsum math, which runs
 outside any kernel there too. Every serving path shares the block's
 projections and MLP; the paged ones swap the attention core through
 the JAX model's ``attend`` hook. `gpt2_loss` is the training loss; with
-``cfg.remat`` (the default) each block of `gpt2_forward` is recomputed
-in the backward, as the JAX model's "full" remat policy does. The
-selective policies ``save_flash`` and ``save_dots`` and the partition
-rules come with later slices (ROADMAP.md).
+``cfg.remat`` (the default) each block of `gpt2_forward` runs under
+``torch.utils.checkpoint`` with the JAX model's RAY_TPU_REMAT_POLICY:
+"full" recomputes the block in the backward, "save_flash" keeps the
+flash operator's (o, lse), "save_dots" also every matmul output without
+batch dims (``aten.mm``, ``aten.addmm``), "none" keeps everything. The
+partition rules come with a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,7 +37,11 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch.ops.attention import (
     causal_attention,
@@ -206,31 +212,47 @@ def _block(x, p, cfg: GPT2Config):
     return _block_kv(x, p, cfg)[0]
 
 
-# RAY_TPU_REMAT_POLICY values of the JAX model that keep named residuals;
-# they need the flash op visible to a selective-checkpoint policy, which
-# a ctypes launch is not
-_SELECTIVE_REMAT = ("save_flash", "save_dots")
+def _saved_ops(mode: str) -> frozenset:
+    """The operators whose outputs a selective remat policy keeps: the
+    flash operator's (o, lse) (JAX: ``save_only_these_names("flash_o",
+    "flash_lse")``), and under "save_dots" every matmul without batch
+    dims (JAX: ``dots_with_no_batch_dims_saveable``), which in torch are
+    the 2-D ``aten.mm`` and ``aten.addmm`` that a (B, T, E) @ (E, N)
+    product folds into; a batched ``aten.bmm`` is recomputed."""
+    ops = {torch.ops.ray_tpu_torch.flash_fwd.default}
+    if mode == "save_dots":
+        ops |= {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+    return frozenset(ops)
+
+
+def _policy_contexts(saved: frozenset):
+    """A fresh pair of selective-checkpoint contexts that keep `saved`'s
+    outputs and recompute everything else."""
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
 
 
 def _remat_block(cfg: GPT2Config):
-    """The block as `gpt2_forward` runs it. With ``cfg.remat``,
-    RAY_TPU_REMAT_POLICY picks what the backward replay reuses, as in the
-    JAX model: "none" keeps every activation, any other value is "full"
-    and recomputes each block (``torch.utils.checkpoint``, non-reentrant),
-    and "save_flash" / "save_dots" raise until they are ported."""
+    """The block as `gpt2_forward` runs it. With ``cfg.remat`` and under
+    grad, RAY_TPU_REMAT_POLICY picks what the backward replay reuses, as
+    in the JAX model: "none" keeps every activation; "save_flash" and
+    "save_dots" keep the outputs of `_saved_ops` and recompute the rest;
+    any other value is "full" and recomputes the whole block. All run
+    ``torch.utils.checkpoint`` non-reentrant."""
     if not cfg.remat:
         return _block
     mode = os.environ.get("RAY_TPU_REMAT_POLICY", "full")
-    if mode in _SELECTIVE_REMAT:
-        raise NotImplementedError(
-            f"RAY_TPU_REMAT_POLICY={mode} is not ported yet (ROADMAP.md, "
-            f"queue 1, 'Remat policies save_flash and save_dots'); use "
-            f"'full' (the default) or 'none'")
     if mode == "none" or not torch.is_grad_enabled():
         return _block
     # the block draws no random numbers, so no RNG state is stashed
-    return functools.partial(checkpoint, _block, use_reentrant=False,
-                             preserve_rng_state=False)
+    kwargs = {"use_reentrant": False, "preserve_rng_state": False}
+    if mode in ("save_flash", "save_dots"):
+        kwargs["context_fn"] = functools.partial(_policy_contexts,
+                                                 _saved_ops(mode))
+    return functools.partial(checkpoint, _block, **kwargs)
 
 
 def _embed(params, tokens, positions, cfg: GPT2Config):

@@ -1,5 +1,4 @@
-"""Llama in PyTorch, the serving half: the port of
-``ray_tpu/models/llama.py``.
+"""Llama in PyTorch: the port of ``ray_tpu/models/llama.py``.
 
 RMSNorm, half-split rotary embeddings, SwiGLU and grouped-query
 attention (n_kv_head <= n_head). Parameters are a nested dict of
@@ -26,18 +25,26 @@ The rotary angles are computed once per call for the positions it
 covers, in f32, as ``theta ** (-arange(half) / half)`` times the
 position, then applied in f32 and cast to the activation dtype; prefill,
 chunk and decode share that code, so a position's K agrees bit for bit
-on every path. `llama_loss`, training and the partition rules come with
-later slices (ROADMAP.md).
+on every path. `llama_forward` is the training forward: with
+``cfg.remat`` and under grad each block is recomputed in the backward
+(``torch.utils.checkpoint``, as the JAX model's ``jax.checkpoint`` over
+each block; the JAX Llama reads no RAY_TPU_REMAT_POLICY, and neither
+does this one), and K/V are repeated to the query heads before K1, so
+the GQA gradient sums each group's dk/dv through ``repeat_interleave``'s
+own backward. `llama_loss` is its next-token loss. The partition rules
+come with a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import (
     causal_attention,
@@ -229,6 +236,10 @@ def _block_kv(x, p, rope, cfg: LlamaConfig):
     return _attn_out(x, att.reshape(B, T, E), p, cfg), (k, v)
 
 
+def _block(x, p, rope, cfg: LlamaConfig):
+    return _block_kv(x, p, rope, cfg)[0]
+
+
 def _chunk_block(x, p, k_ctx, v_ctx, ctx_mask, chunk_mask, rope,
                  cfg: LlamaConfig, attend=None):
     """Chunked-prefill block step (see models/gpt2.py `_chunk_block`):
@@ -285,9 +296,33 @@ def llama_prefill_kv(params: Params, tokens: torch.Tensor,
 
 def llama_forward(params: Params, tokens: torch.Tensor,
                   cfg: LlamaConfig) -> torch.Tensor:
-    """tokens (B, T) -> logits (B, T, padded_vocab) float32 (inference:
-    training and remat wait for the training slices)."""
-    return llama_prefill_kv(params, tokens, cfg)[0]
+    """tokens (B, T) -> logits (B, T, padded_vocab) float32, the training
+    forward: with ``cfg.remat`` and under grad each block is recomputed
+    in the backward ("full" remat, non-reentrant)."""
+    rope = chunk_rope(0, tokens.shape[1], cfg.head_dim, cfg.rope_theta,
+                      tokens.device)
+    block = _block
+    if cfg.remat and torch.is_grad_enabled():
+        # the block draws no random numbers, so no RNG state is stashed
+        block = functools.partial(checkpoint, _block, use_reentrant=False,
+                                  preserve_rng_state=False)
+    x = _embed(params, tokens, cfg)
+    for p in tree.unstack(params["blocks"]):
+        x = block(x, p, rope, cfg)
+    return _logits(params, x, cfg)
+
+
+def llama_loss(params: Params, batch: dict, cfg: LlamaConfig
+               ) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["targets"]`` (B, T); the padded vocab's logits are masked
+    to -1e9, as in the JAX model."""
+    logits = llama_forward(params, batch["tokens"], cfg)
+    mask = torch.arange(cfg.padded_vocab, device=logits.device) \
+        < cfg.vocab_size
+    logits = torch.where(mask, logits, -1e9)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, batch["targets"].long()[..., None]).mean()
 
 
 def llama_prefill_chunk_kv(params: Params, tokens: torch.Tensor, start: int,

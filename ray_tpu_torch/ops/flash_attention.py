@@ -1,6 +1,6 @@
 """Flash attention, forward and backward: kernels K1, K2 and K3, their
-plain versions, launch counters, and the ``torch.autograd.Function``
-that joins them.
+plain versions, launch counters, and the custom operator that joins
+them.
 
 The port of ``ray_tpu/ops/flash_attention.py``. On CUDA tensors `_fwd`
 launches K1 (``csrc/flash_attention.cu``) and `_bwd` launches K2 (dq)
@@ -19,11 +19,17 @@ are; an operand that does not is copied once into a contiguous tensor
 (`_kernel_operand`, counted by `LAYOUT_COPIES`; `do` through
 `_kernel_grad_output`), a layout fix and not a fallback.
 
-`flash_attention` goes through `_FlashAttention`, the counterpart of
-the JAX module's custom VJP: its forward runs `_fwd` and saves
-``(q, k, v, o, lse)`` (lse laid out (B, H, T) in f32), its backward runs
-`_bwd`, so a ``loss.backward()`` on the card reaches K2 and K3 and on
-the CPU the plain backward.
+`flash_attention` goes through the custom operator
+``ray_tpu_torch::flash_fwd`` (`flash_fwd`), the counterpart of the JAX
+module's custom VJP: it runs `_fwd` and returns ``(o, lse)`` (lse laid
+out (B, H, T) in f32), and its registered backward runs `_bwd` on the
+saved ``(q, k, v, o, lse)``, so a ``loss.backward()`` on the card
+reaches K2 and K3 and on the CPU the plain backward. Being an operator
+of its own, and not a Python function around ctypes launches, it is
+what a selective-checkpoint policy sees: the remat policies
+``save_flash`` and ``save_dots`` of ``models/gpt2.py`` keep its
+``(o, lse)`` (JAX names them ``flash_o`` and ``flash_lse``) instead of
+launching K1 again in the backward's replay.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ LAUNCHES_DKV = _build.LaunchCounter("flash_dkv")
 # copies `_kernel_operand` makes, which the model's path must not make)
 LAYOUT_COPIES = _build.LaunchCounter("flash_layout_copy")
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 128)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 9 \
@@ -106,6 +112,18 @@ def _delta(o, do):
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def kernel_limit(head_dim: int, dtype: torch.dtype) -> str | None:
+    """The first limit of K1, K2 and K3 that a head dim and dtype break,
+    in words, or None when the kernels take them (any length T does).
+    Pure: the engine calls it when it is built, so that a model the
+    kernels cannot serve fails there, not at its first prefill."""
+    if dtype not in KERNEL_DTYPES:
+        return f"dtype {dtype} not in {KERNEL_DTYPES}"
+    if head_dim not in KERNEL_HEAD_DIMS:
+        return f"head dim {head_dim} not in {KERNEL_HEAD_DIMS}"
+    return None
+
+
 def _check_kernel_operands(q, k, v) -> None:
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(
@@ -117,14 +135,14 @@ def _check_kernel_operands(q, k, v) -> None:
         raise ValueError(
             f"flash_attention: q, k, v must share one (B, T, H, D) shape, "
             f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if q.dtype not in KERNEL_DTYPES or not q.dtype == k.dtype == v.dtype:
+    if not q.dtype == k.dtype == v.dtype:
         raise ValueError(
-            f"flash_attention: the kernel takes one dtype of "
-            f"{KERNEL_DTYPES}, got {q.dtype}, {k.dtype}, {v.dtype}")
+            f"flash_attention: the kernel takes one dtype, got {q.dtype}, "
+            f"{k.dtype}, {v.dtype}")
     B, T, H, D = q.shape
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"flash_attention: head dim {D} not in {KERNEL_HEAD_DIMS}")
+    limit = kernel_limit(D, q.dtype)
+    if limit is not None:
+        raise ValueError(f"flash_attention: {limit}")
     if T < 1 or B * H < 1 or B * H > 65535:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} "
                          f"out of the kernel's range")
@@ -284,25 +302,47 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
     return dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The custom VJP of the JAX module (`_flash`, `_flash_fwd`,
-    `_flash_bwd`): forward K1, backward K2 and K3."""
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, sm_scale: float
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o (B, T, H, D) in q's dtype, lse (B, H, T) f32) of q, k, v
+    (B, T, H, D): K1 on CUDA tensors, the plain version on CPU tensors
+    (`_fwd`). Both outputs are contiguous. Differentiable in q, k and v
+    through o; lse is the residual the backward reads (as in the JAX
+    module, whose VJP has no lse output), and a gradient reaching it is
+    not propagated."""
+    o, lse = _fwd(q, k, v, causal, sm_scale)
+    return o.contiguous(), lse.contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        o, lse = _fwd(q, k, v, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        want_q, want_k, want_v = ctx.needs_input_grad[:3]
-        dq, dk, dv = _bwd(q, k, v, o, lse, do, ctx.causal, ctx.sm_scale,
-                          want_dq=want_q, want_dkv=want_k or want_v)
-        return (dq if want_q else None, dk if want_k else None,
-                dv if want_v else None, None, None)
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, sm_scale):
+    B, T, H, D = q.shape
+    return (q.new_empty((B, T, H, D)),
+            q.new_empty((B, H, T), dtype=torch.float32))
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, causal, sm_scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.sm_scale = causal, sm_scale
+
+
+def _flash_backward(ctx, do, _dlse):
+    """K2 and K3 (their plain version on the CPU); a kernel whose
+    gradients no input needs is not launched."""
+    q, k, v, o, lse = ctx.saved_tensors
+    want_q, want_k, want_v = ctx.needs_input_grad[:3]
+    dq, dk, dv = _bwd(q, k, v, o, lse, do, ctx.causal, ctx.sm_scale,
+                      want_dq=want_q, want_dkv=want_k or want_v)
+    return (dq if want_q else None, dk if want_k else None,
+            dv if want_v else None, None, None)
+
+
+flash_fwd.register_autograd(_flash_backward,
+                            setup_context=_flash_setup_context)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -314,4 +354,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     edge (the TPU kernels need T divisible by their block size)."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    return _FlashAttention.apply(q, k, v, causal, float(sm_scale))
+    # refused here, not only in the kernel's launch: on a meta tensor the
+    # operator runs its fake kernel, which only propagates shapes
+    if not {t.device.type for t in (q, k, v)} <= {"cpu", "cuda"}:
+        raise ValueError(f"flash_attention: q, k, v must be CUDA or CPU "
+                         f"tensors, got {q.device}, {k.device}, {v.device}")
+    return flash_fwd(q, k, v, causal, float(sm_scale))[0]

@@ -44,8 +44,8 @@ from ray_tpu_torch import _build
 
 LAUNCHES = _build.LaunchCounter("paged_attention")
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-KERNEL_HEAD_DIMS = (64, 128)
-KERNEL_BLOCK_SIZES = (8, 16, 32)
+KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_BLOCK_SIZES = (8, 16, 32, 64, 128)
 MAX_WINDOW = 32
 MAX_SMEM_BYTES = 232448
 # the split plan: a cluster of blocks per (KV head, sequence), the page
@@ -57,7 +57,8 @@ SPLIT_TARGET_BLOCKS = 7 * 132
 MIN_SPLIT_TOKENS = 64
 MAX_SPLITS = 15
 _TABLE_CACHE = 1024  # table entries a block keeps in shared memory
-_STAGES = 5  # pages in a block's ring
+_STAGES = 5  # tiles in a block's ring
+_MAX_TILE = 32  # page rows a tile: a page of up to 32 rows is one tile
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # rt_paged_attention(q, own_k, own_v, k_pages, v_pages, tables, ctx_len,
@@ -125,12 +126,48 @@ def smem_bytes(rows: int, head_dim: int, block_size: int, elem_size: int,
                pages_per_split: int) -> int:
     """Shared memory one block of K4 needs for `rows` = (H / H_kv) * W
     query rows (mirrors `smem_bytes` in the kernel): a ring of _STAGES
-    pages of k and v, q and acc (R, D), scores (R, block_size), m, l and
-    alpha (R,) in f32, and its chunk's first _TABLE_CACHE table
-    entries."""
-    ring = _STAGES * 2 * block_size * head_dim * elem_size
-    return ring + 4 * (2 * rows * head_dim + rows * block_size + 3 * rows
+    tiles of k and v, a tile being min(block_size, 32) rows of a page, q
+    and acc (R, D), scores (R, tile) m, l and alpha (R,) in f32, and its
+    chunk's first _TABLE_CACHE table entries."""
+    tile = min(block_size, _MAX_TILE)
+    ring = _STAGES * 2 * tile * head_dim * elem_size
+    return ring + 4 * (2 * rows * head_dim + rows * tile + 3 * rows
                        + min(pages_per_split, _TABLE_CACHE))
+
+
+def kernel_limit(block_size: int, head_dim: int, window: int, group: int,
+                 dtype: torch.dtype, max_blocks: int = _TABLE_CACHE
+                 ) -> str | None:
+    """The first limit of K4 that a launch with these shapes breaks, in
+    words, or None when the kernel takes them: pages of `block_size`
+    tokens, `head_dim`, a window of `window` query rows (1 for decode,
+    num_draft_tokens + 1 for a speculative verify), `group` = H / H_kv
+    query heads a KV head, `dtype`, and tables of `max_blocks` pages (the
+    chunk a split walks is at most that, whatever the sequences of a
+    launch). Pure: the engine calls it when it is built, so that a
+    configuration the kernel cannot take fails there, not at its first
+    step."""
+    if dtype not in KERNEL_DTYPES:
+        return f"dtype {dtype} not in {KERNEL_DTYPES}"
+    if head_dim not in KERNEL_HEAD_DIMS:
+        return f"head dim {head_dim} not in {KERNEL_HEAD_DIMS}"
+    if block_size not in KERNEL_BLOCK_SIZES:
+        return f"page size (block_size) {block_size} not in " \
+               f"{KERNEL_BLOCK_SIZES}"
+    if not 1 <= window <= MAX_WINDOW:
+        return f"window W={window} (num_draft_tokens + 1 when " \
+               f"speculating) not in 1..{MAX_WINDOW}"
+    if group < 1:
+        return f"query heads a KV head {group} < 1"
+    esz = torch.empty((), dtype=dtype).element_size()
+    need = smem_bytes(group * window, head_dim, block_size, esz,
+                      max(max_blocks, 1))
+    if need > MAX_SMEM_BYTES:
+        return f"shared memory: {group} query heads a KV head x W=" \
+               f"{window} at head dim {head_dim}, block_size {block_size}" \
+               f", {dtype} need {need} bytes a block, over " \
+               f"{MAX_SMEM_BYTES}"
+    return None
 
 
 def _check_kernel_operands(q, own_k, own_v, k_pages, v_pages, tables,
@@ -158,25 +195,18 @@ def _check_kernel_operands(q, own_k, own_v, k_pages, v_pages, tables,
     if tables.dtype != torch.int32 or ctx_len.dtype != torch.int32:
         raise ValueError("paged_attention: tables and ctx_len must be "
                          "int32")
-    if q.dtype not in KERNEL_DTYPES or not all(
-            t.dtype == q.dtype for t in (own_k, own_v, k_pages, v_pages)):
+    if not all(t.dtype == q.dtype for t in (own_k, own_v, k_pages, v_pages)):
         raise ValueError(
-            f"paged_attention: the kernel takes one dtype of "
-            f"{KERNEL_DTYPES} for q, own_k/v and the pages")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"paged_attention: head dim {D} not in {KERNEL_HEAD_DIMS}")
-    if H % HK or bs not in KERNEL_BLOCK_SIZES or not 1 <= W <= MAX_WINDOW:
-        raise ValueError(
-            f"paged_attention: needs H % H_kv == 0, block_size in "
-            f"{KERNEL_BLOCK_SIZES}, W <= {MAX_WINDOW}; got H={H}, "
-            f"H_kv={HK}, block_size={bs}, W={W}")
-    _, pages = split_plan(S, HK, tables.shape[1], bs)
-    if S < 1 or S > 65535 or smem_bytes(
-            (H // HK) * W, D, bs, q.element_size(), pages) > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"paged_attention: S={S}, {H // HK} heads per group x W={W} "
-            f"out of the kernel's range")
+            "paged_attention: the kernel takes one dtype for q, own_k/v and "
+            "the pages")
+    if H % HK:
+        raise ValueError(f"paged_attention: needs H % H_kv == 0, got H={H}, "
+                         f"H_kv={HK}")
+    limit = kernel_limit(bs, D, W, H // HK, q.dtype, tables.shape[1])
+    if limit is not None:
+        raise ValueError(f"paged_attention: {limit}")
+    if S < 1 or S > 65535:
+        raise ValueError(f"paged_attention: S={S} out of the kernel's range")
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("paged_attention: operands must be contiguous")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:

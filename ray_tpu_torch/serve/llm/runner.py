@@ -44,6 +44,8 @@ from typing import Any, Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ray_tpu_torch.ops import flash_attention, paged_attention
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelAdapter:
@@ -161,6 +163,29 @@ def truncation_cut(logits: torch.Tensor, safe: torch.Tensor,
     return torch.maximum(kth, pth)
 
 
+def kernel_limit(cfg: Any, kv_heads: int, *, block_size: int,
+                 max_blocks_per_seq: int, spec_width: int,
+                 use_paged_attention: bool) -> str | None:
+    """The first limit of the kernels an engine of this shape would
+    launch on the card that it breaks, in words, or None: K1 for every
+    monolithic prefill (the head dim, the dtype), and with paged
+    attention K4 at W=1 (decode) and W=spec_width (the speculative
+    verify window), over `block_size`-token pages."""
+    limit = flash_attention.kernel_limit(cfg.head_dim, cfg.dtype)
+    if limit is not None:
+        return f"prefill through the flash kernel (K1): {limit}"
+    if not use_paged_attention:
+        return None
+    for width in sorted({1, spec_width or 1}):
+        limit = paged_attention.kernel_limit(
+            block_size, cfg.head_dim, width, cfg.n_head // kv_heads,
+            cfg.dtype, max_blocks_per_seq)
+        if limit is not None:
+            what = "decode" if width == 1 else "speculative verify"
+            return f"{what} through the paged kernel (K4): {limit}"
+    return None
+
+
 class ModelRunner:
     """Executes prefill/decode/verify for one model instance on one
     device. Not thread-safe: exactly one step-loop thread drives it (the
@@ -206,6 +231,17 @@ class ModelRunner:
         self.num_draft_tokens = num_draft_tokens
         self.spec_width = num_draft_tokens + 1 if num_draft_tokens else 0
         self.use_paged_attention = bool(use_paged_attention)
+        if self.device.type == "cuda":
+            # a shape the kernels refuse fails here, not at the first step
+            # that launches them; the CPU's plain versions take any shape
+            limit = kernel_limit(
+                cfg, adapter.kv_heads(cfg), block_size=block_size,
+                max_blocks_per_seq=self.max_blocks_per_seq,
+                spec_width=self.spec_width,
+                use_paged_attention=self.use_paged_attention)
+            if limit is not None:
+                raise ValueError(f"{adapter.name}: the engine cannot run on "
+                                 f"{self.device}: {limit}")
         page_shape = (cfg.n_layer, num_blocks, block_size,
                       adapter.kv_heads(cfg), cfg.head_dim)
         self.k_pages = torch.zeros(page_shape, dtype=cfg.dtype,

@@ -127,14 +127,6 @@ def test_remat_recomputes_the_forward_and_keeps_the_grads(models,
         float(results[False][0].detach()), abs=1e-6)
 
 
-@pytest.mark.parametrize("mode", ["save_flash", "save_dots"])
-def test_selective_remat_policies_raise(models, monkeypatch, mode):
-    _, tcfg, _, tp = models
-    monkeypatch.setenv("RAY_TPU_REMAT_POLICY", mode)
-    with pytest.raises(NotImplementedError, match=mode):
-        t_gpt2.gpt2_loss(tp, _torch(_batch(6, tcfg)), tcfg)
-
-
 def test_remat_policy_none_keeps_activations(models, monkeypatch):
     _, tcfg, _, tp = models
     monkeypatch.setenv("RAY_TPU_REMAT_POLICY", "none")
