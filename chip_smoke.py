@@ -93,7 +93,15 @@ Phases, each of which exits non-zero on any failure:
    warm-up and 5 timed steps and a profiled step each: tokens/s, step
    ms, MFU, peak memory; K1 must launch 2 L times a step under full and
    L under the others, K2 and K3 L each, and the four first-step losses
-   agree.
+   agree. mesh: a one-rank NCCL process group and
+   ``build_mesh(MeshSpec(data=1))``; GPT-2-small through
+   ``init_sharded_state`` and ``make_train_step(mesh=, rules=,
+   zero_stage=)`` at ZeRO stages 0 and 3 (3 warm-up and 10 timed steps)
+   and Llama-small at stage 3 (1 and 3), each beside the plain step
+   from the same params and batch: launches exactly 24/12/12 a step
+   (the kernels on the local shard, through local_map), every loss and
+   grad norm within 1e-4 of the plain step's, tokens/s, step ms, device
+   busy share, peak memory and the collectives of one step.
 7. parity: one f32 train step of GPT-2-small and of Llama-small at full
    width, B=1 T=256, from the same params on the card (kernels) and on
    the CPU (plain versions): the loss, every leaf's grad and updated
@@ -191,6 +199,18 @@ REMAT_POLICIES = ("full", "save_flash", "save_dots", "none")
 XL_CLASS = {"n_layer": 12, "n_head": 16, "n_embd": 2048}
 REMAT_WARMUP, REMAT_STEPS = 2, 5
 REMAT_TRAJ_RTOL = 1e-4
+# the mesh phase: GPT-2-small through make_train_step(mesh=, rules=) on
+# a one-rank NCCL mesh at ZeRO stages MESH_STAGES (MESH_WARMUP warm-up
+# and MESH_STEPS timed steps each) and Llama-small at stage 3 (one
+# warm-up and MESH_LLAMA_STEPS timed steps), bench.py's recipe; every
+# step's loss and grad norm against the plain step's from the same
+# params and batch, relative (at world 1 both run the same local
+# operators, so the bound is tight). NCCL refuses two ranks on one GPU,
+# and gloo's all_gather_into_tensor on CUDA tensors kills the rank with
+# SIGSEGV (torch 2.11), so no run of two ranks shares the card
+MESH_STAGES = (0, 3)
+MESH_WARMUP, MESH_STEPS, MESH_LLAMA_STEPS = 3, 10, 3
+MESH_RTOL = 1e-4
 # the tiny presets: prompts of these lengths (of the presets' 128
 # positions), TINY_TOKENS new tokens each; TINY_TRAIN_STEPS train steps
 # on a (B, T) batch
@@ -1713,6 +1733,156 @@ def phase_remat(torch) -> dict:
     return total
 
 
+# ------------------------------------------------------------ phase 5d
+
+
+def _mesh_model(torch, model: str):
+    """(cfg, init_fn, loss_fn, rules, batch) of GPT-2-small or
+    Llama-small: init_fn draws the params on the card from a generator
+    seeded 0, and the batch is the next B x (T + 1) tokens it draws, as
+    phase_train makes them."""
+    from ray_tpu_torch.models import gpt2, llama
+
+    if model == "gpt2":
+        cfg, init, loss, rules = (gpt2.GPT2Config.small(), gpt2.init_gpt2,
+                                  gpt2.gpt2_loss,
+                                  gpt2.gpt2_partition_rules())
+    else:
+        cfg, init, loss, rules = (llama.LlamaConfig.small(),
+                                  llama.init_llama, llama.llama_loss,
+                                  llama.llama_partition_rules())
+    B, T = TRAIN_BATCH
+
+    def init_fn():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        return init(gen, cfg), gen
+
+    _, gen = init_fn()
+    toks = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    return (cfg, lambda: init_fn()[0], lambda p, b: loss(p, b, cfg), rules,
+            batch)
+
+
+def _mesh_train(torch, what: str, state, step, batch, warmup: int,
+                steps: int, n_params: int, tokens: int):
+    """Train steps through `_train_steps` (launch counters zeroed around
+    the timed ones), then a profile: (the run's row, its state)."""
+    state, losses, norms, wall, step_ms, launches, copies, peak = \
+        _train_steps(torch, step, state, batch, warmup, steps)
+    row = _train_row(what, n_params, tokens, steps, wall, step_ms,
+                     launches, peak, losses, norms)
+    prof = profile_train(torch, step, state, batch)
+    row.update({"losses": losses, "grad_norms": norms,
+                "launches": launches, "layout_copies": copies,
+                "device_busy_share": prof["device_busy_share"],
+                "device_ms_per_step": prof.get("device_ms_per_step",
+                                               "not measured"),
+                "profile_step_wall_ms": prof["step_wall_ms"]})
+    return row, state
+
+
+def _worst_rel(a: dict, b: dict) -> float:
+    return max(abs(x - y) / abs(y) for key in ("losses", "grad_norms")
+               for x, y in zip(a[key], b[key]))
+
+
+def phase_mesh(torch) -> dict:
+    """The mesh path on a one-rank NCCL process group: GPT-2-small
+    through ``init_sharded_state`` and ``make_train_step(mesh=, rules=,
+    zero_stage=)`` at each of MESH_STAGES, Llama-small at stage 3, and
+    the plain step of each from the same params and batch. Every mesh
+    step's K1/K2/K3 launches must be exactly 2 L / L / L (the kernels run
+    on the local shard through local_map), no operand copied, and every
+    step's loss and grad norm within MESH_RTOL of the plain step's.
+    Prints per run tokens/s, step ms, device busy share, peak memory
+    (of the steps, and of `init_sharded_state`, which makes the whole
+    state before laying it out) and the collectives of one step
+    (CommDebugMode). Returns the launches of the mesh runs' timed
+    steps."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from ray_tpu_torch.models.gpt2 import count_params
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.ops import collective_op_counts
+    from ray_tpu_torch.train import (
+        TrainState,
+        adamw,
+        init_sharded_state,
+        make_train_step,
+    )
+
+    B, T = TRAIN_BATCH
+    total: dict = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = build_mesh(MeshSpec(data=1))
+        for model, stages, warmup, steps in (
+                ("gpt2", MESH_STAGES, MESH_WARMUP, MESH_STEPS),
+                ("llama", (3,), 1, MESH_LLAMA_STEPS)):
+            cfg, init_fn, loss_fn, rules, batch = _mesh_model(torch, model)
+            tx = adamw(3e-4, weight_decay=0.1)
+            params = init_fn()
+            n_params = count_params(params)
+            plain, state = _mesh_train(
+                torch, f"mesh {model} plain",
+                TrainState.create(params, tx), make_train_step(loss_fn, tx),
+                batch, warmup, steps, n_params, B * T)
+            del state, params
+            release(torch)
+            rows = {"plain": plain}
+            for stage in stages:
+                step = make_train_step(loss_fn, tx, mesh=mesh, rules=rules,
+                                       zero_stage=stage)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                state = init_sharded_state(init_fn, tx, mesh, rules,
+                                           zero_stage=stage)
+                # the whole state made on the rank, then laid out
+                init_peak = torch.cuda.max_memory_allocated()
+                row, state = _mesh_train(
+                    torch, f"mesh {model} zero{stage}", state, step, batch,
+                    warmup, steps, n_params, B * T)
+                with CommDebugMode() as comm:
+                    step(state, batch)
+                row["collectives_per_step"] = collective_op_counts(comm)
+                row["init_peak_bytes"] = init_peak
+                row["max_rel_diff_from_plain"] = _worst_rel(row, plain)
+                L = cfg.n_layer
+                want = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+                        "paged_attention": 0}
+                if row["launches_per_step"] != want:
+                    fail(f"mesh {model} zero{stage}: launches per step "
+                         f"{row['launches_per_step']}, want {want}")
+                if row["layout_copies"]:
+                    fail(f"mesh {model} zero{stage}: "
+                         f"{row['layout_copies']} operands copied")
+                if row["max_rel_diff_from_plain"] > MESH_RTOL:
+                    fail(f"mesh {model} zero{stage}: losses "
+                         f"{row['losses']} and grad norms "
+                         f"{row['grad_norms']} against the plain step's "
+                         f"{plain['losses']} and {plain['grad_norms']} "
+                         f"(rtol {MESH_RTOL})")
+                for k, n in row["launches"].items():
+                    total[k] = total.get(k, 0) + n
+                rows[f"zero{stage}"] = row
+                del state, step
+                release(torch)
+            emit({"phase": "mesh", "model": f"{model}-small", "world": 1,
+                  "backend": "nccl", "mesh": dict(zip(
+                      mesh.mesh_dim_names, mesh.mesh.shape)),
+                  "dtype": "bfloat16", "masters": "float32", "batch": B,
+                  "seq": T, "optimizer": "adamw(3e-4, weight_decay=0.1)",
+                  "warmup_steps": warmup, "rtol": MESH_RTOL, "runs": rows})
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
 # ------------------------------------------------------------ phase 5c
 
 
@@ -2009,6 +2179,8 @@ def main() -> int:
     release(torch)
     paths["train_llama"] = phase_train_llama(torch)
     paths["remat"] = phase_remat(torch)
+    release(torch)
+    paths["mesh"] = phase_mesh(torch)
     for model in ("gpt2", "llama"):
         phase_parity(torch, model)
 

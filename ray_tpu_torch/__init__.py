@@ -12,7 +12,9 @@ Ported so far: GPT-2 and Llama serving (``ray_tpu_torch.serve.llm``) at
 the JAX engine's defaults (chunked prefill, prefix caching, dense
 decode) and with paged decode and speculative decoding, through the
 flash-attention forward (``ops/flash_attention.py``) and the paged
-attention kernel (``ops/paged_attention.py``); GPT-2 training on one
-card (``ray_tpu_torch.train``), through the flash-attention forward and
-backward kernels. See ROADMAP.md.
+attention kernel (``ops/paged_attention.py``); GPT-2 and Llama training
+(``ray_tpu_torch.train``) on one card or on a mesh of
+``torch.distributed`` ranks with the ZeRO ladder
+(``ray_tpu_torch.parallel``), through the flash-attention forward and
+backward kernels on each rank's shard. See ROADMAP.md.
 """

@@ -7,7 +7,10 @@ arrays, with the stacked ``[L, ...]`` block leaves the JAX models build
 names). Every leaf goes through a
 float32 numpy array, so bf16 leaves need no ``ml_dtypes`` here. Torch
 seeds cannot reproduce ``jax.random`` draws, so this is how a test
-makes both sides compute with the same weights.
+makes both sides compute with the same weights. On a mesh,
+``parallel.sharding.shard_pytree(params_from_jax(t), rules, mesh)``
+lays converted params out as DTensors, and `params_to_numpy` gathers
+them back.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def params_from_jax(tree: Any) -> Any:
@@ -28,7 +32,10 @@ def params_from_jax(tree: Any) -> Any:
 
 def params_to_numpy(tree: Any) -> Any:
     """Nested dict of torch tensors -> nested dict of float32 numpy
-    arrays, same keys (the inverse of `params_from_jax`)."""
+    arrays, same keys (the inverse of `params_from_jax`). A DTensor leaf
+    is gathered whole first (a collective: every rank must call it)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        tree = tree.full_tensor()
     return tree.detach().to("cpu", torch.float32).numpy()

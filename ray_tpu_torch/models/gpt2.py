@@ -23,8 +23,14 @@ the JAX model's ``attend`` hook. `gpt2_loss` is the training loss; with
 ``torch.utils.checkpoint`` with the JAX model's RAY_TPU_REMAT_POLICY:
 "full" recomputes the block in the backward, "save_flash" keeps the
 flash operator's (o, lse), "save_dots" also every matmul output without
-batch dims (``aten.mm``, ``aten.addmm``), "none" keeps everything. The
-partition rules come with a later slice (ROADMAP.md).
+batch dims (``aten.mm``, ``aten.addmm``), "none" keeps everything.
+
+On a mesh the params are DTensors laid out by `gpt2_partition_rules`
+(Megatron columns and rows over "tensor", the other matmul dim over
+"fsdp") and the batch is sharded over ("data", "fsdp"); the block
+constrains its activations where the JAX training forward does
+(``parallel.sharding.constrain``, a no-op on plain tensors), and the constants it makes (positions, the vocab mask)
+are lifted onto the params' mesh as replicated DTensors.
 """
 
 from __future__ import annotations
@@ -49,6 +55,12 @@ from ray_tpu_torch.ops.attention import (
     context_decode_attention,
 )
 from ray_tpu_torch.ops.paged_attention import decode_hook, window_hook
+from ray_tpu_torch.parallel.sharding import (
+    PartitionRules,
+    PartitionSpec as P,
+    constrain,
+    replicate_like,
+)
 from ray_tpu_torch.util import tree
 
 Params = Any
@@ -103,6 +115,28 @@ class GPT2Config:
             block_size=block_size,
             vocab_pad_multiple=128,
         )
+
+
+def gpt2_partition_rules() -> PartitionRules:
+    """Megatron-style sharding, as the JAX model's rules. Stacked block
+    params have a leading layer dim (None). Column-parallel: qkv / mlp
+    fc shard the output dim on 'tensor'; row-parallel: attn proj / mlp
+    proj shard the input dim on 'tensor'. 'fsdp' shards the other matmul
+    dim (ZeRO-3-style)."""
+    return PartitionRules(
+        [
+            (r"wte$", P("tensor", "fsdp")),
+            (r"wpe$", P(None, "fsdp")),
+            (r"attn_qkv/kernel$", P(None, "fsdp", "tensor")),
+            (r"attn_proj/kernel$", P(None, "tensor", "fsdp")),
+            (r"mlp_fc/kernel$", P(None, "fsdp", "tensor")),
+            (r"mlp_proj/kernel$", P(None, "tensor", "fsdp")),
+            (r"attn_qkv/bias$", P(None, "tensor")),
+            (r"mlp_fc/bias$", P(None, "tensor")),
+            # layer norms, row-parallel biases: replicated
+            (r".*", P()),
+        ]
+    )
 
 
 def init_gpt2(generator: torch.Generator, cfg: GPT2Config,
@@ -177,15 +211,18 @@ def _dense(h, p, dt):
 def _mlp(x, p, cfg: GPT2Config):
     h = _layer_norm(x, p["ln2"]["scale"], p["ln2"]["bias"])
     h = _dense(h, p["mlp_fc"], cfg.dtype)
+    h = constrain(h, ("data", "fsdp"), None, "tensor")
     # jax.nn.gelu defaults to the tanh approximation; torch's to erf
     h = F.gelu(h, approximate="tanh")
-    return x + _dense(h, p["mlp_proj"], cfg.dtype)
+    return x + constrain(_dense(h, p["mlp_proj"], cfg.dtype),
+                         ("data", "fsdp"), None, None)
 
 
 def _attn_out(x, att, p, cfg: GPT2Config):
     """The rest of a block after its attention core: output projection,
     residual, MLP (shared by every serving path, as in the JAX model)."""
-    x = x + _dense(att, p["attn_proj"], cfg.dtype)
+    x = x + constrain(_dense(att, p["attn_proj"], cfg.dtype),
+                      ("data", "fsdp"), None, None)
     return _mlp(x, p, cfg)
 
 
@@ -194,7 +231,8 @@ def _qkv(x, p, cfg: GPT2Config):
     column slices of one tensor."""
     E = cfg.n_embd
     h = _layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"])
-    qkv = _dense(h, p["attn_qkv"], cfg.dtype)
+    qkv = constrain(_dense(h, p["attn_qkv"], cfg.dtype),
+                    ("data", "fsdp"), None, "tensor")
     return (t.reshape(*x.shape[:-1], cfg.n_head, cfg.head_dim)
             for t in qkv.split(E, dim=-1))
 
@@ -257,12 +295,17 @@ def _remat_block(cfg: GPT2Config):
 
 def _embed(params, tokens, positions, cfg: GPT2Config):
     dt = cfg.dtype
-    return params["wte"].to(dt)[tokens] + params["wpe"].to(dt)[positions]
+    # the vocab-sharded table is gathered whole before the lookup, as in
+    # the JAX model
+    wte = constrain(params["wte"].to(dt), None, None)
+    x = wte[tokens] + params["wpe"].to(dt)[positions]
+    return constrain(x, ("data", "fsdp"), None, None)
 
 
 def _logits(params, x, cfg: GPT2Config):
     x = _layer_norm(x, params["lnf"]["scale"], params["lnf"]["bias"])
-    return (x @ params["wte"].to(cfg.dtype).T).float()
+    logits = x @ params["wte"].to(cfg.dtype).T
+    return constrain(logits, ("data", "fsdp"), None, "tensor").float()
 
 
 def gpt2_forward(params: Params, tokens: torch.Tensor,
@@ -270,7 +313,9 @@ def gpt2_forward(params: Params, tokens: torch.Tensor,
     """tokens (B, T) int -> logits (B, T, padded_vocab) float32."""
     T = tokens.shape[1]
     block = _remat_block(cfg)
-    x = _embed(params, tokens, torch.arange(T, device=tokens.device), cfg)
+    positions = replicate_like(torch.arange(T, device=tokens.device),
+                               params["wpe"])
+    x = _embed(params, tokens, positions, cfg)
     for p in tree.unstack(params["blocks"]):
         x = block(x, p, cfg)
     return _logits(params, x, cfg)
@@ -282,7 +327,8 @@ def gpt2_loss(params: Params, batch: dict, cfg: GPT2Config) -> torch.Tensor:
     ``weights`` (B, T), which average the per-token losses."""
     logits = gpt2_forward(params, batch["tokens"], cfg)
     V = cfg.padded_vocab
-    mask = torch.arange(V, device=logits.device) < cfg.vocab_size
+    mask = replicate_like(torch.arange(V, device=logits.device),
+                          logits) < cfg.vocab_size
     logits = torch.where(mask, logits, -1e9)
     logp = torch.log_softmax(logits, dim=-1)
     ll = logp.gather(-1, batch["targets"].long()[..., None])[..., 0]

@@ -31,8 +31,16 @@ on every path. `llama_forward` is the training forward: with
 each block; the JAX Llama reads no RAY_TPU_REMAT_POLICY, and neither
 does this one), and K/V are repeated to the query heads before K1, so
 the GQA gradient sums each group's dk/dv through ``repeat_interleave``'s
-own backward. `llama_loss` is its next-token loss. The partition rules
-come with a later slice (ROADMAP.md).
+own backward. `llama_loss` is its next-token loss.
+
+On a mesh the params are DTensors laid out by `llama_partition_rules`,
+the block constrains its activations where the JAX training forward
+does (``parallel.sharding.constrain``, a no-op on plain tensors),
+and the rotary angles and the vocab mask are
+lifted onto the params' mesh as replicated DTensors. wq, wk and wv are
+separate column-parallel kernels, so under a tensor axis the heads
+reach the attention kernels sharded: K1 runs on H / tensor heads a
+rank.
 """
 
 from __future__ import annotations
@@ -52,6 +60,12 @@ from ray_tpu_torch.ops.attention import (
     context_decode_attention,
 )
 from ray_tpu_torch.ops.paged_attention import decode_hook, window_hook
+from ray_tpu_torch.parallel.sharding import (
+    PartitionRules,
+    PartitionSpec as P,
+    constrain,
+    replicate_like,
+)
 from ray_tpu_torch.util import tree
 
 Params = Any
@@ -92,6 +106,24 @@ class LlamaConfig:
         return LlamaConfig(vocab_size=32000, n_layer=12, n_head=12,
                            n_kv_head=4, n_embd=768, intermediate=2048,
                            block_size=1024)
+
+
+def llama_partition_rules() -> PartitionRules:
+    """Megatron layout over the canonical axes, as the JAX model's rules:
+    attention/MLP input projections sharded on the output dim over
+    'tensor', output projections on the input dim; embeddings
+    vocab-sharded; everything fsdp-sharded on the other dim. Block
+    params are stacked: the leading layer dim stays unsharded."""
+    return PartitionRules([
+        (r"blocks/(wq|wk|wv)$", P(None, "fsdp", "tensor")),
+        (r"blocks/wo$", P(None, "tensor", "fsdp")),
+        (r"blocks/(w_gate|w_up)$", P(None, "fsdp", "tensor")),
+        (r"blocks/w_down$", P(None, "tensor", "fsdp")),
+        (r"blocks/(ln_attn|ln_mlp)$", P()),
+        (r"wte$", P("tensor", "fsdp")),
+        (r"lnf$", P()),
+        (r".*", P()),
+    ])
 
 
 def init_llama(generator: torch.Generator, cfg: LlamaConfig,
@@ -218,11 +250,13 @@ def _attn_out(x, att, p, cfg: LlamaConfig):
     """The rest of a block after its attention core: output projection,
     residual, SwiGLU MLP."""
     dt = cfg.dtype
-    x = x + att @ p["wo"].to(dt)
+    x = x + constrain(att @ p["wo"].to(dt), ("data", "fsdp"), None, None)
     h = _rmsnorm(x, p["ln_mlp"], cfg.rms_eps)
     gate = h @ p["w_gate"].to(dt)
     up = h @ p["w_up"].to(dt)
-    return x + (F.silu(gate) * up) @ p["w_down"].to(dt)
+    gate = constrain(gate, ("data", "fsdp"), None, "tensor")
+    return x + constrain((F.silu(gate) * up) @ p["w_down"].to(dt),
+                         ("data", "fsdp"), None, None)
 
 
 def _block_kv(x, p, rope, cfg: LlamaConfig):
@@ -274,12 +308,15 @@ def _decode_block(x, p, k_ctx, v_ctx, ctx_mask, rope, cfg: LlamaConfig,
 
 
 def _embed(params, tokens, cfg: LlamaConfig):
-    return params["wte"].to(cfg.dtype)[tokens]
+    # the vocab-sharded table is gathered whole before the lookup
+    wte = constrain(params["wte"].to(cfg.dtype), None, None)
+    return constrain(wte[tokens], ("data", "fsdp"), None, None)
 
 
 def _logits(params, x, cfg: LlamaConfig):
     x = _rmsnorm(x, params["lnf"], cfg.rms_eps)
-    return (x @ params["wte"].to(cfg.dtype).T).float()
+    logits = x @ params["wte"].to(cfg.dtype).T
+    return constrain(logits, ("data", "fsdp"), None, "tensor").float()
 
 
 def llama_prefill_kv(params: Params, tokens: torch.Tensor,
@@ -299,8 +336,8 @@ def llama_forward(params: Params, tokens: torch.Tensor,
     """tokens (B, T) -> logits (B, T, padded_vocab) float32, the training
     forward: with ``cfg.remat`` and under grad each block is recomputed
     in the backward ("full" remat, non-reentrant)."""
-    rope = chunk_rope(0, tokens.shape[1], cfg.head_dim, cfg.rope_theta,
-                      tokens.device)
+    rope = tuple(replicate_like(t, params["wte"]) for t in chunk_rope(
+        0, tokens.shape[1], cfg.head_dim, cfg.rope_theta, tokens.device))
     block = _block
     if cfg.remat and torch.is_grad_enabled():
         # the block draws no random numbers, so no RNG state is stashed
@@ -318,8 +355,9 @@ def llama_loss(params: Params, batch: dict, cfg: LlamaConfig
     ``batch["targets"]`` (B, T); the padded vocab's logits are masked
     to -1e9, as in the JAX model."""
     logits = llama_forward(params, batch["tokens"], cfg)
-    mask = torch.arange(cfg.padded_vocab, device=logits.device) \
-        < cfg.vocab_size
+    mask = replicate_like(torch.arange(cfg.padded_vocab,
+                                       device=logits.device),
+                          logits) < cfg.vocab_size
     logits = torch.where(mask, logits, -1e9)
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, batch["targets"].long()[..., None]).mean()

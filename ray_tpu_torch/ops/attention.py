@@ -21,11 +21,21 @@ einsum below that. Here every prefill length launches K1; with the cut,
 GPT-2 serving would run the plain version for most prompts on the card.
 There is also no try/except fallback: a CUDA tensor the kernel cannot
 take raises.
+
+On a mesh, `causal_attention` takes DTensor operands and runs the
+kernels on each rank's local shard through DTensor's ``local_map``:
+the batch dim keeps its shards (data/fsdp) and the head dim its own
+(tensor), so K1, and K2/K3 through the flash operator's registered
+backward, see (B / shards, T, H / shards, D); a sharded T or D, or a
+pending sum, is redistributed first. No sharding strategy is
+registered for the operator itself.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ray_tpu_torch.ops.flash_attention import flash_attention
 
@@ -45,8 +55,27 @@ def causal_attention_reference(q: torch.Tensor, k: torch.Tensor,
 def causal_attention(q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
     """Causal attention through the flash kernels at every length: K1
-    forward, K2 and K3 backward."""
+    forward, K2 and K3 backward; on DTensors, on each rank's shard."""
+    if isinstance(q, DTensor):
+        return _local_causal_attention(q, k, v)
     return flash_attention(q, k, v, causal=True)
+
+
+def _local_flash(q, k, v):
+    return flash_attention(q, k, v, causal=True)
+
+
+def _local_causal_attention(q, k, v):
+    """q, k, v DTensors (B, T, H, D): the layout of q with only its batch
+    (dim 0) and head (dim 2) shards kept, every operand redistributed to
+    it, and the kernels run on the local shards."""
+    ndim = q.ndim
+    pl = tuple(p if isinstance(p, Shard) and p.dim % ndim in (0, 2)
+               else Replicate() for p in q.placements)
+    # one output: its placements as a list (a tuple means one per output)
+    return local_map(_local_flash, list(pl), in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def _repeat_kv(t: torch.Tensor, heads: int) -> torch.Tensor:

@@ -1,15 +1,18 @@
-"""ray_tpu_torch.train — training on one NVIDIA card, the port of the
-single-device part of ``ray_tpu.train``.
+"""ray_tpu_torch.train — training on one NVIDIA card or on a mesh of
+``torch.distributed`` ranks, the port of ``ray_tpu.train``'s SPMD step.
 
 - `make_train_step` / `TrainState` (`spmd.py`): loss, gradient (flash
   attention's backward through kernels K2 and K3), global grad norm,
-  optional gradient accumulation, optimizer update in place;
+  optional gradient accumulation, optimizer update in place; on a mesh
+  (``mesh=``, ``rules=``) with the ZeRO ladder (``zero_stage`` 0-3);
+- `init_sharded_state`, `state_shardings`, `zero_shardings`,
+  `zero1_shardings`, `batch_shardings`, `optimizer_state_bytes`: the
+  mesh's layouts and what each rank holds;
 - `adamw` / `sgd` (`optim.py`): optax's optimizers with its defaults;
 - `StepWaterfall`, `enable_step_waterfall`, `data_wait`: per-step time
   attribution.
 
-Meshes, the ZeRO ladder, the worker group and the trainer are later
-slices (ROADMAP.md).
+The worker group and the trainer are later slices (ROADMAP.md).
 """
 
 from ray_tpu_torch.train.optim import (
@@ -22,10 +25,16 @@ from ray_tpu_torch.train.optim import (
 from ray_tpu_torch.train.spmd import (
     StepWaterfall,
     TrainState,
+    batch_shardings,
     data_wait,
     enable_step_waterfall,
+    init_sharded_state,
     make_train_step,
+    optimizer_state_bytes,
+    state_shardings,
     waterfall,
+    zero1_shardings,
+    zero_shardings,
 )
 
 __all__ = [
@@ -35,9 +44,15 @@ __all__ = [
     "TraceState",
     "TrainState",
     "adamw",
+    "batch_shardings",
     "data_wait",
     "enable_step_waterfall",
+    "init_sharded_state",
     "make_train_step",
+    "optimizer_state_bytes",
     "sgd",
+    "state_shardings",
     "waterfall",
+    "zero1_shardings",
+    "zero_shardings",
 ]

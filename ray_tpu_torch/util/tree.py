@@ -8,6 +8,7 @@ flatten to matching lists.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 
@@ -36,6 +37,26 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
+    """``fn(path, leaf)`` applied to every leaf of `tree`, same keys; a
+    path is the tuple of keys from the root (joined with "/" by
+    ``parallel.sharding.path_str``). Besides dicts it walks the
+    optimizers' state dataclasses, whose field names join the path (so
+    ``mu/blocks/attn_qkv/kernel`` ends with its param's path); host
+    scalars (their step counts) and None stay as they are."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map_with_path(fn, getattr(tree, f.name),
+                                       path + (f.name,))
+            for f in dataclasses.fields(tree)})
+    if tree is None or isinstance(tree, (int, float)):
+        return tree
+    return fn(path, tree)
 
 
 def unstack(tree: Any) -> list:

@@ -278,13 +278,20 @@ def test_step_waterfall_attributes_phases(models):
     assert "host" in summary["phases"]  # the gap before the second step
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()},
-                                    {"rules": object()},
-                                    {"zero_stage": 1},
-                                    {"shard_optimizer": True}])
-def test_sharded_steps_wait_for_their_slice(kwargs):
-    with pytest.raises(NotImplementedError, match="ZeRO"):
-        t_spmd.make_train_step(lambda p, b: 0.0, t_optim.sgd(0.1), **kwargs)
+@pytest.mark.parametrize("kwargs,match", [
+    ({"zero_stage": 1}, "needs mesh= and rules="),
+    ({"zero_stage": 3, "mesh": object()}, "needs mesh= and rules="),
+    ({"shard_optimizer": True}, "needs mesh= and rules="),
+    ({"zero_stage": 4}, "zero_stage must be 0|1|2|3"),
+    ({"accum_steps": 0}, "accum_steps must be >= 1")])
+def test_train_step_refuses_what_jax_refuses(kwargs, match):
+    """The JAX step's ValueErrors (ray_tpu/train/spmd.py make_train_step):
+    a ZeRO stage without the mesh and rules that derive its layouts, a
+    stage off the ladder, no microsteps."""
+    for make in (t_spmd.make_train_step, jax_spmd.make_train_step):
+        with pytest.raises(ValueError, match=match):
+            make(lambda p, b: 0.0, optax.sgd(0.1) if make is
+                 jax_spmd.make_train_step else t_optim.sgd(0.1), **kwargs)
 
 
 def test_paged_attention_refuses_grad():
