@@ -106,9 +106,37 @@ Phases, each of which exits non-zero on any failure:
    width, B=1 T=256, from the same params on the card (kernels) and on
    the CPU (plain versions): the loss, every leaf's grad and updated
    value within the printed tolerances.
+8. rl: GRPO through ``ray_tpu_torch.rllib.llm`` (RL_* constants):
+   an ``LLMLearner("gpt2", GPT2Config.small())`` at LLMLearnerConfig()'s
+   defaults, an ``LLMEngine`` at the JAX engine's defaults built from
+   its ``get_weights()``, a RolloutWorker (4 completions of 16 tokens a
+   prompt at temperature 1, rewarded by the share of even token ids) and
+   an RLFlywheel that hot-swaps with probe streams in flight; 3 laps of
+   8 DigitSumTask prompts (a 224-token shared prefix), the launch
+   counters zeroed just before and read just after. Each lap must keep
+   all 32 trajectories, swap to the learner's version with no probe
+   dropped and one at least in flight, give a finite loss and a grad
+   norm above 0, launch K1 at least 12 times in the rollout and exactly
+   24 K1, 12 K2 and 12 K3 in the update; the engine ends at version 3
+   with prefix-cache hits. Lap 1's trajectories' logprobs (engine, bf16)
+   against the learner's teacher-forced forward at the same params,
+   held to LOGITS_TOL; one more update under torch.profiler. A fresh
+   learner's update on a rewarded and an unrewarded completion must
+   raise the rewarded token's log-prob margin. One lap on the paged
+   engine (K4 at W=1 H=12 H_kv=12) and one of Llama-small, each with
+   the same checks; then two updates of ``LLMLearner(mesh=)`` on a
+   one-rank NCCL mesh beside the plain learner's, from the same params
+   and trajectories: losses and grad norms within 1e-4, 24/12/12
+   launches an update.
+   Rollout tokens/s, update, swap and ``get_weights`` ms, lap seconds,
+   the prefix hit ratio and peak memory are printed beside the card's
+   name and power limit. K1, K2 and K3 are also held against their
+   plain versions at the learner's B=32 T=256, K1 at the rollout's
+   prefill (B=1, T=256 and 226), K4 at the paged lap's decode batch.
 
 It prints one JSON line per kernel shape and per phase, K4's rows on
-the serving paths with their launches there (by window and heads), then
+the serving and rl paths with their launches there (by window and
+heads), then
 a ``{"kernels": [...]}`` line whose launches are split by path, and as
 its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -218,6 +246,17 @@ TINY_PROMPTS = (90, 47, 20, 9, 3)
 TINY_TOKENS = 16
 TINY_TRAIN_BATCH = (4, 128)
 TINY_TRAIN_STEPS = 3
+# the rl phases: GRPO through ray_tpu_torch.rllib.llm at the JAX engine's
+# defaults and LLMLearnerConfig()'s, RL_PROMPTS DigitSumTask prompts a lap
+# (a RL_PREFIX-token shared system prefix, 14 pages of 16, then two
+# digits), RL_GROUP completions of RL_TOKENS tokens each at temperature
+# 1: 32 trajectories a lap, a learner batch of 32 x 256 tokens (the
+# train phase's 8,192 a step); RL_LAPS laps of GPT-2-small, then one
+# paged lap and one Llama-small lap
+RL_PROMPTS, RL_GROUP, RL_TOKENS, RL_PREFIX, RL_LAPS = 8, 4, 16, 224, 3
+# updates of the world-1 mesh learner and of the plain one, the second
+# of each timed warm
+RL_MESH_UPDATES = 2
 
 
 def fail(msg: str) -> None:
@@ -326,14 +365,17 @@ def host_us(torch, fn, iters: int = 200) -> float:
 # ------------------------------------------------------------ phase 1
 
 
-def phase_device(torch) -> None:
+def phase_device(torch) -> str:
+    """The card's name and power limit (returned as nvidia-smi prints
+    them), the toolchain's versions, and every kernel built."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=False)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    for line in smi.stdout.strip().splitlines():
+    card = smi.stdout.strip()
+    for line in card.splitlines():
         print(line.strip(), flush=True)
     from ray_tpu_torch import _build
 
@@ -371,6 +413,7 @@ def phase_device(torch) -> None:
           "libraries": {n: os.path.basename(i["path"])
                         for n, i in built.items()},
           "sass_counts": sass})
+    return card
 
 
 # the kernels written for Hopper (wgmma, TMA): ptxas must not spill them,
@@ -463,6 +506,14 @@ FLASH_TINY_SHAPES = ((4, 128, 4, 32, True), (2, 77, 4, 32, True),
 # a power of two from 16 to max_model_len 128
 FLASH_TINY_PREFILL = tuple((1, T, 4, 32, True) for T in (16, 32, 64, 128))
 FLASH_XL_SHAPE = (8, 1024, 16, 128, True)
+# K1, K2 and K3 at the rl phases' shapes, H=12 D=64: the learner's batch
+# of 32 trajectories padded to T=256 (K1 also in Llama's forward, on K/V
+# repeated to 12 heads); K1 alone at the rollout's monolithic prefill, a
+# 226-token prompt padded to its bucket of 256, and at the prompt's own
+# ragged length; (B, T, D, causal), named by RL_FLASH_ROWS
+RL_FLASH_SHAPES = ((32, 256, 64, True), (1, 256, 64, True),
+                   (1, 226, 64, True))
+RL_FLASH_ROWS = ("rl_learner", "rl_prefill", "rl_prefill_ragged")
 
 
 def flash_cases(torch, shapes) -> list:
@@ -492,7 +543,7 @@ def check_flash(torch, gen) -> dict:
     for dtype, B, T, H, D, causal in flash_cases(torch, (
             (1, 64, 64, True), (1, 512, 64, True), (1, 1024, 64, True),
             (8, 1024, 64, True), (1, 731, 64, True), (1, 256, 64, False),
-            (1, 256, 128, True))) + [
+            (1, 256, 128, True)) + RL_FLASH_SHAPES) + [
                 (dtype, *shape) for dtype in (torch.float32, torch.bfloat16)
                 for shape in FLASH_TINY_PREFILL]:
         dn = dname(torch, dtype)
@@ -545,6 +596,9 @@ def check_flash(torch, gen) -> dict:
             main["train_xl"] = row
         if (B, T, H, D, causal) == FLASH_TINY_SHAPES[0]:
             main["tiny" if dtype == torch.bfloat16 else "tiny_f32"] = row
+        if dtype == torch.bfloat16 and (B, T, D, causal) in RL_FLASH_SHAPES:
+            main[RL_FLASH_ROWS[RL_FLASH_SHAPES.index((B, T, D, causal))]] \
+                = row
         if dtype == torch.bfloat16 and T == 1024 and D == 64:
             row["earlier_ms"] = EARLIER_MS[("flash_fwd", B)]
             row["earlier_ms_source"] = EARLIER_SOURCE
@@ -684,6 +738,9 @@ VERIFY_CTX = (96,)
 # middle is TINY_VERIFY_CTX
 TINY_C = 128
 TINY_DECODE_CTX = (0, 3, 9, 20, 47, 90, 105, 127)
+# the rl_paged lap's decode batch: 8 lanes of a 226-token prompt and up to
+# 15 generated tokens, in GPT-2-small's engine layout (tables of 64 pages)
+RL_DECODE_CTX = (226, 228, 230, 232, 234, 236, 238, 241)
 TINY_VERIFY_CTX = (47,)
 
 # K4's bf16 rows that the serving paths run: GPT-2's decode batch (the
@@ -707,7 +764,8 @@ PAGED_PATH_ROWS = {
                         "float32"),
     "tiny_verify": (TINY_VERIFY_CTX, (4, 4, 5, 16, 32, TINY_C), "bfloat16"),
     "tiny_gqa_verify": (TINY_VERIFY_CTX, (4, 2, 5, 16, 32, TINY_C),
-                        "float32")}
+                        "float32"),
+    "rl_decode": (RL_DECODE_CTX, (12, 12, 1, 16, 64, 1024), "bfloat16")}
 
 
 def k4_launches(by_shape: dict, W: int, H: int, HK: int,
@@ -765,9 +823,10 @@ def check_paged(torch, gen) -> dict:
               for W, ctx in ((1, TINY_DECODE_CTX), (1, (3,)), (1, (105,)),
                              (5, (3,)), (5, TINY_VERIFY_CTX), (5, (96,)),
                              (5, (123,)))]
-    # one long request, and a decode batch of full contexts
+    # one long request, a decode batch of full contexts, and the rl_paged
+    # lap's decode batch
     cases += [(torch.bfloat16, ctx, 12, 12, 1, 16, 64, 1024)
-              for ctx in ((1023,), (1023,) * 8)]
+              for ctx in ((1023,), (1023,) * 8, RL_DECODE_CTX)]
     # the verify window on one lane, as the engine launches it: S=1
     # splits each (sequence, KV head) far finer than S=8 does, under the
     # causal own window, for GPT-2's heads and for grouped-query heads
@@ -881,7 +940,8 @@ def check_flash_bwd(torch, gen) -> dict:
     # (TMA's zero fill stands in for masked loads), no mask, D = 128
     for dtype, B, T, H, D, causal in flash_cases(torch, (
             (8, 1024, 64, True), (1, 731, 64, True), (2, 17, 64, True),
-            (1, 256, 64, False), (1, 256, 128, True))):
+            (1, 256, 64, False), (1, 256, 128, True),
+            RL_FLASH_SHAPES[0])):
         dn = dname(torch, dtype)
         tol = BWD_TOL[dn]
         scale = 1.0 / math.sqrt(D)
@@ -958,6 +1018,9 @@ def check_flash_bwd(torch, gen) -> dict:
             if dtype == torch.bfloat16 and (B, T, H, D) \
                     == FLASH_XL_SHAPE[:4]:
                 main[name + "_xl"] = row
+            if dtype == torch.bfloat16 and (B, T, D, causal) \
+                    == RL_FLASH_SHAPES[0]:
+                main[name + "_rl"] = row
             if (B, T, H, D, causal) == FLASH_TINY_SHAPES[0]:
                 main[name + ("_tiny" if dtype == torch.bfloat16
                              else "_tiny_f32")] = row
@@ -2139,6 +2202,341 @@ def phase_parity(torch, model: str = "gpt2") -> dict:
     return row
 
 
+# ------------------------------------------------------------ phase 8
+
+
+def even_share(prompt: list[int], tokens: list[int]) -> float:
+    """The rl phases' reward: the share of generated token ids that are
+    even. DigitSumTask's own reward is almost always 0 on random weights
+    over 50,304 tokens, which would make every GRPO advantage 0 and the
+    update a zero step; this one varies within each group."""
+    del prompt
+    return sum(1 for t in tokens if t % 2 == 0) / max(1, len(tokens))
+
+
+def _rl_setup(torch, model: str, paged: bool = False):
+    """A learner from a card generator seeded 0 (LLMLearnerConfig()'s
+    JAX defaults), an engine at the JAX engine's defaults built from its
+    get_weights(), a RolloutWorker and a flywheel that swaps with probes
+    in flight; each lap's RL_PROMPTS DigitSumTask prompts are drawn from
+    a RandomState seeded with the lap."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.rllib.llm import (
+        DigitSumTask,
+        FlywheelConfig,
+        LLMLearner,
+        LLMLearnerConfig,
+        RLFlywheel,
+        RolloutConfig,
+        RolloutWorker,
+    )
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+
+    cfg = GPT2Config.small() if model == "gpt2" else LlamaConfig.small()
+    learner = LLMLearner(model, cfg, config=LLMLearnerConfig())
+    w0 = learner.get_weights()
+    engine = LLMEngine(EngineConfig(model=model, preset="small",
+                                    use_paged_attention=paged), params=w0)
+    worker = RolloutWorker(engine=engine, reward_fn=even_share,
+                           config=RolloutConfig(group_size=RL_GROUP,
+                                                max_tokens=RL_TOKENS,
+                                                temperature=1.0))
+    task = DigitSumTask(prefix_len=RL_PREFIX)
+
+    def prompt_fn(lap: int) -> list[list[int]]:
+        rng = np.random.RandomState(lap)
+        return [task.make_prompt(int(a), int(b))
+                for a, b in rng.randint(0, 10, (RL_PROMPTS, 2))]
+
+    fly = RLFlywheel(worker, learner, prompt_fn,
+                     FlywheelConfig(swap_during_rollout=True))
+    return learner, engine, fly, w0
+
+
+def _rl_watch(learner, counters) -> list[dict]:
+    """Record, for each call of the learner's update and publish_weights,
+    its host seconds, the launch counts before and after, and update's
+    trajectories; returns the log the calls append to."""
+    log: list[dict] = []
+
+    def watched(name, fn):
+        def call(*args):
+            before = {k: c.count for k, c in counters.items()}
+            t0 = time.perf_counter()
+            out = fn(*args)
+            log.append({"call": name, "t0": t0,
+                        "seconds": time.perf_counter() - t0,
+                        "before": before,
+                        "after": {k: c.count for k, c in counters.items()},
+                        "args": args})
+            return out
+        return call
+
+    learner.update = watched("update", learner.update)
+    learner.publish_weights = watched("publish", learner.publish_weights)
+    return log
+
+
+def _rl_laps(torch, what: str, learner, engine, fly, laps: int,
+             paged: bool = False) -> tuple[dict, list]:
+    """`laps` flywheel laps with the launch counters zeroed just before
+    and read just after, each lap checked: 32 trajectories kept, the
+    swap's version the learner's, no probe dropped and one at least in
+    flight, a finite loss and a grad norm above 0, K1 at least L times in
+    the rollout and exactly 2 L / L / L (full remat) in the update.
+    Returns (row, each lap's trajectories)."""
+    L = learner.cfg.n_layer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _reset_counters()
+    log = _rl_watch(learner, counters)
+    laps_out, trajs = [], []
+    t_start = time.perf_counter()
+    for lap in range(laps):
+        start = {k: c.count for k, c in counters.items()}
+        t0 = time.perf_counter()
+        m = fly.iteration()
+        upd, pub = log[-2], log[-1]
+        trajs.append(upd["args"][0])
+        rollout = {k: upd["before"][k] - start[k] for k in start}
+        update = {k: upd["after"][k] - upd["before"][k] for k in start}
+        swap = m["swap"]
+        row = {"lap": lap + 1, "loss": m["loss"],
+               "grad_norm": m["grad_norm"], "kept": m["kept"],
+               "version": m["version"], "reward_mean": m["reward_mean"],
+               "rollout_tokens": m["rollout_tokens"],
+               "rollout_s": upd["t0"] - t0,
+               "rollout_tokens_per_s": m["rollout_tokens"]
+               / (upd["t0"] - t0),
+               "update_ms": upd["seconds"] * 1e3,
+               "get_weights_ms": pub["seconds"] * 1e3,
+               "swap_ms": swap["swap_seconds"] * 1e3,
+               "lap_s": m["iteration_seconds"],
+               "in_flight_streams": swap["in_flight_streams"],
+               "probe_dropped": swap["probe_dropped"],
+               "probe_stale": swap["probe_stale"],
+               "rollout_launches": rollout, "update_launches": update}
+        laps_out.append(row)
+        want = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+                "paged_attention": 0}
+        bad = []
+        if m["kept"] != RL_PROMPTS * RL_GROUP:
+            bad.append(f"kept {m['kept']}")
+        if not swap["version"] == m["version"] == lap + 1:
+            bad.append(f"versions {swap['version']}, {m['version']}")
+        if swap["probe_dropped"] or swap["in_flight_streams"] < 1:
+            bad.append(f"probes {swap}")
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0):
+            bad.append(f"loss {m['loss']}, grad norm {m['grad_norm']}")
+        if rollout["flash_fwd"] < L:
+            bad.append(f"rollout K1 launches {rollout['flash_fwd']}")
+        if update != want:
+            bad.append(f"update launches {update}, want {want}")
+        if bad:
+            fail(f"{what} lap {lap + 1}: {'; '.join(bad)}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = launch_counts(counters)
+    del learner.update, learner.publish_weights  # the class's own again
+    stats = engine.stats()
+    if stats["weight_version"] != laps:
+        fail(f"{what}: engine at weight version {stats['weight_version']}")
+    hits, misses = stats["prefix_hit_pages"], stats["prefix_miss_pages"]
+    if hits <= 0:
+        fail(f"{what}: no prefix-cache hit")
+    if paged and k4_launches(launches["paged_attention_by_shape"], 1, 12,
+                             engine.runner.adapter.kv_heads(
+                                 engine.model_cfg)) <= 0:
+        fail(f"{what}: K4 was not launched at W=1")
+    if not paged and launches["paged_attention"]:
+        fail(f"{what}: K4 launched on the dense path")
+
+    def spread(key):
+        xs = sorted(r[key] for r in laps_out)
+        return {"p50": xs[len(xs) // 2], "max": xs[-1], "min": xs[0]}
+
+    row = {"phase": what, "model": f"{learner.model}-small",
+           "dtype": "bfloat16", "masters": "float32", "laps": laps,
+           "prompts_per_lap": RL_PROMPTS, "group_size": RL_GROUP,
+           "max_tokens": RL_TOKENS, "prompt_len": RL_PREFIX + 2,
+           "paged_attention": paged, "wall_s": wall,
+           "rollout_tokens_per_s": spread("rollout_tokens_per_s"),
+           "update_ms": spread("update_ms"), "swap_ms": spread("swap_ms"),
+           "get_weights_ms": spread("get_weights_ms"),
+           "get_weights_bytes": 4 * sum(
+               t.numel() for _, t in _paths(learner.state.params)),
+           "lap_s": spread("lap_s"), "prefix_hit_pages": hits,
+           "prefix_miss_pages": misses,
+           "prefix_hit_ratio": hits / max(1, hits + misses),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launches, "per_lap": laps_out}
+    return row, trajs
+
+
+def _rl_logprob_contract(learner, trajs, w0, what: str) -> dict:
+    """Version-0 trajectories' engine logprobs (bf16 prefill and decode)
+    against the learner's teacher-forced forward at the same params,
+    held to LOGITS_TOL."""
+    diffs = []
+    for t in trajs:
+        if t.stale or t.weight_version != 0:
+            fail(f"{what}: a lap-1 trajectory at version "
+                 f"{t.weight_version}, stale {t.stale}")
+        got = learner.teacher_forced_logprobs(t, params=w0)
+        diffs.append(np.abs(got - np.asarray(t.logprobs)))
+    d = np.concatenate(diffs)
+    out = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+           "tokens": int(d.size), "tol": LOGITS_TOL}
+    if not (out["max_abs"] <= LOGITS_TOL["max_abs"]
+            and out["mean_abs"] <= LOGITS_TOL["mean_abs"]):
+        fail(f"{what}: rollout logprobs against teacher-forced {out}")
+    return out
+
+
+def _rl_profiled_update(torch, learner, trajs) -> dict:
+    """One more update under torch.profiler (device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        learner.update(trajs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = device_time(torch, prof, wall_us)
+    out["phase"] = "rl_update_profile"
+    return out
+
+
+def _rl_policy_moves(torch) -> dict:
+    """One update of a fresh GPT-2-small learner on a constructed group
+    of two completions of one prompt, one rewarded and one not (the JAX
+    test's): the rewarded token's log-prob margin must grow."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.rllib.llm import LLMLearner, LLMLearnerConfig
+    from ray_tpu_torch.rllib.llm import Trajectory
+
+    learner = LLMLearner("gpt2", GPT2Config.small(),
+                         config=LLMLearnerConfig())
+    prompt, good, bad = [20, 21, 22, 5, 7], [9], [3]
+
+    def lp(tokens):
+        t = Trajectory(prompt, tokens, [0.0], 0.0, 0, [0], False, 0, 1.0)
+        return float(learner.teacher_forced_logprobs(t)[0])
+
+    def mk(tokens, r):
+        return Trajectory(prompt, tokens, [lp(tokens)], r, 0, [0], False,
+                          0, 1.0)
+
+    before = lp(good) - lp(bad)
+    m = learner.update([mk(good, 1.0), mk(bad, 0.0)])
+    after = lp(good) - lp(bad)
+    out = {"margin_before": before, "margin_after": after,
+           "loss": m["loss"], "grad_norm": m["grad_norm"]}
+    if not after > before:
+        fail(f"rl policy: the update did not prefer the rewarded token: "
+             f"{out}")
+    del learner
+    release(torch)
+    return out
+
+
+def _rl_mesh(torch, trajs) -> dict:
+    """The learner on a one-rank NCCL mesh (data=1) beside the plain
+    learner, from the same params and trajectories: RL_MESH_UPDATES
+    updates each (the first pays DTensor's first dispatch of each
+    operator, the second is timed warm), every loss and grad norm within
+    MESH_RTOL, each mesh update's launches exactly 24/12/12."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.rllib.llm import LLMLearner
+
+    cfg = GPT2Config.small()
+    params = LLMLearner("gpt2", cfg).get_weights()
+    release(torch)
+    out = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = build_mesh(MeshSpec(data=1))
+        for name, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+            learner = LLMLearner("gpt2", cfg, params=params, **kw)
+            torch.cuda.synchronize()
+            counters = _reset_counters()
+            runs = []
+            for _ in range(RL_MESH_UPDATES):
+                t0 = time.perf_counter()
+                m = learner.update(trajs)
+                torch.cuda.synchronize()
+                runs.append({"loss": m["loss"], "grad_norm": m["grad_norm"],
+                             "update_ms": (time.perf_counter() - t0) * 1e3})
+            out[name] = {"updates": runs,
+                         "launches": {k: c.count
+                                      for k, c in counters.items()}}
+            del learner
+            release(torch)
+    finally:
+        dist.destroy_process_group()
+    L, n = cfg.n_layer, RL_MESH_UPDATES
+    want = {"flash_fwd": 2 * L * n, "flash_dq": L * n, "flash_dkv": L * n,
+            "paged_attention": 0}
+    if out["mesh"]["launches"] != want:
+        fail(f"rl_mesh: launches {out['mesh']['launches']}, want {want}")
+    rel = max(abs(a[k] - b[k]) / abs(b[k])
+              for a, b in zip(out["mesh"]["updates"],
+                              out["plain"]["updates"])
+              for k in ("loss", "grad_norm"))
+    out["max_rel_diff"] = rel
+    if not rel <= MESH_RTOL:
+        fail(f"rl_mesh: {out} (rtol {MESH_RTOL})")
+    return out
+
+
+def phase_rl(torch, card: str) -> dict:
+    """GRPO through ray_tpu_torch.rllib.llm on the card: RL_LAPS laps of
+    GPT-2-small at the JAX engine's defaults, the bf16 logprob contract,
+    a profiled update, the policy-moves check, one paged lap (K4), one
+    Llama-small lap and the learner on a one-rank mesh. Returns the
+    launches of the "rl", "rl_paged", "rl_llama" and "rl_mesh" paths."""
+    paths = {}
+    learner, engine, fly, w0 = _rl_setup(torch, "gpt2")
+    row, trajs = _rl_laps(torch, "rl", learner, engine, fly, RL_LAPS)
+    paths["rl"] = row["launches"]
+    row["logprob_contract"] = _rl_logprob_contract(learner, trajs[0], w0,
+                                                   "rl")
+    row["card"] = card
+    profile = _rl_profiled_update(torch, learner, trajs[-1])
+    row["update_device_ms"] = profile["device_busy_ms"]
+    emit(row)
+    emit(profile)
+    del learner, engine, fly
+    release(torch)
+    emit({"phase": "rl_policy", "card": card, **_rl_policy_moves(torch)})
+
+    for what, model, paged in (("rl_paged", "gpt2", True),
+                               ("rl_llama", "llama", False)):
+        learner, engine, fly, w0 = _rl_setup(torch, model, paged)
+        row, lap_trajs = _rl_laps(torch, what, learner, engine, fly, 1,
+                                  paged)
+        paths[what] = row["launches"]
+        row["logprob_contract"] = _rl_logprob_contract(
+            learner, lap_trajs[0], w0, what)
+        row["card"] = card
+        emit(row)
+        del learner, engine, fly
+        release(torch)
+
+    mesh = _rl_mesh(torch, trajs[0])
+    paths["rl_mesh"] = mesh["mesh"]["launches"]
+    emit({"phase": "rl_mesh", "card": card, "world": 1, "backend": "nccl",
+          "rtol": MESH_RTOL, **mesh})
+    return paths
+
+
 def _paths(t, path=""):
     if isinstance(t, dict):
         for k in sorted(t):
@@ -2162,7 +2560,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
 
-    phase_device(torch)
+    card = phase_device(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     check_hopper(torch, gen)
@@ -2183,6 +2581,7 @@ def main() -> int:
     paths["mesh"] = phase_mesh(torch)
     for model in ("gpt2", "llama"):
         phase_parity(torch, model)
+    paths.update(phase_rl(torch, card))
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),
@@ -2192,7 +2591,8 @@ def main() -> int:
                        ("tiny_decode", "tiny"),
                        ("tiny_gqa_decode", "tiny"),
                        ("tiny_verify", "tiny"),
-                       ("tiny_gqa_verify", "tiny")):
+                       ("tiny_gqa_verify", "tiny"),
+                       ("rl_decode", "rl_paged")):
         ctx_list, (H, HK, W, _, _, _), _ = PAGED_PATH_ROWS[name]
         row = k4[name]
         by_shape = paths[path]["paged_attention_by_shape"]
@@ -2217,9 +2617,15 @@ def main() -> int:
                       ("flash_dq_tiny_f32", "flash_dq"),
                       ("flash_dkv_tiny_f32", "flash_dkv"),
                       ("flash_dq_xl", "flash_dq"),
-                      ("flash_dkv_xl", "flash_dkv")):
+                      ("flash_dkv_xl", "flash_dkv"),
+                      ("rl_learner", "flash_fwd"),
+                      ("rl_prefill", "flash_fwd"),
+                      ("rl_prefill_ragged", "flash_fwd"),
+                      ("flash_dq_rl", "flash_dq"),
+                      ("flash_dkv_rl", "flash_dkv")):
         row = (k1 if name == "flash_fwd" else k23)[key]
-        path = "tiny" if "tiny" in key else "remat"
+        path = ("tiny" if "tiny" in key else
+                "rl" if "rl" in key else "remat")
         emit({"kernel": name, "row": key, "shape": row["shape"],
               "dtype": row["dtype"],
               "max_abs_err": row.get("max_abs_err",

@@ -32,10 +32,12 @@ def params_from_jax(tree: Any) -> Any:
 
 def params_to_numpy(tree: Any) -> Any:
     """Nested dict of torch tensors -> nested dict of float32 numpy
-    arrays, same keys (the inverse of `params_from_jax`). A DTensor leaf
-    is gathered whole first (a collective: every rank must call it)."""
+    arrays, same keys (the inverse of `params_from_jax`). Each array is
+    a copy, which later in-place updates of the tensors leave alone. A
+    DTensor leaf is gathered whole first (a collective: every rank must
+    call it)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, DTensor):
         tree = tree.full_tensor()
-    return tree.detach().to("cpu", torch.float32).numpy()
+    return tree.detach().to("cpu", torch.float32, copy=True).numpy()

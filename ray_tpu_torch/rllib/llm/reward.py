@@ -1,0 +1,125 @@
+"""Pluggable reward functions + toy verifiable tasks: the port's own
+copy of ``ray_tpu/rllib/llm/reward.py``.
+
+A reward fn has signature ``(prompt: list[int], tokens: list[int]) ->
+float`` — pure, host-side, cheap. The registry lets serialized configs
+name a reward by string (configs stay pure data, shippable to rollout
+actors) instead of cloudpickling closures.
+
+The toy tasks are the closed-loop demonstrators: a reward a program
+can verify exactly (RLAX-style "verifiable task"), on
+prompts that share a common system prefix so rollouts exercise the
+serve.llm prefix cache the way real RLHF sampling does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Callable
+
+RewardFn = Callable[[list, list], float]
+
+_REG_LOCK = threading.Lock()
+# name -> reward fn; guarded_by(_REG_LOCK)
+_REWARD_FNS: dict[str, RewardFn] = {}
+
+
+def register_reward(name: str, fn: RewardFn) -> None:
+    """Register a reward fn under `name` (idempotent re-register wins
+    last; rollout actors and drivers may both import task modules)."""
+    with _REG_LOCK:
+        _REWARD_FNS[name] = fn
+
+
+def get_reward(name: str) -> RewardFn:
+    with _REG_LOCK:
+        try:
+            return _REWARD_FNS[name]
+        except KeyError:
+            raise ValueError(
+                f"unknown reward {name!r}; have "
+                f"{sorted(_REWARD_FNS)}") from None
+
+
+@dataclasses.dataclass(frozen=True)
+class DigitSumTask:
+    """Verifiable toy task: the prompt is a shared system prefix
+    followed by two "digit" tokens; the correct completion's FIRST
+    generated token is the digit token encoding ``(a + b) % 10``.
+
+    Digits 0..9 live at token ids ``digit_base .. digit_base+9``; the
+    shared prefix occupies ``prefix_base .. prefix_base+prefix_len-1``
+    (one fixed run of tokens, so every rollout prompt shares it — the
+    prefix cache serves it after the first admission). Reward is
+    shaped but exactly checkable: 1.0 for the correct digit, 0.1 for
+    any *digit* token (the model first learns to answer in digits —
+    dense signal while p(correct) is ~1/vocab — then which digit), 0.0
+    otherwise."""
+
+    prefix_len: int = 16
+    prefix_base: int = 20
+    digit_base: int = 2
+
+    @property
+    def prefix(self) -> list[int]:
+        return [self.prefix_base + i for i in range(self.prefix_len)]
+
+    def make_prompt(self, a: int, b: int) -> list[int]:
+        if not (0 <= a <= 9 and 0 <= b <= 9):
+            raise ValueError(f"digits must be 0..9, got {a}, {b}")
+        return self.prefix + [self.digit_base + a, self.digit_base + b]
+
+    def target(self, prompt: list[int]) -> int:
+        a = prompt[-2] - self.digit_base
+        b = prompt[-1] - self.digit_base
+        return self.digit_base + (a + b) % 10
+
+    def reward(self, prompt: list[int], tokens: list[int]) -> float:
+        if not tokens:
+            return 0.0
+        if tokens[0] == self.target(prompt):
+            return 1.0
+        if self.digit_base <= tokens[0] < self.digit_base + 10:
+            return 0.1
+        return 0.0
+
+    def min_vocab(self) -> int:
+        return max(self.prefix_base + self.prefix_len,
+                   self.digit_base + 10)
+
+
+@dataclasses.dataclass(frozen=True)
+class SortTask:
+    """Verifiable toy task: prompt = shared prefix + k digit tokens;
+    reward is the fraction of the first k generated tokens that equal
+    the prompt digits sorted ascending (partial credit keeps the
+    learning signal dense)."""
+
+    k: int = 3
+    prefix_len: int = 16
+    prefix_base: int = 20
+    digit_base: int = 2
+
+    @property
+    def prefix(self) -> list[int]:
+        return [self.prefix_base + i for i in range(self.prefix_len)]
+
+    def make_prompt(self, digits: list[int]) -> list[int]:
+        if len(digits) != self.k:
+            raise ValueError(f"need {self.k} digits, got {len(digits)}")
+        return self.prefix + [self.digit_base + d for d in digits]
+
+    def reward(self, prompt: list[int], tokens: list[int]) -> float:
+        want = sorted(prompt[-self.k:])
+        got = tokens[:self.k]
+        hits = sum(1 for w, g in zip(want, got) if w == g)
+        return hits / self.k
+
+    def min_vocab(self) -> int:
+        return max(self.prefix_base + self.prefix_len,
+                   self.digit_base + 10)
+
+
+register_reward("digit_sum", DigitSumTask().reward)
+register_reward("sort", SortTask().reward)

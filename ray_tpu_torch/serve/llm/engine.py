@@ -46,6 +46,7 @@ from ray_tpu_torch.serve.llm.scheduler import (
     Sequence,
 )
 from ray_tpu_torch.serve.llm.spec import build_proposer
+from ray_tpu_torch.util import tree
 
 _FINAL = object()
 
@@ -147,6 +148,11 @@ class LLMEngine:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
             params = adapter.init_fn(gen, cfg, device=self.device)
+        else:
+            # tensors or host arrays (a learner's get_weights()), on the
+            # engine's device
+            params = tree.tree_map(
+                lambda t: torch.as_tensor(t, device=self.device), params)
 
         num_blocks = config.num_blocks
         if num_blocks is None:

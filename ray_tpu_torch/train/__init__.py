@@ -8,7 +8,8 @@
 - `init_sharded_state`, `state_shardings`, `zero_shardings`,
   `zero1_shardings`, `batch_shardings`, `optimizer_state_bytes`: the
   mesh's layouts and what each rank holds;
-- `adamw` / `sgd` (`optim.py`): optax's optimizers with its defaults;
+- `adam` / `adamw` / `sgd`, `clip_by_global_norm`, `chain` and
+  `global_norm` (`optim.py`): optax's optimizers with its defaults;
 - `StepWaterfall`, `enable_step_waterfall`, `data_wait`: per-step time
   attribution.
 
@@ -16,10 +17,15 @@ The worker group and the trainer are later slices (ROADMAP.md).
 """
 
 from ray_tpu_torch.train.optim import (
+    EmptyState,
     GradientTransformation,
     ScaleByAdamState,
     TraceState,
+    adam,
     adamw,
+    chain,
+    clip_by_global_norm,
+    global_norm,
     sgd,
 )
 from ray_tpu_torch.train.spmd import (
@@ -38,15 +44,20 @@ from ray_tpu_torch.train.spmd import (
 )
 
 __all__ = [
+    "EmptyState",
     "GradientTransformation",
     "ScaleByAdamState",
     "StepWaterfall",
     "TraceState",
     "TrainState",
+    "adam",
     "adamw",
     "batch_shardings",
+    "chain",
+    "clip_by_global_norm",
     "data_wait",
     "enable_step_waterfall",
+    "global_norm",
     "init_sharded_state",
     "make_train_step",
     "optimizer_state_bytes",

@@ -1,5 +1,8 @@
-"""Optimizers with optax's names, defaults and arithmetic: `adamw` and
-`sgd`, the port's counterparts of ``optax.adamw`` and ``optax.sgd``.
+"""Optimizers with optax's names, defaults and arithmetic: `adam`,
+`adamw` and `sgd`, the port's counterparts of ``optax.adam``,
+``optax.adamw`` and ``optax.sgd``, and `clip_by_global_norm` and `chain`
+to compose them (``optax.chain(optax.clip_by_global_norm(c),
+optax.adam(lr))`` is the RL learners' optimizer).
 
 Each is a `GradientTransformation` with optax's two functions, one
 difference in the second:
@@ -8,7 +11,10 @@ difference in the second:
 - ``update(grads, state, params) -> (params, state)``: it applies the
   update itself, writing the new values into the params' tensors in
   place (what ``optax.apply_updates`` with a donated state does), with
-  ``torch._foreach_*`` kernels over all leaves at once.
+  ``torch._foreach_*`` kernels over all leaves at once. A transformation
+  that only rescales the gradient (`clip_by_global_norm`, whose
+  ``applies`` is False) writes the grads' tensors in place instead and
+  leaves the params; in a `chain` it comes before the one that applies.
 
 Trees are nested dicts of tensors (`ray_tpu_torch.util.tree`). The step
 count lives on the host as an int, so the bias corrections are host
@@ -21,6 +27,7 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch.util import tree
 
@@ -29,6 +36,14 @@ from ray_tpu_torch.util import tree
 class GradientTransformation:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], tuple[Any, Any]]
+    # True: `update` writes the step into the params; False: it rescales
+    # the grads in place and leaves the params
+    applies: bool = True
+
+
+@dataclasses.dataclass
+class EmptyState:
+    """optax's EmptyState: a transformation that keeps no state."""
 
 
 @dataclasses.dataclass
@@ -49,6 +64,72 @@ def _zeros(params):
     return tree.tree_map(torch.zeros_like, params)
 
 
+def global_norm(grads: list) -> torch.Tensor:
+    """optax.global_norm: the 2-norm of the tensors `grads` taken
+    together, a 0-d tensor left on the device. DTensors give the norm of
+    the whole tensors, the same on every rank, not of this rank's
+    shards."""
+    norm = torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(grads)))
+    return norm.full_tensor() if isinstance(norm, DTensor) else norm
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """optax.clip_by_global_norm: when the grads' `global_norm` g is at
+    least `max_norm`, every grad is scaled by ``max_norm / g``; below it
+    they are left as they are. The scale is chosen on the device, so the
+    step never waits for g. It writes the grads' tensors (a DTensor's
+    local shard) in place and applies nothing to the params."""
+
+    def init(params):
+        del params
+        return EmptyState()
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        leaves = tree.leaves(grads)
+        g = global_norm(leaves)
+        scale = torch.where(g < max_norm, 1.0, max_norm / g)
+        torch._foreach_mul_(
+            [t.to_local() if isinstance(t, DTensor) else t
+             for t in leaves], scale)
+        return params, state
+
+    return GradientTransformation(init, update, applies=False)
+
+
+def chain(*txs: GradientTransformation) -> GradientTransformation:
+    """optax.chain: each transformation's update in turn, threading a
+    tuple of their states. Every one but the last must only rescale the
+    grads (``applies`` False): once a step is applied to the params, a
+    later transformation could no longer change it."""
+    if not txs:
+        raise ValueError("chain needs at least one transformation")
+    if any(tx.applies for tx in txs[:-1]):
+        raise ValueError("in a chain only the last transformation may "
+                         "apply the update to the params")
+
+    def init(params):
+        return tuple(tx.init(params) for tx in txs)
+
+    def update(grads, state, params):
+        states = []
+        for tx, s in zip(txs, state):
+            params, s = tx.update(grads, s, params)
+            states.append(s)
+        return params, tuple(states)
+
+    return GradientTransformation(init, update, applies=txs[-1].applies)
+
+
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> GradientTransformation:
+    """optax.adam: bias-corrected moments,
+    ``u = mu_hat / (sqrt(nu_hat) + eps)``, then ``p -= learning_rate *
+    u``: `adamw`'s arithmetic with no decay term."""
+    return _adam(learning_rate, b1, b2, eps, weight_decay=0.0)
+
+
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 1e-4
           ) -> GradientTransformation:
@@ -56,7 +137,11 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     ``u = mu_hat / (sqrt(nu_hat) + eps) + weight_decay * p``, then
     ``p -= learning_rate * u``. The decay is decoupled and applies to
     every leaf, biases and layer norms included (optax's ``mask=None``)."""
+    return _adam(learning_rate, b1, b2, eps, weight_decay)
 
+
+def _adam(learning_rate: float, b1: float, b2: float, eps: float,
+          weight_decay: float) -> GradientTransformation:
     def init(params):
         return ScaleByAdamState(count=0, mu=_zeros(params),
                                 nu=_zeros(params))

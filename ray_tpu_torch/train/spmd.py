@@ -55,7 +55,7 @@ from ray_tpu_torch.parallel.sharding import (
     path_str,
     placements,
 )
-from ray_tpu_torch.train.optim import GradientTransformation
+from ray_tpu_torch.train.optim import GradientTransformation, global_norm
 from ray_tpu_torch.util import tree
 from ray_tpu_torch.util.metrics import Gauge, Histogram
 
@@ -412,8 +412,7 @@ def make_train_step(
                 # the pin: each grad in its param's rule layout
                 grads = [_layout(g, tuple(p.placements))
                          for g, p in zip(grads, inputs)]
-            gnorm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            gnorm = global_norm(grads)
             if accum_steps > 1:
                 if state.grad_accum is None:
                     raise ValueError(
@@ -452,7 +451,7 @@ def make_train_step(
                                step=state.step + 1,
                                grad_accum=state.grad_accum)
         if on_mesh:
-            loss, gnorm = loss.full_tensor(), gnorm.full_tensor()
+            loss = loss.full_tensor()
         return new_state, {"loss": loss.detach(), "grad_norm": gnorm}
 
     def _place(state: TrainState, batch: PyTree) -> PyTree:

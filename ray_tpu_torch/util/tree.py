@@ -44,11 +44,15 @@ def tree_map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
     path is the tuple of keys from the root (joined with "/" by
     ``parallel.sharding.path_str``). Besides dicts it walks the
     optimizers' state dataclasses, whose field names join the path (so
-    ``mu/blocks/attn_qkv/kernel`` ends with its param's path); host
+    ``mu/blocks/attn_qkv/kernel`` ends with its param's path), and the
+    tuple of states of ``optim.chain``, whose indices join it; host
     scalars (their step counts) and None stay as they are."""
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, path + (k,))
                 for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map_with_path(fn, v, path + (str(i),))
+                     for i, v in enumerate(tree))
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
             f.name: tree_map_with_path(fn, getattr(tree, f.name),
