@@ -133,6 +133,27 @@ Phases, each of which exits non-zero on any failure:
    name and power limit. K1, K2 and K3 are also held against their
    plain versions at the learner's B=32 T=256, K1 at the rollout's
    prefill (B=1, T=256 and 226), K4 at the paged lap's decode batch.
+9. the rest of the mesh, each phase on a one-rank NCCL process group.
+   serve_mesh: ``LLMEngine(mesh=)`` on a ``tensor`` mesh, GPT-2-small at
+   EngineConfig()'s defaults and Llama-small paged, on the requests of
+   engine_default and engine_llama, whose plain engines in this run are
+   the reference: K1 and K4 launches equal to theirs, streams identical
+   (or else within the bf16 tie-aware check of engine_spec), the pool
+   drained, tokens/s beside the plain engine's, one decode step's
+   collectives; GPT-2 then takes an ``update_weights`` of its own
+   gathered params and must serve the same streams again. ulysses:
+   Ulysses on a ``seq`` mesh, B=8 T=1024 H=12 D=64 bf16, forward and
+   backward through ``causal_attention`` (K1, K2, K3, one launch each)
+   against a direct ``flash_attention`` call (bit-equal expected,
+   BWD_TOL required), and ring attention in f32 against the plain
+   reference (RING_TOL), each timed. moe: the MoE layer at GPT-2-small's
+   widths (8 experts, top 2, capacity 1.25) on an ``expert`` mesh, x of
+   (8, 1024, 768): forward and backward timed, one sequence held against
+   the layer in f32 on the CPU (MOE_TOL). pipelined: the pipelined
+   transformer at GPT-2-small's widths (12 virtual stages, 4
+   microbatches) on a (pipe=1, fsdp=1) mesh, batch 8 x 1024: two SGD
+   steps (the loss must fall), the stage_apply chain against the first
+   step's loss, step ms and peak memory.
 
 It prints one JSON line per kernel shape and per phase, K4's rows on
 the serving and rl paths with their launches there (by window and
@@ -144,6 +165,7 @@ its last line
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -257,6 +279,44 @@ RL_PROMPTS, RL_GROUP, RL_TOKENS, RL_PREFIX, RL_LAPS = 8, 4, 16, 224, 3
 # updates of the world-1 mesh learner and of the plain one, the second
 # of each timed warm
 RL_MESH_UPDATES = 2
+# the rest of the mesh, each on a one-rank NCCL process group. ulysses:
+# causal attention over a `seq` mesh through Ulysses with the flash
+# kernels as attn_fn, bf16, fwd + bwd against one direct flash_attention
+# call (at one rank the all-to-all is the identity, so the bits should
+# agree); ring attention at the same shape in f32 against the plain
+# einsum reference (one ring step at one rank: f32 sums in another
+# order, within RING_TOL elementwise); each timed over MESH_TIME_ITERS
+# calls after one warm call
+ULYSSES_SHAPE = (8, 1024, 12, 64)
+RING_TOL = {"atol": 1e-4, "rtol": 1e-4}
+MESH_TIME_ITERS = 5
+# moe: the layer at GPT-2-small's widths on an `expert` mesh, bf16
+# expert products; MOE_CHECK_BATCH sequences of the batch held against
+# the same function in f32 on the CPU. Tokens whose top-2 experts differ
+# (an f32 near-tie of two gate probabilities computed on two devices)
+# may number at most MOE_MAX_REROUTED; over the others the outputs agree
+# to bf16's rounding of the tokens, the hidden activations and the output
+# (an ulp is 2^-7 relative; the CPU's own bf16 layer differs from its f32
+# one by at most 0.033 at this size, outputs up to 5): |card - cpu| <=
+# atol + rtol |cpu| elementwise
+MOE_CFG = dict(d_model=768, d_ff=3072, num_experts=8, top_k=2,
+               capacity_factor=1.25)
+MOE_X = (8, 1024, 768)
+MOE_CHECK_BATCH = 1
+MOE_MAX_REROUTED = 4
+MOE_TOL = {"atol": 5e-2, "rtol": 2e-2}
+# pipelined: the pipelined transformer at GPT-2-small's widths (12
+# virtual stages of one block, 12 heads, 4 microbatches) on a (pipe=1,
+# fsdp=1) mesh, batch 8 of 1024 tokens, two SGD steps (lr 1e-2); the
+# chain of stage_apply over PIPELINED_CHAIN_STAGES stages against the
+# first step's pipelined_loss, relative (f32, the same math in another
+# batching)
+PIPELINED_CFG = dict(vocab_size=50304, n_virtual_stages=12, n_head=12,
+                     d_model=768, d_ff=3072, block_size=1024,
+                     num_microbatches=4)
+PIPELINED_BATCH = 8
+PIPELINED_CHAIN_STAGES = 2
+PIPELINED_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -1223,12 +1283,15 @@ def engine_prompts(vocab: int, seed: int) -> list[list[int]]:
     return [rng.randint(0, vocab, size=n).tolist() for n in ENGINE_PROMPTS]
 
 
-def phase_engine_default(torch, paged_row: dict) -> dict:
+def phase_engine_default(torch, paged_row: dict,
+                         keep: dict | None = None) -> dict:
     """GPT-2-small at the JAX engine's defaults: chunked prefill at 256
     (prompts of at most one chunk prefill monolithically through K1),
     the prefix cache, dense decode. Wave 1 is the paged phase's requests;
     wave 2 shares the first 512 tokens of its 700-token prompt, which
-    must come from the cache. Returns the launches of both waves."""
+    must come from the cache. Returns the launches of both waves; wave
+    1's streams, launches and tokens/s, and the engine's compute-dtype
+    params, go into `keep` (serve_mesh's reference)."""
     from ray_tpu_torch.models.gpt2 import gpt2_prefill_kv
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
 
@@ -1282,6 +1345,11 @@ def phase_engine_default(torch, paged_row: dict) -> dict:
 
     f1 = wave1.pop("finals")
     wave2.pop("finals")
+    if keep is not None:
+        keep.update(streams=[f["token_ids"] for f in f1],
+                    launches=launches1,
+                    tokens_per_s=wave1["tokens_per_s"],
+                    compute=engine.runner._compute)
     consistency = decode_consistency(torch, engine, prompts[0],
                                      f1[0]["token_ids"], gpt2_prefill_kv,
                                      chunk=chunk)
@@ -1357,16 +1425,8 @@ def phase_engine_spec(torch) -> dict:
     check_drained(engine, "engine_spec")
     finals = run.pop("finals")
     streams = [f["token_ids"] for f in finals]
-    ties, worst = 0, 0.0
-    for prompt, gen in zip(prompts, streams):
-        full = torch.tensor([prompt + gen[:-1]], device="cuda")
-        with torch.no_grad():
-            ref, _, _ = gpt2_prefill_kv(engine.runner._compute, full, cfg)
-        rows = ref[0, len(prompt) - 1:, :cfg.vocab_size].float()
-        gap = rows.max(-1).values - rows.gather(
-            -1, torch.tensor(gen, device="cuda")[:, None])[:, 0]
-        ties += int((gap > 0).sum())
-        worst = max(worst, float(gap.max()))
+    ties, worst = argmax_gaps(torch, gpt2_prefill_kv,
+                              engine.runner._compute, cfg, prompts, streams)
     if not worst <= LOGITS_TOL["max_abs"]:
         fail(f"engine_spec: a committed token's logit is {worst} below "
              f"its row's max (tol {LOGITS_TOL['max_abs']})")
@@ -1397,11 +1457,30 @@ def phase_engine_spec(torch) -> dict:
     return launches
 
 
-def phase_engine_llama(torch) -> dict:
+def argmax_gaps(torch, prefill_fn, compute, cfg, prompts, streams):
+    """The bf16 tie-aware check of committed tokens: each stream's
+    tokens against one fresh prefill (K1) over prompt + stream, at their
+    positions. Returns (tokens that are not their row's argmax, the
+    largest gap from a row's max to the committed token's logit)."""
+    ties, worst = 0, 0.0
+    for prompt, gen in zip(prompts, streams):
+        full = torch.tensor([prompt + gen[:-1]], device="cuda")
+        with torch.no_grad():
+            ref, _, _ = prefill_fn(compute, full, cfg)
+        rows = ref[0, len(prompt) - 1:, :cfg.vocab_size].float()
+        gap = rows.max(-1).values - rows.gather(
+            -1, torch.tensor(gen, device="cuda")[:, None])[:, 0]
+        ties += int((gap > 0).sum())
+        worst = max(worst, float(gap.max()))
+    return ties, worst
+
+
+def phase_engine_llama(torch, keep: dict | None = None) -> dict:
     """Llama-small (12 layers, E=768, H=12 over H_kv=4, SwiGLU 2048,
     vocab 32000) in bf16 on the paged engine: prefill through K1 on K/V
     repeated to 12 heads, grouped-query decode through K4. Returns its
-    launches."""
+    launches; its streams, launches, tokens/s and compute-dtype params go
+    into `keep` (serve_mesh's reference)."""
     from ray_tpu_torch.models.llama import llama_prefill_kv
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
 
@@ -1426,6 +1505,10 @@ def phase_engine_llama(torch) -> dict:
              f"H={cfg.n_head} H_kv={cfg.n_kv_head}")
     check_drained(engine, "engine_llama")
     finals = run.pop("finals")
+    if keep is not None:
+        keep.update(streams=[f["token_ids"] for f in finals],
+                    launches=launches, tokens_per_s=run["tokens_per_s"],
+                    compute=engine.runner._compute)
     consistency = decode_consistency(torch, engine, prompts[0],
                                      finals[0]["token_ids"],
                                      llama_prefill_kv)
@@ -2537,6 +2620,456 @@ def phase_rl(torch, card: str) -> dict:
     return paths
 
 
+# ------------------------------------------------------------ phase 9
+
+
+@contextlib.contextmanager
+def one_rank_nccl():
+    """A process group of this one rank over NCCL, destroyed on the way
+    out."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def events_ms(torch, fn, iters: int = MESH_TIME_ITERS) -> float:
+    """Mean milliseconds per call of `fn` over `iters` calls after one
+    warm call, between CUDA events: these calls run collectives and
+    DTensor dispatch, which a CUDA graph would not capture."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_serve_mesh(torch, gpt2_ref: dict, llama_ref: dict) -> dict:
+    """``LLMEngine(mesh=)`` on a one-rank NCCL ``tensor`` mesh: GPT-2-small
+    at EngineConfig()'s defaults and Llama-small paged, each on the
+    requests of engine_default and engine_llama, whose plain engines in
+    this run give the reference (`gpt2_ref`, `llama_ref`): K1 and K4
+    launches equal to the plain engine's (the kernels on each rank's
+    heads, through local_map), the streams identical or else within the
+    bf16 tie-aware check against a prefill of the plain engine's params
+    off the mesh, the pool drained, tokens/s beside the plain engine's,
+    and the collectives of one decode step. GPT-2 then takes an
+    ``update_weights`` of seeded perturbed params, which must lay them
+    out on the mesh again and serve other streams than before, equal to
+    those of a plain engine built on the same perturbed params (or
+    within the same tie-aware check against it). Returns the launches
+    by path."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from ray_tpu_torch.models.gpt2 import gpt2_prefill_kv
+    from ray_tpu_torch.models.llama import llama_prefill_kv
+    from ray_tpu_torch.parallel.mesh import build_mesh
+    from ray_tpu_torch.parallel.ops import collective_op_counts
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.serve.llm.runner import DecodeItem
+
+    paths = {}
+    with one_rank_nccl():
+        mesh = build_mesh({"tensor": 1})
+        for name, model, ref, prefill_fn, kw in (
+                ("serve_mesh", "gpt2", gpt2_ref, gpt2_prefill_kv, {}),
+                ("serve_mesh_llama", "llama", llama_ref, llama_prefill_kv,
+                 {"prefill_chunk_size": 0, "use_paged_attention": True})):
+            t0 = time.perf_counter()
+            engine = LLMEngine(EngineConfig(
+                model=model, preset="small", max_model_len=1024,
+                max_batch_size=8, seed=0, **kw), mesh=mesh)
+            engine.warmup()
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            cfg, runner = engine.model_cfg, engine.runner
+            prompts = engine_prompts(cfg.vocab_size, 0)
+            counters = _reset_counters()
+            run = serve(torch, engine, prompts, MAX_TOKENS)
+            launches = launch_counts(counters)
+            check_drained(engine, name)
+            streams = [f["token_ids"] for f in run.pop("finals")]
+            keys = ("flash_fwd", "paged_attention", "paged_attention_by_shape")
+            got = {k: launches[k] for k in keys}
+            want = {k: ref["launches"][k] for k in keys}
+            if got != want or not got["flash_fwd"] \
+                    or bool(got["paged_attention"]) != (model == "llama"):
+                fail(f"{name}: launches {got}, the plain engine's {want}")
+            same = streams == ref["streams"]
+            ties = worst = None
+            if not same:
+                ties, worst = argmax_gaps(torch, prefill_fn, ref["compute"],
+                                          cfg, prompts, streams)
+                if not worst <= LOGITS_TOL["max_abs"]:
+                    fail(f"{name}: streams differ from the plain engine's "
+                         f"and a committed token's logit is {worst} below "
+                         f"its row's max (tol {LOGITS_TOL['max_abs']})")
+            null_table = [0] * runner.max_blocks_per_seq
+            with CommDebugMode() as comm:
+                runner.decode([DecodeItem(1, 0, null_table, 0.0)])
+            row = {"phase": name, "model": f"{model}-small", "world": 1,
+                   "backend": "nccl", "mesh": {"tensor": 1},
+                   "dtype": dname(torch, cfg.dtype),
+                   "config": "EngineConfig defaults" if not kw else
+                   "paged, monolithic prefill",
+                   "pages_sharded_over_tensor": runner._shard_heads,
+                   "num_blocks": engine.pool.num_blocks,
+                   "setup_s": setup_s, **run, "launches": launches,
+                   "plain_tokens_per_s": ref["tokens_per_s"],
+                   "streams_identical_to_plain": same,
+                   "tokens_not_argmax": ties, "max_gap_to_argmax": worst,
+                   "gap_tol": LOGITS_TOL["max_abs"],
+                   "collectives_one_decode_step":
+                       collective_op_counts(comm)}
+            paths[name] = launches
+            if model == "gpt2":
+                row["update_weights"] = swap_on_mesh(
+                    torch, engine, mesh, kw, prompts, streams, launches,
+                    prefill_fn)
+                paths[name] = _add_launches(
+                    dict(launches), row["update_weights"].pop("launches"))
+            emit(row)
+            del engine, runner
+            release(torch)
+    return paths
+
+
+def swap_on_mesh(torch, engine, mesh, kw, prompts, streams, launches,
+                 prefill_fn) -> dict:
+    """serve_mesh's weight swap: ``update_weights`` of the mesh engine's
+    params plus seeded noise (0.01 normal on every leaf), which must
+    leave every param a DTensor on `mesh` and serve other streams than
+    `streams` (the old weights'), with as many K1 launches, equal to
+    those of a plain engine built on the same perturbed params in this
+    run, or within the tie-aware check against that engine's prefill.
+    Returns the swap's row, its launches under "launches"."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch import interop
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.util import tree
+
+    rng = np.random.RandomState(9)
+    new = tree.tree_map(
+        lambda w: (w + 0.01 * rng.standard_normal(w.shape)).astype(w.dtype),
+        interop.params_to_numpy(engine.runner.params))
+    t0 = time.perf_counter()
+    swap = engine.update_weights(1, new)
+    swap_s = time.perf_counter() - t0
+    off_mesh = [t for t in tree.leaves(engine.runner.params)
+                if not (isinstance(t, DTensor) and t.device_mesh is mesh)]
+    if off_mesh:
+        fail(f"serve_mesh: after update_weights {len(off_mesh)} params "
+             f"are not DTensors on the mesh")
+    counters = _reset_counters()
+    again = serve(torch, engine, prompts, MAX_TOKENS)
+    relaunch = launch_counts(counters)
+    check_drained(engine, "serve_mesh after update_weights")
+    got = [f["token_ids"] for f in again.pop("finals")]
+    if got == streams:
+        fail("serve_mesh: after update_weights of perturbed params the "
+             "streams are the old weights'")
+    if relaunch["flash_fwd"] != launches["flash_fwd"]:
+        fail(f"serve_mesh: after update_weights K1 launched "
+             f"{relaunch['flash_fwd']} times, first {launches['flash_fwd']}")
+    plain = LLMEngine(EngineConfig(
+        model="gpt2", preset="small", max_model_len=1024, max_batch_size=8,
+        seed=0, **kw), params=new)
+    plain.warmup()
+    want = [f["token_ids"] for f in
+            serve(torch, plain, prompts, MAX_TOKENS)["finals"]]
+    same = got == want
+    ties = worst = None
+    if not same:
+        ties, worst = argmax_gaps(torch, prefill_fn, plain.runner._compute,
+                                  plain.model_cfg, prompts, got)
+        if not worst <= LOGITS_TOL["max_abs"]:
+            fail(f"serve_mesh: after update_weights the streams differ "
+                 f"from a plain engine's on the same params and a "
+                 f"committed token's logit is {worst} below its row's max "
+                 f"(tol {LOGITS_TOL['max_abs']})")
+    del plain
+    release(torch)
+    return {"swap_s": swap_s, "noise": "0.01 normal, seed 9",
+            "registrations_dropped": swap["registrations_dropped"],
+            "streams_changed": True,
+            "streams_identical_to_plain_on_new_params": same,
+            "tokens_not_argmax": ties, "max_gap_to_argmax": worst,
+            "tokens_per_s": again["tokens_per_s"], "launches": relaunch}
+
+
+def phase_ulysses(torch) -> dict:
+    """Ulysses on a one-rank NCCL ``seq`` mesh at ULYSSES_SHAPE in bf16,
+    forward and backward through ``ops.attention.causal_attention`` (K1,
+    then K2 and K3), against one direct ``flash_attention`` call on the
+    same q, k, v and output gradient: 1/1/1 launches a call, and the
+    outputs and gradients compared (bit-equal expected, within BWD_TOL
+    required). Then ring attention at the same shape in f32 against the
+    plain reference, within RING_TOL; each timed. Returns the launches
+    of one Ulysses forward and backward."""
+    from ray_tpu_torch.ops.attention import (
+        causal_attention,
+        causal_attention_reference,
+    )
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.parallel.mesh import build_mesh
+    from ray_tpu_torch.parallel.ops import shard_map
+    from ray_tpu_torch.parallel.ring_attention import (
+        ring_attention,
+        ulysses_attention,
+    )
+    from ray_tpu_torch.parallel.sharding import PartitionSpec as P
+
+    B, T, H, D = ULYSSES_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+
+    def fwd_bwd(fn, dtype=torch.bfloat16):
+        qkv = [t.to(dtype).detach().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*qkv)
+        o = o.to_local() if hasattr(o, "to_local") else o
+        grads = torch.autograd.grad(o, qkv, grad_outputs=do.to(dtype))
+        return [o.detach()] + list(grads)
+
+    with one_rank_nccl():
+        mesh = build_mesh({"seq": 1})
+        spec = P(None, "seq")
+        uly = shard_map(lambda a, b, c: ulysses_attention(
+            a, b, c, "seq", attn_fn=causal_attention), mesh,
+            in_specs=spec, out_specs=spec)
+        ring = shard_map(lambda a, b, c: ring_attention(a, b, c, "seq"),
+                         mesh, in_specs=spec, out_specs=spec)
+        counters = _reset_counters()
+        got = fwd_bwd(uly)
+        launches = launch_counts(counters)
+        direct = fwd_bwd(lambda a, b, c: flash_attention(a, b, c,
+                                                         causal=True))
+        want = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
+                "paged_attention": 0}
+        if {k_: launches[k_] for k_ in want} != want:
+            fail(f"ulysses: launches {launches}, want {want}")
+        diffs = {n: float((a.float() - b.float()).abs().max())
+                 for n, a, b in zip(("o", "dq", "dk", "dv"), got, direct)}
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got, direct))
+        tol = BWD_TOL["bfloat16"]
+        for n, a, b in zip(("o", "dq", "dk", "dv"), got, direct):
+            if not torch.allclose(a.float(), b.float(), **tol):
+                fail(f"ulysses: {n} against a direct flash_attention call: "
+                     f"max abs {diffs[n]} ({tol})")
+        uly_ms = events_ms(torch, lambda: fwd_bwd(uly))
+        direct_ms = events_ms(torch, lambda: fwd_bwd(
+            lambda a, b, c: flash_attention(a, b, c, causal=True)))
+        uly_fwd_ms = events_ms(torch, lambda: uly(q, k, v))
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        with torch.no_grad():
+            ring_out = ring(qf, kf, vf).to_local()
+            ref = causal_attention_reference(qf, kf, vf)
+            ring_err = float((ring_out - ref).abs().max())
+            if not torch.allclose(ring_out, ref, **RING_TOL):
+                fail(f"ring: against the plain reference, max abs "
+                     f"{ring_err} ({RING_TOL})")
+            ring_ms = events_ms(torch, lambda: ring(qf, kf, vf))
+            ref_ms = events_ms(torch, lambda: causal_attention_reference(
+                qf, kf, vf))
+        del ring_out, ref
+    emit({"phase": "ulysses", "world": 1, "backend": "nccl",
+          "mesh": {"seq": 1}, "shape": list(ULYSSES_SHAPE),
+          "dtype": "bfloat16", "attn_fn": "ops.attention.causal_attention",
+          "launches": launches, "bit_equal_to_direct_flash": bit_equal,
+          "max_abs_diff_to_direct": diffs, "tol": tol,
+          "ulysses_fwd_bwd_ms": uly_ms, "direct_flash_fwd_bwd_ms": direct_ms,
+          "ulysses_fwd_ms": uly_fwd_ms,
+          "ring": {"dtype": "float32", "max_abs_err": ring_err,
+                   "tol": RING_TOL, "fwd_ms": ring_ms,
+                   "plain_reference_fwd_ms": ref_ms}})
+    release(torch)
+    return launches
+
+
+def phase_moe(torch) -> None:
+    """The MoE layer (``models.moe``) at MOE_CFG in bf16 on a one-rank
+    NCCL ``expert`` mesh, the experts laid out by its partition rules, on
+    x of MOE_X: forward and forward + backward timed, peak memory; then
+    MOE_CHECK_BATCH sequences through it on the card against the same
+    function in f32 on the CPU (MOE_TOL over the tokens routed alike,
+    at most MOE_MAX_REROUTED routed otherwise), and the aux loss."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    from ray_tpu_torch.models.moe import (
+        MoEConfig,
+        init_moe,
+        moe_layer,
+        moe_partition_rules,
+    )
+    from ray_tpu_torch.parallel.mesh import build_mesh
+    from ray_tpu_torch.parallel.sharding import PartitionRules, shard_pytree
+    from ray_tpu_torch.util import tree
+
+    cfg = MoEConfig(**MOE_CFG, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    params = init_moe(gen, cfg)
+    x = torch.randn(*MOE_X, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def route(xx, gate):
+        probs = torch.softmax(xx.reshape(-1, cfg.d_model).float()
+                              @ gate.float(), dim=-1)
+        return torch.topk(probs, cfg.top_k, dim=-1).indices.sort(-1).values
+
+    with one_rank_nccl():
+        mesh = build_mesh({"expert": 1})
+        p = shard_pytree({"moe": params}, PartitionRules(
+            moe_partition_rules()), mesh)["moe"]
+        xd = distribute_tensor(x, mesh, [Replicate()])
+
+        def forward():
+            with torch.no_grad():
+                return moe_layer(p, xd, cfg)
+
+        def fwd_bwd():
+            leaves = [t.detach().requires_grad_(True)
+                      for t in tree.leaves(p)]
+            pp = tree.unflatten(p, leaves)
+            out, aux = moe_layer(pp, xd, cfg)
+            loss = (out.float() ** 2).mean() + 0.01 * aux
+            return torch.autograd.grad(loss, leaves)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        grads = fwd_bwd()
+        peak = torch.cuda.max_memory_allocated()
+        gnorm = float(sum(float((g.full_tensor() if isinstance(g, DTensor)
+                                 else g).float().norm()) ** 2
+                          for g in grads) ** 0.5)
+        fwd_ms = events_ms(torch, forward)
+        step_ms = events_ms(torch, fwd_bwd)
+        xs = x[:MOE_CHECK_BATCH]
+        with torch.no_grad():
+            out, aux = moe_layer(p, distribute_tensor(xs, mesh,
+                                                      [Replicate()]), cfg)
+            out, aux = out.full_tensor(), float(aux.full_tensor())
+        del grads
+    host = {"gate": {"kernel": params["gate"]["kernel"].cpu()},
+            "wi": params["wi"].cpu(), "wo": params["wo"].cpu()}
+    cpu_cfg = MoEConfig(**MOE_CFG, dtype=torch.float32)
+    with torch.no_grad():
+        want, want_aux = moe_layer(host, xs.float().cpu(), cpu_cfg)
+    same = (route(xs, params["gate"]["kernel"]).cpu()
+            == route(xs.float().cpu(), host["gate"]["kernel"])).all(-1)
+    rerouted = int((~same).sum())
+    got = out.float().cpu().reshape(-1, cfg.d_model)[same]
+    ref = want.reshape(-1, cfg.d_model)[same]
+    err = float((got - ref).abs().max())
+    ok = torch.allclose(got, ref, **MOE_TOL)
+    N = MOE_X[0] * MOE_X[1]
+    cap = max(1, int(cfg.capacity_factor * N * cfg.top_k
+                     / cfg.num_experts))
+    row = {"phase": "moe", "world": 1, "backend": "nccl",
+           "mesh": {"expert": 1}, "config": MOE_CFG, "dtype": "bfloat16",
+           "x": list(MOE_X), "capacity": cap,
+           "combine_bytes": N * cfg.num_experts * cap * 4,
+           "fwd_ms": fwd_ms, "fwd_bwd_ms": step_ms,
+           "max_memory_allocated": peak, "grad_norm": gnorm,
+           "check": {"sequences": MOE_CHECK_BATCH, "rerouted_tokens":
+                     rerouted, "max_rerouted": MOE_MAX_REROUTED,
+                     "max_abs_err": err, "tol": MOE_TOL, "aux": aux,
+                     "aux_cpu_f32": float(want_aux)}}
+    emit(row)
+    if not (ok and rerouted <= MOE_MAX_REROUTED
+            and math.isfinite(gnorm) and gnorm > 0
+            and abs(aux - float(want_aux)) <= 1e-3 * abs(float(want_aux))):
+        fail(f"moe: against the CPU's f32 layer: {row['check']}, grad "
+             f"norm {gnorm}")
+    release(torch)
+
+
+def phase_pipelined(torch) -> None:
+    """The pipelined transformer (``models.pipelined``) at PIPELINED_CFG
+    on a one-rank NCCL (pipe=1, fsdp=1) mesh, params laid out by
+    `pipelined_shardings`: the chain of `stage_apply` over
+    PIPELINED_CHAIN_STAGES stages (no mesh) against the first step's
+    `pipelined_loss`, then two `pipelined_train_step`s; the loss must
+    fall. Step ms and peak memory."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from ray_tpu_torch.models.pipelined import (
+        PipelinedConfig,
+        init_pipelined,
+        pipelined_shardings,
+        pipelined_train_step,
+        split_pipeline_stages,
+        stage_apply,
+    )
+    from ray_tpu_torch.parallel.mesh import build_mesh
+    from ray_tpu_torch.util import tree
+
+    cfg = PipelinedConfig(**PIPELINED_CFG)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    params = init_pipelined(gen, cfg)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    toks = torch.randint(0, cfg.vocab_size,
+                         (PIPELINED_BATCH, cfg.block_size + 1),
+                         generator=gen, device="cuda")
+    S = PIPELINED_CHAIN_STAGES
+    with torch.no_grad():
+        h = toks[:, :-1]
+        for s, stage in enumerate(split_pipeline_stages(params, cfg, S)):
+            h = stage_apply(cfg, stage, s, S, h,
+                            toks[:, 1:] if s == S - 1 else None)
+        chain = float(h)
+    del h
+    with one_rank_nccl():
+        mesh = build_mesh({"pipe": 1, "fsdp": 1})
+        shard = pipelined_shardings(params, cfg, mesh)
+        p = tree.unflatten(params, [
+            distribute_tensor(t, mesh, sh.placements)
+            for t, sh in zip(tree.leaves(params), tree.leaves(shard))])
+        del params
+        batch = {k: distribute_tensor(t, mesh, [Replicate()]) for k, t in
+                 (("tokens", toks[:, :-1]), ("targets", toks[:, 1:]))}
+        step = pipelined_train_step(cfg, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            p, loss = step(p, batch)
+            losses.append(float(loss.full_tensor()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        del p, batch
+    # at pipe=1 every block is a repeat of the one stage: R*M + S - 1
+    ticks = cfg.n_virtual_stages * cfg.num_microbatches
+    row = {"phase": "pipelined", "world": 1, "backend": "nccl",
+           "mesh": {"pipe": 1, "fsdp": 1}, "config": PIPELINED_CFG,
+           "batch": PIPELINED_BATCH, "dtype": "float32",
+           "params": n_params, "schedule_ticks": ticks,
+           "optimizer": "sgd(1e-2)", "losses": losses, "step_ms": ms,
+           "max_memory_allocated": peak,
+           "stage_chain": {"stages": S, "loss": chain,
+                           "rel_diff": abs(chain - losses[0])
+                           / abs(losses[0]), "rtol": PIPELINED_RTOL}}
+    emit(row)
+    if not (all(map(math.isfinite, losses)) and losses[1] < losses[0]):
+        fail(f"pipelined: losses {losses} do not fall")
+    if not row["stage_chain"]["rel_diff"] <= PIPELINED_RTOL:
+        fail(f"pipelined: the stage chain's loss {chain} against "
+             f"pipelined_loss's {losses[0]} (rtol {PIPELINED_RTOL})")
+    release(torch)
+
+
 def _paths(t, path=""):
     if isinstance(t, dict):
         for k in sorted(t):
@@ -2568,10 +3101,12 @@ def main() -> int:
     k23 = check_flash_bwd(torch, gen)
     k4 = check_paged(torch, gen)
     paged = phase_engine(torch)
+    ref_default, ref_llama = {}, {}
     paths = {"serve": paged["launches"],
-             "serve_default": phase_engine_default(torch, paged),
+             "serve_default": phase_engine_default(torch, paged,
+                                                   ref_default),
              "serve_spec": phase_engine_spec(torch),
-             "serve_llama": phase_engine_llama(torch)}
+             "serve_llama": phase_engine_llama(torch, ref_llama)}
     paths["tiny"], paths["serve_large_pages"] = phase_tiny(torch)
     paths["train"] = phase_train(torch)
     release(torch)
@@ -2582,10 +3117,15 @@ def main() -> int:
     for model in ("gpt2", "llama"):
         phase_parity(torch, model)
     paths.update(phase_rl(torch, card))
+    paths.update(phase_serve_mesh(torch, ref_default, ref_llama))
+    paths["ulysses"] = phase_ulysses(torch)
+    phase_moe(torch)
+    phase_pipelined(torch)
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),
                        ("gqa_decode", "serve_llama"),
+                       ("gqa_decode", "serve_mesh_llama"),
                        ("decode_bs64", "serve_large_pages"),
                        ("decode_bs128", "serve_large_pages"),
                        ("tiny_decode", "tiny"),

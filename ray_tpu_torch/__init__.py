@@ -12,9 +12,15 @@ Ported so far: GPT-2 and Llama serving (``ray_tpu_torch.serve.llm``) at
 the JAX engine's defaults (chunked prefill, prefix caching, dense
 decode) and with paged decode and speculative decoding, through the
 flash-attention forward (``ops/flash_attention.py``) and the paged
-attention kernel (``ops/paged_attention.py``); GPT-2 and Llama training
-(``ray_tpu_torch.train``) on one card or on a mesh of
+attention kernel (``ops/paged_attention.py``), on one card or on a
+``tensor`` mesh with the kernels on each rank's heads; GPT-2 and Llama
+training (``ray_tpu_torch.train``) on one card or on a mesh of
 ``torch.distributed`` ranks with the ZeRO ladder
 (``ray_tpu_torch.parallel``), through the flash-attention forward and
-backward kernels on each rank's shard. See ROADMAP.md.
+backward kernels on each rank's shard; RL for LLMs
+(``ray_tpu_torch.rllib.llm``); and the rest of the parallel layer and
+model zoo: ring and Ulysses attention, the in-program GPipe and
+interleaved pipeline schedules with the 1F1B schedule math, the
+expert-parallel MoE layer and the pipelined transformer. See
+ROADMAP.md.
 """

@@ -1,5 +1,7 @@
 """Model families of the port: GPT-2 and the Llama family
-(RoPE/RMSNorm/SwiGLU/GQA), each with its partition rules for a mesh."""
+(RoPE/RMSNorm/SwiGLU/GQA), each with its partition rules for a mesh;
+the expert-parallel MoE layer (`moe.py`) and the pipelined transformer
+(`pipelined.py`)."""
 
 from ray_tpu_torch.models.gpt2 import (
     GPT2Config,

@@ -28,9 +28,11 @@ batch dims (``aten.mm``, ``aten.addmm``), "none" keeps everything.
 On a mesh the params are DTensors laid out by `gpt2_partition_rules`
 (Megatron columns and rows over "tensor", the other matmul dim over
 "fsdp") and the batch is sharded over ("data", "fsdp"); the block
-constrains its activations where the JAX training forward does
-(``parallel.sharding.constrain``, a no-op on plain tensors), and the constants it makes (positions, the vocab mask)
-are lifted onto the params' mesh as replicated DTensors.
+constrains its activations where the JAX forward does
+(``parallel.sharding.constrain``, a no-op on plain tensors:
+(batch, None, last) for a (B, T, E) activation, (batch, last) for a
+decode step's (B, E)), and the constants it makes (positions, the vocab
+mask) are lifted onto the params' mesh as replicated DTensors.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from ray_tpu_torch.ops.paged_attention import decode_hook, window_hook
 from ray_tpu_torch.parallel.sharding import (
     PartitionRules,
     PartitionSpec as P,
+    batch_spec,
     constrain,
     replicate_like,
 )
@@ -211,18 +214,18 @@ def _dense(h, p, dt):
 def _mlp(x, p, cfg: GPT2Config):
     h = _layer_norm(x, p["ln2"]["scale"], p["ln2"]["bias"])
     h = _dense(h, p["mlp_fc"], cfg.dtype)
-    h = constrain(h, ("data", "fsdp"), None, "tensor")
+    h = constrain(h, *batch_spec(h.ndim, "tensor"))
     # jax.nn.gelu defaults to the tanh approximation; torch's to erf
     h = F.gelu(h, approximate="tanh")
     return x + constrain(_dense(h, p["mlp_proj"], cfg.dtype),
-                         ("data", "fsdp"), None, None)
+                         *batch_spec(x.ndim))
 
 
 def _attn_out(x, att, p, cfg: GPT2Config):
     """The rest of a block after its attention core: output projection,
     residual, MLP (shared by every serving path, as in the JAX model)."""
     x = x + constrain(_dense(att, p["attn_proj"], cfg.dtype),
-                      ("data", "fsdp"), None, None)
+                      *batch_spec(x.ndim))
     return _mlp(x, p, cfg)
 
 
@@ -232,7 +235,7 @@ def _qkv(x, p, cfg: GPT2Config):
     E = cfg.n_embd
     h = _layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"])
     qkv = constrain(_dense(h, p["attn_qkv"], cfg.dtype),
-                    ("data", "fsdp"), None, "tensor")
+                    *batch_spec(h.ndim, "tensor"))
     return (t.reshape(*x.shape[:-1], cfg.n_head, cfg.head_dim)
             for t in qkv.split(E, dim=-1))
 
@@ -299,13 +302,13 @@ def _embed(params, tokens, positions, cfg: GPT2Config):
     # the JAX model
     wte = constrain(params["wte"].to(dt), None, None)
     x = wte[tokens] + params["wpe"].to(dt)[positions]
-    return constrain(x, ("data", "fsdp"), None, None)
+    return constrain(x, *batch_spec(x.ndim))
 
 
 def _logits(params, x, cfg: GPT2Config):
     x = _layer_norm(x, params["lnf"]["scale"], params["lnf"]["bias"])
     logits = x @ params["wte"].to(cfg.dtype).T
-    return constrain(logits, ("data", "fsdp"), None, "tensor").float()
+    return constrain(logits, *batch_spec(logits.ndim, "tensor")).float()
 
 
 def gpt2_forward(params: Params, tokens: torch.Tensor,

@@ -63,8 +63,10 @@ from ray_tpu_torch.ops.paged_attention import decode_hook, window_hook
 from ray_tpu_torch.parallel.sharding import (
     PartitionRules,
     PartitionSpec as P,
+    batch_spec,
     constrain,
     replicate_like,
+    unflatten_heads,
 )
 from ray_tpu_torch.util import tree
 
@@ -238,11 +240,10 @@ def _qkv(x, p, rope, cfg: LlamaConfig):
     (..., H_kv, D), q and k rotated by rope = (cos, sin), each already
     shaped to broadcast against the heads."""
     dt = cfg.dtype
-    lead = x.shape[:-1]
     h = _rmsnorm(x, p["ln_attn"], cfg.rms_eps)
-    q = (h @ p["wq"].to(dt)).reshape(*lead, cfg.n_head, cfg.head_dim)
-    k = (h @ p["wk"].to(dt)).reshape(*lead, cfg.n_kv_head, cfg.head_dim)
-    v = (h @ p["wv"].to(dt)).reshape(*lead, cfg.n_kv_head, cfg.head_dim)
+    q = unflatten_heads(h @ p["wq"].to(dt), cfg.n_head, cfg.head_dim)
+    k = unflatten_heads(h @ p["wk"].to(dt), cfg.n_kv_head, cfg.head_dim)
+    v = unflatten_heads(h @ p["wv"].to(dt), cfg.n_kv_head, cfg.head_dim)
     return _rotate(q, *rope), _rotate(k, *rope), v
 
 
@@ -250,13 +251,13 @@ def _attn_out(x, att, p, cfg: LlamaConfig):
     """The rest of a block after its attention core: output projection,
     residual, SwiGLU MLP."""
     dt = cfg.dtype
-    x = x + constrain(att @ p["wo"].to(dt), ("data", "fsdp"), None, None)
+    x = x + constrain(att @ p["wo"].to(dt), *batch_spec(x.ndim))
     h = _rmsnorm(x, p["ln_mlp"], cfg.rms_eps)
     gate = h @ p["w_gate"].to(dt)
     up = h @ p["w_up"].to(dt)
-    gate = constrain(gate, ("data", "fsdp"), None, "tensor")
+    gate = constrain(gate, *batch_spec(gate.ndim, "tensor"))
     return x + constrain((F.silu(gate) * up) @ p["w_down"].to(dt),
-                         ("data", "fsdp"), None, None)
+                         *batch_spec(x.ndim))
 
 
 def _block_kv(x, p, rope, cfg: LlamaConfig):
@@ -310,13 +311,13 @@ def _decode_block(x, p, k_ctx, v_ctx, ctx_mask, rope, cfg: LlamaConfig,
 def _embed(params, tokens, cfg: LlamaConfig):
     # the vocab-sharded table is gathered whole before the lookup
     wte = constrain(params["wte"].to(cfg.dtype), None, None)
-    return constrain(wte[tokens], ("data", "fsdp"), None, None)
+    return constrain(wte[tokens], *batch_spec(tokens.ndim + 1))
 
 
 def _logits(params, x, cfg: LlamaConfig):
     x = _rmsnorm(x, params["lnf"], cfg.rms_eps)
     logits = x @ params["wte"].to(cfg.dtype).T
-    return constrain(logits, ("data", "fsdp"), None, "tensor").float()
+    return constrain(logits, *batch_spec(logits.ndim, "tensor")).float()
 
 
 def llama_prefill_kv(params: Params, tokens: torch.Tensor,

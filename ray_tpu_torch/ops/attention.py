@@ -27,8 +27,18 @@ kernels on each rank's local shard through DTensor's ``local_map``:
 the batch dim keeps its shards (data/fsdp) and the head dim its own
 (tensor), so K1, and K2/K3 through the flash operator's registered
 backward, see (B / shards, T, H / shards, D); a sharded T or D, or a
-pending sum, is redistributed first. No sharding strategy is
-registered for the operator itself.
+pending sum, is redistributed first. Heads that arrive whole (GPT-2's
+fused qkv projection leaves q, k and v whole after its split) are split
+over the first mesh dim of size > 1 on which q is replicated and whose
+size divides them, so no two ranks run the same heads. No sharding
+strategy is registered for the operator itself. The serving paths'
+attention over a cache (`context_attention`, `context_decode_attention`,
+and the paged hooks of ``ops/paged_attention.py``) runs through
+`on_local_heads`, where the cache's own layout decides: pages sharded
+over a mesh axis on the KV-head dim shard every operand's heads over
+it, and replicated pages (KV heads that do not divide) replicate every
+operand, so each rank attends all heads and every query head reads the
+KV head it maps to, ``h // (H / H_kv)``.
 """
 
 from __future__ import annotations
@@ -38,6 +48,31 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ray_tpu_torch.ops.flash_attention import flash_attention
+
+def on_local_heads(fn, args, head_dims, kv, kv_dim: int, out_dim: int):
+    """``fn(*args)`` on each rank's local heads, its one output a DTensor
+    when any argument is one. `kv` (one of `args`, a DTensor) decides the
+    layout: over each mesh dim where it is sharded on its head dim
+    `kv_dim`, every DTensor argument is sharded on its own head dim
+    (`head_dims`, one entry per argument) and so is the output on
+    `out_dim`; over every other mesh dim all are replicated. Plain
+    arguments (masks, tables, positions, the same on every rank) pass as
+    they are."""
+    if not isinstance(kv, DTensor):
+        return fn(*args)
+    mesh = kv.device_mesh
+    split = {i for i, p in enumerate(kv.placements)
+             if isinstance(p, Shard) and p.dim % kv.ndim == kv_dim}
+
+    def pl(dim):
+        return tuple(Shard(dim) if i in split else Replicate()
+                     for i in range(mesh.ndim))
+
+    in_pl = tuple(pl(d) if isinstance(a, DTensor) else None
+                  for a, d in zip(args, head_dims))
+    # one output: its placements as a list (a tuple means one per output)
+    return local_map(fn, list(pl(out_dim)), in_placements=in_pl,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 def causal_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -67,15 +102,23 @@ def _local_flash(q, k, v):
 
 def _local_causal_attention(q, k, v):
     """q, k, v DTensors (B, T, H, D): the layout of q with only its batch
-    (dim 0) and head (dim 2) shards kept, every operand redistributed to
-    it, and the kernels run on the local shards."""
-    ndim = q.ndim
-    pl = tuple(p if isinstance(p, Shard) and p.dim % ndim in (0, 2)
-               else Replicate() for p in q.placements)
+    (dim 0) and head (dim 2) shards kept, whole heads split over the
+    first replicated mesh dim they divide over, every operand
+    redistributed to it, and the kernels run on the local shards."""
+    ndim, H = q.ndim, q.shape[2]
+    mesh = q.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim % ndim in (0, 2)
+          else Replicate() for p in q.placements]
+    if not any(isinstance(p, Shard) and p.dim % ndim == 2 for p in pl):
+        for i, p in enumerate(pl):
+            if isinstance(p, Replicate) and mesh.size(i) > 1 \
+                    and H % mesh.size(i) == 0:
+                pl[i] = Shard(2)
+                break
+    pl = tuple(pl)
     # one output: its placements as a list (a tuple means one per output)
     return local_map(_local_flash, list(pl), in_placements=(pl, pl, pl),
-                     device_mesh=q.device_mesh,
-                     redistribute_inputs=True)(q, k, v)
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 def _repeat_kv(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -90,7 +133,15 @@ def context_attention(q, k, v, k_ctx, v_ctx, ctx_mask, chunk_mask):
     k_ctx/v_ctx (B, C, H_kv, D), the slots where ctx_mask (B, C) is set,
     plus the chunk's own k/v (B, T, H_kv, D), causally among its real
     positions (chunk_mask (B, T)). f32 scores, mask -1e30, probabilities
-    cast to q's dtype before the PV products. Returns (B, T, H, D)."""
+    cast to q's dtype before the PV products. Returns (B, T, H, D); on
+    DTensors, on each rank's heads (`on_local_heads`, the context's
+    layout deciding)."""
+    return on_local_heads(
+        _context_attention, (q, k, v, k_ctx, v_ctx, ctx_mask, chunk_mask),
+        (2, 2, 2, 2, 2, None, None), k_ctx, 2, 2)
+
+
+def _context_attention(q, k, v, k_ctx, v_ctx, ctx_mask, chunk_mask):
     B, T, H, D = q.shape
     C = k_ctx.shape[1]
     k_ctx, v_ctx, k, v = (_repeat_kv(t, H) for t in (k_ctx, v_ctx, k, v))
@@ -110,7 +161,14 @@ def context_attention(q, k, v, k_ctx, v_ctx, ctx_mask, chunk_mask):
 def context_decode_attention(q, k, v, k_ctx, v_ctx, ctx_mask):
     """Attention of one token a sequence, q (B, H, D), over the cached
     context k_ctx/v_ctx (B, C, H_kv, D), the slots where ctx_mask (B, C)
-    is set, plus its own k/v (B, H_kv, D). Returns (B, H, D)."""
+    is set, plus its own k/v (B, H_kv, D). Returns (B, H, D); on
+    DTensors, on each rank's heads, as `context_attention`."""
+    return on_local_heads(
+        _context_decode_attention, (q, k, v, k_ctx, v_ctx, ctx_mask),
+        (1, 1, 1, 2, 2, None), k_ctx, 2, 1)
+
+
+def _context_decode_attention(q, k, v, k_ctx, v_ctx, ctx_mask):
     B, H, D = q.shape
     k_ctx, v_ctx, k, v = (_repeat_kv(t, H) for t in (k_ctx, v_ctx, k, v))
     scale = 1.0 / (D ** 0.5)

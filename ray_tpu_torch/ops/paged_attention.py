@@ -41,6 +41,7 @@ import ctypes
 import torch
 
 from ray_tpu_torch import _build
+from ray_tpu_torch.ops.attention import on_local_heads
 
 LAUNCHES = _build.LaunchCounter("paged_attention")
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -249,16 +250,28 @@ def paged_attention(q, own_k, own_v, k_pages, v_pages, tables, ctx_len,
     return out
 
 
+def _decode_attend(q, k, v, k_pages, v_pages, tables, positions):
+    return paged_attention(
+        q[:, None].contiguous(), k[:, None].contiguous(),
+        v[:, None].contiguous(), k_pages, v_pages, tables, positions)[:, 0]
+
+
+def _window_attend(q, k, v, k_pages, v_pages, tables, ctx_len):
+    return paged_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           k_pages, v_pages, tables, ctx_len)
+
+
 def decode_hook(k_pages, v_pages, tables, positions):
     """A model block's ``attend(q, k, v)`` for a decode step through K4:
     one query row a sequence, q (B, H, D) with its own k/v (B, H_kv, D),
     over its pages < positions[s] (the kernel's ctx_len) in this layer's
-    k_pages/v_pages. Returns (B, H, D)."""
+    k_pages/v_pages. Returns (B, H, D). DTensor pages (the serving runner
+    on a mesh) launch K4 on each rank's local heads
+    (``ops.attention.on_local_heads``, the pages' layout deciding)."""
     def attend(q, k, v):
-        return paged_attention(
-            q[:, None].contiguous(), k[:, None].contiguous(),
-            v[:, None].contiguous(), k_pages, v_pages, tables,
-            positions)[:, 0]
+        return on_local_heads(
+            _decode_attend, (q, k, v, k_pages, v_pages, tables, positions),
+            (1, 1, 1, 2, 2, None, None), k_pages, 2, 1)
 
     return attend
 
@@ -267,10 +280,11 @@ def window_hook(k_pages, v_pages, tables, ctx_len):
     """A model block's ``attend(q, k, v)`` for a verify window through
     K4: W query rows q (S, W, H, D) with the window's own k/v
     (S, W, H_kv, D), causally, over the pages < ctx_len[s] in this
-    layer's k_pages/v_pages. Returns (S, W, H, D)."""
+    layer's k_pages/v_pages. Returns (S, W, H, D); with DTensor pages,
+    on each rank's local heads, as `decode_hook`."""
     def attend(q, k, v):
-        return paged_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), k_pages, v_pages, tables,
-                               ctx_len)
+        return on_local_heads(
+            _window_attend, (q, k, v, k_pages, v_pages, tables, ctx_len),
+            (2, 2, 2, 2, 2, None, None), k_pages, 2, 2)
 
     return attend

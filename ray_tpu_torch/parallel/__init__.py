@@ -5,8 +5,10 @@ Device meshes over the ranks of a process group (`mesh.py`, a
 ``DeviceMesh`` with the JAX mesh's axis names and order),
 partition-rule based sharding of parameter trees as DTensors
 (`sharding.py`), and collectives over one mesh axis for code on local
-shards, with ``shard_map`` (`ops.py`). Pipeline parallelism and ring
-attention are later slices (ROADMAP.md).
+shards, with ``shard_map`` (`ops.py`); ring and Ulysses attention over a
+sequence axis (`ring_attention.py`); and pipeline parallelism
+(`pipeline.py`): the 1F1B schedule math of the worker-group strategy and
+the in-program GPipe and interleaved schedules over the ``pipe`` axis.
 """
 
 from ray_tpu_torch.parallel.mesh import (

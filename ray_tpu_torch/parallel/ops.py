@@ -14,8 +14,8 @@ all-to-all the all-to-all with split and concat swapped, and of a
 permutation the inverse permutation. `pmax` is not (JAX defines no
 transpose for it either). `axis_index` and `axis_size` are host ints.
 
-`shard_map` is the port of ``jax.shard_map`` on top of DTensor's
-``local_map``: specs become placements, the body sees local shards.
+`shard_map` is the port of ``jax.shard_map`` on DTensor: specs become
+placements, the body sees local shards (``to_local``/``from_local``).
 `collective_op_counts` counts the collectives one run issued, under the
 JAX labels, from ``CommDebugMode``: there is no compiled program to
 parse as the JAX version parses HLO.
@@ -23,15 +23,16 @@ parse as the JAX version parses HLO.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+import math
+from typing import Callable
 
 import torch
 import torch.distributed as dist
 import torch.distributed._functional_collectives as funcol
-from torch.distributed.tensor import DTensor, distribute_tensor
-from torch.distributed.tensor.experimental import local_map
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ray_tpu_torch.parallel.mesh import AXIS_DATA
+from ray_tpu_torch.parallel.mesh import AXIS_DATA, mesh_shape
 from ray_tpu_torch.parallel.sharding import (
     PartitionSpec,
     _current_mesh,
@@ -41,14 +42,22 @@ from ray_tpu_torch.parallel.sharding import (
 
 
 def _group(axis_name: str, mesh):
-    """The process group of one mesh axis; None for an axis the mesh
-    dropped because its size is 1 (``mesh.py``), over which every
-    collective is the identity."""
+    """The process group of one mesh axis; None for an axis of size 1,
+    over which every collective is the identity: one the mesh dropped
+    (``mesh.py``), or the one dim a mesh of one rank keeps."""
     mesh = _current_mesh() if mesh is None else mesh
     if mesh is None:
         raise RuntimeError(f"no mesh for axis {axis_name!r}: run under "
                            "use_mesh(mesh) or shard_map, or pass mesh=")
-    if axis_name not in mesh.mesh_dim_names:
+    if not isinstance(mesh, DeviceMesh):
+        # an AbstractMesh (a one-device mesh of named axes): only axes of
+        # size 1, over which every collective is the identity
+        if mesh_shape(mesh).get(axis_name, 1) != 1:
+            raise RuntimeError(f"axis {axis_name!r} of {mesh!r} has no "
+                               "ranks: build the mesh with build_mesh")
+        return None
+    if axis_name not in mesh.mesh_dim_names \
+            or mesh.size(mesh.mesh_dim_names.index(axis_name)) == 1:
         return None
     return mesh.get_group(axis_name)
 
@@ -155,9 +164,23 @@ class _Ppermute(torch.autograd.Function):
         return _permute(g, inverse, ctx.group), None, None
 
 
+def _on_local(x, fn):
+    """`fn` applied to x, or to the local tensor of a DTensor x with the
+    result put back on x's mesh in x's placements (`psum` and `ppermute`,
+    which keep shapes). A DTensor here lives on the mesh of the axes a
+    `shard_map(axis_names=)` leaves automatic; the collective's own axis
+    is manual, and its group joins ranks at the same position on those
+    other axes, whose local tensors line up."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh,
+                              x.placements, run_check=False)
+
+
 def psum(x, axis_name: str = AXIS_DATA, *, mesh=None):
     group = _group(axis_name, mesh)
-    return x if group is None else _Psum.apply(x, group)
+    return x if group is None else _on_local(
+        x, lambda t: _Psum.apply(t, group))
 
 
 def pmean(x, axis_name: str = AXIS_DATA, *, mesh=None):
@@ -204,7 +227,7 @@ def ppermute(x, axis_name: str, perm, *, mesh=None):
     group = _group(axis_name, mesh)
     if group is None:
         return x if (0, 0) in pairs else torch.zeros_like(x)
-    return _Ppermute.apply(x, pairs, group)
+    return _on_local(x, lambda t: _Ppermute.apply(t, pairs, group))
 
 
 def ring_shift(x, axis_name: str, shift: int = 1, *, mesh=None):
@@ -258,7 +281,21 @@ def _spec_tuple(specs, n: int):
     return tuple(specs)
 
 
-def shard_map(f: Callable, mesh, in_specs, out_specs) -> Callable:
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, whose backward scales the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def shard_map(f: Callable, mesh, in_specs, out_specs,
+              axis_names=None) -> Callable:
     """``jax.shard_map`` on DTensor: f runs on each rank's local shards,
     with `mesh` ambient (so the collectives above find their groups).
     `in_specs` is one `PartitionSpec` per positional argument (or one for
@@ -268,27 +305,79 @@ def shard_map(f: Callable, mesh, in_specs, out_specs) -> Callable:
     output spec says how the local results tile the global value (a
     replicated axis takes the local value as the whole). Nothing checks
     that a replicated output really is the same on every rank (JAX's
-    ``check_vma``, which the JAX wrapper turns off by default)."""
+    ``check_vma``, which the JAX wrapper turns off by default).
 
-    def body(*args):
-        with use_mesh(mesh):
-            return f(*args)
+    Gradients follow JAX's transpose of ``shard_map`` with ``check_vma``
+    off: the gradient of an input replicated over a manual axis is the
+    sum of every rank's share (the local gradient enters as a pending
+    sum), and the gradient reaching an output replicated over manual
+    axes is divided by their size, since every rank's copy of it carries
+    the whole cotangent.
+
+    `axis_names`, as in ``jax.shard_map``, makes only those mesh axes
+    manual (default: all). The body then sees each argument local over
+    the manual axes and global over the others: a DTensor on the
+    sub-mesh of the other axes (``DTensor.from_local`` on
+    ``mesh[other axes]``) that keeps the argument's placements there, so
+    DTensor's propagation plays GSPMD's part for them; the specs name
+    manual axes only. A tensor the body makes from nothing (a position,
+    a mask) must be lifted onto that sub-mesh with
+    ``sharding.replicate_like``, where JAX takes a constant as the same
+    on every device: DTensor refuses to mix the two kinds, in the
+    backward too."""
+    names = tuple(mesh.mesh_dim_names)
+    auto = () if axis_names is None else tuple(
+        a for a in names if a not in set(axis_names))
+    sub = mesh[auto] if auto else None
+    manual = [i for i, a in enumerate(names) if a not in auto]
+    keep = [i for i, a in enumerate(names) if a in auto]
+    sizes = mesh_shape(mesh)
+
+    def enter(a, spec):
+        want = placements(spec, mesh)
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * len(names),
+                                   run_check=False)
+        pl = tuple(want[i] if i in manual else a.placements[i]
+                   for i in range(len(names)))
+        for i in keep:
+            if isinstance(pl[i], Shard) and any(
+                    want[j] == pl[i] for j in manual):
+                raise ValueError(
+                    f"shard_map: dim {pl[i].dim} is sharded over a manual "
+                    f"and an automatic axis at once ({pl})")
+        a = a.redistribute(mesh, pl)
+        grad_pl = [Partial() if i in manual and isinstance(p, Replicate)
+                   else p for i, p in enumerate(pl)]
+        local = a.to_local(grad_placements=grad_pl)
+        if sub is None:
+            return local
+        return DTensor.from_local(local, sub, [pl[i] for i in keep],
+                                  run_check=False)
+
+    def leave(o, spec):
+        want = placements(spec, mesh)
+        if isinstance(o, DTensor):
+            local, have = o.to_local(), o.placements
+        else:
+            local, have = o, (Replicate(),) * len(keep)
+        n = math.prod(sizes[names[i]] for i in manual
+                      if isinstance(want[i], Replicate))
+        if n > 1:
+            local = _ScaleGrad.apply(local, 1.0 / n)
+        pl = list(want)
+        for j, i in enumerate(keep):
+            pl[i] = have[j]
+        return DTensor.from_local(local, mesh, pl, run_check=False)
 
     def call(*args):
         ins = _spec_tuple(in_specs, len(args))
-        in_pl = tuple(None if s is None else placements(s, mesh)
-                      for s in ins)
-        args = tuple(
-            distribute_tensor(a, mesh, pl)
-            if pl is not None and isinstance(a, torch.Tensor)
-            and not isinstance(a, DTensor) else a
-            for a, pl in zip(args, in_pl))
-        # local_map reads a tuple as one placement list per output
+        args = tuple(enter(a, s) if s is not None else a
+                     for a, s in zip(args, ins))
+        with use_mesh(mesh):
+            out = f(*args)
         if isinstance(out_specs, PartitionSpec):
-            out_pl: Any = list(placements(out_specs, mesh))
-        else:
-            out_pl = tuple(list(placements(s, mesh)) for s in out_specs)
-        return local_map(body, out_pl, in_placements=in_pl,
-                         device_mesh=mesh, redistribute_inputs=True)(*args)
+            return leave(out, out_specs)
+        return tuple(leave(o, s) for o, s in zip(out, out_specs))
 
     return call

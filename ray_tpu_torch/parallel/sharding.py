@@ -241,6 +241,32 @@ def constrain(x, *spec_entries):
     return x.redistribute(mesh, want)
 
 
+def batch_spec(ndim: int, last=None) -> tuple:
+    """The spec entries of an activation of `ndim` dims whose dim 0 is
+    the batch (over ("data", "fsdp")) and whose last dim goes over
+    `last`, the dims between replicated: the JAX models write (batch,
+    None, last) for a (B, T, E) activation and (batch, last) for a
+    decode step's (B, E), where the port's blocks share one body for
+    both. Use as ``constrain(x, *batch_spec(x.ndim, last))``."""
+    return (("data", "fsdp"), *([None] * (ndim - 2)), last)
+
+
+def unflatten_heads(x, heads: int, head_dim: int):
+    """x (..., heads * head_dim) -> (..., heads, head_dim). A DTensor
+    sharded on its last dim over a mesh dim whose size does not divide
+    `heads` is made whole over that dim first: DTensor refuses the
+    uneven split (Llama's K/V projection with fewer KV heads than
+    tensor ranks), where GSPMD inserts the same gather itself."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        pl = [Replicate() if isinstance(p, Shard)
+              and p.dim % x.ndim == x.ndim - 1 and heads % mesh.size(i)
+              else p for i, p in enumerate(x.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(mesh, pl)
+    return x.reshape(*x.shape[:-1], heads, head_dim)
+
+
 def replicate_like(x, like):
     """`x`, a plain tensor made the same way on every rank (positions,
     masks, rotary angles), lifted onto `like`'s mesh as a replicated

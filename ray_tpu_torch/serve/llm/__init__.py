@@ -1,5 +1,5 @@
 """ray_tpu_torch.serve.llm — continuous-batching LLM inference on one
-NVIDIA card, the port of ``ray_tpu.serve.llm``.
+NVIDIA card or on a mesh of them, the port of ``ray_tpu.serve.llm``.
 
 - a **block KV-cache pool** (`cache.py`) of fixed-size pages, page 0
   the null sink for padded lanes, sized off the card's memory, with
@@ -16,9 +16,11 @@ NVIDIA card, the port of ``ray_tpu.serve.llm``.
 - **speculative decoding** (`spec.py`): a host-side n-gram proposer
   whose drafts one verify step a lane scores;
 - an **engine** (`engine.py`) gluing them together, streaming tokens
-  per request and recording serving metrics.
+  per request and recording serving metrics; with ``mesh=`` the params
+  and pages are laid out over a ``tensor`` axis and the kernels run on
+  each rank's heads.
 
-The serve deployment and meshes are later slices (ROADMAP.md).
+The serve deployment is a later slice (ROADMAP.md).
 """
 
 from ray_tpu_torch.serve.llm.cache import BlockPool

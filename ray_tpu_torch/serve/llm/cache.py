@@ -270,6 +270,7 @@ def auto_num_blocks(
     max_model_len: int,
     max_batch_size: int,
     memory_fraction: float = 0.3,
+    tensor_ways: int = 1,
     device=None,
 ) -> int:
     """Size the pool off device memory (reference: vLLM's gpu memory
@@ -279,12 +280,21 @@ def auto_num_blocks(
     On a CUDA device the budget is ``total_memory * memory_fraction``
     from ``torch.cuda.get_device_properties``. Elsewhere (the CPU, in
     tests) it keeps the floor rule: "every lane can reach
-    max_model_len, twice over". The JAX pool's `tensor_ways` argument
-    waits for the port's mesh: this slice serves from one card.
+    max_model_len, twice over". On a mesh with `tensor_ways` ranks on
+    the ``tensor`` axis a block costs each rank its share of the KV
+    heads when they divide evenly, and all of them otherwise (the
+    runner then replicates the pages), as in the JAX pool.
     """
     import torch
 
-    per_block = 2 * n_layer * block_size * n_kv_head * head_dim \
+    # mirror the runner's sharding rule: pages shard over `tensor` only
+    # when the KV heads divide evenly, otherwise they are replicated —
+    # sizing must not assume a split the runner won't make
+    if tensor_ways > 1 and n_kv_head % tensor_ways == 0:
+        heads_per_shard = n_kv_head // tensor_ways
+    else:
+        heads_per_shard = n_kv_head
+    per_block = 2 * n_layer * block_size * heads_per_shard * head_dim \
         * dtype_bytes
     floor = max_batch_size * ((max_model_len + block_size - 1) // block_size)
     device = torch.device(device if device is not None else "cuda")

@@ -9,6 +9,11 @@ carries the per-phase accounting kept on each `Sequence`.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"`` (the
 tests do); without a card it raises instead of dropping to the CPU.
+With ``mesh=`` (a ``DeviceMesh`` of ``parallel.build_mesh``) it serves
+on a mesh as the JAX engine does: the pool is sized per shard of the
+``tensor`` axis and the runner lays the params and pages out over the
+mesh (``runner.py``). Every rank of the mesh runs the same engine with
+the same requests and produces the same streams.
 
 It serves at the JAX engine's defaults: prompts that fit one chunk
 prefill monolithically (kernel K1), longer ones and prefix-cache hits
@@ -31,6 +36,7 @@ from typing import Any, Sequence as Seq
 
 import torch
 
+from ray_tpu_torch.parallel.mesh import mesh_shape
 from ray_tpu_torch.serve.llm.cache import BlockPool, auto_num_blocks
 from ray_tpu_torch.serve.llm.config import EngineConfig, SamplingParams
 from ray_tpu_torch.serve.llm.runner import (
@@ -120,7 +126,7 @@ class LLMEngine:
     """Continuous-batching engine for one model instance."""
 
     def __init__(self, config: EngineConfig, *, params: Any = None,
-                 device=None):
+                 mesh=None, device=None):
         self.device = resolve_device(device)
         self.config = config
         reg = adapters()
@@ -165,6 +171,8 @@ class LLMEngine:
                 max_model_len=max_len,
                 max_batch_size=config.max_batch_size,
                 memory_fraction=config.memory_fraction,
+                tensor_ways=(mesh_shape(mesh).get("tensor", 1)
+                             if mesh is not None else 1),
                 device=self.device,
             )
         max_blocks_per_seq = (max_len + config.block_size - 1) \
@@ -197,6 +205,7 @@ class LLMEngine:
             prefill_bucket_min=config.prefill_bucket_min,
             prefill_chunk_size=(config.prefill_chunk_size if chunking
                                 else None),
+            mesh=mesh,
             sample_seed=config.seed + 1,
             num_draft_tokens=self._spec_k,
             use_paged_attention=config.use_paged_attention,

@@ -32,19 +32,46 @@ which keeps the kernels' shapes to a small set. Padded lanes and
 positions point at page 0, the pool's null sink, so every scatter is in
 bounds and the attention masks keep its contents out of the softmax.
 The pages are updated in place (the JAX runner replaces them
-functionally each step). Meshes are not ported yet (ROADMAP.md).
+functionally each step).
+
+With a mesh, as in the JAX runner, the params are laid out by the
+model's partition rules (`shard_pytree`) and the pages are sharded over
+the ``tensor`` axis on the KV-head dim when the KV heads divide evenly,
+else replicated; the pool's sizing follows the same rule
+(``cache.auto_num_blocks(tensor_ways=)``). GSPMD places every
+collective in JAX; here DTensor's propagation does for the projections
+and the MLP, while every operation on the pages runs on each rank's
+local heads: the scatter and the gather on the local page tensors, the
+dense context attention and K4 through ``ops.attention.on_local_heads``,
+and K1 through ``causal_attention``, which also splits the whole heads
+GPT-2's fused projection leaves. Replicated pages replicate the
+attention: each rank attends every head, so each query head reads the
+KV head it maps to. The logits are made whole before sampling.
+
+Deviation: JAX is one controller over the mesh; the port is one process
+a rank, and every rank runs the same engine on the same requests. They
+take the same scheduler decisions and draw the same tokens because the
+whole logits are the same on every rank and each rank samples from the
+same seeded ``torch.Generator``; the tests hold every rank's streams
+equal.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
+import warnings
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ray_tpu_torch.ops import flash_attention, paged_attention
+from ray_tpu_torch.parallel.mesh import mesh_shape
+from ray_tpu_torch.parallel.sharding import shard_pytree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +93,7 @@ class ModelAdapter:
     decode_paged_fn: Callable
     # (params, toks, start, k_pages, v_pages, table, cfg) -> ...
     verify_paged_fn: Callable
+    rules_fn: Callable  # () -> PartitionRules, the layout on a mesh
 
 
 def adapters() -> dict[str, ModelAdapter]:
@@ -91,6 +119,7 @@ def adapters() -> dict[str, ModelAdapter]:
             kv_heads=lambda cfg: cfg.n_head,
             decode_paged_fn=gpt2.gpt2_decode_paged_kv,
             verify_paged_fn=gpt2.gpt2_verify_paged_kv,
+            rules_fn=gpt2.gpt2_partition_rules,
         ),
         "llama": ModelAdapter(
             name="llama",
@@ -106,6 +135,7 @@ def adapters() -> dict[str, ModelAdapter]:
             kv_heads=lambda cfg: cfg.n_kv_head,
             decode_paged_fn=llama.llama_decode_paged_kv,
             verify_paged_fn=llama.llama_verify_paged_kv,
+            rules_fn=llama.llama_partition_rules,
         ),
     }
 
@@ -204,6 +234,7 @@ class ModelRunner:
         device: torch.device,
         prefill_bucket_min: int = 16,
         prefill_chunk_size: int | None = None,
+        mesh=None,
         sample_seed: int = 0,
         num_draft_tokens: int = 0,
         use_paged_attention: bool = False,
@@ -231,22 +262,33 @@ class ModelRunner:
         self.num_draft_tokens = num_draft_tokens
         self.spec_width = num_draft_tokens + 1 if num_draft_tokens else 0
         self.use_paged_attention = bool(use_paged_attention)
+        self.mesh = mesh
+        if mesh is not None:
+            # `_on_mesh` replicates a one-element input (a one-lane
+            # decode) as it does any other, which DTensor warns about
+            warnings.filterwarnings(
+                "ignore", message="Found a non-scalar tensor with numel=1")
+        hk = adapter.kv_heads(cfg)
+        tensor_ways = mesh_shape(mesh).get("tensor", 1) if mesh else 1
+        # the JAX rule: pages shard over `tensor` on the KV-head dim when
+        # the KV heads divide evenly, otherwise they are replicated
+        self._shard_heads = tensor_ways > 1 and hk % tensor_ways == 0
+        ways = tensor_ways if self._shard_heads else 1
         if self.device.type == "cuda":
             # a shape the kernels refuse fails here, not at the first step
             # that launches them; the CPU's plain versions take any shape
+            # (on a mesh too: an even head split keeps K4's group)
             limit = kernel_limit(
-                cfg, adapter.kv_heads(cfg), block_size=block_size,
+                cfg, hk, block_size=block_size,
                 max_blocks_per_seq=self.max_blocks_per_seq,
                 spec_width=self.spec_width,
                 use_paged_attention=self.use_paged_attention)
             if limit is not None:
                 raise ValueError(f"{adapter.name}: the engine cannot run on "
                                  f"{self.device}: {limit}")
-        page_shape = (cfg.n_layer, num_blocks, block_size,
-                      adapter.kv_heads(cfg), cfg.head_dim)
-        self.k_pages = torch.zeros(page_shape, dtype=cfg.dtype,
-                                   device=self.device)
-        self.v_pages = torch.zeros_like(self.k_pages)
+        local = (cfg.n_layer, num_blocks, block_size, hk // ways,
+                 cfg.head_dim)
+        self.k_pages, self.v_pages = (self._pages(local) for _ in "kv")
         self._lock = threading.Lock()
         self._install(params)
         # torch's generator cannot reproduce jax.random.categorical;
@@ -256,9 +298,45 @@ class ModelRunner:
         self._vocab_ok = torch.arange(
             cfg.padded_vocab, device=self.device) < cfg.vocab_size
 
+    def _pages(self, local_shape) -> torch.Tensor:
+        """A zeroed page tensor; on a mesh, a DTensor whose local part on
+        each rank is `local_shape` (its KV heads, or all of them)."""
+        t = torch.zeros(local_shape, dtype=self.cfg.dtype,
+                        device=self.device)
+        if self.mesh is None:
+            return t
+        return DTensor.from_local(t, self.mesh, self._placements(3),
+                                  run_check=False)
+
+    def _placements(self, head_dim: int) -> tuple:
+        """The pages' layout for a tensor with its KV heads on
+        `head_dim`: sharded over `tensor` there, or replicated."""
+        return tuple(
+            Shard(head_dim) if self._shard_heads and name == "tensor"
+            else Replicate() for name in self.mesh.mesh_dim_names)
+
+    def _on_mesh(self):
+        """The context every model call of a step runs in: on a mesh,
+        plain step inputs (tokens, positions, masks, tables, the same on
+        every rank) count as replicated. No step takes a gradient, so a
+        plain tensor never meets a DTensor in a backward."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return implicit_replication()
+
+    @staticmethod
+    def _whole(t: torch.Tensor) -> torch.Tensor:
+        """A DTensor gathered whole on every rank (the logits before
+        sampling); a plain tensor as it is."""
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
     def _install(self, params: Any) -> None:
         """Keep the f32 masters and their compute-dtype copies (made
-        once; bit-equal to casting at every call)."""
+        once; bit-equal to casting at every call). On a mesh both are
+        laid out by the model's partition rules."""
+        if self.mesh is not None:
+            params = shard_pytree(params, self.adapter.rules_fn(),
+                                  self.mesh)
         compute = self.adapter.serving_params_fn(params, self.cfg)
         with self._lock:
             self.params = params
@@ -312,24 +390,41 @@ class ModelRunner:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _local(self, pages: torch.Tensor) -> torch.Tensor:
+        return pages.to_local() if self.mesh is not None else pages
+
     def _gather(self, tables: np.ndarray) -> tuple[torch.Tensor,
                                                    torch.Tensor]:
         """The cached context of each table row (S, max_blocks_per_seq),
         gathered dense: k, v (L, S, C, H_kv, D), C = max_model_len
-        rounded up to whole pages."""
-        L, _, bs, hk, d = self.k_pages.shape
+        rounded up to whole pages; on a mesh, each rank gathers its own
+        KV heads into a DTensor laid out as the pages."""
         S, maxb = tables.shape
         idx = self._tensor(tables.astype(np.int64))
-        return tuple(pages[:, idx].reshape(L, S, maxb * bs, hk, d)
-                     for pages in (self.k_pages, self.v_pages))
+        out = []
+        for pages in (self.k_pages, self.v_pages):
+            local = self._local(pages)
+            L, _, bs, hk, d = local.shape
+            ctx = local[:, idx].reshape(L, S, maxb * bs, hk, d)
+            if self.mesh is not None:
+                ctx = DTensor.from_local(ctx, self.mesh,
+                                         self._placements(3),
+                                         run_check=False)
+            out.append(ctx)
+        return tuple(out)
 
     def _scatter(self, k: torch.Tensor, v: torch.Tensor,
                  block_ids: np.ndarray, offsets: np.ndarray) -> None:
-        """Write k, v (L, N, H_kv, D) into the pages at (block, offset)."""
+        """Write k, v (L, N, H_kv, D) into the pages at (block, offset);
+        on a mesh, each rank writes its own KV heads into its local
+        pages."""
         bid = self._tensor(block_ids.astype(np.int64))
         off = self._tensor(offsets.astype(np.int64))
-        self.k_pages[:, bid, off] = k
-        self.v_pages[:, bid, off] = v
+        for pages, new in ((self.k_pages, k), (self.v_pages, v)):
+            if isinstance(new, DTensor):
+                new = new.redistribute(self.mesh,
+                                       self._placements(2)).to_local()
+            self._local(pages)[:, bid, off] = new
 
     @torch.no_grad()
     def prefill(self, token_ids: Sequence[int], table: Sequence[int],
@@ -347,12 +442,12 @@ class ModelRunner:
         offsets = np.arange(Tb, dtype=np.int64) % self.block_size
         pos = np.arange(n)
         block_ids[:n] = np.asarray(table, np.int64)[pos // self.block_size]
-        with self._lock:
+        with self._lock, self._on_mesh():
             logits, k, v = self.adapter.prefill_fn(
                 self._compute, self._tensor(toks), self.cfg)
             self._scatter(k[:, 0], v[:, 0], block_ids, offsets)
-            return self._first_token(logits[0, n - 1], temperature, top_k,
-                                     top_p)
+            return self._first_token(self._whole(logits[0, n - 1]),
+                                     temperature, top_k, top_p)
 
     def _first_token(self, last: torch.Tensor, temperature: float,
                      top_k: int, top_p: float) -> tuple[int, np.ndarray]:
@@ -389,7 +484,7 @@ class ModelRunner:
         # padded tail positions keep in-range offsets but target page 0
         offsets = (start + np.arange(Tb)) % self.block_size
         dev = self.device
-        with self._lock:
+        with self._lock, self._on_mesh():
             k_ctx, v_ctx = self._gather(tab)
             C = k_ctx.shape[2]
             ctx_mask = torch.arange(C, device=dev)[None, :] < start
@@ -398,8 +493,8 @@ class ModelRunner:
                 self._compute, self._tensor(toks), start, k_ctx, v_ctx,
                 ctx_mask, chunk_mask, self.cfg)
             self._scatter(k[:, 0], v[:, 0], block_ids, offsets)
-            return self._first_token(logits[0, n - 1], temperature, top_k,
-                                     top_p)
+            return self._first_token(self._whole(logits[0, n - 1]),
+                                     temperature, top_k, top_p)
 
     @torch.no_grad()
     def decode(self, items: Sequence[DecodeItem]
@@ -427,7 +522,7 @@ class ModelRunner:
         # page 0, slot 0) after the step
         block_ids = tables[np.arange(Sb), poss // self.block_size]
         offsets = poss % self.block_size
-        with self._lock:
+        with self._lock, self._on_mesh():
             tok_t, pos_t = self._tensor(toks), self._tensor(poss)
             if self.use_paged_attention:
                 logits, k_new, v_new = self.adapter.decode_paged_fn(
@@ -443,6 +538,7 @@ class ModelRunner:
                     self.cfg)
                 del k_ctx, v_ctx
             self._scatter(k_new, v_new, block_ids, offsets)
+            logits = self._whole(logits)
             nxt = self._sample(logits, temps, topks, topps)
             out = logits[:S].cpu().numpy()
         return [int(t) for t in nxt[:S].tolist()], out
@@ -488,7 +584,7 @@ class ModelRunner:
         topks = np.full((W,), top_k, np.int32)
         topps = np.full((W,), top_p, np.float32)
         dev = self.device
-        with self._lock:
+        with self._lock, self._on_mesh():
             tok_t = self._tensor(toks)
             if self.use_paged_attention:
                 logits, k, v = self.adapter.verify_paged_fn(
@@ -504,7 +600,7 @@ class ModelRunner:
                     chunk_mask, self.cfg)
                 del k_ctx, v_ctx
             self._scatter(k[:, 0], v[:, 0], block_ids, offsets)
-            lg = logits[0]  # (W, Vp)
+            lg = self._whole(logits[0])  # (W, Vp)
             target = self._sample(lg, temps, topks, topps)  # (W,)
             # target[j] is the model's own token for position pos+j+1;
             # keep drafts while they match it, longest-prefix semantics
@@ -545,12 +641,14 @@ class ModelRunner:
             self.verify(1, 0, [1], null_table, 0.0)
             n += 1
         return n
+
     def set_params(self, params: Any) -> None:
         """Install a new parameter tree (weight hot-swap). The tree
         structure and leaf shapes must match the resident params; leaves
         are cast to the resident dtypes and moved to the runner's
-        device. The caller guarantees no step is in flight (the engine
-        holds its step lock across the swap)."""
+        device, and on a mesh laid out again by the partition rules, as
+        the JAX runner re-shards. The caller guarantees no step is in
+        flight (the engine holds its step lock across the swap)."""
 
         def cast(new, old, path):
             if isinstance(old, dict):
@@ -561,6 +659,8 @@ class ModelRunner:
                         f"{sorted(new) if isinstance(new, dict) else new}")
                 return {k: cast(new[k], old[k], f"{path}/{k}")
                         for k in old}
+            if isinstance(new, DTensor):
+                new = new.full_tensor()
             t = torch.as_tensor(new).to(self.device, old.dtype)
             if t.shape != old.shape:
                 raise ValueError(
@@ -573,5 +673,5 @@ class ModelRunner:
     def reset_cache(self) -> None:
         """Zero the pages (tests); allocator state lives in BlockPool."""
         with self._lock:
-            self.k_pages.zero_()
-            self.v_pages.zero_()
+            self._local(self.k_pages).zero_()
+            self._local(self.v_pages).zero_()
