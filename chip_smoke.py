@@ -154,6 +154,31 @@ Phases, each of which exits non-zero on any failure:
    microbatches) on a (pipe=1, fsdp=1) mesh, batch 8 x 1024: two SGD
    steps (the loss must fall), the stage_apply chain against the first
    step's loss, step ms and peak memory.
+10. classic RL through ``ray_tpu_torch.rllib`` on the card, no K1-K4 on
+   these paths (the RL models are products and convolutions outside
+   any kernel; PPO_* and the other constants below). Each phase first
+   checks that the learner's and the runner's params are on cuda.
+   ppo_cartpole: ``PPOConfig().environment("CartPole-v1")...build()``
+   with the JAX package's inline recipe (16 envs, fragments of 128, 6
+   SGD passes over minibatches of 256) must reach a best
+   episode_return_mean of 195 within 40 iterations; env steps/s and
+   the sample and learn seconds an iteration (median, max), one
+   profiled iteration's device busy share, peak memory; then 3
+   iterations with pipeline_sampling. ppo_pixel: the conv recipe on
+   PixelCatch-v0 (32 envs, fragments of 40, framestack 2), 45
+   iterations: the last return above 2 and the first by 2, the metrics
+   tree holding the learner's and the env runners'. ppo_learner_atari:
+   ``PPOLearner((84, 84, 4), 6)`` at the catalog's full width
+   (ATARI_FILTERS, a 7,744 x 256 projection) on 4,096 seeded
+   transitions in minibatches of 256: SGD step ms (CUDA events),
+   samples/s, busy share, peak memory, the step's bound, and one f32
+   step on the card against the CPU (ATARI_PARITY). dqn_cartpole:
+   ``DQNConfig(prioritized_replay=True)`` on CartPole-v1, 20
+   iterations: finite TD losses once learning starts, the buffer
+   growing, one target sync every target_update_freq updates, epsilon
+   decaying; updates/s and peak memory. ppo_learners:
+   ``learners(num_learners=1)`` builds; ``num_learners=2`` on a
+   one-rank process group is refused, naming both sizes.
 
 It prints one JSON line per kernel shape and per phase, K4's rows on
 the serving and rl paths with their launches there (by window and
@@ -317,6 +342,38 @@ PIPELINED_CFG = dict(vocab_size=50304, n_virtual_stages=12, n_head=12,
 PIPELINED_BATCH = 8
 PIPELINED_CHAIN_STAGES = 2
 PIPELINED_RTOL = 1e-4
+# classic RL (phase 10): the JAX package's inline recipes. ppo_cartpole
+# must reach a best episode_return_mean of PPO_TARGET within PPO_ITERS
+# iterations, then runs PPO_PIPELINED_ITERS with pipeline_sampling;
+# ppo_pixel is the conv recipe (framestack 2) without its 4-device mesh
+PPO_CARTPOLE = dict(num_env_runners=0, num_envs_per_env_runner=16,
+                    rollout_fragment_length=128)
+PPO_CARTPOLE_TRAINING = dict(num_sgd_iter=6, minibatch_size=256)
+PPO_ITERS = 40
+PPO_TARGET = 195.0
+PPO_PIPELINED_ITERS = 3
+PPO_PIXEL = dict(num_env_runners=0, num_envs_per_env_runner=32,
+                 rollout_fragment_length=40)
+PPO_PIXEL_TRAINING = dict(lr=2.5e-3, framestack=2, entropy_coeff=0.02,
+                          num_sgd_iter=6, minibatch_size=256, gamma=0.95)
+PPO_PIXEL_ITERS = 45
+# ppo_learner_atari: the catalog's full width (ATARI_FILTERS and a
+# 256-wide projection) on a seeded batch of ATARI_BATCH transitions, one
+# SGD pass over minibatches of ATARI_MINIBATCH; one f32 SGD step on the
+# card against the same step on the CPU (TF32 off): the loss relative,
+# each updated leaf within ATARI_PARITY["param"] of its largest element
+ATARI_OBS = (84, 84, 4)
+ATARI_ACTIONS = 6
+ATARI_BATCH = 4096
+ATARI_MINIBATCH = 256
+ATARI_PARITY = {"loss_rel": 1e-4, "param": 1e-3}
+# dqn_cartpole: the JAX inline recipe with prioritized replay, DQN_ITERS
+# iterations and no learning threshold
+DQN_RUNNERS = dict(num_env_runners=0, num_envs_per_env_runner=8,
+                   rollout_fragment_length=32)
+DQN_TRAINING = dict(updates_per_iteration=64,
+                    num_steps_sampled_before_learning=500)
+DQN_ITERS = 20
 
 
 def fail(msg: str) -> None:
@@ -3070,6 +3127,352 @@ def phase_pipelined(torch) -> None:
     release(torch)
 
 
+# ------------------------------------------------------------ phase 10
+
+
+def on_cuda(what: str, *trees) -> None:
+    """Fail unless every tensor leaf of `trees` lies on the card."""
+    from ray_tpu_torch.util import tree
+
+    off = {str(t.device) for tr in trees for t in tree.leaves(tr)
+           if t.device.type != "cuda"}
+    if off:
+        fail(f"{what}: param tensors on {sorted(off)}, not on cuda")
+
+
+def spread(xs) -> dict:
+    """Median and max of a list of numbers."""
+    return {"median": float(np.median(xs)), "max": float(np.max(xs))}
+
+
+def profiled_call(torch, fn) -> dict:
+    """One call of `fn` under torch.profiler (CUDA activity only): the
+    device's busy time and share of the call's wall time, and its time
+    by kernel class."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = device_time(torch, prof, wall_us)
+    del out["top_kernels_ms"]
+    return out
+
+
+def _ppo_rows(results: list[dict]) -> dict:
+    return {k: spread([r[k] for r in results])
+            for k in ("env_steps_per_sec", "time_sample_s", "time_learn_s")}
+
+
+def phase_ppo_cartpole(torch, card: str) -> None:
+    """PPO on CartPole-v1 through ``PPOConfig(...).build().train()`` on
+    the card (the JAX package's inline recipe): the best
+    episode_return_mean must reach PPO_TARGET within PPO_ITERS
+    iterations. Then one profiled iteration and PPO_PIPELINED_ITERS
+    iterations of a second run with pipeline_sampling."""
+    from ray_tpu_torch.rllib import PPOConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    algo = (PPOConfig().environment("CartPole-v1")
+            .env_runners(**PPO_CARTPOLE)
+            .training(**PPO_CARTPOLE_TRAINING)).build()
+    on_cuda("ppo_cartpole", algo.learner.params,
+            algo.env_runner_group.local.params)
+    results, best, iters = [], float("-inf"), 0
+    t0 = time.perf_counter()
+    for iters in range(1, PPO_ITERS + 1):
+        r = algo.train()
+        results.append(r)
+        if r["episode_return_mean"] == r["episode_return_mean"]:
+            best = max(best, r["episode_return_mean"])
+        if best >= PPO_TARGET:
+            break
+    train_s = time.perf_counter() - t0
+    profile = profiled_call(torch, algo.train)
+    peak = torch.cuda.max_memory_allocated()
+    algo.stop()
+    del algo
+
+    piped = (PPOConfig().environment("CartPole-v1")
+             .env_runners(**PPO_CARTPOLE)
+             .training(pipeline_sampling=True,
+                       **PPO_CARTPOLE_TRAINING)).build()
+    on_cuda("ppo_cartpole pipelined", piped.learner.params,
+            piped.env_runner_group.local.params)
+    pipelined = [piped.train() for _ in range(PPO_PIPELINED_ITERS)]
+    piped.stop()
+    del piped
+    emit({"phase": "ppo_cartpole", "card": card, "iterations": iters,
+          "best_episode_return_mean": best, "target": PPO_TARGET,
+          "train_s": train_s, **_ppo_rows(results),
+          "profiled_iteration": profile, "max_memory_allocated": peak,
+          "memory_allocated_at_start": base,
+          "pipelined": {
+              "iterations": PPO_PIPELINED_ITERS,
+              "time_sample_s": [r["time_sample_s"] for r in pipelined],
+              "time_learn_s": [r["time_learn_s"] for r in pipelined],
+              "env_steps_per_sec": [r["env_steps_per_sec"]
+                                    for r in pipelined]}})
+    if best < PPO_TARGET:
+        fail(f"ppo_cartpole: best episode_return_mean {best} after "
+             f"{iters} iterations, below {PPO_TARGET}")
+    release(torch)
+
+
+def phase_ppo_pixel(torch, card: str) -> None:
+    """PPO with the conv catalog and the frame-stack connector on
+    PixelCatch-v0 (the JAX package's conv recipe without its 4-device
+    mesh), PPO_PIXEL_ITERS iterations: the last episode_return_mean must
+    exceed 2 and the first by 2, and the metrics tree must hold the
+    learner's and the env runners' metrics."""
+    from ray_tpu_torch.rllib import PPOConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    algo = (PPOConfig().environment("PixelCatch-v0")
+            .env_runners(**PPO_PIXEL)
+            .training(**PPO_PIXEL_TRAINING)).build()
+    on_cuda("ppo_pixel", algo.learner.params,
+            algo.env_runner_group.local.params)
+    results, first, last = [], None, None
+    t0 = time.perf_counter()
+    for _ in range(PPO_PIXEL_ITERS):
+        r = algo.train()
+        results.append(r)
+        if not np.isnan(r["episode_return_mean"]):
+            if first is None:
+                first = r["episode_return_mean"]
+            last = r["episode_return_mean"]
+    train_s = time.perf_counter() - t0
+    tree_keys = sorted(algo.metrics.reduce())
+    peak = torch.cuda.max_memory_allocated()
+    algo.stop()
+    emit({"phase": "ppo_pixel", "card": card, "iterations": PPO_PIXEL_ITERS,
+          "first_episode_return_mean": first,
+          "last_episode_return_mean": last, "train_s": train_s,
+          **_ppo_rows(results), "metrics_tree": tree_keys,
+          "max_memory_allocated": peak, "memory_allocated_at_start": base})
+    if first is None or last is None or not (last > 2.0 and
+                                             last > first + 2.0):
+        fail(f"ppo_pixel: conv PPO failed to learn: first={first} "
+             f"last={last}")
+    if not {"learner", "env_runners"} <= set(tree_keys):
+        fail(f"ppo_pixel: the metrics tree holds {tree_keys}")
+    release(torch)
+
+
+def atari_flops_per_sample() -> float:
+    """Forward FLOPs of one observation through the catalog's Atari
+    encoder (ATARI_FILTERS, "SAME" padding, a 256-wide projection) and
+    its two heads: 2 x multiply-adds."""
+    from ray_tpu_torch.rllib.catalog import ATARI_FILTERS
+
+    h, w, c = ATARI_OBS
+    flops = 0.0
+    for oc, k, s in ATARI_FILTERS:
+        h, w = -(-h // s), -(-w // s)
+        flops += 2.0 * h * w * oc * k * k * c
+        c = oc
+    flat = h * w * c
+    return flops + 2.0 * flat * 256 + 2.0 * 256 * (ATARI_ACTIONS + 1)
+
+
+def atari_batch(n: int) -> dict:
+    rng = np.random.RandomState(7)
+    return {
+        "obs": rng.rand(n, *ATARI_OBS).astype(np.float32),
+        "actions": rng.randint(0, ATARI_ACTIONS, n),
+        "logp_old": (rng.randn(n) * 0.1 - np.log(ATARI_ACTIONS))
+        .astype(np.float32),
+        "advantages": rng.randn(n).astype(np.float32),
+        "value_targets": rng.randn(n).astype(np.float32),
+    }
+
+
+def phase_ppo_learner_atari(torch, card: str) -> None:
+    """``PPOLearner(ATARI_OBS, ATARI_ACTIONS)`` at the catalog's full
+    width on the card: one `update` of ATARI_BATCH seeded transitions
+    (num_sgd_iter 1, minibatches of ATARI_MINIBATCH), each SGD step
+    timed by CUDA events; a second update under torch.profiler for the
+    busy share; the bound of one SGD step (3 x forward FLOPs); then one
+    f32 SGD step on the card against the same step on the CPU."""
+    from ray_tpu_torch.rllib.learner import PPOLearner, PPOLearnerConfig
+    from ray_tpu_torch.util import tree
+
+    cfg = PPOLearnerConfig(num_sgd_iter=1, minibatch_size=ATARI_MINIBATCH)
+    learner = PPOLearner(ATARI_OBS, ATARI_ACTIONS, cfg)
+    on_cuda("ppo_learner_atari", learner.params)
+    w0 = learner.get_weights()
+    batch = atari_batch(ATARI_BATCH)
+    n_params = sum(t.numel() for t in tree.leaves(learner.params))
+
+    step_ms = []
+    plain_step = learner.sgd_step
+
+    def timed_step(mb):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain_step(mb)
+        end.record()
+        step_ms.append((start, end))
+        return out
+
+    learner.update(batch)  # warm-up: cuDNN picks its algorithms
+    learner.sgd_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    metrics = learner.update(batch)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ms = [a.elapsed_time(b) for a, b in step_ms]
+    learner.sgd_step = plain_step
+    busy = profiled_call(torch, lambda: learner.update(batch))
+    del learner
+    release(torch)
+
+    flops = 3.0 * atari_flops_per_sample() * ATARI_MINIBATCH
+    nbytes = 4.0 * (ATARI_MINIBATCH * (int(np.prod(ATARI_OBS)) + 4)
+                    + 2 * n_params)
+    bound_bf16, by_bf16 = bound(flops, nbytes, "bfloat16")
+    bound_f32, by_f32 = bound(flops, nbytes, "float32")
+
+    # parity: one f32 SGD step from w0 on the card and on the CPU
+    card_l = PPOLearner(ATARI_OBS, ATARI_ACTIONS, cfg)
+    cpu_l = PPOLearner(ATARI_OBS, ATARI_ACTIONS, cfg, device="cpu")
+    card_l.set_weights(w0)
+    cpu_l.set_weights(w0)
+    mb = {k: torch.from_numpy(v[:ATARI_MINIBATCH])
+          for k, v in batch.items()}
+    loss_card = float(card_l.sgd_step(
+        {k: v.to("cuda") for k, v in mb.items()})["total_loss"])
+    loss_cpu = float(cpu_l.sgd_step(mb)["total_loss"])
+    worst = 0.0
+    for a, b in zip(tree.leaves(card_l.get_weights()),
+                    tree.leaves(cpu_l.get_weights())):
+        worst = max(worst, float(np.abs(a - b).max()
+                                 / max(np.abs(b).max(), 1e-30)))
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    del card_l, cpu_l
+    emit({"phase": "ppo_learner_atari", "card": card, "obs": ATARI_OBS,
+          "actions": ATARI_ACTIONS, "params": n_params,
+          "batch": ATARI_BATCH, "minibatch": ATARI_MINIBATCH,
+          "sgd_steps": len(ms), "sgd_step_ms": spread(ms),
+          "samples_per_sec": ATARI_BATCH / update_s,
+          "update_s": update_s, "metrics": metrics,
+          "profiled_update": busy,
+          "max_memory_allocated": peak, "memory_allocated_at_start": base,
+          "sgd_step_flops": flops,
+          "bound_ms_at_bf16_peak": bound_bf16, "bound_by_bf16": by_bf16,
+          "bound_ms_at_f32_peak": bound_f32, "bound_by_f32": by_f32,
+          "parity": {"loss_card": loss_card, "loss_cpu": loss_cpu,
+                     "loss_rel": loss_rel, "param_rel_of_leaf_max": worst,
+                     "tol": ATARI_PARITY}})
+    if len(ms) != ATARI_BATCH // ATARI_MINIBATCH:
+        fail(f"ppo_learner_atari: {len(ms)} SGD steps, expected "
+             f"{ATARI_BATCH // ATARI_MINIBATCH}")
+    if not (loss_rel <= ATARI_PARITY["loss_rel"]
+            and worst <= ATARI_PARITY["param"]):
+        fail(f"ppo_learner_atari: card against CPU: loss rel {loss_rel}, "
+             f"params {worst} of the leaf's largest ({ATARI_PARITY})")
+    release(torch)
+
+
+def phase_dqn_cartpole(torch, card: str) -> None:
+    """DQN with prioritized replay on CartPole-v1 through
+    ``DQNConfig(prioritized_replay=True)...build().train()`` on the
+    card, DQN_ITERS iterations: every td_loss reported after learning
+    starts finite, the buffer growing, one target sync every
+    target_update_freq updates (seen as a new target tree between
+    iterations), epsilon decaying. No learning threshold."""
+    from ray_tpu_torch.rllib import DQNConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    algo = (DQNConfig(prioritized_replay=True).environment("CartPole-v1")
+            .env_runners(**DQN_RUNNERS).training(**DQN_TRAINING)).build()
+    on_cuda("dqn_cartpole", algo.params, algo.target_params,
+            algo.env_runner_group.local.params)
+    rows, syncs, update_s = [], 0, 0.0
+    target = algo.target_params
+    for _ in range(DQN_ITERS):
+        before = algo._updates
+        t0 = time.perf_counter()
+        r = algo.train()
+        dt = time.perf_counter() - t0
+        if algo._updates > before:
+            update_s += dt
+        if algo.target_params is not target:
+            syncs += 1
+            target = algo.target_params
+        rows.append({"return": r["episode_return_mean"],
+                     "td_loss": r["learner/td_loss"],
+                     "epsilon": r["epsilon"],
+                     "buffer_size": r["buffer_size"],
+                     "updates": algo._updates - before})
+    updates = algo._updates
+    peak = torch.cuda.max_memory_allocated()
+    freq = algo.config.target_update_freq
+    algo.stop()
+    returns = [x["return"] for x in rows if x["return"] == x["return"]]
+    emit({"phase": "dqn_cartpole", "card": card, "iterations": DQN_ITERS,
+          "first_episode_return_mean": returns[0] if returns else None,
+          "last_episode_return_mean": returns[-1] if returns else None,
+          "updates": updates, "updates_per_sec": updates / update_s
+          if update_s else None, "target_syncs": syncs,
+          "target_update_freq": freq, "max_memory_allocated": peak,
+          "memory_allocated_at_start": base,
+          "iterations_detail": rows})
+    learning = [x for x in rows if x["updates"]]
+    if not learning or not all(math.isfinite(x["td_loss"])
+                               for x in learning):
+        fail(f"dqn_cartpole: td_loss not finite once learning started: "
+             f"{[x['td_loss'] for x in rows]}")
+    sizes = [x["buffer_size"] for x in rows]
+    if any(b <= a for a, b in zip(sizes, sizes[1:])):
+        fail(f"dqn_cartpole: the buffer does not grow: {sizes}")
+    if syncs != updates // freq:
+        fail(f"dqn_cartpole: {syncs} target syncs after {updates} "
+             f"updates at one every {freq}")
+    eps = [x["epsilon"] for x in rows]
+    if any(b >= a for a, b in zip(eps, eps[1:])):
+        fail(f"dqn_cartpole: epsilon does not decay: {eps}")
+    release(torch)
+
+
+def phase_ppo_learners() -> None:
+    """``PPOConfig().learners(num_learners=1)`` builds at world 1 (no
+    mesh); on a one-rank process group ``learners(num_learners=2)`` must
+    refuse to build, naming both sizes."""
+    from ray_tpu_torch.rllib import PPOConfig
+
+    def config(n):
+        return (PPOConfig().environment("CartPole-v1")
+                .env_runners(num_env_runners=0).learners(num_learners=n))
+
+    algo = config(1).build()
+    if algo.learner.mesh is not None:
+        fail("ppo_learners: num_learners=1 built a mesh")
+    algo.stop()
+    with one_rank_nccl():
+        try:
+            config(2).build()
+        except ValueError as e:
+            msg = str(e)
+        else:
+            fail("ppo_learners: num_learners=2 on one rank built")
+    if "2" not in msg or "1" not in msg:
+        fail(f"ppo_learners: the refusal does not name both sizes: {msg}")
+    emit({"phase": "ppo_learners", "num_learners_1": "built, no mesh",
+          "num_learners_2_on_one_rank": msg})
+
+
 def _paths(t, path=""):
     if isinstance(t, dict):
         for k in sorted(t):
@@ -3121,6 +3524,11 @@ def main() -> int:
     paths["ulysses"] = phase_ulysses(torch)
     phase_moe(torch)
     phase_pipelined(torch)
+    phase_ppo_cartpole(torch, card)
+    phase_ppo_pixel(torch, card)
+    phase_ppo_learner_atari(torch, card)
+    phase_dqn_cartpole(torch, card)
+    phase_ppo_learners()
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),

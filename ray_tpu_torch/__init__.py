@@ -21,6 +21,7 @@ backward kernels on each rank's shard; RL for LLMs
 (``ray_tpu_torch.rllib.llm``); and the rest of the parallel layer and
 model zoo: ring and Ulysses attention, the in-program GPipe and
 interleaved pipeline schedules with the 1F1B schedule math, the
-expert-parallel MoE layer and the pipelined transformer. See
-ROADMAP.md.
+expert-parallel MoE layer and the pipelined transformer; and classic
+RL (``ray_tpu_torch.rllib``): PPO and DQN through the `Algorithm`
+driver, on the port's own envs. See ROADMAP.md.
 """

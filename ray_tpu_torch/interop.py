@@ -10,7 +10,9 @@ seeds cannot reproduce ``jax.random`` draws, so this is how a test
 makes both sides compute with the same weights. On a mesh,
 ``parallel.sharding.shard_pytree(params_from_jax(t), rules, mesh)``
 lays converted params out as DTensors, and `params_to_numpy` gathers
-them back.
+them back. The RL models' trees (lists of layers, conv layers whose
+stride is static) go through `rl_params_from_jax` and
+`rl_params_to_jax`.
 """
 
 from __future__ import annotations
@@ -31,13 +33,69 @@ def params_from_jax(tree: Any) -> Any:
 
 
 def params_to_numpy(tree: Any) -> Any:
-    """Nested dict of torch tensors -> nested dict of float32 numpy
-    arrays, same keys (the inverse of `params_from_jax`). Each array is
-    a copy, which later in-place updates of the tensors leave alone. A
-    DTensor leaf is gathered whole first (a collective: every rank must
-    call it)."""
+    """Nested dicts (and lists or tuples) of torch tensors -> the same
+    structure of float32 numpy arrays (the inverse of
+    `params_from_jax`). Each array is a copy, which later in-place
+    updates of the tensors leave alone. A DTensor leaf is gathered whole
+    first (a collective: every rank must call it)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
     if isinstance(tree, DTensor):
         tree = tree.full_tensor()
     return tree.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
+def rl_params_from_jax(tree: Any) -> tuple[Any, tuple[int, ...]]:
+    """An RL model's tree from the JAX package (``ray_tpu/rllib/models.py``,
+    ``catalog.py``) -> (the port's tree of float32 CPU tensors, the conv
+    strides in layer order, () without convs). Dicts keep their keys and
+    lists of ``{"w", "b"}`` layers stay lists; a conv layer (the JAX
+    package's ``ConvLayer``, read by its attributes ``w``, ``b`` and
+    ``stride``) becomes ``{"w", "b"}`` with its HWIO kernel in OIHW, and
+    its stride goes to the strides."""
+    strides: list[int] = []
+
+    def conv(layer) -> bool:
+        return all(hasattr(layer, a) for a in ("w", "b", "stride"))
+
+    def one(t):
+        if isinstance(t, dict):
+            return {k: one(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(one(v) for v in t)
+        if conv(t):
+            strides.append(int(t.stride))
+            return {"w": params_from_jax(t.w).permute(3, 2, 0, 1)
+                    .contiguous(), "b": params_from_jax(t.b)}
+        return params_from_jax(t)
+
+    return one(tree), tuple(strides)
+
+
+def rl_params_to_jax(tree: Any, strides=()) -> Any:
+    """The inverse of `rl_params_from_jax`, over a tree of tensors or of
+    host arrays (a learner's ``get_weights()``): host float32 numpy
+    copies in the JAX package's layout, each conv layer (a ``{"w", "b"}`` under a
+    ``"conv"`` key) as ``{"w": HWIO, "b", "stride"}`` with the strides
+    in order, so a port checkpoint's weights can be held against a JAX
+    learner's (whose ``ConvLayer`` carries the same three names)."""
+    it = iter(strides)
+
+    def host(t):
+        if isinstance(t, torch.Tensor):
+            return params_to_numpy(t)
+        return np.array(t, dtype=np.float32)
+
+    def one(t, in_conv=False):
+        if isinstance(t, dict):
+            if in_conv:
+                return {"w": host(t["w"]).transpose(2, 3, 1, 0).copy(),
+                        "b": host(t["b"]), "stride": next(it)}
+            return {k: one(v, k == "conv") for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(one(v, in_conv) for v in t)
+        return host(t)
+
+    return one(tree)

@@ -53,19 +53,9 @@ from ray_tpu_torch.serve.llm.scheduler import (
 )
 from ray_tpu_torch.serve.llm.spec import build_proposer
 from ray_tpu_torch.util import tree
+from ray_tpu_torch.util.device import resolve_device
 
 _FINAL = object()
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names
-    another. Raises when CUDA is asked for (or defaulted to) and absent."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: ray_tpu_torch runs on the card; pass "
-            "device='cpu' to run the plain versions of its kernels")
-    return dev
 
 
 class RequestStream:

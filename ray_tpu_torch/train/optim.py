@@ -16,9 +16,10 @@ difference in the second:
   ``applies`` is False) writes the grads' tensors in place instead and
   leaves the params; in a `chain` it comes before the one that applies.
 
-Trees are nested dicts of tensors (`ray_tpu_torch.util.tree`). The step
-count lives on the host as an int, so the bias corrections are host
-floats and an update never waits for the device.
+Trees are nested dicts, lists and tuples of tensors
+(`ray_tpu_torch.util.tree`). The step count lives on the host as an
+int, so the bias corrections are host floats and an update never waits
+for the device.
 """
 
 from __future__ import annotations

@@ -390,8 +390,8 @@ def make_train_step(
             layouts.update(rule=[], zero=[])
             return
         # in tree.leaves' order, the order the step walks the params in
-        paths = tree.leaves(tree.tree_map_with_path(
-            lambda path, t: (path, tuple(t.shape)), state.params))
+        paths = [(path, tuple(t.shape))
+                 for path, t in tree.leaves_with_path(state.params)]
         layouts.update(
             rule=[placements(rules.spec_for(path_str(path), mesh), mesh)
                   for path, _ in paths],

@@ -1,7 +1,9 @@
 """The port stands alone: no file of ray_tpu_torch/ nor chip_smoke.py
-imports jax or anything of the JAX package (ray_tpu), and importing the
-port's serving package leaves jax out of sys.modules. It keeps its own
-copies of the JAX-free modules it needs."""
+imports jax or anything of the JAX package (ray_tpu), optax, flax or
+gymnasium (the card's machine has none of them), and importing the
+port's serving package or its RL package leaves jax and gymnasium out
+of sys.modules. It keeps its own copies of the JAX-free modules it
+needs, and its own envs."""
 
 import ast
 import os
@@ -22,7 +24,8 @@ def _port_files():
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "ray_tpu", "optax", "flax")
+    return top in ("jax", "jaxlib", "ray_tpu", "optax", "flax",
+                   "gymnasium", "gym")
 
 
 def _imports(path):
@@ -64,6 +67,17 @@ def test_serving_import_leaves_jax_unloaded():
             "ray_tpu_torch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_rllib_import_leaves_jax_and_gymnasium_unloaded():
+    code = ("import sys, ray_tpu_torch.rllib, ray_tpu_torch.tune\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ray_tpu', 'gymnasium', 'gym', 'optax'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -192,12 +192,14 @@ def test_optimizers_match_optax(name):
     """5 steps on seeded grads (global norms of ~4, so a clip of 0.05
     scales every step and one of 1e3 none)."""
     rng = np.random.RandomState(7)
-    shapes = {"a": (4, 6), "b": {"c": (6,), "d": (3, 2, 5)}}
+    # shapes as leaves: util.tree walks tuples, as jax.tree_util does
+    shapes = {"a": np.empty((4, 6)),
+              "b": {"c": np.empty((6,)), "d": np.empty((3, 2, 5))}}
     params = tree.tree_map(
-        lambda s: rng.normal(size=s).astype(np.float32), shapes)
+        lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)
     grads = [tree.tree_map(
-        lambda s: (0.3 * rng.normal(size=s)).astype(np.float32), shapes)
-        for _ in range(5)]
+        lambda s: (0.3 * rng.normal(size=s.shape)).astype(np.float32),
+        shapes) for _ in range(5)]
     tx, otx = _optax_case(name)
     p = tree.tree_map(torch.from_numpy, tree.tree_map(np.copy, params))
     state = tx.init(p)
