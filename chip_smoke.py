@@ -179,6 +179,26 @@ Phases, each of which exits non-zero on any failure:
    decaying; updates/s and peak memory. ppo_learners:
    ``learners(num_learners=1)`` builds; ``num_learners=2`` on a
    one-rank process group is refused, naming both sizes.
+11. more RL through ``ray_tpu_torch.rllib`` (the JAX package's recipes,
+   F3_ITERS and the other constants below), the launch counters zeroed
+   before and read after: no K1-K4 launch. f3_determinism: ppo_pixel's
+   recipe twice from the same seeds under deterministic cuDNN, returns
+   and params bitwise equal, then twice without the flag (reported),
+   each iteration's seconds beside the flag's. impala_cartpole and
+   appo_cartpole: 16 envs x 64 steps with the background learner
+   thread, the best return to 195 (APPO above 150, the KL term on)
+   within the JAX tests' 240 and 220 s, the learner's step timed by
+   CUDA events, updates/s, the queue, one profiled iteration; APPO's
+   target copies = updates // 20. sac_pendulum: the port's Pendulum-v1,
+   the late returns 300 above the early ones, 0 < alpha < 1.
+   dreamer_cartpole_S and dreamer_pixel: DreamerV3 at size S on
+   CartPole and at XS on PixelCatch (conv world model, uint8 replay),
+   wm/total below 0.8 of its first within 6 iterations, every metric
+   finite. multi_agent: a shared policy 21 iterations (last above 20
+   and 5 above the first), independent p0/p1 25 iterations (above 20).
+   ope: IS, WIS and DR with a policy on the card against the same
+   params on the CPU (1e-5) and the on-policy identity (1e-4). Every
+   phase checks that its params lie on the card.
 
 It prints one JSON line per kernel shape and per phase, K4's rows on
 the serving and rl paths with their launches there (by window and
@@ -374,6 +394,40 @@ DQN_RUNNERS = dict(num_env_runners=0, num_envs_per_env_runner=8,
 DQN_TRAINING = dict(updates_per_iteration=64,
                     num_steps_sampled_before_learning=500)
 DQN_ITERS = 20
+# more RL (phase 11): the JAX package's recipes for the families that run
+# without a runtime. f3_determinism runs ppo_pixel's recipe F3_ITERS
+# iterations, twice with deterministic cuDNN and twice without.
+# IMPALA and APPO must reach their bars within the JAX tests' own time
+# limits. SAC stops once the mean of the last 20 returns from iteration
+# SAC_LATE on beats the mean of the first 20 by SAC_GAIN. DreamerV3 at
+# size S keeps the config's B=8 T=16 H=15 and replays 16 batches an
+# iteration (training_ratio 32: the JAX test's 16 updates of its smaller
+# batches); on pixels it is the JAX test's XS recipe
+F3_ITERS = 10
+IMPALA_CARTPOLE = dict(num_env_runners=0, num_envs_per_env_runner=16,
+                       rollout_fragment_length=64)
+IMPALA_TARGET = 195.0
+IMPALA_LIMIT_S = 240.0
+APPO_TRAINING = dict(lr=1e-3, entropy_coeff=0.01, use_kl_loss=True)
+APPO_TARGET = 150.0
+APPO_LIMIT_S = 220.0
+SAC_TRAINING = dict(seed=1, num_envs=4, rollout_fragment_length=16,
+                    updates_per_iteration=48,
+                    num_steps_sampled_before_learning=1000)
+SAC_ITERS = 160
+SAC_LATE = 60
+SAC_GAIN = 300.0
+DREAMER_S = dict(model_size="S", training_ratio=32.0, seed=0)
+DREAMER_PIXEL = dict(model_size="XS", training_ratio=8.0, batch_size_B=4,
+                     batch_length_T=8, horizon_H=5, num_envs=4,
+                     rollout_fragment_length=16, seed=0)
+DREAMER_ITERS = 6
+DREAMER_METRICS = ("wm/decoder", "wm/reward", "wm/dyn", "wm/rep",
+                   "actor/entropy", "critic/value", "imagined_return")
+MA_SHARED_ITERS = 21
+MA_INDEPENDENT_ITERS = 25
+OPE_TOL = 1e-5
+CARD = "cuda"  # where phase 11 puts the tensors it makes itself
 
 
 def fail(msg: str) -> None:
@@ -3473,6 +3527,413 @@ def phase_ppo_learners() -> None:
           "num_learners_2_on_one_rank": msg})
 
 
+# ------------------------------------------------------------ phase 11
+
+
+def _timed(torch, algo, name: str = "_update") -> list:
+    """Wrap `algo`'s method `name` (the learner's step) so that each
+    call is bracketed by CUDA events; returns the list the (start, end)
+    pairs are appended to (read them after a synchronize)."""
+    plain = getattr(algo, name)
+    pairs: list = []
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain(*args, **kw)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    setattr(algo, name, timed)
+    return pairs
+
+
+def _event_ms(torch, pairs) -> dict | None:
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in pairs]
+    return spread(ms) if ms else None
+
+
+def _pixel_run(torch, iters: int) -> tuple[list, dict, list]:
+    """`ppo_pixel`'s recipe for `iters` iterations from its seeds: the
+    returns, the learner's host params and each iteration's seconds."""
+    from ray_tpu_torch.rllib import PPOConfig
+
+    algo = (PPOConfig().environment("PixelCatch-v0")
+            .env_runners(**PPO_PIXEL)
+            .training(**PPO_PIXEL_TRAINING)).build()
+    on_cuda("f3_determinism", algo.learner.params,
+            algo.env_runner_group.local.params)
+    returns, secs = [], []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        returns.append(algo.train()["episode_return_mean"])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    weights = algo.learner.get_weights()
+    algo.stop()
+    return returns, weights, secs
+
+
+def _same(a: tuple, b: tuple) -> dict:
+    """Bitwise comparison of two `_pixel_run`s: returns and each param
+    leaf (by path)."""
+    from ray_tpu_torch.util import tree
+
+    same_returns = np.array_equal(np.asarray(a[0]), np.asarray(b[0]),
+                                  equal_nan=True)
+    leaves = {"/".join(p): bool(np.array_equal(x, y)) for (p, x), (_, y) in
+              zip(tree.leaves_with_path(a[1]), tree.leaves_with_path(b[1]))}
+    return {"returns_equal": bool(same_returns),
+            "params_equal": all(leaves.values()),
+            "leaves_differing": sorted(p for p, s in leaves.items()
+                                       if not s)}
+
+
+def phase_f3_determinism(torch, card: str) -> None:
+    """F3: `ppo_pixel`'s recipe for F3_ITERS iterations, twice from the
+    same seeds with the learner's updates under cuDNN's deterministic
+    algorithms (``catalog.deterministic_convs``, as the port runs them):
+    the returns of every iteration and the learner's params must be
+    bitwise equal. Then twice with the context made a no-op, to show
+    what the flag changes (reported, not required), each iteration's
+    seconds beside the flag's."""
+    from ray_tpu_torch.rllib import catalog
+
+    on = [_pixel_run(torch, F3_ITERS) for _ in range(2)]
+    real = catalog.deterministic_convs
+    catalog.deterministic_convs = contextlib.nullcontext
+    try:
+        off = [_pixel_run(torch, F3_ITERS) for _ in range(2)]
+    finally:
+        catalog.deterministic_convs = real
+    with_flag, without = _same(*on), _same(*off)
+    emit({"phase": "f3_determinism", "card": card, "iterations": F3_ITERS,
+          "kernels_launched": "none of K1-K4 (conv PPO)",
+          "with_deterministic_cudnn": with_flag,
+          "without": without,
+          "returns": [x if x == x else None for x in on[0][0]],
+          "iteration_s_with_flag": spread(on[0][2][1:] + on[1][2][1:]),
+          "iteration_s_without": spread(off[0][2][1:] + off[1][2][1:])})
+    if not (with_flag["returns_equal"] and with_flag["params_equal"]):
+        fail(f"f3_determinism: two seeded ppo_pixel runs differ under "
+             f"deterministic cuDNN: {with_flag}")
+    release(torch)
+
+
+def _learn_to(torch, card: str, phase: str, algo, target: float,
+              strict: bool, limit_s: float, params) -> dict:
+    """Train an IMPALA-family `algo` until its best return reaches
+    `target` (above it when `strict`) or `limit_s` seconds pass; the
+    learner's step timed by CUDA events, one profiled iteration."""
+    on_cuda(phase, params, algo.env_runner_group.local.params)
+    pairs = _timed(torch, algo)
+    best, iters, rows = float("-inf"), 0, []
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < limit_s:
+        r = algo.train()
+        iters += 1
+        rows.append(r)
+        if r["episode_return_mean"] == r["episode_return_mean"]:
+            best = max(best, r["episode_return_mean"])
+        if best > target or (not strict and best >= target):
+            break
+    train_s = time.perf_counter() - t0
+    updates = algo.learner_thread.num_updates
+    update_ms = _event_ms(torch, pairs[:])
+    profile = profiled_call(torch, algo.train)
+    return {"phase": phase, "card": card,
+            "kernels_launched": "none of K1-K4 (MLP towers)",
+            "iterations": iters, "train_s": train_s,
+            "best_episode_return_mean": best, "target": target,
+            "limit_s": limit_s,
+            "env_steps_per_sec": spread([x["env_steps_per_sec"]
+                                         for x in rows]),
+            "learner_updates": updates,
+            "learner_updates_per_sec": updates / train_s,
+            "learner_queue_size": spread([x["learner_queue_size"]
+                                          for x in rows]),
+            "update_ms": update_ms, "profiled_iteration": profile,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def phase_impala_cartpole(torch, card: str) -> None:
+    """IMPALA on CartPole-v1 through ``IMPALAConfig()...build().train()``
+    (the JAX package's inline recipe: 16 envs x 64 steps, the learner
+    thread): the best return must reach IMPALA_TARGET within
+    IMPALA_LIMIT_S seconds, with more than 50 learner updates."""
+    from ray_tpu_torch.rllib import IMPALAConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    algo = (IMPALAConfig().environment("CartPole-v1")
+            .env_runners(**IMPALA_CARTPOLE)).build()
+    row = _learn_to(torch, card, "impala_cartpole", algo, IMPALA_TARGET,
+                    False, IMPALA_LIMIT_S, algo.params)
+    algo.stop()
+    emit(row)
+    if row["best_episode_return_mean"] < IMPALA_TARGET:
+        fail(f"impala_cartpole: best {row['best_episode_return_mean']} "
+             f"after {row['train_s']:.1f} s, below {IMPALA_TARGET}")
+    if row["learner_updates"] <= 50:
+        fail(f"impala_cartpole: {row['learner_updates']} learner updates")
+    release(torch)
+
+
+def phase_appo_cartpole(torch, card: str) -> None:
+    """APPO on CartPole-v1 (lr 1e-3, the KL term to the target network):
+    the best return must exceed APPO_TARGET within APPO_LIMIT_S
+    seconds; the target is copied once every target_update_freq
+    learner steps."""
+    from ray_tpu_torch.rllib import APPOConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    algo = (APPOConfig().environment("CartPole-v1")
+            .env_runners(**IMPALA_CARTPOLE)
+            .training(**APPO_TRAINING)).build()
+    on_cuda("appo_cartpole", algo.target_params)
+    row = _learn_to(torch, card, "appo_cartpole", algo, APPO_TARGET, True,
+                    APPO_LIMIT_S, algo.params)
+    algo.stop()  # joins the learner thread: the counts below are final
+    freq = algo.config.target_update_freq
+    row.update(appo_updates=algo._appo_updates,
+               target_syncs=algo._target_syncs, target_update_freq=freq)
+    emit(row)
+    if not row["best_episode_return_mean"] > APPO_TARGET:
+        fail(f"appo_cartpole: best {row['best_episode_return_mean']} "
+             f"after {row['train_s']:.1f} s, not above {APPO_TARGET}")
+    if algo._appo_updates <= 0 or \
+            algo._target_syncs != algo._appo_updates // freq:
+        fail(f"appo_cartpole: {algo._target_syncs} target syncs after "
+             f"{algo._appo_updates} updates at one every {freq}")
+    release(torch)
+
+
+def phase_sac_pendulum(torch, card: str) -> None:
+    """SAC on the port's Pendulum-v1 (the JAX package's recipe: seed 1,
+    4 envs x 16 steps, 48 updates an iteration from 1,000 steps on):
+    the mean of the last 20 returns from iteration SAC_LATE on must
+    exceed the mean of the first 20 by SAC_GAIN within SAC_ITERS
+    iterations, and the temperature must fall into (0, 1)."""
+    from ray_tpu_torch.rllib import SACConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    algo = SACConfig().training(**SAC_TRAINING).build()
+    on_cuda("sac_pendulum", algo.params, algo.target_q, algo.log_alpha)
+    pairs = _timed(torch, algo)
+    early, late, met, iters = [], [], False, 0
+    t0 = time.perf_counter()
+    for i in range(SAC_ITERS):
+        r = algo.train()
+        iters = i + 1
+        if r["episode_return_mean"] == r["episode_return_mean"]:
+            (early if i < SAC_LATE else late).append(
+                r["episode_return_mean"])
+        met = (len(early) >= 20 and len(late) >= 20 and
+               np.mean(late[-20:]) > np.mean(early[:20]) + SAC_GAIN
+               and 0 < r["alpha"] < 1)
+        if met:
+            break
+    train_s = time.perf_counter() - t0
+    updates, update_ms = len(pairs), _event_ms(torch, pairs[:])
+    profile = profiled_call(torch, algo.train)
+    algo.stop()
+    emit({"phase": "sac_pendulum", "card": card,
+          "kernels_launched": "none of K1-K4 (MLPs)", "iterations": iters,
+          "train_s": train_s,
+          "early_mean": float(np.mean(early[:20])) if early else None,
+          "late_mean": float(np.mean(late[-20:])) if late else None,
+          "gain": SAC_GAIN, "alpha": r["alpha"],
+          "updates": updates, "updates_per_sec": updates / train_s,
+          "update_ms": update_ms, "profiled_iteration": profile,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    if not met:
+        fail(f"sac_pendulum: after {iters} iterations the late mean "
+             f"{np.mean(late[-20:]) if late else None} is not the early "
+             f"{np.mean(early[:20]) if early else None} + {SAC_GAIN}, or "
+             f"alpha {r['alpha']} is outside (0, 1)")
+    release(torch)
+
+
+def _dreamer(torch, card: str, phase: str, env: str, training: dict,
+             pixels: bool) -> None:
+    """DreamerV3 through ``DreamerV3Config()...build().train()``: the
+    world model's total loss must fall below 0.8 of its first within
+    DREAMER_ITERS iterations, every metric of the last finite."""
+    from ray_tpu_torch.rllib import DreamerV3Config
+
+    torch.cuda.reset_peak_memory_stats()
+    algo = DreamerV3Config().environment(env).training(**training).build()
+    on_cuda(phase, algo.wm, algo.actor, algo.critic, algo.critic_ema)
+    pairs = _timed(torch, algo)
+    first = last = None
+    iters = 0
+    t0 = time.perf_counter()
+    for iters in range(1, DREAMER_ITERS + 1):
+        r = algo.train()
+        if "wm/total" in r:
+            first = r["wm/total"] if first is None else first
+            last = r["wm/total"]
+        if first is not None and last < 0.8 * first:
+            break
+    train_s = time.perf_counter() - t0
+    updates, update_ms = len(pairs), _event_ms(torch, pairs[:])
+    replayed = r["num_steps_replayed"]
+    profile = profiled_call(torch, algo.train)
+    dtype = str(algo.buffer.sample_sequences(2, 4)["obs"].dtype)
+    metrics = {k: v for k, v in r.items() if "/" in k or k ==
+               "imagined_return"}
+    d = algo.config.dims()
+    algo.stop()
+    emit({"phase": phase, "card": card,
+          "kernels_launched": "none of K1-K4 (MLPs, GRU"
+          + (", cuDNN convolutions)" if pixels else ")"),
+          "model": {**d, "B": algo.config.batch_size_B,
+                    "T": algo.config.batch_length_T,
+                    "H": algo.config.horizon_H,
+                    "training_ratio": algo.config.training_ratio},
+          "iterations": iters, "train_s": train_s,
+          "wm_total_first": first, "wm_total_last": last,
+          "updates": updates, "update_ms": update_ms,
+          "replayed_steps_per_sec": replayed / train_s,
+          "replay_obs_dtype": dtype, "metrics": metrics,
+          "profiled_iteration": profile,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    if first is None or not last < 0.8 * first:
+        fail(f"{phase}: wm/total {first} -> {last} in {iters} iterations")
+    bad = [k for k in DREAMER_METRICS if not math.isfinite(r.get(k, math.nan))]
+    if bad:
+        fail(f"{phase}: metrics missing or not finite: {bad}")
+    if pixels and dtype != "uint8":
+        fail(f"{phase}: replay holds {dtype} pixels, not uint8")
+    release(torch)
+
+
+def phase_dreamer(torch, card: str) -> None:
+    _dreamer(torch, card, "dreamer_cartpole_S", "CartPole-v1",
+             DREAMER_S, False)
+    _dreamer(torch, card, "dreamer_pixel", "PixelCatch-v0",
+             DREAMER_PIXEL, True)
+
+
+def phase_multi_agent(torch, card: str) -> None:
+    """Multi-agent PPO on CoordinationGame: a shared policy for
+    MA_SHARED_ITERS iterations must end above 20 and 5 above its first;
+    independent policies p0 and p1 for MA_INDEPENDENT_ITERS iterations
+    must end above 20 with both policies' loss keys."""
+    from ray_tpu_torch.rllib import MultiAgentPPOConfig
+
+    algo = MultiAgentPPOConfig().build()
+    on_cuda("multi_agent", *(algo.module[m].params
+                             for m in algo.config.policies))
+    secs, shared = [], []
+    for _ in range(MA_SHARED_ITERS):
+        t0 = time.perf_counter()
+        shared.append(algo.train()["episode_return_mean"])
+        secs.append(time.perf_counter() - t0)
+    algo = (MultiAgentPPOConfig()
+            .multi_agent(policies=["p0", "p1"],
+                         policy_mapping_fn=lambda a: "p0" if a == "a0"
+                         else "p1")
+            .build())
+    on_cuda("multi_agent", algo.module["p0"].params,
+            algo.module["p1"].params)
+    for _ in range(MA_INDEPENDENT_ITERS):
+        t0 = time.perf_counter()
+        r = algo.train()
+        secs.append(time.perf_counter() - t0)
+    keys = ("learner/p0/total_loss", "learner/p1/total_loss")
+    emit({"phase": "multi_agent", "card": card,
+          "kernels_launched": "none of K1-K4 (MLP towers)",
+          "shared_first": shared[0], "shared_last": shared[-1],
+          "independent_last": r["episode_return_mean"],
+          "independent_loss_keys": all(k in r for k in keys),
+          "iteration_s": spread(secs)})
+    if not (shared[-1] > shared[0] + 5 and shared[-1] > 20):
+        fail(f"multi_agent: shared policy {shared[0]} -> {shared[-1]}")
+    if not (r["episode_return_mean"] > 20 and all(k in r for k in keys)):
+        fail(f"multi_agent: independent policies end at "
+             f"{r['episode_return_mean']}, keys {sorted(r)}")
+
+
+def _ope_rows(torch, params, gen) -> list[dict]:
+    """The JAX test's logged rows (8 episodes of 12 steps, obs from
+    ``RandomState(0)``), actions sampled from `params` on their device."""
+    from ray_tpu_torch.rllib import models
+
+    rng = np.random.RandomState(0)
+    rows = []
+    for _ in range(8):
+        for t in range(12):
+            obs = rng.randn(4).astype(np.float32)
+            a, logp, _ = models.sample_actions(
+                params, torch.from_numpy(obs[None]).to(CARD), gen)
+            rows.append({"obs": obs.tolist(), "action": int(a[0]),
+                         "reward": float(rng.rand()), "done": t == 11,
+                         "truncated": False, "logp": float(logp[0])})
+    return rows
+
+
+def phase_ope(torch, card: str) -> None:
+    """IS, WIS and DR with a target policy on the card against the same
+    params on the CPU (OPE_TOL relative), on rows sampled from a
+    behavior policy on the card; with the behavior policy as the
+    target, the on-policy identity (1e-4)."""
+    from ray_tpu_torch.interop import params_to_numpy
+    from ray_tpu_torch.rllib import models, ope
+
+    gen = torch.Generator(device=CARD)
+    gen.manual_seed(1)
+    behavior = models.init_mlp_policy(gen, 4, 2, (16,), device=CARD)
+    other = models.init_mlp_policy(gen, 4, 2, (16,), device=CARD)
+    on_cuda("ope", behavior, other)
+    rows = _ope_rows(torch, behavior, gen)
+    gamma = 0.97
+    ret = float(np.mean([sum(gamma ** t * r["reward"]
+                             for t, r in enumerate(ep))
+                         for ep in ope.split_episodes(rows)]))
+    out, worst, identity = {}, 0.0, 0.0
+    for name in ("ImportanceSampling", "WeightedImportanceSampling",
+                 "DoublyRobust"):
+        cls = getattr(ope, name)
+        for which, params in (("behavior", behavior), ("other", other)):
+            v_card = cls(params, gamma).estimate(rows)["v_target"]
+            v_cpu = cls(params_to_numpy(params), gamma).estimate(
+                rows)["v_target"]
+            worst = max(worst, abs(v_card - v_cpu) / abs(v_cpu))
+            out[f"{name}/{which}"] = {"card": v_card, "cpu": v_cpu}
+            if which == "behavior":
+                identity = max(identity, abs(v_card - ret) / abs(ret))
+    emit({"phase": "ope", "card": card,
+          "kernels_launched": "none of K1-K4 (an MLP forward)",
+          "behavior_return": ret, "estimates": out,
+          "card_vs_cpu_rel": worst, "tol": OPE_TOL,
+          "on_policy_identity_rel": identity})
+    if worst > OPE_TOL:
+        fail(f"ope: card against CPU {worst} relative, above {OPE_TOL}")
+    if identity > 1e-4:
+        fail(f"ope: the on-policy estimates miss the behavior return by "
+             f"{identity} relative")
+
+
+def phase_more_rl(torch, card: str) -> dict:
+    """Phase 11, the launch counters zeroed just before and read just
+    after: no K1-K4 launch may happen on these paths."""
+    counters = _reset_counters()
+    phase_f3_determinism(torch, card)
+    phase_impala_cartpole(torch, card)
+    phase_appo_cartpole(torch, card)
+    phase_sac_pendulum(torch, card)
+    phase_dreamer(torch, card)
+    phase_multi_agent(torch, card)
+    phase_ope(torch, card)
+    launches = launch_counts(counters)
+    if any(v for k, v in launches.items() if k != "paged_attention_by_shape"):
+        fail(f"more RL: K1-K4 launched on the RL paths: {launches}")
+    return launches
+
+
 def _paths(t, path=""):
     if isinstance(t, dict):
         for k in sorted(t):
@@ -3529,6 +3990,7 @@ def main() -> int:
     phase_ppo_learner_atari(torch, card)
     phase_dqn_cartpole(torch, card)
     phase_ppo_learners()
+    paths["more_rl"] = phase_more_rl(torch, card)
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),

@@ -7,7 +7,8 @@ Ported so far:
   `Algorithm` driver (a tune `Trainable`, with periodic evaluation and
   checkpoints), the catalog's conv and MLP encoders, the connectors,
   the `RLModule`, local env runners on the port's own vector envs
-  (`rllib/envs.py`: CartPole-v1 and PixelCatch-v0, no gymnasium), and
+  (`rllib/envs.py`: CartPole-v1, PixelCatch-v0 and Pendulum-v1, no
+  gymnasium), and
   the PPO learner on one device or on a ``data`` mesh of
   `torch.distributed` ranks. Params live on the card unless the config
   says ``device="cpu"``.
@@ -16,15 +17,22 @@ Ported so far:
   update through its train step, a drain-free weight hot-swap). It is
   imported lazily, as in the JAX package: ``import
   ray_tpu_torch.rllib.llm`` pulls in the serving and training stacks.
+- the families that run without a runtime: IMPALA and APPO
+  with `vtrace` (a background learner thread on the device), SAC on the
+  port's Pendulum-v1, DreamerV3 (vector and pixel world models, the
+  RSSM and imagination scans as loops), multi-agent PPO
+  (`MultiRLModule`, `CoordinationGame`) and the off-policy estimators
+  (IS, WIS, DR) over in-memory rows. The seeded conv learners run
+  cuDNN's deterministic algorithms (`catalog.deterministic_convs`).
 
-Still to come (ROADMAP.md): APPO and IMPALA with `vtrace`; SAC and CQL
-(Pendulum must join the env layer); DreamerV3, multi-agent, offline RL
-(BC, MARWIL) and off-policy estimation; and the remote env runners,
-which are actors and wait for the runtime (``num_env_runners > 0``
-raises).
+Still to come (ROADMAP.md): CQL, BC and MARWIL and OPE over a recorded
+dataset, which need the data layer of the runtime; and the remote env
+runners, which are actors and wait for the runtime
+(``num_env_runners > 0`` raises).
 """
 
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rllib.appo import APPO, APPOConfig
 from ray_tpu_torch.rllib.catalog import Catalog
 from ray_tpu_torch.rllib.connectors import (
     ConnectorPipeline,
@@ -35,16 +43,31 @@ from ray_tpu_torch.rllib.connectors import (
     NormalizeImage,
 )
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig, ReplayBuffer
+from ray_tpu_torch.rllib.dreamerv3 import DreamerV3, DreamerV3Config
 from ray_tpu_torch.rllib.env_runner import (
     EnvRunnerGroup,
     SingleAgentEnvRunner,
 )
+from ray_tpu_torch.rllib.impala import IMPALA, IMPALAConfig, vtrace
 from ray_tpu_torch.rllib.learner import (
     PPOLearner,
     PPOLearnerConfig,
     compute_gae,
 )
 from ray_tpu_torch.rllib.metrics import MetricsLogger
+from ray_tpu_torch.rllib.multi_agent import (
+    CoordinationGame,
+    MultiAgentEnv,
+    MultiAgentPPO,
+    MultiAgentPPOConfig,
+    MultiRLModule,
+)
+from ray_tpu_torch.rllib.ope import (
+    DoublyRobust,
+    ImportanceSampling,
+    WeightedImportanceSampling,
+    split_episodes,
+)
 from ray_tpu_torch.rllib.ppo import PPO, PPOConfig
 from ray_tpu_torch.rllib.replay import PrioritizedReplayBuffer, SumTree
 from ray_tpu_torch.rllib.rl_module import (
@@ -52,21 +75,35 @@ from ray_tpu_torch.rllib.rl_module import (
     RLModule,
     RLModuleSpec,
 )
+from ray_tpu_torch.rllib.sac import SAC, SACConfig
 
 __all__ = [
+    "APPO",
+    "APPOConfig",
     "Algorithm",
     "AlgorithmConfig",
     "Catalog",
     "ConnectorPipeline",
     "ConnectorV2",
+    "CoordinationGame",
     "DQN",
     "DQNConfig",
     "DefaultActorCriticModule",
+    "DoublyRobust",
+    "DreamerV3",
+    "DreamerV3Config",
     "EnvRunnerGroup",
     "FlattenObs",
     "FrameStack",
     "GeneralAdvantageEstimation",
+    "IMPALA",
+    "IMPALAConfig",
+    "ImportanceSampling",
     "MetricsLogger",
+    "MultiAgentEnv",
+    "MultiAgentPPO",
+    "MultiAgentPPOConfig",
+    "MultiRLModule",
     "NormalizeImage",
     "PPO",
     "PPOConfig",
@@ -76,7 +113,12 @@ __all__ = [
     "RLModule",
     "RLModuleSpec",
     "ReplayBuffer",
+    "SAC",
+    "SACConfig",
     "SingleAgentEnvRunner",
     "SumTree",
+    "WeightedImportanceSampling",
     "compute_gae",
+    "split_episodes",
+    "vtrace",
 ]

@@ -22,10 +22,16 @@ encoder is a pair of plain functions over a param tree:
   even split is wrong whenever the total is odd).
 
 ``F.conv2d`` may run cuDNN on the card, as XLA runs these convolutions
-outside any Pallas kernel.
+outside any Pallas kernel. cuDNN's fastest weight-gradient algorithms
+sum with atomics, so a seeded run would not repeat on the card; the
+learners run their updates under `deterministic_convs`, which holds
+cuDNN to its deterministic algorithms (JAX on its device is
+deterministic without a flag).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -34,6 +40,20 @@ import torch.nn.functional as F
 # (out_channels, kernel, stride)
 ATARI_FILTERS = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
 SMALL_FILTERS = ((16, 3, 2), (32, 3, 2))
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """Hold cuDNN to deterministic convolution algorithms (forward and
+    both backward passes) for the body, then restore the setting. The
+    flag is read when a convolution runs, so the body must hold the
+    backward as well as the forward."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
 
 
 def conv_filters_for(obs_shape) -> tuple:

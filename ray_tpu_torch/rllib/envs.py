@@ -16,6 +16,11 @@ its algorithms run, so it needs no gymnasium:
 - ``"PixelCatch-v0"``: the JAX package's `PixelCatch`
   (``ray_tpu/rllib/envs.py``) behind `SyncVectorEnv`, a copy of
   gymnasium's ``SyncVectorEnv`` in its next-step autoreset mode.
+- ``"Pendulum-v1"``: `Pendulum`, a copy of gymnasium 1.2.2's
+  ``PendulumEnv`` (``gymnasium/envs/classic_control/pendulum.py``,
+  without rendering) with its registered 200-step ``TimeLimit``,
+  behind `SyncVectorEnv`, which is what
+  ``gym.make_vec("Pendulum-v1")`` builds: a continuous `Box` action.
 
 Next-step autoreset: the step on which a lane ends returns that
 episode's last observation with done set; the lane's next `step`
@@ -207,6 +212,73 @@ class PixelCatch:
         pass
 
 
+def angle_normalize(x):
+    """An angle in [-pi, pi) (gymnasium's ``angle_normalize``)."""
+    return ((x + np.pi) % (2 * np.pi)) - np.pi
+
+
+class Pendulum:
+    """The inverted pendulum swing-up (gymnasium 1.2.2's
+    ``PendulumEnv`` under its ``TimeLimit`` of 200 steps): observation
+    (cos theta, sin theta, theta dot), one torque in [-2, 2], reward
+    -(theta^2 + 0.1 theta_dot^2 + 0.001 u^2); the start is a uniform
+    angle in [-pi, pi] and speed in [-1, 1]."""
+
+    def __init__(self, g: float = 10.0, max_episode_steps: int = 200):
+        self.max_speed = 8
+        self.max_torque = 2.0
+        self.dt = 0.05
+        self.g = g
+        self.m = 1.0
+        self.l = 1.0
+        self.max_episode_steps = max_episode_steps
+        high = np.array([1.0, 1.0, self.max_speed], dtype=np.float32)
+        self.action_space = Box(-self.max_torque, self.max_torque, (1,),
+                                np.float32)
+        self.observation_space = Box(-high, high, dtype=np.float32)
+        self._np_random = None
+        self._elapsed_steps = 0
+
+    @property
+    def np_random(self) -> np.random.Generator:
+        if self._np_random is None:
+            self._np_random = _np_random(None)
+        return self._np_random
+
+    def step(self, u):
+        th, thdot = self.state  # th := theta
+        g, m, l, dt = self.g, self.m, self.l, self.dt
+        u = np.clip(u, -self.max_torque, self.max_torque)[0]
+        costs = angle_normalize(th) ** 2 + 0.1 * thdot**2 + 0.001 * (u**2)
+        newthdot = thdot + (3 * g / (2 * l) * np.sin(th)
+                            + 3.0 / (m * l**2) * u) * dt
+        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+        newth = th + newthdot * dt
+        self.state = np.array([newth, newthdot])
+        self._elapsed_steps += 1
+        truncated = self._elapsed_steps >= self.max_episode_steps
+        return self._get_obs(), -costs, False, truncated, {}
+
+    def reset(self, *, seed: int | None = None, options=None):
+        if seed is not None:
+            self._np_random = _np_random(seed)
+        high = np.array([np.pi, 1.0])
+        if options is not None:
+            high = np.array([float(options.get("x_init", np.pi)),
+                             float(options.get("y_init", 1.0))])
+        self.state = self.np_random.uniform(low=-high, high=high)
+        self._elapsed_steps = 0
+        return self._get_obs(), {}
+
+    def _get_obs(self):
+        theta, thetadot = self.state
+        return np.array([np.cos(theta), np.sin(theta), thetadot],
+                        dtype=np.float32)
+
+    def close(self):
+        pass
+
+
 class SyncVectorEnv:
     """N single envs stepped in turn (gymnasium's ``SyncVectorEnv`` in
     next-step autoreset mode): ``reset(seed=s)`` seeds lane i with
@@ -281,10 +353,15 @@ def _pixel_catch_vec(num_envs: int) -> SyncVectorEnv:
     return SyncVectorEnv([PixelCatch] * num_envs)
 
 
+def _pendulum_vec(num_envs: int) -> SyncVectorEnv:
+    return SyncVectorEnv([Pendulum] * num_envs)
+
+
 # id -> a builder of its vector env over `num_envs` lanes
 REGISTRY: dict[str, Callable[[int], object]] = {
     "CartPole-v1": CartPoleVectorEnv,
     "PixelCatch-v0": _pixel_catch_vec,
+    "Pendulum-v1": _pendulum_vec,
 }
 
 

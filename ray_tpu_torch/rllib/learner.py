@@ -8,7 +8,9 @@ passes another) with the JAX learner's optimizer,
 ``train/optim.py``. Each `update` puts the train batch on the device
 once, indexes its minibatches there in the JAX learner's order
 (``np.random.RandomState(0)`` per update), and reads the metrics to the
-host once, after the last minibatch.
+host once, after the last minibatch. The minibatch loop runs under
+``catalog.deterministic_convs``, so a conv learner's seeded updates
+repeat on the card.
 
 On a mesh (a DeviceMesh with a ``data`` axis) the params are replicated
 DTensors and each minibatch is a DTensor sharded on its rows over every
@@ -29,6 +31,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard, \
     distribute_tensor
 
 from ray_tpu_torch.interop import params_to_numpy
+from ray_tpu_torch.rllib import catalog
 from ray_tpu_torch.rllib.env_runner import copy_weights_
 from ray_tpu_torch.rllib.rl_module import DefaultActorCriticModule
 from ray_tpu_torch.train.optim import adam, chain, clip_by_global_norm
@@ -167,11 +170,12 @@ class PPOLearner:
         n_mb = max(1, n // mb)
         rng = np.random.RandomState(0)
         metrics: dict = {}
-        for _ in range(cfg.num_sgd_iter):
-            perm = torch.from_numpy(rng.permutation(n)).to(self.device)
-            for i in range(n_mb):
-                metrics = self.sgd_step(
-                    self._minibatch(batch, perm[i * mb:(i + 1) * mb]))
+        with catalog.deterministic_convs():
+            for _ in range(cfg.num_sgd_iter):
+                perm = torch.from_numpy(rng.permutation(n)).to(self.device)
+                for i in range(n_mb):
+                    metrics = self.sgd_step(
+                        self._minibatch(batch, perm[i * mb:(i + 1) * mb]))
         names = sorted(metrics)
         vals = torch.stack([
             v.full_tensor() if isinstance(v, DTensor) else v

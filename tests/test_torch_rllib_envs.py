@@ -96,8 +96,9 @@ def test_make_gives_one_lane():
 
 
 def test_unknown_id_names_the_registered_ones():
-    with pytest.raises(ValueError, match="CartPole-v1.*PixelCatch-v0"):
-        envs.make_vec("Pendulum-v1", 2)
+    with pytest.raises(ValueError,
+                       match="CartPole-v1.*Pendulum-v1.*PixelCatch-v0"):
+        envs.make_vec("MountainCar-v0", 2)
     with pytest.raises(ValueError, match="unknown env"):
         envs.make("Breakout-v5")
 
