@@ -182,14 +182,17 @@ Phases, each of which exits non-zero on any failure:
 11. more RL through ``ray_tpu_torch.rllib`` (the JAX package's recipes,
    F3_ITERS and the other constants below), the launch counters zeroed
    before and read after: no K1-K4 launch. f3_determinism: ppo_pixel's
-   recipe twice from the same seeds under deterministic cuDNN, returns
-   and params bitwise equal, then twice without the flag (reported),
-   each iteration's seconds beside the flag's. impala_cartpole and
+   recipe four times from the same seeds, with deterministic cuDNN,
+   without, without, with: the two runs with it bitwise equal (returns
+   and params); the paired difference of each adjacent pair's median
+   iteration seconds is the flag's cost. impala_cartpole and
    appo_cartpole: 16 envs x 64 steps with the background learner
    thread, the best return to 195 (APPO above 150, the KL term on)
-   within the JAX tests' 240 and 220 s, the learner's step timed by
-   CUDA events, updates/s, the queue, one profiled iteration; APPO's
-   target copies = updates // 20. sac_pendulum: the port's Pendulum-v1,
+   within the JAX tests' 240 and 220 s, updates/s, the queue, one
+   profiled iteration; the learner's step by CUDA events twice: in the
+   run (the interval holds driver work enqueued meanwhile on the same
+   stream) and alone, the thread stopped; APPO's target copies =
+   updates // 20. sac_pendulum: the port's Pendulum-v1,
    the late returns 300 above the early ones, 0 < alpha < 1.
    dreamer_cartpole_S and dreamer_pixel: DreamerV3 at size S on
    CartPole and at XS on PixelCatch (conv world model, uint8 replay),
@@ -404,6 +407,7 @@ DQN_ITERS = 20
 # iteration (training_ratio 32: the JAX test's 16 updates of its smaller
 # batches); on pixels it is the JAX test's XS recipe
 F3_ITERS = 10
+UPDATE_ALONE = 20  # learner steps timed with the learner thread stopped
 IMPALA_CARTPOLE = dict(num_env_runners=0, num_envs_per_env_runner=16,
                        rollout_fragment_length=64)
 IMPALA_TARGET = 195.0
@@ -3593,28 +3597,42 @@ def _same(a: tuple, b: tuple) -> dict:
 
 
 def phase_f3_determinism(torch, card: str) -> None:
-    """F3: `ppo_pixel`'s recipe for F3_ITERS iterations, twice from the
-    same seeds with the learner's updates under cuDNN's deterministic
-    algorithms (``catalog.deterministic_convs``, as the port runs them):
-    the returns of every iteration and the learner's params must be
-    bitwise equal. Then twice with the context made a no-op, to show
-    what the flag changes (reported, not required), each iteration's
-    seconds beside the flag's."""
+    """F3: `ppo_pixel`'s recipe for F3_ITERS iterations, four times from
+    the same seeds: with the learner's updates under cuDNN's
+    deterministic algorithms (``catalog.deterministic_convs``, as the
+    port runs them), then twice with the context made a no-op, then
+    with it again. The two runs with it must be bitwise equal, returns
+    and params; what the runs without it change is reported, not
+    required. The order (with, without, without, with) spreads warm-up
+    over both sides: the flag's cost is the difference of each adjacent
+    pair's median iteration seconds (first iterations dropped)."""
     from ray_tpu_torch.rllib import catalog
 
-    on = [_pixel_run(torch, F3_ITERS) for _ in range(2)]
     real = catalog.deterministic_convs
-    catalog.deterministic_convs = contextlib.nullcontext
-    try:
-        off = [_pixel_run(torch, F3_ITERS) for _ in range(2)]
-    finally:
-        catalog.deterministic_convs = real
+
+    def run(flag: bool) -> tuple:
+        catalog.deterministic_convs = real if flag else \
+            contextlib.nullcontext
+        try:
+            return _pixel_run(torch, F3_ITERS)
+        finally:
+            catalog.deterministic_convs = real
+
+    runs = [run(flag) for flag in (True, False, False, True)]
+    on, off = (runs[0], runs[3]), (runs[1], runs[2])
     with_flag, without = _same(*on), _same(*off)
+    med = [float(np.median(r[2][1:])) for r in runs]
+    paired = [med[0] - med[1], med[3] - med[2]]
     emit({"phase": "f3_determinism", "card": card, "iterations": F3_ITERS,
           "kernels_launched": "none of K1-K4 (conv PPO)",
           "with_deterministic_cudnn": with_flag,
           "without": without,
           "returns": [x if x == x else None for x in on[0][0]],
+          "order": ["with", "without", "without", "with"],
+          "median_iteration_s": med,
+          "paired_cost_s": paired,
+          "cost_s": float(np.mean(paired)),
+          "cost_rel": float(np.mean(paired)) / float(np.mean(med[1:3])),
           "iteration_s_with_flag": spread(on[0][2][1:] + on[1][2][1:]),
           "iteration_s_without": spread(off[0][2][1:] + off[1][2][1:])})
     if not (with_flag["returns_equal"] and with_flag["params_equal"]):
@@ -3626,8 +3644,9 @@ def phase_f3_determinism(torch, card: str) -> None:
 def _learn_to(torch, card: str, phase: str, algo, target: float,
               strict: bool, limit_s: float, params) -> dict:
     """Train an IMPALA-family `algo` until its best return reaches
-    `target` (above it when `strict`) or `limit_s` seconds pass; the
-    learner's step timed by CUDA events, one profiled iteration."""
+    `target` (above it when `strict`) or `limit_s` seconds pass; one
+    profiled iteration; the learner's step timed by CUDA events in the
+    run and then alone (`_update_alone`, which stops the thread)."""
     on_cuda(phase, params, algo.env_runner_group.local.params)
     pairs = _timed(torch, algo)
     best, iters, rows = float("-inf"), 0, []
@@ -3642,8 +3661,9 @@ def _learn_to(torch, card: str, phase: str, algo, target: float,
             break
     train_s = time.perf_counter() - t0
     updates = algo.learner_thread.num_updates
-    update_ms = _event_ms(torch, pairs[:])
+    interval_ms = _event_ms(torch, pairs[:])
     profile = profiled_call(torch, algo.train)
+    alone_ms = _update_alone(torch, algo)
     return {"phase": phase, "card": card,
             "kernels_launched": "none of K1-K4 (MLP towers)",
             "iterations": iters, "train_s": train_s,
@@ -3655,8 +3675,32 @@ def _learn_to(torch, card: str, phase: str, algo, target: float,
             "learner_updates_per_sec": updates / train_s,
             "learner_queue_size": spread([x["learner_queue_size"]
                                           for x in rows]),
-            "update_ms": update_ms, "profiled_iteration": profile,
+            "update_interval_ms": interval_ms, "update_ms": alone_ms,
+            "update_alone_n": UPDATE_ALONE, "profiled_iteration": profile,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _update_alone(torch, algo) -> dict:
+    """The learner's step alone on the card: the learner thread
+    stopped, UPDATE_ALONE fresh fragments' batches each stepped on this
+    thread between two CUDA events, after a synchronize, so no driver
+    work lies between the events (in the run the driver enqueues its
+    forwards on the same stream meanwhile). APPO's step keeps its
+    target-copy count."""
+    algo.learner_thread.stopped.set()
+    algo.learner_thread.join()
+    step = type(algo)._update
+    pairs = []
+    for _ in range(UPDATE_ALONE):
+        batch = algo._to_batch(algo.env_runner_group.local.sample())
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(algo, batch)
+        end.record()
+        pairs.append((start, end))
+    return _event_ms(torch, pairs)
 
 
 def phase_impala_cartpole(torch, card: str) -> None:
@@ -3876,8 +3920,9 @@ def _ope_rows(torch, params, gen) -> list[dict]:
 
 
 def phase_ope(torch, card: str) -> None:
-    """IS, WIS and DR with a target policy on the card against the same
-    params on the CPU (OPE_TOL relative), on rows sampled from a
+    """IS, WIS and DR with a target policy on the card (its host arrays
+    moved there by default) against the same params on the CPU
+    (`device="cpu"`, OPE_TOL relative), on rows sampled from a
     behavior policy on the card; with the behavior policy as the
     target, the on-policy identity (1e-4)."""
     from ray_tpu_torch.interop import params_to_numpy
@@ -3898,8 +3943,13 @@ def phase_ope(torch, card: str) -> None:
                  "DoublyRobust"):
         cls = getattr(ope, name)
         for which, params in (("behavior", behavior), ("other", other)):
-            v_card = cls(params, gamma).estimate(rows)["v_target"]
-            v_cpu = cls(params_to_numpy(params), gamma).estimate(
+            # host arrays, as `get_weights()` gives them, go to the card
+            # by default and to the CPU only where the caller names it
+            host = params_to_numpy(params)
+            est = cls(host, gamma)
+            on_cuda("ope", est.params)
+            v_card = est.estimate(rows)["v_target"]
+            v_cpu = cls(host, gamma, device="cpu").estimate(
                 rows)["v_target"]
             worst = max(worst, abs(v_card - v_cpu) / abs(v_cpu))
             out[f"{name}/{which}"] = {"card": v_card, "cpu": v_cpu}

@@ -12,9 +12,10 @@ makes both sides compute with the same weights. On a mesh,
 lays converted params out as DTensors, and `params_to_numpy` gathers
 them back. The RL models' trees (lists of layers, conv layers whose
 stride is static) go through `rl_params_from_jax` and
-`rl_params_to_jax`; `mlp_policy_*`, `sac_params_*` and `dreamer_params_*`
-name the trees of ``init_mlp_policy``, SAC and DreamerV3 and refuse
-others.
+`rl_params_to_jax`: the trees of ``init_mlp_policy`` (IMPALA, APPO,
+OPE), the catalog's modules, SAC's ``{"pi", "q1", "q2"}`` and
+DreamerV3's ``{"wm", "actor", "critic"}`` with its GRU and conv
+encoder.
 """
 
 from __future__ import annotations
@@ -101,56 +102,3 @@ def rl_params_to_jax(tree: Any, strides=()) -> Any:
         return host(t)
 
     return one(tree)
-
-
-def _keys(tree: Any, want: set, what: str) -> None:
-    if not isinstance(tree, dict) or not set(tree) <= want or not tree:
-        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
-        raise ValueError(f"not a {what} tree: keys {got}, expected some "
-                         f"of {sorted(want)}")
-
-
-def mlp_policy_from_jax(tree: Any) -> Any:
-    """The JAX package's ``models.init_mlp_policy`` tree (``{"pi",
-    "vf"}`` lists of ``{"w", "b"}``: IMPALA, APPO, the OPE policies) ->
-    the port's, float32 CPU tensors."""
-    _keys(tree, {"pi", "vf"}, "init_mlp_policy")
-    return rl_params_from_jax(tree)[0]
-
-
-def mlp_policy_to_jax(tree: Any) -> Any:
-    """The inverse of `mlp_policy_from_jax`: host float32 arrays."""
-    _keys(tree, {"pi", "vf"}, "init_mlp_policy")
-    return rl_params_to_jax(tree)
-
-
-def sac_params_from_jax(tree: Any) -> Any:
-    """SAC's ``{"pi", "q1", "q2"}`` lists of ``{"w", "b"}`` (or the
-    target critics' ``{"q1", "q2"}``) -> the port's tree."""
-    _keys(tree, {"pi", "q1", "q2"}, "SAC")
-    return rl_params_from_jax(tree)[0]
-
-
-def sac_params_to_jax(tree: Any) -> Any:
-    """The inverse of `sac_params_from_jax`: host float32 arrays."""
-    _keys(tree, {"pi", "q1", "q2"}, "SAC")
-    return rl_params_to_jax(tree)
-
-
-DREAMER_KEYS = {"wm", "actor", "critic", "critic_ema"}
-
-
-def dreamer_params_from_jax(tree: Any) -> tuple[Any, tuple[int, ...]]:
-    """DreamerV3's ``{"wm", "actor", "critic"[, "critic_ema"]}`` -> (the
-    port's tree, the encoder's conv strides). The GRU's ``{"wi", "wh",
-    "b"}`` keep their (in, 3 units) layout; an image encoder's HWIO
-    ``ConvLayer``s become OIHW ``{"w", "b"}`` with the strides beside."""
-    _keys(tree, DREAMER_KEYS, "DreamerV3")
-    return rl_params_from_jax(tree)
-
-
-def dreamer_params_to_jax(tree: Any, strides=()) -> Any:
-    """The inverse of `dreamer_params_from_jax`: host float32 arrays,
-    each conv layer ``{"w": HWIO, "b", "stride"}``."""
-    _keys(tree, DREAMER_KEYS, "DreamerV3")
-    return rl_params_to_jax(tree, strides)

@@ -7,8 +7,8 @@ WeightedImportanceSampling (is/wis.py), and the doubly-robust family
 (obs/action/reward/done/truncated/logp): the logged `logp` is the
 behavior policy's action log-probability, and the TARGET policy is a
 params tree evaluated with the functional model (`models.forward`) in
-one batched pass on the device its params lie on, no environment
-interaction. The rows are in memory: reading a recorded dataset waits
+one batched pass on the estimator's device (the card unless the caller
+names another), no environment interaction. The rows are in memory: reading a recorded dataset waits
 for the port's data layer.
 
 Estimates follow the per-decision formulation:
@@ -27,6 +27,7 @@ import torch
 
 from ray_tpu_torch.rllib import models
 from ray_tpu_torch.util import tree
+from ray_tpu_torch.util.device import resolve_device
 
 
 def split_episodes(rows: list[dict]) -> list[list[dict]]:
@@ -46,7 +47,7 @@ def split_episodes(rows: list[dict]) -> list[list[dict]]:
 
 @torch.no_grad()
 def _target_logp_and_values(params, episodes):
-    """One batched forward over every logged step on the params' device:
+    """One batched forward over every logged step where the params lie:
     per-episode arrays of target-policy log-probs and state values."""
     device = tree.leaves(params)[0].device
     obs = torch.from_numpy(np.asarray(
@@ -66,13 +67,15 @@ def _target_logp_and_values(params, episodes):
 
 class OffPolicyEstimator:
     """Base (reference: offline/estimators/off_policy_estimator.py).
-    `params` is a tree of tensors (the target policy runs where they
-    lie) or of host arrays (it runs on the CPU)."""
+    `params` is a tree of tensors or of host arrays (a ``get_weights()``);
+    the target policy runs on `device`, "cuda" unless the caller names
+    another, and raises there without a card."""
 
-    def __init__(self, params, gamma: float = 0.99):
+    def __init__(self, params, gamma: float = 0.99, device=None):
+        dev = resolve_device(device)
         self.params = tree.tree_map(
-            lambda x: x if isinstance(x, torch.Tensor)
-            else torch.from_numpy(np.asarray(x, np.float32)), params)
+            lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev),
+            params)
         self.gamma = gamma
 
     def estimate(self, rows: list[dict]) -> dict:

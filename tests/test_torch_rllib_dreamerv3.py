@@ -3,7 +3,7 @@ JAX package on the CPU, at the XS size, on CartPole-v1 (the symlog MLP
 world model) and PixelCatch-v0 (the conv world model, uint8 pixels):
 symlog, symexp, twohot and the GRU within 1e-6; `EpisodeSequenceBuffer`
 drawing the same windows; from the same params (carried across by
-``interop.dreamer_params_from_jax``) and with the Gumbel noise of JAX's
+``interop.rl_params_from_jax``) and with the Gumbel noise of JAX's
 own keys (``jax.random.categorical`` is the argmax of logits plus
 ``jax.random.gumbel`` of its key), the world-model loss and its
 metrics, the actor and critic losses over the dream, one whole update
@@ -113,15 +113,17 @@ def pair(request):
     ours = _config(dv3, request.param).build()
     _load(ours, ref)
     fn = ref._update.__wrapped__
-    fns = dict(zip(fn.__code__.co_freevars,
-                   (c.cell_contents for c in fn.__closure__)))
+    # jitted: one XLA compile each, in place of eager dispatch's many
+    fns = {k: jax.jit(c.cell_contents) if k in ("wm_loss", "ac_losses")
+           else c.cell_contents
+           for k, c in zip(fn.__code__.co_freevars, fn.__closure__)}
     yield ref, fns, ours
     ref.stop()
     ours.stop()
 
 
 def _load(ours, ref):
-    tree, strides = interop.dreamer_params_from_jax(
+    tree, strides = interop.rl_params_from_jax(
         {"wm": ref.wm, "actor": ref.actor, "critic": ref.critic,
          "critic_ema": ref.critic_ema})
     assert strides == ours._strides
@@ -212,7 +214,7 @@ def test_one_update_equals_jax(pair, two_threads):
     assert sorted(m) == sorted(jm)
     for k in jm:
         _close(float(m[k]), float(jm[k]), k)
-    got = interop.dreamer_params_to_jax(
+    got = interop.rl_params_to_jax(
         {"wm": ours.wm, "actor": ours.actor, "critic": ours.critic,
          "critic_ema": ours.critic_ema}, ours._strides)
     want = jax.tree.map(np.asarray, {"wm": wm, "actor": actor,
@@ -248,8 +250,8 @@ def test_act_equals_jax(pair, two_threads):
 def test_dreamer_tree_interop_round_trip(pair):
     ref, _, ours = pair
     jt = {"wm": ref.wm, "actor": ref.actor, "critic": ref.critic}
-    tree, strides = interop.dreamer_params_from_jax(jt)
-    back = interop.dreamer_params_to_jax(tree, strides)
+    tree, strides = interop.rl_params_from_jax(jt)
+    back = interop.rl_params_to_jax(tree, strides)
     from tests.test_torch_rllib_modules import flat
 
     want, got = dict(flat(jt)), dict(flat(back))

@@ -54,7 +54,7 @@ def pair(request):
     mod_j, mod_t, kw = request.param
     ref = _config(mod_j, **kw).build()
     ours = _config(mod_t, **kw).build()
-    ours.params = interop.mlp_policy_from_jax(ref.params)
+    ours.params = interop.rl_params_from_jax(ref.params)[0]
     for p in jax.tree.leaves(ours.params):
         p.requires_grad_(True)
     ours.opt_state = ours.tx.init(ours.params)
@@ -98,7 +98,7 @@ def _jax(b: dict) -> dict:
 
 
 def _weights(algo):
-    return interop.mlp_policy_to_jax(algo.get_weights())
+    return interop.rl_params_to_jax(algo.get_weights())
 
 
 # ---------------------------------------------------------------- vtrace
@@ -157,7 +157,7 @@ def test_appo_step_with_kl_equals_jax(pair, two_threads):
     ref, ours = pair
     # a target that differs from the params, so the KL term is live
     target = jmodels.init_mlp_policy(jax.random.PRNGKey(9), 4, 2)
-    ours.target_params = interop.mlp_policy_from_jax(target)
+    ours.target_params = interop.rl_params_from_jax(target)[0]
     batch = _batch(seed=2)
     jparams, _, jloss = ref._appo_step(ref.params, ref.opt_state, target,
                                        _jax(batch))
@@ -179,11 +179,11 @@ def test_appo_target_syncs_equal_jax(pair, two_threads):
     assert ours._appo_updates == ref._appo_updates == 5
     assert ours._target_syncs == 5 // 2
     # the target is the copy taken at step 4, in both
-    assert_params(interop.mlp_policy_to_jax(ours.target_params),
+    assert_params(interop.rl_params_to_jax(ours.target_params),
                   jax.tree.map(np.asarray, ref.target_params), TOL,
                   1e-2 * ours.config.lr, "target")
     assert not np.allclose(_weights(ours)["pi"][0]["w"],
-                           interop.mlp_policy_to_jax(
+                           interop.rl_params_to_jax(
                                ours.target_params)["pi"][0]["w"])
 
 
@@ -253,11 +253,9 @@ def test_remote_runners_and_missing_card_refused():
 
 def test_mlp_policy_interop_round_trip():
     jp = jmodels.init_mlp_policy(jax.random.PRNGKey(2), 4, 2, (16, 8))
-    back = interop.mlp_policy_to_jax(interop.mlp_policy_from_jax(jp))
+    back = interop.rl_params_to_jax(interop.rl_params_from_jax(jp)[0])
     for x, y in zip(jax.tree.leaves(jp), jax.tree.leaves(back)):
         np.testing.assert_array_equal(np.asarray(x), y)
-    with pytest.raises(ValueError, match="not a init_mlp_policy tree"):
-        interop.mlp_policy_from_jax({"pi": [], "q1": []})
 
 
 def test_readers_never_see_a_half_written_step():

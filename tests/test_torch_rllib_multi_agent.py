@@ -2,7 +2,7 @@
 against the JAX package on the CPU: `CoordinationGame`'s streams
 identical to JAX's under the same seeds and actions; given the same
 trajectories and the same params (carried across by
-``interop.mlp_policy_from_jax``), the per-policy batches equal (GAE per
+``interop.rl_params_from_jax``), the per-policy batches equal (GAE per
 agent, 1e-6) and one iteration's updates of independent policies equal
 (the loss metrics within 1e-4 relative, the params within 1e-4 of each
 leaf's largest plus an Adam per-element allowance); a shared-policy
@@ -64,7 +64,7 @@ def test_batches_and_update_equal_jax(two_threads):
     ours = _independent(ma, device="cpu")
     for m in ("p0", "p1"):
         ours.module[m].set_weights(
-            interop.mlp_policy_from_jax(ref.module[m].get_weights()))
+            interop.rl_params_from_jax(ref.module[m].get_weights())[0])
     trajs, returns = ours._rollout()
     ours._iteration = 0
     seen = {}
@@ -95,7 +95,7 @@ def test_batches_and_update_equal_jax(two_threads):
                                        atol=1e-7, err_msg=k)
     assert got["episode_return_mean"] == want["episode_return_mean"]
     for m in ("p0", "p1"):
-        assert_params(interop.mlp_policy_to_jax(ours.module[m].get_weights()),
+        assert_params(interop.rl_params_to_jax(ours.module[m].get_weights()),
                       jax.tree.map(np.asarray, ref.module[m].get_weights()),
                       TOL, 1e-2 * ours.config.lr, m)
 

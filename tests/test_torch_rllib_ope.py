@@ -2,13 +2,16 @@
 the JAX package on the CPU: `split_episodes`; IS, WIS and DR on the
 same logged rows (sampled from a JAX policy, with truncated and
 unfinished episodes) and the same target params (carried across by
-``interop.mlp_policy_from_jax``, or given as host arrays) within 1e-5
+``interop.rl_params_from_jax``, or given as host arrays) within 1e-5
 relative; and the on-policy identity (every importance ratio 1: IS and
-WIS are the behavior return, DR telescopes to it) within 1e-4."""
+WIS are the behavior return, DR telescopes to it) within 1e-4. The
+estimators run on the CPU because the tests name it; by default they
+run on the card and raise without one."""
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 import ray_tpu.parallel.mesh  # noqa: F401  partitionable threefry first
 from ray_tpu.rllib import models as jmodels
@@ -31,12 +34,13 @@ def _rows(params, n_episodes=8, T=12, seed=0):
     last episode is cut by truncation, a tail is left unfinished."""
     rng = np.random.RandomState(seed)
     key = jax.random.PRNGKey(seed)
+    sample = jax.jit(jmodels.sample_actions)
     rows = []
     for ep in range(n_episodes):
         for t in range(T - ep % 3):
             obs = rng.randn(4).astype(np.float32)
             key, k = jax.random.split(key)
-            a, logp, _ = jmodels.sample_actions(params, obs[None], k)
+            a, logp, _ = sample(params, obs[None], k)
             last = t == T - ep % 3 - 1
             rows.append({"obs": obs.tolist(), "action": int(a[0]),
                          "reward": float(rng.rand()),
@@ -72,10 +76,11 @@ def test_split_episodes_equal_jax(rows):
 @pytest.mark.parametrize("host", [False, True], ids=["tensors", "arrays"])
 def test_estimates_equal_jax(rows, name, target, host):
     jp = _policy(target)
-    params = interop.mlp_policy_from_jax(jp)
+    params = interop.rl_params_from_jax(jp)[0]
     if host:
-        params = interop.mlp_policy_to_jax(params)
-    got = getattr(ope, name)(params, gamma=GAMMA).estimate(rows)
+        params = interop.rl_params_to_jax(params)
+    got = getattr(ope, name)(params, gamma=GAMMA,
+                             device="cpu").estimate(rows)
     want = getattr(jope, name)(jp, gamma=GAMMA).estimate(rows)
     assert sorted(got) == sorted(want)
     assert got["num_episodes"] == want["num_episodes"] == 8
@@ -84,13 +89,14 @@ def test_estimates_equal_jax(rows, name, target, host):
 
 
 def test_on_policy_identity(rows, behavior):
-    params = interop.mlp_policy_from_jax(behavior)
+    params = interop.rl_params_from_jax(behavior)[0]
     episodes = ope.split_episodes(rows)
     behavior_return = np.mean([
         sum(GAMMA ** t * r["reward"] for t, r in enumerate(ep))
         for ep in episodes])
     for name in ESTIMATORS:
-        est = getattr(ope, name)(params, gamma=GAMMA).estimate(rows)
+        est = getattr(ope, name)(params, gamma=GAMMA,
+                                 device="cpu").estimate(rows)
         np.testing.assert_allclose(est["v_target"], behavior_return,
                                    rtol=1e-4, err_msg=name)
         if name != "DoublyRobust":
@@ -98,5 +104,17 @@ def test_on_policy_identity(rows, behavior):
 
 
 def test_no_rows():
-    est = ope.ImportanceSampling(interop.mlp_policy_from_jax(_policy(1)))
+    est = ope.ImportanceSampling(interop.rl_params_from_jax(_policy(1))[0],
+                                 device="cpu")
     assert np.isnan(est.estimate([])["v_target"])
+
+
+@pytest.mark.parametrize("host", [False, True], ids=["tensors", "arrays"])
+def test_default_device_is_the_card(host):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    params = interop.rl_params_from_jax(_policy(1))[0]
+    if host:
+        params = interop.rl_params_to_jax(params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ope.DoublyRobust(params)

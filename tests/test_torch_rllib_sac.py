@@ -78,7 +78,7 @@ def test_sample_action_with_jax_noise_equals_jax():
     key = jax.random.PRNGKey(4)
     ja, jlogp = jsac.sample_action(jp, obs, key)
     eps = np.array(jax.random.normal(key, (16, 1)))
-    a, logp = sac.sample_action(interop.sac_params_from_jax(jp),
+    a, logp = sac.sample_action(interop.rl_params_from_jax(jp)[0],
                                 torch.from_numpy(obs),
                                 eps=torch.from_numpy(eps))
     np.testing.assert_allclose(a.numpy(), np.asarray(ja), rtol=0,
@@ -89,11 +89,9 @@ def test_sample_action_with_jax_noise_equals_jax():
 
 def test_sac_tree_interop_round_trip():
     jp = _params(3)
-    back = interop.sac_params_to_jax(interop.sac_params_from_jax(jp))
+    back = interop.rl_params_to_jax(interop.rl_params_from_jax(jp)[0])
     for x, y in zip(jax.tree.leaves(jp), jax.tree.leaves(back)):
         np.testing.assert_array_equal(np.asarray(x), y)
-    with pytest.raises(ValueError, match="not a SAC tree"):
-        interop.sac_params_from_jax({"pi": [], "vf": []})
 
 
 # ---------------------------------------------------------------- update
@@ -124,8 +122,8 @@ def test_update_equals_jax(two_threads):
     ref.target_q = {k: v for k, v in _params(8).items() if k != "pi"}
     ref.log_alpha = jnp.asarray(-0.3, jnp.float32)
     ref.alpha_opt = ref.alpha_tx.init(ref.log_alpha)
-    ours.params = interop.sac_params_from_jax(ref.params)
-    ours.target_q = interop.sac_params_from_jax(ref.target_q)
+    ours.params = interop.rl_params_from_jax(ref.params)[0]
+    ours.target_q = interop.rl_params_from_jax(ref.target_q)[0]
     ours.log_alpha = torch.tensor(-0.3)
     ours.opt_state = ours.tx.init(ours.params)
     ours.alpha_opt = ours.alpha_tx.init(ours.log_alpha)
@@ -145,9 +143,9 @@ def test_update_equals_jax(two_threads):
     np.testing.assert_allclose(float(c), float(jc), rtol=TOL)
     np.testing.assert_allclose(float(a), float(ja), rtol=TOL)
     allowance = 1e-2 * ours.config.lr
-    assert_params(interop.sac_params_to_jax(ours.params),
+    assert_params(interop.rl_params_to_jax(ours.params),
                   jax.tree.map(np.asarray, jparams), TOL, allowance, "sac")
-    assert_params(interop.sac_params_to_jax(ours.target_q),
+    assert_params(interop.rl_params_to_jax(ours.target_q),
                   jax.tree.map(np.asarray, jtarget), TOL, allowance,
                   "target")
     np.testing.assert_allclose(float(ours.log_alpha), float(jlog_alpha),
