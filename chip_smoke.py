@@ -202,6 +202,27 @@ Phases, each of which exits non-zero on any failure:
    ope: IS, WIS and DR with a policy on the card against the same
    params on the CPU (1e-5) and the on-policy identity (1e-4). Every
    phase checks that its params lie on the card.
+12. tune_gpt2: the core API and Tune on the card
+   (``ray_tpu_torch.init(local_mode=True, num_gpus=1)``, TUNE_* below).
+   A ``num_gpus=1`` task returns a CUDA tensor by reference (the same
+   storage), and an actor holding GPT-2-small's params on the card
+   answers two calls in order. Then a ``Tuner`` sweeps GPT-2-small's
+   learning rate (train's recipe: B=8 T=1024, adamw, full remat, the
+   same seeded batch) over four values, two trials training at once
+   on two threads under ASHA(max_t=8, grace 2, rf 2), each reporting
+   every step and shipping a ``save_train_state`` checkpoint every 4
+   steps; one trial then runs 8 steps checkpointed at step 4 only, is
+   marked RUNNING in its ``tuner_state.json`` and restored: it resumes
+   from step 4 through ``tune.get_checkpoint()`` and
+   ``load_train_state``. The launch counters are zeroed just before the
+   sweep. Fail unless every loss is finite, the best trial's last loss
+   is below its first, ASHA cut a trial before 8 and one finished 8,
+   two trials trained at once, K1/K2/K3 launched exactly 24/12/12 times
+   the steps taken (sweep, and sweep with the resume), and the restored
+   losses at steps 5-8 equal the first run's bit for bit. Prints each
+   trial's losses and ASHA's decision, step ms (two at once, one
+   alone), checkpoint save and load s and GB/s, peak memory and the
+   phase's seconds; the checkpoints are removed at the end.
 
 It prints one JSON line per kernel shape and per phase, K4's rows on
 the serving and rl paths with their launches there (by window and
@@ -432,6 +453,26 @@ MA_SHARED_ITERS = 21
 MA_INDEPENDENT_ITERS = 25
 OPE_TOL = 1e-5
 CARD = "cuda"  # where phase 11 puts the tensors it makes itself
+# tune_gpt2 (phase 12): an ASHA sweep of GPT-2-small's learning rate on
+# the local runtime, two trials training at once, each on TRAIN_BATCH
+# from seed 0 with adamw and full remat; a train state checkpoint every
+# TUNE_CKPT_EVERY steps under TUNE_DIR (1.49 GB each in f32, removed at
+# the end); then a one-trial run of TUNE_MAX_T steps checkpointed at
+# TUNE_CKPT_EVERY only, interrupted and restored. The grid starts from
+# the largest lr: ASHA passes the first loss to reach a rung and cuts a
+# later one that falls outside the rung's top 1/TUNE_RF, so trials that
+# arrive in order from worst to best (the smallest lr first, when a
+# larger lr learns faster, as it did on the CPU at 2 layers) would all
+# pass
+TUNE_LRS = (3e-3, 1e-3, 3e-4, 1e-4)
+TUNE_MAX_T = 8
+TUNE_GRACE = 2
+TUNE_RF = 2
+TUNE_CONCURRENT = 2
+TUNE_CKPT_EVERY = 4
+TUNE_RESUME_LR = 1e-3
+TUNE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "tune_gpt2")
 
 
 def fail(msg: str) -> None:
@@ -3984,6 +4025,281 @@ def phase_more_rl(torch, card: str) -> dict:
     return launches
 
 
+def _tune_runtime(torch, ray) -> dict:
+    """The core API on the card in local mode: a num_gpus=1 task returns
+    a CUDA tensor by reference, and an actor holding GPT-2-small's
+    params on the card answers two calls in order. (Checks run here, on
+    the main thread: `fail` in an actor's thread would end that thread
+    only.)"""
+    from ray_tpu_torch.models.gpt2 import GPT2Config, count_params, init_gpt2
+    from ray_tpu_torch.util import tree
+
+    @ray.remote(num_gpus=1)
+    def make(n):
+        t = torch.arange(n, device="cuda", dtype=torch.float32)
+        return t, t.data_ptr()
+
+    ref = make.remote(4096)
+    t, ptr = ray.get(ref)
+    if not (t.is_cuda and t.data_ptr() == ptr and ray.get(ref)[0] is t):
+        fail(f"tune_gpt2: the task's tensor came back as a copy or off the "
+             f"card ({t.device}, {t.data_ptr()} against {ptr})")
+    if not torch.equal(t, torch.arange(4096, device="cuda",
+                                       dtype=torch.float32)):
+        fail("tune_gpt2: the task's tensor holds the wrong values")
+
+    @ray.remote(num_gpus=1)
+    class Params:
+        def __init__(self, seed):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            self.params = init_gpt2(gen, GPT2Config.small())
+            self.calls = 0
+
+        def count(self):
+            self.calls += 1
+            return self.calls, count_params(self.params), sorted(
+                {str(x.device) for x in tree.leaves(self.params)})
+
+        def wte_sum(self):
+            self.calls += 1
+            return self.calls, float(self.params["wte"].sum())
+
+    actor = Params.remote(0)
+    first, second = actor.count.remote(), actor.wte_sum.remote()
+    (i1, n_params, devices), (i2, wte_sum) = ray.get([first, second])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    want = float(init_gpt2(gen, GPT2Config.small())["wte"].sum())
+    if (i1, i2) != (1, 2) or wte_sum != want or devices != ["cuda:0"]:
+        fail(f"tune_gpt2: actor calls answered as {(i1, i2)}, params on "
+             f"{devices}, wte sum {wte_sum} against {want}")
+    ray.kill(actor)
+    del ref, t, first, second, actor
+    return {"task_tensor_by_reference": True, "actor_calls_in_order": True,
+            "actor_n_params": n_params}
+
+
+def _tune_trial(torch, record, live, config):
+    """One trial: GPT-2-small from seed 0 on TRAIN_BATCH, adamw at the
+    trial's lr; a `save_train_state` checkpoint at each step in
+    ``config["ckpt_at"]`` (kept by a CheckpointManager, one a trial),
+    resumed from `tune.get_checkpoint()` through `load_train_state`.
+    Appends one dict a step to `record`, with how many trials were in
+    their loops (`live`) when it ended; checks are the caller's."""
+    from ray_tpu_torch import train, tune
+    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_loss, init_gpt2
+    from ray_tpu_torch.train.checkpointing import (
+        load_train_state,
+        save_train_state,
+    )
+    from ray_tpu_torch.util import tree
+
+    cfg = GPT2Config.small()
+    B, T = TRAIN_BATCH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    tx = train.adamw(config["lr"], weight_decay=0.1)
+    state = train.TrainState.create(init_gpt2(gen, cfg), tx)
+    toks = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    state_bytes = sum(t.nbytes for t in tree.leaves(state.params)
+                      + tree.leaves(state.opt_state.mu)
+                      + tree.leaves(state.opt_state.nu))
+    name = f"{config['run']}_lr_{config['lr']}"
+    ckpt = tune.get_checkpoint()
+    load_s = None
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        state = load_train_state(ckpt.path, state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    manager = train.CheckpointManager(
+        os.path.join(TUNE_DIR, "trials", name),
+        train.CheckpointConfig(num_to_keep=1))
+    step = train.make_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx)
+    live.add(name)
+    try:
+        while state.step < config["steps"]:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+            row = {"lr": config["lr"], "step": state.step, "loss": loss,
+                   "ms": (time.perf_counter() - t0) * 1e3,
+                   "at_once": len(live), "resumed": ckpt is not None,
+                   "load_s": load_s, "bytes": state_bytes, "save_s": None,
+                   "on_cuda": all(t.is_cuda
+                                  for t in tree.leaves(state.params))}
+            load_s = None
+            shipped = None
+            if state.step in config["ckpt_at"]:
+                t0 = time.perf_counter()
+                d = os.path.join(TUNE_DIR, "staging", name)
+                save_train_state(state, d)
+                shipped = manager.register(
+                    train.Checkpoint(d), {"loss": loss, "step": state.step})
+                row["save_s"] = time.perf_counter() - t0
+            record.append(row)
+            tune.report({"loss": loss, "step": state.step},
+                        checkpoint=shipped)
+    finally:
+        live.discard(name)
+
+
+def _trial_status(exp_dir: str) -> dict:
+    with open(os.path.join(exp_dir, "tuner_state.json")) as f:
+        return {t["config"]["lr"]: t["status"]
+                for t in json.load(f)["trials"]}
+
+
+def phase_tune_gpt2(torch) -> dict:
+    """Phase 12: the core API in local mode on the card, an ASHA sweep
+    of GPT-2-small's learning rate through the Tuner (trials training at
+    once through K1-K3, checkpointing their train state), and a trial
+    restored from its checkpoint with bitwise-equal losses. The launch
+    counters are zeroed just before the sweep and read after the sweep
+    and after the restore."""
+    import functools
+    import shutil
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.train import RunConfig
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    ray.init(local_mode=True, num_gpus=1)
+    try:
+        row = {"phase": "tune_gpt2", **_tune_runtime(torch, ray)}
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        sweep: list[dict] = []
+        counters = _reset_counters()
+        t0 = time.perf_counter()
+        sweep_grid = tune.Tuner(
+            functools.partial(_tune_trial, torch, sweep, set()),
+            param_space={"lr": tune.grid_search(list(TUNE_LRS)),
+                         "run": "sweep", "steps": TUNE_MAX_T,
+                         "ckpt_at": list(range(TUNE_CKPT_EVERY,
+                                               TUNE_MAX_T + 1,
+                                               TUNE_CKPT_EVERY))},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min",
+                max_concurrent_trials=TUNE_CONCURRENT,
+                scheduler=tune.ASHAScheduler(
+                    max_t=TUNE_MAX_T, grace_period=TUNE_GRACE,
+                    reduction_factor=TUNE_RF)),
+            run_config=RunConfig(name="sweep", storage_path=TUNE_DIR),
+        ).fit()
+        sweep_s = time.perf_counter() - t0
+        sweep_launches = launch_counts(counters)
+        status = _trial_status(os.path.join(TUNE_DIR, "sweep"))
+        shutil.rmtree(os.path.join(TUNE_DIR, "trials"))
+
+        resume: list[dict] = []
+        trainable = functools.partial(_tune_trial, torch, resume, set())
+        exp = os.path.join(TUNE_DIR, "resume")
+        first_grid = tune.Tuner(
+            trainable,
+            param_space={"lr": tune.grid_search([TUNE_RESUME_LR]),
+                         "run": "resume", "steps": TUNE_MAX_T,
+                         "ckpt_at": [TUNE_CKPT_EVERY]},
+            tune_config=tune.TuneConfig(metric="loss", mode="min"),
+            run_config=RunConfig(name="resume", storage_path=TUNE_DIR),
+        ).fit()
+        n_first = len(resume)
+        with open(os.path.join(exp, "tuner_state.json")) as f:
+            state = json.load(f)
+        state["trials"][0]["status"] = "RUNNING"  # as if it died at the end
+        with open(os.path.join(exp, "tuner_state.json"), "w") as f:
+            json.dump(state, f)
+        restored_grid = tune.Tuner.restore(exp, trainable).fit()
+        launches = launch_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        ray.shutdown()
+        shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    release(torch)
+
+    for what, g in (("sweep", sweep_grid), ("resume", first_grid),
+                    ("restore", restored_grid)):
+        if g.errors:
+            fail(f"tune_gpt2: a {what} trial failed: {g.errors[0].error}")
+    trials: dict[float, list] = {}
+    for r in sweep:
+        trials.setdefault(r["lr"], []).append(r)
+    losses = [r["loss"] for r in sweep + resume]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"tune_gpt2: non-finite losses {losses}")
+    if not all(r["on_cuda"] for r in sweep + resume):
+        fail("tune_gpt2: a trial's params left the card")
+    if not any(r["at_once"] == TUNE_CONCURRENT for r in sweep):
+        fail(f"tune_gpt2: no {TUNE_CONCURRENT} trials trained at once")
+    last = {lr: rows[-1]["step"] for lr, rows in trials.items()}
+    if sorted(last) != sorted(TUNE_LRS) or not (
+            min(last.values()) < TUNE_MAX_T == max(last.values())):
+        fail(f"tune_gpt2: ASHA cut no trial, or none finished: steps "
+             f"{last}, status {status}")
+    best = min(trials, key=lambda lr: trials[lr][-1]["loss"])
+    if not trials[best][-1]["loss"] < trials[best][0]["loss"]:
+        fail(f"tune_gpt2: the best trial's loss did not fall: "
+             f"{[r['loss'] for r in trials[best]]}")
+    L = GPT2Config.small().n_layer
+    per_step = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+                "paged_attention": 0}
+    for what, got, steps in (("sweep", sweep_launches, len(sweep)),
+                             ("sweep and resume", launches,
+                              len(sweep) + len(resume))):
+        want = {k: v * steps for k, v in per_step.items()}
+        if {k: got[k] for k in want} != want:
+            fail(f"tune_gpt2: {what} launches {got}, want {want} "
+                 f"({steps} steps)")
+    again = resume[n_first:]
+    before = {r["step"]: r["loss"] for r in resume[:n_first]}
+    if [r["step"] for r in again] != list(
+            range(TUNE_CKPT_EVERY + 1, TUNE_MAX_T + 1)) or \
+            not all(r["resumed"] for r in again):
+        fail(f"tune_gpt2: the restored trial ran steps "
+             f"{[r['step'] for r in again]}, want "
+             f"{TUNE_CKPT_EVERY + 1}-{TUNE_MAX_T} from its checkpoint")
+    unequal = [(r["step"], r["loss"], before[r["step"]]) for r in again
+               if r["loss"] != before[r["step"]]]
+    if unequal:
+        fail(f"tune_gpt2: restored losses differ from the first run's "
+             f"(step, restored, first): {unequal}")
+    saves = [r["save_s"] for r in sweep + resume if r["save_s"]]
+    loads = [r["load_s"] for r in again if r["load_s"]]
+    gb = sweep[0]["bytes"] / 1e9
+    two = [r["ms"] for r in sweep if r["step"] > 1 and r["at_once"] == 2]
+    alone = [r["ms"] for r in resume[:n_first] if r["step"] > 1]
+    row.update({
+        "model": "gpt2-small", "batch": TRAIN_BATCH, "lrs": TUNE_LRS,
+        "scheduler": f"ASHA(max_t={TUNE_MAX_T}, grace={TUNE_GRACE}, "
+                     f"rf={TUNE_RF})", "concurrent": TUNE_CONCURRENT,
+        "trials": {str(lr): {"steps": rows[-1]["step"],
+                             "losses": [r["loss"] for r in rows],
+                             "asha": status[lr]}
+                   for lr, rows in sorted(trials.items())},
+        "best_lr": best, "sweep_steps": len(sweep), "sweep_s": sweep_s,
+        "resume_losses": [r["loss"] for r in again],
+        "resume_losses_bitwise_equal": True,
+        "step_ms_two_at_once": spread(two) if two else "none ran at once",
+        "step_ms_alone": spread(alone),
+        "step_ms_note": "host clock around one step and the loss's read",
+        "slowest_steps": [(r["lr"], r["step"], r["at_once"], r["ms"])
+                          for r in sorted(sweep, key=lambda r: -r["ms"])[:4]],
+        "checkpoint_gb": gb, "saves": len(saves), "save_s": spread(saves),
+        "save_gb_per_s": gb / float(np.median(saves)),
+        "load_s": loads, "load_gb_per_s": [gb / x for x in loads],
+        "launches": launches, "launches_per_step": per_step,
+        "max_memory_allocated": peak,
+        "phase_s": time.perf_counter() - t_phase})
+    emit(row)
+    return launches
+
+
 def _paths(t, path=""):
     if isinstance(t, dict):
         for k in sorted(t):
@@ -4041,6 +4357,7 @@ def main() -> int:
     phase_dqn_cartpole(torch, card)
     phase_ppo_learners()
     paths["more_rl"] = phase_more_rl(torch, card)
+    paths["tune"] = phase_tune_gpt2(torch)
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),

@@ -38,21 +38,26 @@ class LaunchCounter:
     """Launches of one kernel in this process. Its wrapper adds one
     where it launches the kernel, and nowhere else, so a run can show
     that its main path went through the kernel; `by_shape` tallies the
-    same launches by the shape label the wrapper passes, if any."""
+    same launches by the shape label the wrapper passes, if any. Adds
+    from several threads (trials of a sweep training at once, autograd's
+    backward thread) are counted under a lock."""
 
     def __init__(self, name: str):
         self.name = name
-        self.count = 0
-        self.by_shape: dict[str, int] = {}
+        self._lock = threading.Lock()
+        self.count = 0  # guarded_by(_lock)
+        self.by_shape: dict[str, int] = {}  # guarded_by(_lock)
 
     def add(self, shape: str | None = None) -> None:
-        self.count += 1
-        if shape is not None:
-            self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
+        with self._lock:
+            self.count += 1
+            if shape is not None:
+                self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
 
     def reset(self) -> None:
-        self.count = 0
-        self.by_shape = {}
+        with self._lock:
+            self.count = 0
+            self.by_shape = {}
 
 
 def nvcc() -> str:

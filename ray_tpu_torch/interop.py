@@ -15,7 +15,9 @@ stride is static) go through `rl_params_from_jax` and
 `rl_params_to_jax`: the trees of ``init_mlp_policy`` (IMPALA, APPO,
 OPE), the catalog's modules, SAC's ``{"pi", "q1", "q2"}`` and
 DreamerV3's ``{"wm", "actor", "critic"}`` with its GRU and conv
-encoder.
+encoder. A JAX train state with optax's adam or adamw state becomes the
+port's `TrainState` through `train_state_from_jax` (the optimizer state
+through `opt_state_from_optax`).
 """
 
 from __future__ import annotations
@@ -102,3 +104,40 @@ def rl_params_to_jax(tree: Any, strides=()) -> Any:
         return host(t)
 
     return one(tree)
+
+
+def opt_state_from_optax(opt_state: Any):
+    """optax's ``adam`` / ``adamw`` state -> the port's `ScaleByAdamState`.
+
+    optax keeps a chain's states in a tuple: ``ScaleByAdamState(count,
+    mu, nu)`` first, then an ``EmptyState`` for each stateless part (the
+    decay, a constant learning rate). The port's `adam`/`adamw` keep the
+    one `ScaleByAdamState`, with `count` a host int and the moments as
+    float32 CPU tensors. Read by attribute: this module imports no
+    optax."""
+    from ray_tpu_torch.train.optim import ScaleByAdamState
+
+    states = opt_state if isinstance(opt_state, tuple) and not hasattr(
+        opt_state, "mu") else (opt_state,)
+    adam = [s for s in states if all(hasattr(s, a)
+                                     for a in ("count", "mu", "nu"))]
+    rest = [s for s in states if all(s is not a for a in adam)]
+    if len(adam) != 1 or any(len(s) for s in rest):
+        raise ValueError("not an optax adam/adamw state: want one "
+                         "ScaleByAdamState beside empty states, got "
+                         f"{[type(s).__name__ for s in states]}")
+    s = adam[0]
+    return ScaleByAdamState(count=int(np.asarray(s.count)),
+                            mu=params_from_jax(s.mu),
+                            nu=params_from_jax(s.nu))
+
+
+def train_state_from_jax(state: Any):
+    """A JAX package `TrainState` (params, optax adam/adamw state, a 0-d
+    step array) -> the port's `TrainState` on the CPU, float32, with a
+    host-int step and no accumulation buffer."""
+    from ray_tpu_torch.train.spmd import TrainState
+
+    return TrainState(params=params_from_jax(state.params),
+                      opt_state=opt_state_from_optax(state.opt_state),
+                      step=int(np.asarray(state.step)))

@@ -11,11 +11,25 @@
 - `adam` / `adamw` / `sgd`, `clip_by_global_norm`, `chain` and
   `global_norm` (`optim.py`): optax's optimizers with its defaults;
 - `StepWaterfall`, `enable_step_waterfall`, `data_wait`: per-step time
-  attribution.
+  attribution;
+- `Checkpoint`, `CheckpointConfig`, `CheckpointManager` (``checkpoint.py``):
+  directory checkpoints with top-k retention; ``checkpointing.py``'s
+  `save_train_state` / `load_train_state` write and read a train state
+  (DTensors included) in the JAX package's directory format, and read
+  the JAX package's checkpoints;
+- `report`, `get_context`, `get_checkpoint` (``session.py``): the train
+  session a worker reports through; `RunConfig` and `FailureConfig`
+  (``trainer.py``), which the Tuner takes.
 
-The worker group and the trainer are later slices (ROADMAP.md).
+The worker group and the trainer wait for the cluster runtime
+(ROADMAP.md).
 """
 
+from ray_tpu_torch.train.checkpoint import (
+    Checkpoint,
+    CheckpointConfig,
+    CheckpointManager,
+)
 from ray_tpu_torch.train.optim import (
     EmptyState,
     GradientTransformation,
@@ -27,6 +41,11 @@ from ray_tpu_torch.train.optim import (
     clip_by_global_norm,
     global_norm,
     sgd,
+)
+from ray_tpu_torch.train.session import (
+    get_checkpoint,
+    get_context,
+    report,
 )
 from ray_tpu_torch.train.spmd import (
     StepWaterfall,
@@ -42,10 +61,16 @@ from ray_tpu_torch.train.spmd import (
     zero1_shardings,
     zero_shardings,
 )
+from ray_tpu_torch.train.trainer import FailureConfig, RunConfig
 
 __all__ = [
+    "Checkpoint",
+    "CheckpointConfig",
+    "CheckpointManager",
     "EmptyState",
+    "FailureConfig",
     "GradientTransformation",
+    "RunConfig",
     "ScaleByAdamState",
     "StepWaterfall",
     "TraceState",
@@ -57,10 +82,13 @@ __all__ = [
     "clip_by_global_norm",
     "data_wait",
     "enable_step_waterfall",
+    "get_checkpoint",
+    "get_context",
     "global_norm",
     "init_sharded_state",
     "make_train_step",
     "optimizer_state_bytes",
+    "report",
     "sgd",
     "state_shardings",
     "waterfall",

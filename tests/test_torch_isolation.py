@@ -1,9 +1,9 @@
 """The port stands alone: no file of ray_tpu_torch/ nor chip_smoke.py
-imports jax or anything of the JAX package (ray_tpu), optax, flax or
-gymnasium (the card's machine has none of them), and importing the
-port's serving package or its RL package leaves jax and gymnasium out
-of sys.modules. It keeps its own copies of the JAX-free modules it
-needs, and its own envs."""
+imports jax or anything of the JAX package (ray_tpu), optax, flax,
+gymnasium or cloudpickle (the card's machine has none of them), and
+importing the port's core API, its serving package or its RL package
+leaves jax, gymnasium and cloudpickle out of sys.modules. It keeps its
+own copies of the JAX-free modules it needs, and its own envs."""
 
 import ast
 import os
@@ -25,7 +25,7 @@ def _port_files():
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
     return top in ("jax", "jaxlib", "ray_tpu", "optax", "flax",
-                   "gymnasium", "gym")
+                   "gymnasium", "gym", "cloudpickle")
 
 
 def _imports(path):
@@ -62,6 +62,22 @@ def test_no_jax_or_ray_tpu_import(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+def test_core_api_import_leaves_jax_and_cloudpickle_unloaded():
+    """`import ray_tpu_torch` loads the core API only: no jax, no
+    cloudpickle, and none of the serving, RL or training packages."""
+    code = ("import sys, ray_tpu_torch\n"
+            "assert ray_tpu_torch.init and ray_tpu_torch.remote\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ray_tpu', 'cloudpickle') or m.startswith("
+            "('ray_tpu_torch.serve', 'ray_tpu_torch.rllib', "
+            "'ray_tpu_torch.train')))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_serving_import_leaves_jax_unloaded():
     code = ("import sys, ray_tpu_torch.serve.llm, ray_tpu_torch.interop, "
             "ray_tpu_torch.train\n"
@@ -77,7 +93,8 @@ def test_serving_import_leaves_jax_unloaded():
 def test_rllib_import_leaves_jax_and_gymnasium_unloaded():
     code = ("import sys, ray_tpu_torch.rllib, ray_tpu_torch.tune\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'ray_tpu', 'gymnasium', 'gym', 'optax'))\n"
+            "('jax', 'jaxlib', 'ray_tpu', 'gymnasium', 'gym', 'optax', "
+            "'cloudpickle'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
