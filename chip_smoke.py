@@ -223,6 +223,31 @@ Phases, each of which exits non-zero on any failure:
    trial's losses and ASHA's decision, step ms (two at once, one
    alone), checkpoint save and load s and GB/s, peak memory and the
    phase's seconds; the checkpoints are removed at the end.
+13. the data layer on the local runtime (``ray_tpu_torch.data``,
+   DATA_* and OFFLINE_* below). data_gpt2: seeded token rows written as
+   jsonl, read back through the native line scanner (it must build),
+   shuffled with a seed, split into inputs and targets by map_batches
+   and fed by ``iter_torch_batches`` (pinned host copies onto the card)
+   into GPT-2-small's train step (train's recipe, bf16, full remat), 3 +
+   10 steps, each fetch inside ``spmd.data_wait()`` with the step
+   waterfall on, then again with it off. Fail unless every batch leaf
+   is a CUDA int64 tensor of (8, 1024), the batches equal the same
+   pipeline's on the CPU bit for bit and in order, K1/K2/K3 launch
+   exactly 24/12/12 a step, every loss is finite and the losses of both
+   runs equal, bit for bit, those of the same steps fed the CPU batches
+   copied to the card directly. Prints ingestion rows/s (the pipeline
+   alone), step ms (median, max; with and without the waterfall, fed
+   directly) beside the train phase's, data_wait ms a step and the
+   phase's seconds. offline_rl: a
+   CartPole PPO expert (phase 10's recipe, trained until its best return
+   passes 300 as the JAX offline test trains it, and at least to 195),
+   40 of its episodes recorded as jsonl, BC and MARWIL 30 iterations
+   each (BC's loss falling, each scoring above 150 over 10 greedy
+   episodes), importance sampling over the recording read back (finite
+   v_target, v_behavior > 0, >= 4 episodes), CQL on 600 recorded
+   Pendulum transitions, 10 iterations at cql_alpha 10 and at 0 (a
+   finite Bellman loss, ood_gap > 0 at 10 and above the gap at 0, the
+   four metrics): the JAX tests' bars; no K1-K4 launch.
 
 It prints one JSON line per kernel shape and per phase, K4's rows on
 the serving and rl paths with their launches there (by window and
@@ -473,6 +498,33 @@ TUNE_CKPT_EVERY = 4
 TUNE_RESUME_LR = 1e-3
 TUNE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "tune_gpt2")
+# data_gpt2 (phase 13): DATA_ROWS seeded token rows of TRAIN_BATCH[1] + 1
+# tokens (twice the DATA_WARMUP + DATA_STEPS batches of TRAIN_BATCH[0]
+# rows the run takes) written as jsonl under DATA_DIR, read back,
+# shuffled with DATA_SEED, split into inputs and targets and fed to
+# GPT-2-small's train step; offline_rl: a CartPole PPO expert trained to
+# OFFLINE_EXPERT_RETURN (the JAX offline test's loop) within
+# OFFLINE_EXPERT_ITERS iterations, OFFLINE_EPISODES recorded episodes,
+# BC and MARWIL OFFLINE_ITERS iterations each (the eval bar
+# OFFLINE_EVAL_BAR over OFFLINE_EVAL_EPISODES), IS over the recording,
+# and CQL on CQL_STEPS Pendulum transitions with test_cql.py's config
+DATA_WARMUP, DATA_STEPS = 3, 10
+DATA_ROWS = TRAIN_BATCH[0] * (DATA_WARMUP + DATA_STEPS) * 2
+DATA_SEED = 7
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "data_gpt2")
+OFFLINE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "offline_rl")
+OFFLINE_EXPERT_RETURN = 300.0
+OFFLINE_EXPERT_ITERS = 80
+OFFLINE_EPISODES = 40
+OFFLINE_ITERS = 30
+OFFLINE_EVAL_EPISODES = 10
+OFFLINE_EVAL_BAR = 150.0
+CQL_STEPS = 600
+CQL_ITERS = 10
+CQL_TRAINING = dict(hidden=(64, 64), train_batch_size=128, lr=1e-3,
+                    updates_per_iteration=32, seed=0)
 
 
 def fail(msg: str) -> None:
@@ -1738,12 +1790,14 @@ def _reset_counters():
     return counters
 
 
-def phase_train(torch) -> dict:
+def phase_train(torch, keep: dict | None = None) -> dict:
     """GPT-2-small training through the port's entry points: bf16
     compute, f32 masters, B=8 T=1024 random tokens (seed 0), one fixed
     batch, adamw(3e-4, weight_decay=0.1), remat on; TRAIN_WARMUP steps,
     then TRAIN_STEPS timed steps with the launch counters zeroed just
-    before and read just after, then a few steps under torch.profiler."""
+    before and read just after, then a few steps under torch.profiler.
+    `keep`, if given, takes the step ms (phase 13 prints them beside
+    its own)."""
     from ray_tpu_torch.models.gpt2 import (
         GPT2Config,
         count_params,
@@ -1795,6 +1849,8 @@ def phase_train(torch) -> dict:
     profile = profile_train(torch, step, state, batch)
     emit(row)
     emit(profile)
+    if keep is not None:
+        keep["step_ms"] = row["step_ms"]
     return launches
 
 
@@ -4300,6 +4356,324 @@ def phase_tune_gpt2(torch) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 13
+
+
+def _split_tokens(b: dict) -> dict:
+    return {"tokens": b["tokens"][:, :-1], "targets": b["tokens"][:, 1:]}
+
+
+def _token_pipeline(rd):
+    """read_json over DATA_DIR, the seeded shuffle, the input/target
+    split: the dataset phase 13 iterates."""
+    return (rd.read_json(DATA_DIR).random_shuffle(seed=DATA_SEED)
+            .map_batches(_split_tokens))
+
+
+def _gpt2_run(torch, cfg, batches, steps: int, fetch_wrap=None):
+    """GPT-2-small's train step (train's recipe, params from seed 0) over
+    `steps` batches drawn from the iterator `batches`, each fetch inside
+    ``fetch_wrap()`` if given, the launch counters zeroed just before
+    and read just after: (losses, step ms sorted, launches)."""
+    from ray_tpu_torch.models.gpt2 import gpt2_loss, init_gpt2
+    from ray_tpu_torch.train import TrainState, adamw, make_train_step
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    tx = adamw(3e-4, weight_decay=0.1)
+    state = TrainState.create(init_gpt2(gen, cfg), tx)
+    step = make_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx)
+    torch.cuda.synchronize()
+    counters = _reset_counters()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(steps + 1)]
+    losses = []
+    events[0].record()
+    for i in range(steps):
+        with (fetch_wrap() if fetch_wrap else contextlib.nullcontext()):
+            batch = next(batches)
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    launches = launch_counts(counters)
+    step_ms = sorted(events[i].elapsed_time(events[i + 1])
+                     for i in range(steps))
+    del state, step
+    release(torch)
+    return [float(x) for x in losses], step_ms, launches
+
+
+def phase_data_gpt2(torch, card: str, train_keep: dict) -> dict:
+    """Phase 13a: the data layer feeding GPT-2-small's training step on
+    the card. DATA_ROWS seeded token rows go through write_jsonl, then
+    read_json (the native line scanner), random_shuffle(seed=DATA_SEED),
+    map_batches into inputs and targets and iter_torch_batches onto the
+    card (pinned host copies), into DATA_WARMUP + DATA_STEPS train steps
+    (bf16, full remat), each fetch inside ``spmd.data_wait()`` with the
+    step waterfall on (the main path; its launches are the phase's),
+    then the same with the waterfall off. Fail unless every batch leaf
+    is a CUDA int64 tensor of TRAIN_BATCH's shape, the batches equal the
+    same pipeline's on the CPU bit for bit and in order, K1/K2/K3 launch
+    exactly 24/12/12 a step, every loss is finite and both runs' losses
+    equal those of the same steps fed the CPU pipeline's batches copied
+    to the card directly, bit for bit."""
+    import shutil
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.data import lineio
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.train import spmd
+
+    t_phase = time.perf_counter()
+    cfg = GPT2Config.small()
+    B, T = TRAIN_BATCH
+    steps = DATA_WARMUP + DATA_STEPS
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                            (DATA_ROWS, T + 1))
+    t0 = time.perf_counter()
+    native = lineio.native()  # builds csrc/lineio.cc on first call
+    lineio_build_s = time.perf_counter() - t0
+    if not native:
+        fail("data_gpt2: the native line scanner did not build")
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    ray.init(local_mode=True, num_gpus=1)
+    try:
+        t0 = time.perf_counter()
+        files = rd.from_numpy({"tokens": toks}, parallelism=8).write_jsonl(
+            DATA_DIR)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(f) for f in files)
+        t0 = time.perf_counter()
+        on_card = list(_token_pipeline(rd).iter_torch_batches(
+            batch_size=B))
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = list(_token_pipeline(rd).iter_torch_batches(
+            batch_size=B, device="cpu"))
+        ingest_cpu_s = time.perf_counter() - t0
+        if len(on_card) != DATA_ROWS // B or len(on_cpu) != len(on_card):
+            fail(f"data_gpt2: {len(on_card)} batches on the card, "
+                 f"{len(on_cpu)} on the CPU, want {DATA_ROWS // B}")
+        for i, (g, c) in enumerate(zip(on_card, on_cpu)):
+            for k in ("tokens", "targets"):
+                x = g[k]
+                if not (x.is_cuda and x.dtype == torch.int64
+                        and tuple(x.shape) == (B, T)):
+                    fail(f"data_gpt2: batch {i} {k} is {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+                if not torch.equal(x.cpu(), c[k]):
+                    fail(f"data_gpt2: batch {i} {k} differs from the CPU "
+                         f"pipeline's")
+        del on_card
+
+        torch.cuda.reset_peak_memory_stats()
+        spmd.waterfall.reset()
+        spmd.enable_step_waterfall(True)
+        try:
+            losses, step_ms, launches = _gpt2_run(
+                torch, cfg, _token_pipeline(rd).iter_torch_batches(
+                    batch_size=B), steps, spmd.data_wait)
+            fall = spmd.waterfall.summary()
+        finally:
+            spmd.enable_step_waterfall(False)
+            spmd.waterfall.reset()
+        peak = torch.cuda.max_memory_allocated()
+        # the same data-fed run with the waterfall off (data_wait() is
+        # then two clock reads): the step without the instrumentation's
+        # sync, beside the directly fed run
+        losses_off, off_ms, off_launches = _gpt2_run(
+            torch, cfg, _token_pipeline(rd).iter_torch_batches(
+                batch_size=B), steps, spmd.data_wait)
+        direct = iter([{k: torch.from_numpy(v.numpy()).to("cuda")
+                        for k, v in b.items()} for b in on_cpu])
+        losses_direct, direct_ms, direct_launches = _gpt2_run(
+            torch, cfg, direct, steps)
+    finally:
+        ray.shutdown()
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+    L = cfg.n_layer
+    per_step = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+                "paged_attention": 0}
+    for what, got in (("data-fed", launches),
+                      ("data-fed, waterfall off", off_launches),
+                      ("direct", direct_launches)):
+        want = {k: v * steps for k, v in per_step.items()}
+        if {k: got[k] for k in want} != want:
+            fail(f"data_gpt2: {what} launches {got}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"data_gpt2: non-finite losses {losses}")
+    if not losses == losses_off == losses_direct:
+        fail(f"data_gpt2: data-fed losses {losses} (waterfall off: "
+             f"{losses_off}) differ from the directly fed {losses_direct}")
+    phases = fall["phases"]
+    emit({"phase": "data_gpt2", "card": card, "model": "gpt2-small",
+          "batch": B, "seq": T, "rows": DATA_ROWS, "steps": steps,
+          "native_lineio": native, "lineio_build_s": lineio_build_s,
+          "jsonl_files": len(files), "jsonl_bytes": nbytes,
+          "write_jsonl_s": write_s,
+          "ingest_rows_per_s": DATA_ROWS / ingest_s,
+          "ingest_s": ingest_s, "ingest_cpu_s": ingest_cpu_s,
+          "batches_bitwise_equal_to_cpu": True,
+          "step_ms": spread(step_ms),
+          "step_ms_waterfall_off": spread(off_ms),
+          "step_ms_direct": spread(direct_ms),
+          "train_phase_step_ms": train_keep.get("step_ms"),
+          "data_wait_ms_per_step": 1e3 * phases.get("data_wait", 0.0)
+          / max(1, fall["steps"]),
+          "waterfall_ms_per_step": {k: 1e3 * v / max(1, fall["steps"])
+                                    for k, v in phases.items()},
+          "waterfall_note": "the waterfall syncs the card once a step",
+          "losses": losses, "losses_bitwise_equal_to_direct": True,
+          "launches": launches, "launches_per_step": per_step,
+          "max_memory_allocated": peak,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_offline_rl(torch, card: str) -> dict:
+    """Phase 13b: offline RL over the data layer on the card, the launch
+    counters zeroed just before and read just after (no K1-K4 launch:
+    MLPs). A CartPole PPO expert (phase 10's recipe) trained until its
+    best return passes OFFLINE_EXPERT_RETURN, as the JAX offline test
+    trains it, and at least to phase 10's PPO_TARGET; OFFLINE_EPISODES of
+    its episodes recorded as jsonl; BC and MARWIL OFFLINE_ITERS
+    iterations each (BC's loss must fall, each must score above
+    OFFLINE_EVAL_BAR); importance sampling over the recording read back
+    (finite v_target, v_behavior > 0, at least 4 episodes); CQL on
+    CQL_STEPS recorded Pendulum transitions at cql_alpha 10 and 0 (a
+    finite Bellman loss, ood_gap > 0 at 10 and above the gap at 0, the
+    four metrics). The bars are the JAX tests'."""
+    import shutil
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch.rllib import (BCConfig, CQLConfig, MARWILConfig,
+                                     PPOConfig, load_offline_dataset,
+                                     record_continuous_experiences,
+                                     record_experiences)
+    from ray_tpu_torch.rllib.ope import ImportanceSampling
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(OFFLINE_DIR, ignore_errors=True)
+    exp, pend = (os.path.join(OFFLINE_DIR, d) for d in ("cartpole",
+                                                        "pendulum"))
+    row = {"phase": "offline_rl", "card": card}
+    ray.init(local_mode=True, num_gpus=1)
+    counters = _reset_counters()
+    try:
+        t0 = time.perf_counter()
+        algo = (PPOConfig().environment("CartPole-v1")
+                .env_runners(**PPO_CARTPOLE)
+                .training(**PPO_CARTPOLE_TRAINING)).build()
+        best, iters = float("-inf"), 0
+        for iters in range(1, OFFLINE_EXPERT_ITERS + 1):
+            m = algo.train()["episode_return_mean"]
+            if m == m:
+                best = max(best, m)
+            if best > OFFLINE_EXPERT_RETURN:
+                break
+        expert = algo.get_weights()
+        algo.stop()
+        del algo
+        row["expert"] = {"iterations": iters, "best": best,
+                         "s": time.perf_counter() - t0}
+        if best < PPO_TARGET:
+            fail(f"offline_rl: the expert's best return {best} after "
+                 f"{iters} iterations is below {PPO_TARGET}")
+
+        t0 = time.perf_counter()
+        files = record_experiences("CartPole-v1", OFFLINE_EPISODES, exp,
+                                   params=expert, fmt="jsonl")
+        row["record"] = {"files": len(files),
+                         "s": time.perf_counter() - t0}
+        for name, cfg in (("bc", BCConfig()), ("marwil", MARWILConfig())):
+            t0 = time.perf_counter()
+            a = cfg.offline_data(exp).training(lr=1e-3).build()
+            on_cuda(f"offline_rl {name}", a.params)
+            losses = [a.train()["learner/loss"]
+                      for _ in range(OFFLINE_ITERS)]
+            train_s = time.perf_counter() - t0
+            ev = a.evaluate("CartPole-v1",
+                            num_episodes=OFFLINE_EVAL_EPISODES)
+            row[name] = {"rows": len(a._data["actions"]),
+                         "loss_first": losses[0], "loss_last": losses[-1],
+                         "train_s": train_s,
+                         "iteration_s": train_s / OFFLINE_ITERS,
+                         "eval": ev}
+            if name == "bc":
+                cloned = a.get_weights()
+                if not losses[-1] < losses[0]:
+                    fail(f"offline_rl: BC's loss did not fall: {losses}")
+            if not ev["episode_return_mean"] > OFFLINE_EVAL_BAR:
+                fail(f"offline_rl: {name} scored "
+                     f"{ev['episode_return_mean']}, not above "
+                     f"{OFFLINE_EVAL_BAR}")
+            a.stop()
+
+        rows = load_offline_dataset(exp).take_all()
+        estimator = ImportanceSampling(cloned, gamma=0.99)
+        on_cuda("offline_rl ope", estimator.params)
+        est = estimator.estimate(rows)
+        row["ope_is"] = est
+        if not (math.isfinite(est["v_target"]) and est["v_behavior"] > 0
+                and est["num_episodes"] >= 4):
+            fail(f"offline_rl: importance sampling over the recording: "
+                 f"{est}")
+
+        t0 = time.perf_counter()
+        record_continuous_experiences("Pendulum-v1", CQL_STEPS, pend,
+                                      seed=3)
+        row["cql_record_s"] = time.perf_counter() - t0
+        gaps, cql_rows = {}, {}
+        for alpha in (10.0, 0.0):
+            t0 = time.perf_counter()
+            a = (CQLConfig().offline_data(pend).environment("Pendulum-v1")
+                 .training(cql_alpha=alpha, **CQL_TRAINING)).build()
+            on_cuda("offline_rl cql", a.params, a.target_q)
+            for _ in range(CQL_ITERS):
+                r = a.train()
+            missing = [k for k in ("learner/bellman_loss",
+                                   "learner/conservative_gap",
+                                   "learner/actor_loss", "alpha")
+                       if k not in r]
+            if missing:
+                fail(f"offline_rl: CQL metrics missing: {missing}")
+            if not math.isfinite(r["learner/bellman_loss"]):
+                fail(f"offline_rl: CQL Bellman loss {r}")
+            gaps[alpha] = a.ood_gap()
+            train_s = time.perf_counter() - t0
+            cql_rows[str(alpha)] = {
+                "last": {k: r[k] for k in ("learner/bellman_loss",
+                                           "learner/conservative_gap",
+                                           "learner/actor_loss", "alpha")},
+                "ood_gap": gaps[alpha], "train_s": train_s,
+                "updates_per_s": CQL_ITERS * CQL_TRAINING[
+                    "updates_per_iteration"] / train_s}
+            a.stop()
+        row["cql"] = cql_rows
+        if not gaps[10.0] > 0.0:
+            fail(f"offline_rl: CQL's ood_gap at cql_alpha=10 is "
+                 f"{gaps[10.0]}, not above 0")
+        if not gaps[10.0] > gaps[0.0]:
+            fail(f"offline_rl: CQL's gap at cql_alpha=10 ({gaps[10.0]}) "
+                 f"is not above the gap at 0 ({gaps[0.0]})")
+        launches = launch_counts(counters)
+    finally:
+        ray.shutdown()
+        shutil.rmtree(OFFLINE_DIR, ignore_errors=True)
+    if any(v for k, v in launches.items() if k != "paged_attention_by_shape"):
+        fail(f"offline_rl: K1-K4 launched on the offline RL path: "
+             f"{launches}")
+    row.update({"launches": launches,
+                "kernels_launched": "none of K1-K4 (MLPs)",
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "phase_s": time.perf_counter() - t_phase})
+    emit(row)
+    return launches
+
+
 def _paths(t, path=""):
     if isinstance(t, dict):
         for k in sorted(t):
@@ -4338,7 +4712,8 @@ def main() -> int:
              "serve_spec": phase_engine_spec(torch),
              "serve_llama": phase_engine_llama(torch, ref_llama)}
     paths["tiny"], paths["serve_large_pages"] = phase_tiny(torch)
-    paths["train"] = phase_train(torch)
+    train_keep: dict = {}
+    paths["train"] = phase_train(torch, train_keep)
     release(torch)
     paths["train_llama"] = phase_train_llama(torch)
     paths["remat"] = phase_remat(torch)
@@ -4358,6 +4733,8 @@ def main() -> int:
     phase_ppo_learners()
     paths["more_rl"] = phase_more_rl(torch, card)
     paths["tune"] = phase_tune_gpt2(torch)
+    paths["data_gpt2"] = phase_data_gpt2(torch, card, train_keep)
+    paths["offline_rl"] = phase_offline_rl(torch, card)
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),

@@ -38,9 +38,11 @@ pipeline schedules with the 1F1B schedule math, the expert-parallel MoE
 layer and the pipelined transformer; classic RL
 (``ray_tpu_torch.rllib``): PPO, DQN, IMPALA/APPO, SAC, DreamerV3,
 multi-agent PPO and OPE on the port's own envs; the core API in local
-mode (``ray_tpu_torch.core``); and Tune (``ray_tpu_torch.tune``): the
+mode (``ray_tpu_torch.core``); Tune (``ray_tpu_torch.tune``): the
 Tuner and its schedulers, running trials as actors of the local
-runtime. See ROADMAP.md.
+runtime; and the data layer (``ray_tpu_torch.data``) on the local
+runtime, with ``iter_torch_batches`` feeding a train step and offline
+RL (BC, MARWIL, CQL, OPE) over recorded datasets. See ROADMAP.md.
 """
 
 from ray_tpu_torch._version import __version__

@@ -9,6 +9,10 @@ and each entry point returns ``cudaGetLastError()`` after its launch.
 Nothing is built when a module is imported; a wrapper builds and loads
 its library at its first launch, and `build_all` starts every nvcc at
 once (chip_smoke.py calls it first, so that the builds run in parallel).
+
+The host libraries, ``csrc/<name>.cc`` (the data layer's line scanner,
+``lineio.cc``), compile with the host C++ compiler through `build_host`
+into the same directory under the same digest scheme.
 """
 
 from __future__ import annotations
@@ -119,6 +123,49 @@ def build_all(names=KERNELS) -> dict[str, dict]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out
+
+
+HOST_CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+
+
+def host_cxx() -> str | None:
+    """The host C++ compiler: $CXX, c++ or g++ on PATH; None if none."""
+    for c in (os.environ.get("CXX"), "c++", "g++"):
+        path = c and shutil.which(c)
+        if path:
+            return path
+    return None
+
+
+def host_library_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cc`` lands for this source."""
+    h = hashlib.sha1(" ".join(HOST_CXX_FLAGS).encode())
+    with open(os.path.join(CSRC, f"{name}.cc"), "rb") as f:
+        h.update(f"{name}.cc".encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+
+
+def build_host(name: str) -> str | None:
+    """Compile ``csrc/<name>.cc`` with the host C++ compiler unless it is
+    built already; returns the library's path, or None where there is
+    no compiler or the build fails (the caller then takes its
+    pure-Python path)."""
+    target = host_library_path(name)
+    if os.path.exists(target):
+        return target
+    cxx = host_cxx()
+    if cxx is None:
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        subprocess.run([cxx, *HOST_CXX_FLAGS, "-o", tmp,
+                        os.path.join(CSRC, f"{name}.cc")],
+                       check=True, capture_output=True, timeout=120)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    os.replace(tmp, target)
+    return target
 
 
 def load(name: str) -> ctypes.CDLL:

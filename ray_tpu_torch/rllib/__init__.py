@@ -25,10 +25,14 @@ Ported so far:
   (IS, WIS, DR) over in-memory rows. The seeded conv learners run
   cuDNN's deterministic algorithms (`catalog.deterministic_convs`).
 
-Still to come (ROADMAP.md): CQL, BC and MARWIL and OPE over a recorded
-dataset, which need the data layer of the runtime; and the remote env
-runners, which are actors and wait for the runtime
-(``num_env_runners > 0`` raises).
+- offline RL over ``ray_tpu_torch.data`` on the local runtime:
+  experience recording (`record_experiences`,
+  `record_continuous_experiences`), `load_offline_dataset`, BC and
+  MARWIL, and CQL on the SAC networks; OPE over a recorded dataset
+  reads it back through the same layer.
+
+Still to come (ROADMAP.md): the remote env runners, which are actors
+and wait for the cluster runtime (``num_env_runners > 0`` raises).
 """
 
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
@@ -41,6 +45,11 @@ from ray_tpu_torch.rllib.connectors import (
     FrameStack,
     GeneralAdvantageEstimation,
     NormalizeImage,
+)
+from ray_tpu_torch.rllib.cql import (
+    CQL,
+    CQLConfig,
+    record_continuous_experiences,
 )
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig, ReplayBuffer
 from ray_tpu_torch.rllib.dreamerv3 import DreamerV3, DreamerV3Config
@@ -62,6 +71,13 @@ from ray_tpu_torch.rllib.multi_agent import (
     MultiAgentPPOConfig,
     MultiRLModule,
 )
+from ray_tpu_torch.rllib.offline import (
+    BC,
+    BCConfig,
+    MARWILConfig,
+    load_offline_dataset,
+    record_experiences,
+)
 from ray_tpu_torch.rllib.ope import (
     DoublyRobust,
     ImportanceSampling,
@@ -82,6 +98,10 @@ __all__ = [
     "APPOConfig",
     "Algorithm",
     "AlgorithmConfig",
+    "BC",
+    "BCConfig",
+    "CQL",
+    "CQLConfig",
     "Catalog",
     "ConnectorPipeline",
     "ConnectorV2",
@@ -99,6 +119,7 @@ __all__ = [
     "IMPALA",
     "IMPALAConfig",
     "ImportanceSampling",
+    "MARWILConfig",
     "MetricsLogger",
     "MultiAgentEnv",
     "MultiAgentPPO",
@@ -119,6 +140,9 @@ __all__ = [
     "SumTree",
     "WeightedImportanceSampling",
     "compute_gae",
+    "load_offline_dataset",
+    "record_continuous_experiences",
+    "record_experiences",
     "split_episodes",
     "vtrace",
 ]

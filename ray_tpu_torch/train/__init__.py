@@ -17,8 +17,9 @@
   `save_train_state` / `load_train_state` write and read a train state
   (DTensors included) in the JAX package's directory format, and read
   the JAX package's checkpoints;
-- `report`, `get_context`, `get_checkpoint` (``session.py``): the train
-  session a worker reports through; `RunConfig` and `FailureConfig`
+- `report`, `get_context`, `get_checkpoint`, `get_dataset_shard`
+  (``session.py``): the train session a worker reports through and
+  reads its shard of a dataset from; `RunConfig` and `FailureConfig`
   (``trainer.py``), which the Tuner takes.
 
 The worker group and the trainer wait for the cluster runtime
@@ -45,6 +46,7 @@ from ray_tpu_torch.train.optim import (
 from ray_tpu_torch.train.session import (
     get_checkpoint,
     get_context,
+    get_dataset_shard,
     report,
 )
 from ray_tpu_torch.train.spmd import (
@@ -84,6 +86,7 @@ __all__ = [
     "enable_step_waterfall",
     "get_checkpoint",
     "get_context",
+    "get_dataset_shard",
     "global_norm",
     "init_sharded_state",
     "make_train_step",

@@ -1,6 +1,6 @@
-"""Per-worker training session: context + report(). The port's copy of
-``ray_tpu/train/session.py`` (pure Python), without
-``get_dataset_shard``, which waits for the data layer.
+"""Per-worker training session: context, report() and
+get_dataset_shard(). The port's copy of ``ray_tpu/train/session.py``
+(pure Python).
 
 Reference parity: _TrainSession (train/_internal/session.py:112,
 report :405) and the public ray.train.get_context()/report API. The
@@ -133,3 +133,18 @@ def get_checkpoint() -> Checkpoint | None:
     """The checkpoint to resume from, if the run was restored."""
     s = get_session()
     return s.resume_checkpoint if s else None
+
+
+def get_dataset_shard(name: str = "train"):
+    """This worker's shard of a Dataset passed to the trainer's
+    ``datasets=`` (reference: ray.train.get_dataset_shard — the
+    prepare_data_loader role: per-worker streaming ingestion)."""
+    s = get_session()
+    if s is None:
+        raise RuntimeError("get_dataset_shard() outside a train worker")
+    shard = s.dataset_shards.get(name)
+    if shard is None:
+        raise KeyError(
+            f"no dataset {name!r} was passed to the trainer "
+            f"(have: {sorted(s.dataset_shards)})")
+    return shard

@@ -2,7 +2,9 @@
 imports jax or anything of the JAX package (ray_tpu), optax, flax,
 gymnasium or cloudpickle (the card's machine has none of them), and
 importing the port's core API, its serving package or its RL package
-leaves jax, gymnasium and cloudpickle out of sys.modules. It keeps its
+leaves jax, gymnasium and cloudpickle out of sys.modules, and importing
+its data layer and offline RL leaves pyarrow out too (the card's
+machine has no pyarrow). It keeps its
 own copies of the JAX-free modules it needs, and its own envs."""
 
 import ast
@@ -102,12 +104,27 @@ def test_rllib_import_leaves_jax_and_gymnasium_unloaded():
     assert out.returncode == 0, out.stderr
 
 
+def test_data_and_offline_rl_import_leaves_pyarrow_unloaded():
+    code = ("import sys, ray_tpu_torch.data, ray_tpu_torch.rllib.offline, "
+            "ray_tpu_torch.rllib.cql\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('pyarrow', 'jax', 'jaxlib', 'ray_tpu', 'gymnasium', 'gym', "
+            "'cloudpickle'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_import_builds_nothing():
     """Importing the port compiles no kernel: the build directory is
     touched only at a wrapper's first launch on a card."""
     code = ("import ray_tpu_torch._build as b, ray_tpu_torch.ops.attention,"
-            " ray_tpu_torch.ops.paged_attention, ray_tpu_torch.train\n"
-            "assert not b._libs, b._libs\n")
+            " ray_tpu_torch.ops.paged_attention, ray_tpu_torch.train,"
+            " ray_tpu_torch.data.lineio as lio\n"
+            "assert not b._libs, b._libs\n"
+            "assert lio._lib is None, lio._lib\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
