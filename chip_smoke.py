@@ -270,6 +270,35 @@ Phases, each of which exits non-zero on any failure:
    task whose worker crashes must be retried to its result, and GPU
    must be back to 1.0 available; shutdown() must leave no worker
    process and no store segment in /dev/shm. Prints the phase's seconds.
+15. Train and Tune on the cluster runtime, on a fresh ``init()`` after
+   the driver's CUDA cache is emptied (TRAINER_* and TUNE_CLUSTER_RES
+   below). trainer_gpt2: ``TorchTrainer`` runs a loop defined here (JAX's
+   `_gpt2_loop` at GPT-2-small: the mesh phase's model, batch and adamw
+   on a ``data`` mesh over the gang, stage 0, a `save_train_state`
+   checkpoint every 4 steps and at the last, a report every step) on a
+   one-worker ``use_gpu`` gang joined over NCCL: run A 13 steps
+   uninterrupted; run B the same with rank 0's process exiting at step
+   9 on its first try, ``FailureConfig(max_failures=1)``, two
+   checkpoints kept, so the gang restarts from the step-8 checkpoint.
+   Fail unless both finish, run B restarted once into a new pid that saw
+   the card, every step of every worker launched K1/K2/K3 exactly
+   24/12/12 in its own process, every loss is finite, run B's losses
+   (after the restart too) equal run A's bit for bit, and run A's are
+   within MESH_RTOL of the mesh phase's stage-0 losses when that phase
+   ran. Prints step ms (median, max; CUDA events in the worker) beside
+   the mesh phase's, the seconds from the crash to the new gang's first
+   report and where they went (the death seen to the new process, its
+   imports and rendezvous, init and the checkpoint's load, the first
+   step), checkpoint save and load GB/s and each worker's peak memory.
+   tune_cluster: phase 12's ASHA sweep and restore through the Tuner
+   with each trial a worker process of its own claiming half the card:
+   fail unless two trial processes trained at once, each process
+   launched 24/12/12 a step, every loss is finite and a trial restored
+   from its checkpoint in a new process repeats the first run's losses
+   bit for bit. Prints step ms with two trial processes at once and one
+   alone beside phase 12's two threads and one, and each process's peak
+   memory. shutdown() must leave no worker process and no store
+   segment. Prints the phase's seconds.
 
 It prints one JSON line per kernel shape and per phase, K4's rows on
 the serving and rl paths with their launches there (by window and
@@ -556,6 +585,21 @@ CLUSTER_RTT_WARMUP, CLUSTER_RTT_CALLS = 50, 300
 CLUSTER_PUT_BYTES = 256 << 20
 CLUSTER_GPT2_STEPS = 13
 CLUSTER_WAIT_S = 60.0  # every get and wait of the phase
+# trainer_gpt2 (phase 15): TorchTrainer on a one-worker use_gpu gang,
+# TRAINER_STEPS steps of the mesh phase's GPT-2-small stage-0 run (its
+# warm-up and timed steps, so the losses line up), a save_train_state
+# checkpoint every TRAINER_CKPT_EVERY steps and at the last (1.49 GB
+# each, two kept, under TRAINER_DIR, removed at the end); run B's rank 0
+# exits its process at step TRAINER_CRASH_AT on its first try and the
+# gang restarts from the step-8 checkpoint. tune_cluster: phase 12's
+# sweep and restore with each trial in a worker process of its own,
+# claiming TUNE_CLUSTER_RES (two trials share the card)
+TRAINER_STEPS = MESH_WARMUP + MESH_STEPS
+TRAINER_CKPT_EVERY = 4
+TRAINER_CRASH_AT = 9
+TRAINER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "trainer_gpt2")
+TUNE_CLUSTER_RES = {"CPU": 1.0, "GPU": 0.5}
 
 
 def fail(msg: str) -> None:
@@ -2178,7 +2222,7 @@ def _worst_rel(a: dict, b: dict) -> float:
                for x, y in zip(a[key], b[key]))
 
 
-def phase_mesh(torch) -> dict:
+def phase_mesh(torch, keep: dict | None = None) -> dict:
     """The mesh path on a one-rank NCCL process group: GPT-2-small
     through ``init_sharded_state`` and ``make_train_step(mesh=, rules=,
     zero_stage=)`` at each of MESH_STAGES, Llama-small at stage 3, and
@@ -2190,7 +2234,8 @@ def phase_mesh(torch) -> dict:
     (of the steps, and of `init_sharded_state`, which makes the whole
     state before laying it out) and the collectives of one step
     (CommDebugMode). Returns the launches of the mesh runs' timed
-    steps."""
+    steps; `keep`, if given, takes GPT-2's stage-0 losses (warm-up steps
+    first) and step ms, which phase 15's trainer is held against."""
     import torch.distributed as dist
     from torch.distributed.tensor.debug import CommDebugMode
 
@@ -2259,6 +2304,9 @@ def phase_mesh(torch) -> dict:
                 for k, n in row["launches"].items():
                     total[k] = total.get(k, 0) + n
                 rows[f"zero{stage}"] = row
+                if keep is not None and model == "gpt2" and stage == 0:
+                    keep.update(losses=row["losses"],
+                                step_ms=row["step_ms"])
                 del state, step
                 release(torch)
             emit({"phase": "mesh", "model": f"{model}-small", "world": 1,
@@ -4173,15 +4221,20 @@ def _tune_trial(torch, record, live, config):
     ``config["ckpt_at"]`` (kept by a CheckpointManager, one a trial),
     resumed from `tune.get_checkpoint()` through `load_train_state`.
     Appends one dict a step to `record`, with how many trials were in
-    their loops (`live`) when it ended; checks are the caller's."""
+    their loops (`live`, a set within one process, or None) when it
+    ended, its wall-clock start and end, this process's pid, peak memory
+    and K1-K3 launches so far; checks are the caller's."""
     from ray_tpu_torch import train, tune
     from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_loss, init_gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.train.checkpointing import (
         load_train_state,
         save_train_state,
     )
     from ray_tpu_torch.util import tree
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cfg = GPT2Config.small()
     B, T = TRAIN_BATCH
     gen = torch.Generator(device="cuda")
@@ -4206,18 +4259,26 @@ def _tune_trial(torch, record, live, config):
         os.path.join(TUNE_DIR, "trials", name),
         train.CheckpointConfig(num_to_keep=1))
     step = train.make_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx)
+    live = set() if live is None else live
     live.add(name)
     try:
         while state.step < config["steps"]:
+            start = time.time()
             t0 = time.perf_counter()
             state, m = step(state, batch)
             loss = float(m["loss"])
             row = {"lr": config["lr"], "step": state.step, "loss": loss,
                    "ms": (time.perf_counter() - t0) * 1e3,
+                   "start": start, "end": time.time(),
                    "at_once": len(live), "resumed": ckpt is not None,
                    "load_s": load_s, "bytes": state_bytes, "save_s": None,
                    "on_cuda": all(t.is_cuda
-                                  for t in tree.leaves(state.params))}
+                                  for t in tree.leaves(state.params)),
+                   "pid": os.getpid(),
+                   "peak": torch.cuda.max_memory_allocated(),
+                   "launches": {"flash_fwd": fa.LAUNCHES.count,
+                                "flash_dq": fa.LAUNCHES_DQ.count,
+                                "flash_dkv": fa.LAUNCHES_DKV.count}}
             load_s = None
             shipped = None
             if state.step in config["ckpt_at"]:
@@ -4240,13 +4301,14 @@ def _trial_status(exp_dir: str) -> dict:
                 for t in json.load(f)["trials"]}
 
 
-def phase_tune_gpt2(torch) -> dict:
+def phase_tune_gpt2(torch, keep: dict | None = None) -> dict:
     """Phase 12: the core API in local mode on the card, an ASHA sweep
     of GPT-2-small's learning rate through the Tuner (trials training at
     once through K1-K3, checkpointing their train state), and a trial
     restored from its checkpoint with bitwise-equal losses. The launch
     counters are zeroed just before the sweep and read after the sweep
-    and after the restore."""
+    and after the restore. `keep`, if given, takes the step ms two at
+    once and alone (phase 15 prints them beside its trial processes')."""
     import functools
     import shutil
 
@@ -4384,6 +4446,9 @@ def phase_tune_gpt2(torch) -> dict:
         "max_memory_allocated": peak,
         "phase_s": time.perf_counter() - t_phase})
     emit(row)
+    if keep is not None:
+        keep.update(two_at_once=row["step_ms_two_at_once"],
+                    alone=row["step_ms_alone"])
     return launches
 
 
@@ -5099,6 +5164,470 @@ def phase_cluster(torch, card: str, train_keep: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 15
+
+
+def _trainer_loop(config):
+    """Phase 15's train loop: JAX's `_gpt2_loop` (tests/test_train_lib.py)
+    at GPT-2-small, in a TorchTrainer worker's process. The mesh phase's
+    model, batch and optimizer (`_mesh_model`) on a ``data`` mesh over
+    the gang at ZeRO stage 0; resumes from `train.get_checkpoint()`;
+    a `save_train_state` checkpoint every ``config["ckpt_every"]`` steps
+    and at the last, which rank 0 reports; a report every step with the
+    loss, the step's ms (CUDA events), this process's K1/K2/K3 launches
+    in the step, its pid, card, peak memory and the wall clock. At
+    ``config["crash_at"]`` on a first try, rank 0 waits for the driver
+    to drain its reports, writes the wall clock to ``crashed_at`` in the
+    trial dir and exits its process. (`fail` is not called here.)"""
+    import torch
+    import torch.distributed as dist
+
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.train import checkpointing
+    from ray_tpu_torch.train import session as S
+    from ray_tpu_torch.train.spmd import optimizer_state_bytes
+
+    loop_start = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = train.get_context()
+    _, init_fn, loss_fn, rules, batch = _mesh_model(torch, "gpt2")
+    mesh = build_mesh(MeshSpec(data=-1))
+    tx = train.adamw(3e-4, weight_decay=0.1)
+    state = train.init_sharded_state(init_fn, tx, mesh, rules)
+    step_fn = train.make_train_step(loss_fn, tx, mesh=mesh, rules=rules,
+                                    zero_stage=0)
+    state_bytes = optimizer_state_bytes(state.params) + \
+        optimizer_state_bytes(state.opt_state)
+    ck = train.get_checkpoint()
+    start, load_s = 0, None
+    if ck is not None:
+        t0 = time.perf_counter()
+        state = checkpointing.load_train_state(ck.path, state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        start = int(state.step)
+    torch.cuda.synchronize()
+    ready = time.time()
+    counters = _reset_counters()
+    for step in range(start, config["steps"]):
+        if config.get("crash_at") == step and ck is None and \
+                ctx.get_world_rank() == 0:
+            deadline = time.monotonic() + 30
+            while not S.get_session().results.empty() and \
+                    time.monotonic() < deadline:
+                time.sleep(0.05)
+            time.sleep(0.5)  # pop->register window
+            with open(os.path.join(ctx.get_trial_dir(), "crashed_at"),
+                      "w") as f:
+                f.write(repr(time.time()))
+            os._exit(1)
+        before = {k: c.count for k, c in counters.items()}
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        state, m = step_fn(state, batch)
+        end_ev.record()
+        end_ev.synchronize()
+        row = {"step": step, "loss": float(m["loss"]),
+               "ms": start_ev.elapsed_time(end_ev),
+               "launches": {k: c.count - before[k]
+                            for k, c in counters.items()},
+               "pid": os.getpid(), "card": torch.cuda.get_device_name(0),
+               "backend": dist.get_backend(), "wall": time.time(),
+               "peak": torch.cuda.max_memory_allocated(),
+               "bytes": state_bytes, "load_s": load_s, "save_s": None,
+               "process_start": _process_start(), "loop_start": loop_start,
+               "ready": ready}
+        load_s = None
+        ckpt = None
+        if (step + 1) % config["ckpt_every"] == 0 or \
+                step == config["steps"] - 1:
+            # collective save: every rank calls in; rank 0 reports
+            t0 = time.perf_counter()
+            tmp = os.path.join(ctx.get_trial_dir(), f"pending_ckpt_{step}")
+            checkpointing.save_train_state(state, tmp)
+            row["save_s"] = time.perf_counter() - t0
+            if ctx.get_world_rank() == 0:
+                ckpt = train.Checkpoint(tmp)
+        train.report(row, checkpoint=ckpt)
+
+
+def _process_start() -> float:
+    """This process's start on the wall clock (Linux: its start in clock
+    ticks after boot, from /proc)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(line.split()[1]) for line in f
+                     if line.startswith("btime"))
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+class _TrialRows:
+    """`_tune_trial`'s record across processes: each process appends its
+    rows as JSON lines to a file of its own under `path`."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def append(self, row: dict) -> None:
+        os.makedirs(self.path, exist_ok=True)
+        with open(os.path.join(self.path, f"{os.getpid()}.jsonl"),
+                  "a") as f:
+            f.write(json.dumps(row) + "\n")
+
+    def read(self) -> list[dict]:
+        rows = []
+        for name in sorted(os.listdir(self.path)):
+            with open(os.path.join(self.path, name)) as f:
+                rows += [json.loads(line) for line in f]
+        return rows
+
+
+def _overlap_share(r: dict, rows: list[dict]) -> float:
+    """The share of step `r`'s wall-clock interval that steps of other
+    processes among `rows` cover."""
+    others = sorted((o["start"], o["end"]) for o in rows
+                    if o["pid"] != r["pid"] and o["end"] > r["start"]
+                    and o["start"] < r["end"])
+    covered, at = 0.0, r["start"]
+    for start, end in others:
+        start, end = max(start, at), min(end, r["end"])
+        if end > start:
+            covered += end - start
+            at = end
+    return covered / (r["end"] - r["start"])
+
+
+def _cluster_trial(config):
+    """Phase 12's trial (`_tune_trial`) in a trial actor's process, its
+    rows kept in files under ``config["rows"]``; the launch counters are
+    zeroed just before the trial's run."""
+    import torch
+
+    _reset_counters()
+    _tune_trial(torch, _TrialRows(config["rows"]), None, config)
+
+
+def _trainer_runs(torch, card: str, mesh_ref: dict) -> tuple[dict, dict]:
+    """trainer_gpt2: runs A and B (see phase_trainer_tune); returns its
+    row and the launches of both runs."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.train import (
+        CheckpointConfig,
+        FailureConfig,
+        RunConfig,
+        ScalingConfig,
+        TorchTrainer,
+    )
+
+    out = {}
+    for run, crash, failures in (("A", None, 0), ("B", TRAINER_CRASH_AT, 1)):
+        t0 = time.perf_counter()
+        try:
+            result = TorchTrainer(
+                _trainer_loop,
+                train_loop_config={"steps": TRAINER_STEPS,
+                                   "ckpt_every": TRAINER_CKPT_EVERY,
+                                   "crash_at": crash},
+                scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                run_config=RunConfig(
+                    name=f"run_{run}", storage_path=TRAINER_DIR,
+                    failure_config=FailureConfig(max_failures=failures),
+                    checkpoint_config=CheckpointConfig(num_to_keep=2)),
+            ).fit()
+        except Exception as e:  # noqa: BLE001
+            fail(f"trainer_gpt2: run {run} failed: {e}")
+        out[run] = {"history": result.metrics_history,
+                    "fit_s": time.perf_counter() - t0,
+                    "checkpoint": result.checkpoint}
+    a, b = out["A"]["history"], out["B"]["history"]
+    crash_file = os.path.join(TRAINER_DIR, "run_B", "crashed_at")
+    if not os.path.exists(crash_file):
+        fail("trainer_gpt2: run B's rank 0 never crashed")
+    with open(crash_file) as f:
+        crashed_at = float(f.read())
+    L = GPT2Config.small().n_layer
+    per_step = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+                "paged_attention": 0}
+    for r in a + b:
+        if r["launches"] != per_step:
+            fail(f"trainer_gpt2: step {r['step']} in pid {r['pid']} "
+                 f"launched {r['launches']}, want {per_step}")
+        if not math.isfinite(r["loss"]):
+            fail(f"trainer_gpt2: non-finite loss at step {r['step']}")
+        if r["card"] != torch.cuda.get_device_name(0) or \
+                r["backend"] != "nccl":
+            fail(f"trainer_gpt2: a worker ran on {r['card']} over "
+                 f"{r['backend']}, not {torch.cuda.get_device_name(0)} "
+                 f"over nccl")
+    want_a = list(range(TRAINER_STEPS))
+    before = [r for r in b if r["wall"] < crashed_at]
+    after = [r for r in b if r["wall"] >= crashed_at]
+    resume_at = (TRAINER_CRASH_AT // TRAINER_CKPT_EVERY) * TRAINER_CKPT_EVERY
+    if [r["step"] for r in a] != want_a or \
+            [r["step"] for r in before] != list(range(TRAINER_CRASH_AT)) or \
+            [r["step"] for r in after] != list(range(resume_at,
+                                                     TRAINER_STEPS)):
+        fail(f"trainer_gpt2: steps A {[r['step'] for r in a]}, B "
+             f"{[r['step'] for r in b]} (crash at {TRAINER_CRASH_AT}, "
+             f"resume at {resume_at})")
+    pids_b = [{r["pid"] for r in before}, {r["pid"] for r in after}]
+    if any(len(p) != 1 for p in pids_b) or pids_b[0] == pids_b[1]:
+        fail(f"trainer_gpt2: run B's pids before and after the restart "
+             f"{pids_b}: want one each, distinct")
+    loss_a = {r["step"]: r["loss"] for r in a}
+    unequal = [(r["step"], r["loss"], loss_a[r["step"]]) for r in b
+               if r["loss"] != loss_a[r["step"]]]
+    if unequal:
+        fail(f"trainer_gpt2: run B's losses differ from run A's "
+             f"(step, B, A): {unequal}")
+    row = {"phase": "trainer_gpt2", "card": card, "model": "gpt2-small",
+           "batch": TRAIN_BATCH, "workers": 1, "backend": "nccl",
+           "steps": TRAINER_STEPS, "ckpt_every": TRAINER_CKPT_EVERY,
+           "crash_at": TRAINER_CRASH_AT, "resumed_at": resume_at,
+           "losses_a": [r["loss"] for r in a],
+           "losses_b_after_restart": [r["loss"] for r in after],
+           "losses_b_bitwise_equal_to_a": True,
+           "pids_a": sorted({r["pid"] for r in a}),
+           "pids_b": [sorted(p) for p in pids_b],
+           "fit_s": {k: v["fit_s"] for k, v in out.items()},
+           "launches_per_step": per_step}
+    if mesh_ref.get("losses"):
+        worst = max(abs(x - y) / abs(y) for x, y in
+                    zip(row["losses_a"], mesh_ref["losses"]))
+        if worst > MESH_RTOL:
+            fail(f"trainer_gpt2: run A's losses {row['losses_a']} against "
+                 f"the mesh phase's {mesh_ref['losses']} (rtol "
+                 f"{MESH_RTOL})")
+        row["max_rel_diff_from_mesh_phase"] = worst
+    else:
+        row["max_rel_diff_from_mesh_phase"] = "mesh phase not run"
+    steady = [r["ms"] for r in a[1:]]
+    saves = [r["save_s"] for r in a + b if r["save_s"]]
+    gb = a[0]["bytes"] / 1e9
+    row.update({
+        "step_ms": spread(steady), "first_step_ms": a[0]["ms"],
+        "mesh_phase_step_ms": mesh_ref.get("step_ms", "mesh phase not run"),
+        "step_ms_note": "CUDA events around each step in the worker; "
+                        "the first step left out",
+        "restart_s": after[0]["wall"] - crashed_at,
+        "restart_note": "the crash's wall clock to the first report of "
+                        "the new gang (its spawn, rendezvous, init, "
+                        "checkpoint load and one step)",
+        "restart_split_s": _gang_split(after[0], crashed_at),
+        "first_start_split_s": _gang_split(a[0], None),
+        "load_s": after[0]["load_s"],
+        "checkpoint_gb": gb, "saves": len(saves), "save_s": spread(saves),
+        "save_gb_per_s": gb / float(np.median(saves)),
+        "load_gb_per_s": gb / after[0]["load_s"],
+        "peak_bytes_by_pid": {str(p): max(r["peak"] for r in a + b
+                                          if r["pid"] == p)
+                              for p in {r["pid"] for r in a + b}}})
+    emit(row)
+    launches = {k: v * len(a + b) for k, v in per_step.items()}
+    return row, launches
+
+
+def _gang_split(first: dict, since: float | None) -> dict:
+    """Where a gang's start went, from its first report: `since` (the
+    crash) to its worker's process start (the death seen, the old group
+    torn down, a placement group, a spawn), then to the loop's entry
+    (torch's import, the CUDA context, the rendezvous), to the state
+    ready (init, the mesh, a checkpoint's load), to the first report
+    (the first step and its save)."""
+    out = {"to_loop": first["loop_start"] - first["process_start"],
+           "to_ready": first["ready"] - first["loop_start"],
+           "to_first_report": first["wall"] - first["ready"]}
+    if since is not None:
+        out = {"to_process_start": first["process_start"] - since, **out}
+    return out
+
+
+def _tune_cluster(torch, card: str, tune_ref: dict) -> tuple[dict, dict]:
+    """tune_cluster: phase 12's sweep and restore with each trial in a
+    worker process of its own (see phase_trainer_tune)."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.train import RunConfig
+
+    def trials(run: str, lrs, ckpt_at, **tune_kw):
+        return tune.Tuner(
+            _cluster_trial,
+            param_space={"lr": tune.grid_search(list(lrs)), "run": run,
+                         "steps": TUNE_MAX_T, "ckpt_at": ckpt_at,
+                         "rows": os.path.join(TUNE_DIR, "rows", run)},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min",
+                trial_resources=TUNE_CLUSTER_RES, **tune_kw),
+            run_config=RunConfig(name=run, storage_path=TUNE_DIR))
+
+    t0 = time.perf_counter()
+    sweep_grid = trials(
+        "cluster_sweep", TUNE_LRS,
+        list(range(TUNE_CKPT_EVERY, TUNE_MAX_T + 1, TUNE_CKPT_EVERY)),
+        max_concurrent_trials=TUNE_CONCURRENT,
+        scheduler=tune.ASHAScheduler(max_t=TUNE_MAX_T,
+                                     grace_period=TUNE_GRACE,
+                                     reduction_factor=TUNE_RF)).fit()
+    sweep_s = time.perf_counter() - t0
+    status = _trial_status(os.path.join(TUNE_DIR, "cluster_sweep"))
+    first_grid = trials("cluster_resume", [TUNE_RESUME_LR],
+                        [TUNE_CKPT_EVERY]).fit()
+    exp = os.path.join(TUNE_DIR, "cluster_resume")
+    resume_rows = _TrialRows(os.path.join(TUNE_DIR, "rows",
+                                          "cluster_resume"))
+    n_first = len(resume_rows.read())
+    with open(os.path.join(exp, "tuner_state.json")) as f:
+        state = json.load(f)
+    state["trials"][0]["status"] = "RUNNING"  # as if it died at the end
+    with open(os.path.join(exp, "tuner_state.json"), "w") as f:
+        json.dump(state, f)
+    restored = tune.Tuner.restore(exp, _cluster_trial)
+    restored.tune_config = tune.TuneConfig(
+        metric="loss", mode="min", trial_resources=TUNE_CLUSTER_RES)
+    restored_grid = restored.fit()
+
+    for what, g in (("sweep", sweep_grid), ("resume", first_grid),
+                    ("restore", restored_grid)):
+        if g.errors:
+            fail(f"tune_cluster: a {what} trial failed: {g.errors[0].error}")
+    sweep = _TrialRows(os.path.join(TUNE_DIR, "rows",
+                                    "cluster_sweep")).read()
+    resume = resume_rows.read()
+    rows = sweep + resume
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        fail(f"tune_cluster: non-finite losses {[r['loss'] for r in rows]}")
+    if not all(r["on_cuda"] for r in rows):
+        fail("tune_cluster: a trial's params left the card")
+    # a step ran "at once" when other trial processes' steps cover at
+    # least half of its wall-clock interval
+    for r in sweep:
+        r["overlap"] = _overlap_share(r, sweep)
+    two = [r for r in sweep if r["overlap"] >= 0.5]
+    if len({r["pid"] for r in two}) < TUNE_CONCURRENT:
+        fail(f"tune_cluster: no {TUNE_CONCURRENT} trial processes trained "
+             f"at once (pids of the steps that overlap another "
+             f"process's: {sorted({r['pid'] for r in two})})")
+    if os.getpid() in {r["pid"] for r in rows}:
+        fail("tune_cluster: a trial ran in the driver's process")
+    L = GPT2Config.small().n_layer
+    per_step = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
+    by_pid: dict[int, list] = {}
+    by_run: dict[tuple, list] = {}
+    for r in rows:
+        by_pid.setdefault(r["pid"], []).append(r)
+        by_run.setdefault((r["pid"], r["lr"], r["resumed"]), []).append(r)
+    launches = {k: 0 for k in per_step}
+    for (pid, lr, _), prows in by_run.items():
+        want = {k: v * len(prows) for k, v in per_step.items()}
+        if prows[-1]["launches"] != want:
+            fail(f"tune_cluster: trial lr={lr} in process {pid} launched "
+                 f"{prows[-1]['launches']} in {len(prows)} steps, want "
+                 f"{want}")
+        for k in launches:
+            launches[k] += want[k]
+    again = resume[n_first:]
+    before = {r["step"]: r["loss"] for r in resume[:n_first]}
+    if [r["step"] for r in again] != list(
+            range(TUNE_CKPT_EVERY + 1, TUNE_MAX_T + 1)) or \
+            not all(r["resumed"] for r in again):
+        fail(f"tune_cluster: the restored trial ran steps "
+             f"{[r['step'] for r in again]}, want "
+             f"{TUNE_CKPT_EVERY + 1}-{TUNE_MAX_T} from its checkpoint")
+    if {r["pid"] for r in again} & {r["pid"] for r in resume[:n_first]}:
+        fail("tune_cluster: the restored trial ran in its first process")
+    unequal = [(r["step"], r["loss"], before[r["step"]]) for r in again
+               if r["loss"] != before[r["step"]]]
+    if unequal:
+        fail(f"tune_cluster: restored losses differ from the first run's "
+             f"(step, restored, first): {unequal}")
+    two_ms = [r["ms"] for r in two if r["step"] > 1]
+    alone = [r["ms"] for r in resume[:n_first] if r["step"] > 1]
+    row = {"phase": "tune_cluster", "card": card, "model": "gpt2-small",
+           "batch": TRAIN_BATCH, "lrs": TUNE_LRS,
+           "trial_resources": TUNE_CLUSTER_RES,
+           "concurrent": TUNE_CONCURRENT, "sweep_s": sweep_s,
+           "trials": {str(lr): {"steps": max(r["step"] for r in sweep
+                                             if r["lr"] == lr),
+                                "asha": status[lr]}
+                      for lr in TUNE_LRS},
+           "trial_pids": sorted(by_pid),
+           "resume_losses": [r["loss"] for r in again],
+           "resume_losses_bitwise_equal": True,
+           "step_ms_two_processes_at_once": (spread(two_ms) if two_ms
+                                             else "none ran at once"),
+           "steps_at_once": len(two_ms),
+           "steps_at_once_note": "sweep steps (the first of each trial "
+                                 "left out) whose wall-clock interval other "
+                                 "trial processes' steps cover for at "
+                                 "least half its length",
+           "overlap_by_step": [(r["lr"], r["step"], round(r["overlap"], 3))
+                               for r in sweep],
+           "step_ms_alone": spread(alone),
+           "phase12_two_threads_at_once": tune_ref.get(
+               "two_at_once", "phase 12 not run"),
+           "phase12_alone": tune_ref.get("alone", "phase 12 not run"),
+           "step_ms_note": "host clock around one step and the loss's read",
+           "peak_bytes_by_pid": {str(p): max(r["peak"] for r in prows)
+                                 for p, prows in by_pid.items()},
+           "launches": launches, "launches_per_step": per_step}
+    emit(row)
+    return row, {**launches, "paged_attention": 0}
+
+
+def phase_trainer_tune(torch, card: str, keep: dict) -> dict:
+    """Phase 15: Train and Tune on the cluster runtime, on its own
+    ``init()`` after the driver's CUDA cache is emptied (see the
+    docstring); returns the launches of the paths trainer_gpt2 and
+    tune_cluster. `keep` may hold the mesh phase's GPT-2 losses and step
+    ms (``keep["mesh"]``) and phase 12's step ms (``keep["tune"]``)."""
+    import shutil
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch.core import object_store
+    from ray_tpu_torch.core.api import _global_runtime
+
+    t_phase = time.perf_counter()
+    release(torch)
+    for d in (TRAINER_DIR, TUNE_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+    ray.init()
+    rt = _global_runtime()
+    store_name = rt.store.name
+    seen_pids: set = set()
+    try:
+        trainer_row, trainer_launches = _trainer_runs(
+            torch, card, keep.get("mesh", {}))
+        tune_row, tune_launches = _tune_cluster(torch, card,
+                                                keep.get("tune", {}))
+        seen_pids.update(_worker_pids(rt))
+    finally:
+        ray.shutdown()
+        for d in (TRAINER_DIR, TUNE_DIR):
+            shutil.rmtree(d, ignore_errors=True)
+    seen_pids.update(trainer_row["pids_a"], *trainer_row["pids_b"],
+                     tune_row["trial_pids"])
+    alive = []
+    for pid in seen_pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    if alive:
+        fail(f"trainer_tune: worker processes {alive} outlived shutdown()")
+    if os.path.exists(os.path.join(object_store._SHM_DIR, store_name)):
+        fail(f"trainer_tune: store segment {store_name} outlived "
+             f"shutdown()")
+    emit({"phase": "trainer_tune_shutdown", "card": card,
+          "worker_pids_checked": len(seen_pids),
+          "phase_s": time.perf_counter() - t_phase})
+    return {"trainer_gpt2": trainer_launches, "tune_cluster": tune_launches}
+
+
 def _paths(t, path=""):
     if isinstance(t, dict):
         for k in sorted(t):
@@ -5122,45 +5651,83 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
 
+    seconds: dict = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = now - t_lap[0]
+        t_lap[0] = now
+
     card = phase_device(torch)
+    lap("device_and_build")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     check_hopper(torch, gen)
     k1 = check_flash(torch, gen)
+    lap("check_flash")
     k23 = check_flash_bwd(torch, gen)
+    lap("check_flash_bwd")
     k4 = check_paged(torch, gen)
+    lap("check_paged")
     paged = phase_engine(torch)
+    lap("engine")
     ref_default, ref_llama = {}, {}
     paths = {"serve": paged["launches"],
              "serve_default": phase_engine_default(torch, paged,
                                                    ref_default),
              "serve_spec": phase_engine_spec(torch),
              "serve_llama": phase_engine_llama(torch, ref_llama)}
+    lap("engine_default_spec_llama")
     paths["tiny"], paths["serve_large_pages"] = phase_tiny(torch)
+    lap("tiny")
     train_keep: dict = {}
     paths["train"] = phase_train(torch, train_keep)
+    lap("train")
     release(torch)
     paths["train_llama"] = phase_train_llama(torch)
+    lap("train_llama")
     paths["remat"] = phase_remat(torch)
+    lap("remat")
     release(torch)
-    paths["mesh"] = phase_mesh(torch)
+    refs: dict = {"mesh": {}, "tune": {}}
+    paths["mesh"] = phase_mesh(torch, refs["mesh"])
+    lap("mesh")
     for model in ("gpt2", "llama"):
         phase_parity(torch, model)
+    lap("parity")
     paths.update(phase_rl(torch, card))
+    lap("rl")
     paths.update(phase_serve_mesh(torch, ref_default, ref_llama))
+    lap("serve_mesh")
     paths["ulysses"] = phase_ulysses(torch)
+    lap("ulysses")
     phase_moe(torch)
+    lap("moe")
     phase_pipelined(torch)
+    lap("pipelined")
     phase_ppo_cartpole(torch, card)
+    lap("ppo_cartpole")
     phase_ppo_pixel(torch, card)
+    lap("ppo_pixel")
     phase_ppo_learner_atari(torch, card)
+    lap("ppo_learner_atari")
     phase_dqn_cartpole(torch, card)
+    lap("dqn_cartpole")
     phase_ppo_learners()
+    lap("ppo_learners")
     paths["more_rl"] = phase_more_rl(torch, card)
-    paths["tune"] = phase_tune_gpt2(torch)
+    lap("more_rl")
+    paths["tune"] = phase_tune_gpt2(torch, refs["tune"])
+    lap("tune_gpt2")
     paths["data_gpt2"] = phase_data_gpt2(torch, card, train_keep)
+    lap("data_gpt2")
     paths["offline_rl"] = phase_offline_rl(torch, card)
+    lap("offline_rl")
     paths["cluster_gpt2"] = phase_cluster(torch, card, train_keep)
+    lap("cluster")
+    paths.update(phase_trainer_tune(torch, card, refs))
+    lap("trainer_tune")
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),
@@ -5247,6 +5814,8 @@ def main() -> int:
             "tflops": main_row["tflops"],
             "share_of_bound": main_row["share_of_bound"],
             "shape": main_row["shape"], "dtype": main_row["dtype"]})
+    emit({"phase_seconds": seconds,
+          "total_s": sum(seconds.values())})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -19,11 +19,13 @@
   the JAX package's checkpoints;
 - `report`, `get_context`, `get_checkpoint`, `get_dataset_shard`
   (``session.py``): the train session a worker reports through and
-  reads its shard of a dataset from; `RunConfig` and `FailureConfig`
-  (``trainer.py``), which the Tuner takes.
-
-The worker group and the trainer wait for the cluster runtime
-(ROADMAP.md).
+  reads its shard of a dataset from;
+- `TorchTrainer`, `ScalingConfig`, `RunConfig`, `FailureConfig`,
+  `Result`, `TrainingFailedError` (``trainer.py``) and the worker group
+  (``worker_group.py``): a gang of worker processes on the cluster
+  runtime, joined by a ``torch.distributed`` process group, running a
+  train loop with gang restart from the latest checkpoint and elastic
+  sizing.
 """
 
 from ray_tpu_torch.train.checkpoint import (
@@ -63,7 +65,14 @@ from ray_tpu_torch.train.spmd import (
     zero1_shardings,
     zero_shardings,
 )
-from ray_tpu_torch.train.trainer import FailureConfig, RunConfig
+from ray_tpu_torch.train.trainer import (
+    FailureConfig,
+    Result,
+    RunConfig,
+    ScalingConfig,
+    TorchTrainer,
+    TrainingFailedError,
+)
 
 __all__ = [
     "Checkpoint",
@@ -72,11 +81,15 @@ __all__ = [
     "EmptyState",
     "FailureConfig",
     "GradientTransformation",
+    "Result",
     "RunConfig",
     "ScaleByAdamState",
+    "ScalingConfig",
     "StepWaterfall",
+    "TorchTrainer",
     "TraceState",
     "TrainState",
+    "TrainingFailedError",
     "adam",
     "adamw",
     "batch_shardings",

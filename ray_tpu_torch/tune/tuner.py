@@ -5,20 +5,25 @@ TuneController event loop (tune/execution/tune_controller.py:68, step
 :666): trials are actors; the controller starts up to the concurrency
 limit, polls reports, consults the scheduler (ASHA early stopping), and
 persists experiment state so `Tuner.restore` can finish interrupted
-sweeps. Trials run as actors on the task/actor runtime (in the JAX
-package each can itself be a trainer's fit, how Train rides Tune in the
-reference, base_trainer.py:577-623; the port's trainer waits for the
-cluster runtime).
+sweeps. Trials run as actors on the task/actor runtime — each can itself
+be a `TorchTrainer` fit (trainer-in-trial, how Train rides Tune in the
+reference, base_trainer.py:577-623): the trial's actor then drives a
+gang of its own.
 
-The port's copy of ``ray_tpu/tune/tuner.py``, on the port's local
-runtime (``ray_tpu_torch.init(local_mode=True)``), with two deviations:
+The port's copy of ``ray_tpu/tune/tuner.py``. On the cluster runtime
+(``ray_tpu_torch.init()``) each `TrialActor` is a worker process of its
+own: the trainable and each reported checkpoint blob cross processes,
+``trial_resources`` with ``GPU`` shows the trial the card, and a PBT
+exploit, a resize or a stop ends the trial's process. In local mode
+(``init(local_mode=True)``) trials are threads of the driver's process.
+Deviations from the JAX package:
 
-- Checkpoint blobs (what a trainable reports with ``checkpoint=``) are
-  written with the standard `pickle`, not cloudpickle. The trainable is
-  handed to each `TrialActor` as an object: the local runtime passes
-  arguments within the process, so nothing else is pickled. A trainable
-  that only cloudpickle could ship would fail only under the cluster
-  runtime, which is not ported.
+- The trainable travels through the port's pickler
+  (``core/serialization.py``), not cloudpickle: by value when it is
+  defined in ``__main__``, inside a function or as a lambda, by
+  reference otherwise, and then the workers must be able to import its
+  module. Checkpoint blobs (what a trainable reports with
+  ``checkpoint=``) are written with the standard `pickle`.
 - The trial session is bound to the trial's thread, not held in one
   module global: `report` and `get_checkpoint`, called from the thread
   that runs the trainable, find that trial's own session, so trials

@@ -1,8 +1,8 @@
 """The port stands alone: no file of ray_tpu_torch/ nor chip_smoke.py
 imports jax or anything of the JAX package (ray_tpu), optax, flax,
 gymnasium, cloudpickle or zmq (the card's machine has none of them),
-importing the cluster runtime leaves jax, zmq and cloudpickle out of
-sys.modules, and
+importing the cluster runtime, the trainer and worker group, or the
+Tuner leaves jax, zmq and cloudpickle out of sys.modules, and
 importing the port's core API, its serving package or its RL package
 leaves jax, gymnasium and cloudpickle out of sys.modules, and importing
 its data layer and offline RL leaves pyarrow out too (the card's
@@ -90,6 +90,20 @@ def test_cluster_runtime_import_leaves_jax_zmq_and_cloudpickle_unloaded():
             "ray_tpu_torch.core.worker_main, ray_tpu_torch.cluster_utils\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu', 'zmq', 'cloudpickle', 'torch'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_trainer_and_tuner_import_leave_jax_zmq_and_cloudpickle_unloaded():
+    """The trainer and worker group (which ship loops through the port's
+    pickler) and the Tuner import neither jax nor zmq nor cloudpickle."""
+    code = ("import sys, ray_tpu_torch.train.trainer, "
+            "ray_tpu_torch.train.worker_group, ray_tpu_torch.tune.tuner\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ray_tpu', 'zmq', 'cloudpickle'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
