@@ -261,7 +261,7 @@ Phases, each of which exits non-zero on any failure:
    num_gpus=0.5 actors must both run on the card while a third stays
    PENDING until one is killed. cluster_gpt2: GPT-2-small's f32 params
    and the train phase's batch (seed 0) are put by the driver; a
-   num_gpus=1 actor of a class defined here (pickled by value) takes 13
+   num_gpus=1 actor of a class defined here (pickled by value) takes 7
    steps of train's recipe and returns its losses, step ms (CUDA events)
    and its process's launch counters: K1/K2/K3 exactly 24/12/12 a step,
    every loss finite and equal, bit for bit, to the same steps run in
@@ -276,7 +276,7 @@ Phases, each of which exits non-zero on any failure:
    `_gpt2_loop` at GPT-2-small: the mesh phase's model, batch and adamw
    on a ``data`` mesh over the gang, stage 0, a `save_train_state`
    checkpoint every 4 steps and at the last, a report every step) on a
-   one-worker ``use_gpu`` gang joined over NCCL: run A 13 steps
+   one-worker ``use_gpu`` gang joined over NCCL: run A 10 steps
    uninterrupted; run B the same with rank 0's process exiting at step
    9 on its first try, ``FailureConfig(max_failures=1)``, two
    checkpoints kept, so the gang restarts from the step-8 checkpoint.
@@ -299,6 +299,26 @@ Phases, each of which exits non-zero on any failure:
    alone beside phase 12's two threads and one, and each process's peak
    memory. shutdown() must leave no worker process and no store
    segment. Prints the phase's seconds.
+16. pipeline_gpt2: the MPMD pipeline strategy on the cluster runtime,
+   on a fresh ``init()`` (PIPELINE_* below): the pipelined transformer
+   at PIPELINED_CFG (GPT-2-small's widths, 12 virtual stages, batch 8 x
+   1024, M = 4, f32, SGD 1e-2) from the params phase 9 makes (seed 13
+   on the card) and phase 9's batch, with two stage processes sharing
+   the card (each claiming PIPELINE_STAGE_RES). Run A:
+   ``TorchTrainer(strategy="pipeline")``, flat 1F1B, 3 steps and a
+   checkpoint at the end; run B: ``PipelineStrategy(num_repeats=2)``
+   directly (the interleaved schedule, 4 virtual stages), 2 steps.
+   Fail unless both runs' first two losses are within PIPELINED_RTOL
+   of phase 9's in-program losses, the losses fall, every stage process
+   has a pid other than the driver's and sees the card, every step's
+   bubble is in [0, 1) beside the theoretical (S-1)/(S-1+M) and
+   (S-1)/(R*M+S-1), run A's checkpoint read back by
+   ``load_pipeline_checkpoint`` equals its final params bit for bit, no
+   stage process launched K1-K4, and shutdown() leaves no worker
+   process and no store segment. Prints step seconds beside phase 9's,
+   the measured and theoretical bubble, the bytes that cross stages in
+   a step and the seconds those hops took, each stage process's peak
+   memory and the phase's seconds.
 
 It prints one JSON line per kernel shape and per phase, K4's rows on
 the serving and rl paths with their launches there (by window and
@@ -503,8 +523,8 @@ DQN_ITERS = 20
 # size S keeps the config's B=8 T=16 H=15 and replays 16 batches an
 # iteration (training_ratio 32: the JAX test's 16 updates of its smaller
 # batches); on pixels it is the JAX test's XS recipe
-F3_ITERS = 10
-UPDATE_ALONE = 20  # learner steps timed with the learner thread stopped
+F3_ITERS = 6
+UPDATE_ALONE = 10  # learner steps timed with the learner thread stopped
 IMPALA_CARTPOLE = dict(num_env_runners=0, num_envs_per_env_runner=16,
                        rollout_fragment_length=64)
 IMPALA_TARGET = 195.0
@@ -581,25 +601,37 @@ CQL_TRAINING = dict(hidden=(64, 64), train_batch_size=128, lr=1e-3,
 # CLUSTER_RTT_CALLS round trips timed one by one after CLUSTER_RTT_WARMUP;
 # CLUSTER_GPT2_STEPS train steps in the GPU actor and again in the driver
 CLUSTER_STORE_BYTES = 1536 << 20
-CLUSTER_RTT_WARMUP, CLUSTER_RTT_CALLS = 50, 300
+CLUSTER_RTT_WARMUP, CLUSTER_RTT_CALLS = 20, 100
 CLUSTER_PUT_BYTES = 256 << 20
-CLUSTER_GPT2_STEPS = 13
+CLUSTER_GPT2_STEPS = 7
 CLUSTER_WAIT_S = 60.0  # every get and wait of the phase
 # trainer_gpt2 (phase 15): TorchTrainer on a one-worker use_gpu gang,
-# TRAINER_STEPS steps of the mesh phase's GPT-2-small stage-0 run (its
-# warm-up and timed steps, so the losses line up), a save_train_state
-# checkpoint every TRAINER_CKPT_EVERY steps and at the last (1.49 GB
-# each, two kept, under TRAINER_DIR, removed at the end); run B's rank 0
+# TRAINER_STEPS steps of the mesh phase's GPT-2-small stage-0 run (the
+# first of its warm-up and timed steps, so the losses line up), a
+# save_train_state checkpoint every TRAINER_CKPT_EVERY steps and at the
+# last (1.49 GB each, two kept, under TRAINER_DIR, removed at the end); run B's rank 0
 # exits its process at step TRAINER_CRASH_AT on its first try and the
 # gang restarts from the step-8 checkpoint. tune_cluster: phase 12's
 # sweep and restore with each trial in a worker process of its own,
 # claiming TUNE_CLUSTER_RES (two trials share the card)
-TRAINER_STEPS = MESH_WARMUP + MESH_STEPS
+TRAINER_STEPS = 10  # <= MESH_WARMUP + MESH_STEPS
 TRAINER_CKPT_EVERY = 4
 TRAINER_CRASH_AT = 9
 TRAINER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "trainer_gpt2")
 TUNE_CLUSTER_RES = {"CPU": 1.0, "GPU": 0.5}
+# pipeline_gpt2 (phase 16): two stage processes share the card, each
+# claiming PIPELINE_STAGE_RES; run A (TorchTrainer, flat 1F1B) takes
+# PIPELINE_A_STEPS steps and checkpoints at the last under PIPELINE_DIR
+# (removed at the end), run B (PipelineStrategy, PIPELINE_B_REPEATS
+# virtual stages a process) PIPELINE_B_STEPS
+PIPELINE_STAGE_RES = {"CPU": 1.0, "GPU": 0.5}
+PIPELINE_STAGES = 2
+PIPELINE_A_STEPS = 3
+PIPELINE_B_STEPS = 2
+PIPELINE_B_REPEATS = 2
+PIPELINE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "pipeline_gpt2")
 
 
 def fail(msg: str) -> None:
@@ -3285,13 +3317,15 @@ def phase_moe(torch) -> None:
     release(torch)
 
 
-def phase_pipelined(torch) -> None:
+def phase_pipelined(torch, keep: dict | None = None) -> None:
     """The pipelined transformer (``models.pipelined``) at PIPELINED_CFG
     on a one-rank NCCL (pipe=1, fsdp=1) mesh, params laid out by
     `pipelined_shardings`: the chain of `stage_apply` over
     PIPELINED_CHAIN_STAGES stages (no mesh) against the first step's
     `pipelined_loss`, then two `pipelined_train_step`s; the loss must
-    fall. Step ms and peak memory."""
+    fall. Step ms and peak memory. `keep`, if given, takes the batch
+    (host tokens), the losses and the step ms (phase 16 holds its runs
+    against them)."""
     from torch.distributed.tensor import Replicate, distribute_tensor
 
     from ray_tpu_torch.models.pipelined import (
@@ -3358,6 +3392,8 @@ def phase_pipelined(torch) -> None:
     if not row["stage_chain"]["rel_diff"] <= PIPELINED_RTOL:
         fail(f"pipelined: the stage chain's loss {chain} against "
              f"pipelined_loss's {losses[0]} (rtol {PIPELINED_RTOL})")
+    if keep is not None:
+        keep.update(tokens=toks.cpu().numpy(), losses=losses, step_ms=ms)
     release(torch)
 
 
@@ -5628,6 +5664,246 @@ def phase_trainer_tune(torch, card: str, keep: dict) -> dict:
     return {"trainer_gpt2": trainer_launches, "tune_cluster": tune_launches}
 
 
+# ------------------------------------------------------------ phase 16
+
+
+def _hops(stage_stats: list[dict], S: int, R: int, M: int) -> dict:
+    """The activations and cotangents of one step that crossed stages,
+    from each stage's op spans (their clock is the host's monotonic
+    one, shared by the processes): a hop runs from its producer's end
+    to its consumer's start. `stalled_s` is what the consumer waited for
+    each hop once it was free (its start less the later of the hop's
+    producer's end and its own previous op's end; the call's dispatch
+    included); `latency_s` is the whole gap of the hops whose consumer
+    sat idle at the producer's end (the put, the dispatch, the get)."""
+    V = S * R
+    ops, prev_end = {}, {}
+    for st in stage_stats:
+        spans = sorted(st["op_spans"], key=lambda o: o[3])
+        for i, (kind, v, mb, t0, t1) in enumerate(spans):
+            ops[(kind, v, mb)] = (t0, t1)
+            prev_end[(kind, v, mb)] = spans[i - 1][4] if i else None
+    stalled, latency = [], []
+    for (kind, v, mb), (t0, _) in ops.items():
+        src = ((kind, v - 1, mb) if kind == "fwd" and v > 0 else
+               ("bwd", v + 1, mb) if kind == "bwd" and v < V - 1 else None)
+        if src is None or v % S == src[1] % S:
+            continue  # an input from the driver, or the same process
+        produced = ops[src][1]
+        before = prev_end[(kind, v, mb)]
+        stalled.append(t0 - max(produced, before or produced))
+        if before is None or before <= produced:
+            latency.append(t0 - produced)
+    return {"hops": len(stalled), "stalled_s_sum": float(sum(stalled)),
+            "stalled_s_median": float(np.median(stalled)),
+            "idle_consumer_hops": len(latency),
+            "latency_s_median": (float(np.median(latency)) if latency
+                                 else None),
+            "latency_s_max": float(max(latency)) if latency else None}
+
+
+def phase_pipeline_gpt2(torch, card: str, keep: dict) -> dict:
+    """Phase 16: the MPMD pipeline strategy (``train.pipeline_strategy``)
+    on a fresh ``init()`` (see the docstring); `keep` holds phase 9's
+    batch, losses and step ms. Returns the launches of K1-K4 in the
+    stage processes (the path pipeline_gpt2)."""
+    import shutil
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch.core import object_store
+    from ray_tpu_torch.core.api import _global_runtime
+    from ray_tpu_torch.parallel.pipeline import (
+        theoretical_bubble,
+        theoretical_bubble_interleaved,
+    )
+    from ray_tpu_torch.train import (
+        CheckpointConfig,
+        RunConfig,
+        ScalingConfig,
+        TorchTrainer,
+    )
+    from ray_tpu_torch.train import pipeline_strategy as P
+    from ray_tpu_torch.util import tree
+
+    t_phase = time.perf_counter()
+    if not keep.get("losses"):
+        fail("pipeline_gpt2: phase 9 (pipelined) made no reference")
+    release(torch)
+    shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+    toks = keep["tokens"]
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    S, M = PIPELINE_STAGES, PIPELINED_CFG["num_microbatches"]
+    # each stage gang, read just before it shuts down (the trainer shuts
+    # its strategy down inside fit()); run A's final params too
+    gangs: list[dict] = []
+    real_shutdown = P.PipelineStrategy.shutdown
+
+    def shutdown(self):
+        if self.wg.workers:
+            gangs.append({"procs": self.wg.execute("process_stats"),
+                          "stage_stats": self.last_stage_stats})
+            if len(gangs) == 1:
+                gangs[0]["full_params"] = self.full_params()
+        real_shutdown(self)
+
+    counters = _reset_counters()
+    os.environ["RAY_TPU_OBJECT_STORE_BYTES"] = str(CLUSTER_STORE_BYTES)
+    try:
+        ray.init()
+    finally:
+        os.environ.pop("RAY_TPU_OBJECT_STORE_BYTES", None)
+    rt = _global_runtime()
+    store_name = rt.store.name
+    seen_pids: set = set()
+    P.PipelineStrategy.shutdown = shutdown
+    runs = {}
+    try:
+        t0 = time.perf_counter()
+        try:
+            result = TorchTrainer(
+                strategy="pipeline",
+                train_loop_config={
+                    "model": PIPELINED_CFG, "batch": batch,
+                    "steps": PIPELINE_A_STEPS, "num_stages": S,
+                    "num_microbatches": M, "lr": 1e-2, "seed": 13},
+                scaling_config=ScalingConfig(
+                    num_workers=S, use_gpu=True,
+                    resources_per_worker=PIPELINE_STAGE_RES),
+                run_config=RunConfig(
+                    name="run_A", storage_path=PIPELINE_DIR,
+                    checkpoint_config=CheckpointConfig(
+                        num_to_keep=1,
+                        checkpoint_frequency=PIPELINE_A_STEPS)),
+            ).fit()
+        except Exception as e:  # noqa: BLE001
+            fail(f"pipeline_gpt2: run A failed: {e}")
+        runs["A"] = {"history": result.metrics_history,
+                     "fit_s": time.perf_counter() - t0, **gangs[-1]}
+        t1 = time.perf_counter()
+        ck_params, ck_meta = P.load_pipeline_checkpoint(
+            result.checkpoint.path)
+        load_s = time.perf_counter() - t1
+        t0 = time.perf_counter()
+        try:
+            ps = P.PipelineStrategy(
+                PIPELINED_CFG, num_stages=S, num_microbatches=M, lr=1e-2,
+                seed=13, resources_per_worker=PIPELINE_STAGE_RES,
+                num_repeats=PIPELINE_B_REPEATS, device="cuda")
+            try:
+                hist = [ps.train_step(batch)
+                        for _ in range(PIPELINE_B_STEPS)]
+            finally:
+                ps.shutdown()
+        except Exception as e:  # noqa: BLE001
+            fail(f"pipeline_gpt2: run B failed: {e}")
+        runs["B"] = {"history": hist, "fit_s": time.perf_counter() - t0,
+                     **gangs[-1]}
+        seen_pids.update(_worker_pids(rt))
+    finally:
+        P.PipelineStrategy.shutdown = real_shutdown
+        ray.shutdown()
+        shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+
+    hop_bytes = (PIPELINED_BATCH // M) * PIPELINED_CFG["block_size"] * \
+        PIPELINED_CFG["d_model"] * 4
+    row = {"phase": "pipeline_gpt2", "card": card, "config": PIPELINED_CFG,
+           "batch": PIPELINED_BATCH, "microbatches": M, "stages": S,
+           "stage_resources": PIPELINE_STAGE_RES, "dtype": "float32",
+           "optimizer": "sgd(1e-2)",
+           "phase9_losses": keep["losses"],
+           "phase9_step_ms": keep["step_ms"],
+           "checkpoint_load_s": load_s}
+    launches = {k: 0 for k in ("flash_fwd", "flash_dq", "flash_dkv",
+                               "paged_attention")}
+    for name, R, want_bubble in (
+            ("A", 1, theoretical_bubble(S, M)),
+            ("B", PIPELINE_B_REPEATS,
+             theoretical_bubble_interleaved(S, M, PIPELINE_B_REPEATS))):
+        run = runs[name]
+        hist = run["history"]
+        losses = [h["loss"] for h in hist]
+        rel = [abs(x - y) / abs(y) for x, y in zip(losses, keep["losses"])]
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            fail(f"pipeline_gpt2: run {name}'s losses {losses} do not fall")
+        if len(rel) < 2 or max(rel) > PIPELINED_RTOL:
+            fail(f"pipeline_gpt2: run {name}'s losses {losses[:2]} against "
+                 f"phase 9's {keep['losses']} (rtol {PIPELINED_RTOL})")
+        for h in hist:
+            if not 0.0 <= h["bubble_ratio"] < 1.0:
+                fail(f"pipeline_gpt2: run {name}'s bubble "
+                     f"{h['bubble_ratio']} is outside [0, 1)")
+            if h["bubble_theoretical"] != want_bubble:
+                fail(f"pipeline_gpt2: run {name}'s theoretical bubble "
+                     f"{h['bubble_theoretical']}, want {want_bubble}")
+        procs = run["procs"]
+        for pr in procs:
+            if pr["pid"] == os.getpid():
+                fail(f"pipeline_gpt2: run {name}'s stage {pr['stage']} ran "
+                     f"in the driver's process")
+            if pr["device_name"] != torch.cuda.get_device_name(0):
+                fail(f"pipeline_gpt2: run {name}'s stage {pr['stage']} ran "
+                     f"on {pr['device']} ({pr['device_name']})")
+            if any(pr["launches"].values()):
+                fail(f"pipeline_gpt2: run {name}'s stage {pr['stage']} "
+                     f"launched {pr['launches']}: the pipelined model's "
+                     f"attention is the plain einsum")
+            for k in launches:
+                launches[k] += pr["launches"][k]
+        seen_pids.update(pr["pid"] for pr in procs)
+        V = S * R
+        steady = [h["step_seconds"] for h in hist[1:]]
+        hops = _hops(run["stage_stats"], S, R, M)
+        row[f"run_{name}"] = {
+            "entry": ("TorchTrainer(strategy='pipeline')" if name == "A"
+                      else "PipelineStrategy"),
+            "num_repeats": R, "virtual_stages": V, "losses": losses,
+            "max_rel_diff_from_phase9": max(rel[:2]),
+            "step_s": [h["step_seconds"] for h in hist],
+            "step_s_after_first": spread(steady),
+            "bubble": [h["bubble_ratio"] for h in hist],
+            "bubble_theoretical": want_bubble,
+            "last_step_stages": [
+                {k: st[k] for k in ("stage", "busy_s", "busy_wall_s",
+                                    "window_s", "ops")}
+                for st in run["stage_stats"]],
+            "bytes_across_stages_a_step": 2 * (V - 1) * M * hop_bytes,
+            "hop_bytes": hop_bytes, "last_step_hops": hops,
+            "pids": [pr["pid"] for pr in procs],
+            "peak_bytes_by_stage": [pr["peak_bytes"] for pr in procs],
+            "fit_s": run["fit_s"]}
+    got = list(tree.leaves_with_path(ck_params))
+    want = list(tree.leaves_with_path(runs["A"]["full_params"]))
+    if len(got) != len(want) or not all(
+            pg == pw and torch.equal(g, w)
+            for (pg, g), (pw, w) in zip(got, want)):
+        fail("pipeline_gpt2: run A's checkpoint differs from its final "
+             "params")
+    if ck_meta.get("format") != "pipeline-stage-shards-v1":
+        fail(f"pipeline_gpt2: checkpoint meta {ck_meta}")
+    row["checkpoint_bitwise_equal"] = True
+    alive = []
+    for pid in seen_pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    if alive:
+        fail(f"pipeline_gpt2: worker processes {alive} outlived shutdown()")
+    if os.path.exists(os.path.join(object_store._SHM_DIR, store_name)):
+        fail(f"pipeline_gpt2: store segment {store_name} outlived "
+             f"shutdown()")
+    driver = {k: c.count for k, c in counters.items()}
+    if any(driver.values()):
+        fail(f"pipeline_gpt2: the driver launched {driver}")
+    row.update({"launches_in_stage_processes": launches,
+                "launches_in_driver": driver,
+                "worker_pids_checked": len(seen_pids),
+                "phase_s": time.perf_counter() - t_phase})
+    emit(row)
+    return launches
+
+
 def _paths(t, path=""):
     if isinstance(t, dict):
         for k in sorted(t):
@@ -5704,7 +5980,8 @@ def main() -> int:
     lap("ulysses")
     phase_moe(torch)
     lap("moe")
-    phase_pipelined(torch)
+    keep_pipe: dict = {}
+    phase_pipelined(torch, keep_pipe)
     lap("pipelined")
     phase_ppo_cartpole(torch, card)
     lap("ppo_cartpole")
@@ -5728,6 +6005,8 @@ def main() -> int:
     lap("cluster")
     paths.update(phase_trainer_tune(torch, card, refs))
     lap("trainer_tune")
+    paths["pipeline_gpt2"] = phase_pipeline_gpt2(torch, card, keep_pipe)
+    lap("pipeline_gpt2")
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),

@@ -562,7 +562,15 @@ class _Loop:
             if conn.connected:
                 self._flush(conn)
             else:
-                conn.on_connect(conn)
+                with conn.lock:
+                    abandoned = conn.sock is None or conn.closed
+                if abandoned:
+                    # the connect was given up (its peer closed, or the
+                    # attempt failed and was dropped) after select
+                    # returned this event: nothing is left to connect
+                    self.drop(conn)
+                else:
+                    conn.on_connect(conn)
                 return
         if mask & selectors.EVENT_READ and conn.sock is not None and \
                 conn.connected:

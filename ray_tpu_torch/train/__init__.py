@@ -25,7 +25,10 @@
   (``worker_group.py``): a gang of worker processes on the cluster
   runtime, joined by a ``torch.distributed`` process group, running a
   train loop with gang restart from the latest checkpoint and elastic
-  sizing.
+  sizing; ``strategy="pipeline"`` drives `PipelineStrategy`
+  (``pipeline_strategy.py``): 1F1B pipeline training of the pipelined
+  transformer with one worker process per stage, flat or interleaved,
+  with intra-stage ZeRO.
 """
 
 from ray_tpu_torch.train.checkpoint import (
@@ -45,6 +48,7 @@ from ray_tpu_torch.train.optim import (
     global_norm,
     sgd,
 )
+from ray_tpu_torch.train.pipeline_strategy import PipelineStrategy
 from ray_tpu_torch.train.session import (
     get_checkpoint,
     get_context,
@@ -81,6 +85,7 @@ __all__ = [
     "EmptyState",
     "FailureConfig",
     "GradientTransformation",
+    "PipelineStrategy",
     "Result",
     "RunConfig",
     "ScaleByAdamState",

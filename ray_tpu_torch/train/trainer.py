@@ -28,9 +28,11 @@ Deviations from the JAX package:
   (world > 1).
 - No libtpu topology env (``TPU_WORKER_ID``, ``TPU_WORKER_HOSTNAMES``):
   the process group's rendezvous takes its place.
-- No dashboard views: ``dashboard.py`` is not ported.
+- No dashboard views: ``dashboard.py`` is not ported, so the
+  pipeline strategy's fit publishes none either.
 - ``strategy="pipeline"`` (the MPMD strategy,
-  ``train/pipeline_strategy.py``) is not ported yet and raises.
+  ``train/pipeline_strategy.py``) runs its stages on the card when
+  ``ScalingConfig.use_gpu`` is set and on the CPU otherwise.
 - The loop travels by value only where the port's pickler sends it so
   (defined in ``__main__``, inside a function, or a lambda); a loop
   defined at the top of an importable module travels by reference, and
@@ -207,11 +209,69 @@ class TorchTrainer:
 
     def fit(self) -> Result:
         if self.strategy == "pipeline":
-            raise NotImplementedError(
-                "TorchTrainer(strategy='pipeline'): the MPMD strategy "
-                "(ray_tpu/train/pipeline_strategy.py, "
-                "train/pipeline_strategy.py in the port) is not ported yet")
+            return self._fit_pipeline()
         return self._fit_spmd()
+
+    def _fit_pipeline(self) -> Result:
+        """Pipeline-parallel fit: stages on worker subsets, the 1F1B
+        schedule per step (train/pipeline_strategy.py). Config keys in
+        train_loop_config: `model` (PipelinedConfig kwargs), `batch`
+        ({tokens, targets} numpy), `steps`, `num_stages` (default:
+        scaling_config.num_workers), `num_microbatches`, `lr`, `seed`,
+        plus the interleaved/ZeRO composition knobs `num_repeats`,
+        `zero_stage`, `data_parallel`, `momentum`. Stage workers
+        checkpoint their param shards through the CheckpointManager
+        every `checkpoint_frequency` steps (the manager reassembles a
+        restore-compatible full state via
+        `load_pipeline_checkpoint`). The stages run on the card when
+        ``scaling_config.use_gpu`` is set, else on the CPU."""
+        from ray_tpu_torch.train.pipeline_strategy import PipelineStrategy
+
+        cfg = dict(self._config or {})
+        if "batch" not in cfg:
+            raise ValueError("pipeline strategy needs "
+                             "train_loop_config['batch']")
+        name = self.run_config.name or f"pipeline_{int(time.time())}"
+        storage = self.run_config.storage_path or os.path.join(
+            os.path.expanduser("~"), "ray_tpu_results")
+        exp_dir = os.path.join(storage, name)
+        os.makedirs(exp_dir, exist_ok=True)
+        ckpt_cfg = (self.run_config.checkpoint_config
+                    or CheckpointConfig())
+        manager = CheckpointManager(exp_dir, ckpt_cfg)
+        sc = self.scaling_config
+        ps = PipelineStrategy(
+            cfg.get("model") or {},
+            num_stages=cfg.get("num_stages", sc.num_workers),
+            num_microbatches=cfg.get("num_microbatches"),
+            lr=cfg.get("lr", 1e-2),
+            seed=cfg.get("seed", 0),
+            resources_per_worker=sc.resources_per_worker,
+            placement_strategy=sc.placement_strategy,
+            num_repeats=int(cfg.get("num_repeats", 1)),
+            zero_stage=int(cfg.get("zero_stage", 0)),
+            data_parallel=int(cfg.get("data_parallel", 1)),
+            momentum=float(cfg.get("momentum", 0.0)),
+            device="cuda" if sc.use_gpu else "cpu",
+        )
+        history: list[dict] = []
+        last_ckpt: Checkpoint | None = None
+        try:
+            steps = int(cfg.get("steps", 1))
+            freq = max(1, int(ckpt_cfg.checkpoint_frequency or 1))
+            for step in range(steps):
+                metrics = ps.train_step(cfg["batch"])
+                metrics["step"] = step
+                history.append(metrics)
+                if (step + 1) % freq == 0 or step == steps - 1:
+                    staged = ps.save_checkpoint(
+                        os.path.join(exp_dir, f"staging_{step:06d}"))
+                    last_ckpt = manager.register(staged, metrics)
+        finally:
+            ps.shutdown()
+        return Result(metrics=history[-1] if history else {},
+                      checkpoint=last_ckpt, path=exp_dir,
+                      metrics_history=history)
 
     def _fit_spmd(self) -> Result:
         name = self.run_config.name or f"torch_trainer_{int(time.time())}"

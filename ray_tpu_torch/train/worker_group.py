@@ -62,11 +62,7 @@ class TrainWorker:
         import ray_tpu_torch
         from ray_tpu_torch.core.rpc import node_ip
 
-        s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        s.bind(("", 0))
-        port = s.getsockname()[1]
-        s.close()
-        return {"ip": node_ip(), "port": port,
+        return {"ip": node_ip(), "port": free_port(),
                 "node_id": ray_tpu_torch.get_runtime_context().node_id.hex()}
 
     def setup_env(self, env: dict) -> bool:
@@ -177,6 +173,15 @@ class TrainWorker:
         return "pong"
 
 
+def free_port() -> int:
+    """A TCP port of this host that nothing listens on right now."""
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    s.bind(("", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 def _destroy_process_group() -> None:
     """Leave this process's process group, if it is in one."""
     import torch.distributed as dist
@@ -200,13 +205,22 @@ class WorkerGroupError(RuntimeError):
 
 
 class WorkerGroup:
-    """N `TrainWorker` actors in one placement group. Each worker claims
-    its bundle's GPU share, if any, so the nodelet shows it the card."""
+    """N worker actors in one placement group. Each worker claims its
+    bundle's GPU share, if any, so the nodelet shows it the card.
+
+    The default worker class is `TrainWorker` (SPMD gangs); strategies
+    that need a different actor shape pass `worker_cls` — any class
+    whose __init__ is (rank, world_size). The pipeline strategy
+    (train/pipeline_strategy.py) runs its stage workers FIFO
+    (`max_concurrency=1`) so the driver's 1F1B submission order is the
+    per-stage execution order."""
 
     def __init__(self, num_workers: int,
                  resources_per_worker: dict[str, float] | None = None,
                  placement_strategy: str = "PACK",
-                 pg_timeout: float = 60.0):
+                 pg_timeout: float = 60.0,
+                 worker_cls: type | None = None,
+                 max_concurrency: int = 2):
         import ray_tpu_torch
         from ray_tpu_torch.util.placement_group import (
             placement_group,
@@ -225,13 +239,13 @@ class WorkerGroup:
                 f"within {pg_timeout}s")
         cls = ray_tpu_torch.remote(num_cpus=0,
                                    num_gpus=res.get("GPU", 0) or None)(
-            TrainWorker)
+            worker_cls or TrainWorker)
         self.workers = [
             cls.options(
                 placement_group=self.pg,
                 placement_group_bundle_index=i,
-                # next_result poll + control calls
-                max_concurrency=2,
+                # default 2: next_result poll + control calls
+                max_concurrency=max_concurrency,
             ).remote(i, num_workers)
             for i in range(num_workers)
         ]

@@ -230,13 +230,17 @@ def test_state_round_trip(two_threads):
     b = _config(impala, seed=5).build()
     try:
         a.train()
-        b.set_state(a.get_state())
-        for x, y in zip(jax.tree.leaves(_weights(a)),
+        # a's learner thread may still be stepping on queued batches:
+        # hold b to the state it was given, not to a's later weights
+        state = a.get_state()
+        b.set_state(state)
+        want = interop.rl_params_to_jax(state["learner"]["params"])
+        for x, y in zip(jax.tree.leaves(want),
                         jax.tree.leaves(_weights(b))):
             np.testing.assert_array_equal(x, y)
         np.testing.assert_array_equal(
             b.env_runner_group.local.get_weights()["pi"][0]["w"],
-            _weights(a)["pi"][0]["w"])
+            want["pi"][0]["w"])
     finally:
         a.stop()
         b.stop()

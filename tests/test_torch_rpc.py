@@ -452,3 +452,64 @@ def test_chaos_delay_budget_delivers_late(monkeypatch):
         rpc_mod.set_chaos("")
         client.close()
         server.stop()
+
+
+def test_close_while_connecting_raises_nothing_in_the_io_thread(
+        monkeypatch):
+    """A client closed while its connect is still in flight, and a write
+    event that reaches a connection whose connect was abandoned (its
+    socket already set to None, or its peer closed) after select
+    returned it: nothing is raised in the ``rpc-client-io`` thread."""
+    import selectors
+    import socket
+
+    errors = []
+    monkeypatch.setattr(threading, "excepthook", errors.append)
+    server = RpcServer(name="connect-race").start()
+    try:
+        for _ in range(50):
+            client = RpcClient()
+            client.send_oneway(server.address, "nothing", {})
+            client.flush_oneways()  # the connect starts on the loop
+            client.close()
+        loop = rpc_mod._Loop("rpc-client-io")
+        try:
+            for abandon in ("sock_none", "peer_closed"):
+                a, b = socket.socketpair()  # writable at once
+                a.setblocking(False)
+                conn = rpc_mod._Conn(loop, None, lambda c, p: None,
+                                     lambda c: None)
+                conn.sock = a
+                connected = []
+                conn.on_connect = lambda c: connected.append(
+                    c.sock.getsockopt(socket.SOL_SOCKET, socket.SO_ERROR))
+
+                def arm_then_abandon(conn=conn, abandon=abandon):
+                    loop.add(conn, selectors.EVENT_WRITE)
+                    if abandon == "sock_none":
+                        conn.sock = None
+                    else:
+                        conn.closed = True
+
+                loop.call_soon(arm_then_abandon)
+                time.sleep(0.2)
+
+                def unregister(a=a):
+                    try:
+                        loop._sel.unregister(a)
+                    except (KeyError, ValueError, OSError):
+                        pass
+
+                loop.call_soon(unregister)
+                time.sleep(0.05)
+                a.close()
+                b.close()
+                assert connected == [], abandon
+                assert loop._thread.is_alive(), abandon
+        finally:
+            loop.stop()
+    finally:
+        server.stop()
+    assert [e for e in errors
+            if e.thread is not None
+            and e.thread.name == "rpc-client-io"] == [], errors

@@ -10,7 +10,8 @@ worker_group.py) on the port's cluster runtime, on the CPU.
   mid-run when capacity appears (the JAX test adds a 1-CPU node to a
   1-CPU cluster; here the module cluster gets two nodes that alone
   carry a ``grow`` resource, added and removed by the test).
-- ``strategy="pipeline"`` and ``num_cpu_devices_per_worker=4`` raise.
+- ``num_cpu_devices_per_worker=4`` raises; ``strategy="pipeline"`` fits
+  two steps on two CPU stage workers.
 - The slice as a whole: GPT-2 tiny (f32) trains 3 steps through
   `TorchTrainer` with one worker and with two gloo workers splitting the
   global batch, from params the JAX package's ``init_gpt2(PRNGKey(0))``
@@ -413,15 +414,23 @@ def test_midrun_elastic_grows_gang(cluster, tmp_path):
 # ------------------------------------------------------ what waits
 
 
-def test_pipeline_strategy_raises(tmp_path):
-    trainer = TorchTrainer(
+def test_pipeline_strategy_fits(cluster, tmp_path):
+    """strategy="pipeline" runs the MPMD strategy on the CPU: two stage
+    workers, two steps of history, each with its measured bubble."""
+    rs = np.random.RandomState(0)
+    model = dict(n_virtual_stages=2, d_model=32, d_ff=64, block_size=16,
+                 num_microbatches=2)
+    batch = {k: rs.randint(0, 256, (4, 16)).astype(np.int32)
+             for k in ("tokens", "targets")}
+    result = TorchTrainer(
         None, strategy="pipeline",
-        train_loop_config={"batch": {}},
+        train_loop_config={"model": model, "batch": batch, "steps": 2},
         scaling_config=_cpu(num_workers=2),
-        run_config=RunConfig(name="pipe", storage_path=str(tmp_path)))
-    with pytest.raises(NotImplementedError,
-                       match="train/pipeline_strategy.py"):
-        trainer.fit()
+        run_config=RunConfig(name="pipe", storage_path=str(tmp_path))).fit()
+    assert len(result.metrics_history) == 2
+    assert [m["step"] for m in result.metrics_history] == [0, 1]
+    assert "bubble_ratio" in result.metrics
+    assert 0.0 <= result.metrics["bubble_ratio"] < 1.0
 
 
 def test_use_gpu_worker_without_a_card_fails(cluster, tmp_path,
@@ -591,10 +600,18 @@ def test_next_result_statuses_match_jax(config):
     TrainWorker.next_result."""
     import ray_tpu.train as jax_train
     import ray_tpu_torch.train as port_train
+    from ray_tpu.train import session as jax_session
+    from ray_tpu_torch.train import session as port_session
 
-    want = _statuses(jax_wg.TrainWorker(0, 1),
-                     cloudpickle.dumps(_reporting_loop_fn(jax_train)),
-                     config)
-    got = _statuses(port_wg.TrainWorker(0, 1), serialization.dumps_fn(
-        _reporting_loop_fn(port_train)), config)
+    try:
+        want = _statuses(jax_wg.TrainWorker(0, 1),
+                         cloudpickle.dumps(_reporting_loop_fn(jax_train)),
+                         config)
+        got = _statuses(port_wg.TrainWorker(0, 1), serialization.dumps_fn(
+            _reporting_loop_fn(port_train)), config)
+    finally:
+        # both TrainWorkers installed a module-global session in this
+        # process; later tests need them empty
+        jax_session.shutdown_session()
+        port_session.shutdown_session()
     assert got == want
