@@ -261,7 +261,7 @@ Phases, each of which exits non-zero on any failure:
    num_gpus=0.5 actors must both run on the card while a third stays
    PENDING until one is killed. cluster_gpt2: GPT-2-small's f32 params
    and the train phase's batch (seed 0) are put by the driver; a
-   num_gpus=1 actor of a class defined here (pickled by value) takes 7
+   num_gpus=1 actor of a class defined here (pickled by value) takes 13
    steps of train's recipe and returns its losses, step ms (CUDA events)
    and its process's launch counters: K1/K2/K3 exactly 24/12/12 a step,
    every loss finite and equal, bit for bit, to the same steps run in
@@ -276,7 +276,7 @@ Phases, each of which exits non-zero on any failure:
    `_gpt2_loop` at GPT-2-small: the mesh phase's model, batch and adamw
    on a ``data`` mesh over the gang, stage 0, a `save_train_state`
    checkpoint every 4 steps and at the last, a report every step) on a
-   one-worker ``use_gpu`` gang joined over NCCL: run A 10 steps
+   one-worker ``use_gpu`` gang joined over NCCL: run A 13 steps
    uninterrupted; run B the same with rank 0's process exiting at step
    9 on its first try, ``FailureConfig(max_failures=1)``, two
    checkpoints kept, so the gang restarts from the step-8 checkpoint.
@@ -307,18 +307,23 @@ Phases, each of which exits non-zero on any failure:
    the card (each claiming PIPELINE_STAGE_RES). Run A:
    ``TorchTrainer(strategy="pipeline")``, flat 1F1B, 3 steps and a
    checkpoint at the end; run B: ``PipelineStrategy(num_repeats=2)``
-   directly (the interleaved schedule, 4 virtual stages), 2 steps.
-   Fail unless both runs' first two losses are within PIPELINED_RTOL
-   of phase 9's in-program losses, the losses fall, every stage process
-   has a pid other than the driver's and sees the card, every step's
-   bubble is in [0, 1) beside the theoretical (S-1)/(S-1+M) and
-   (S-1)/(R*M+S-1), run A's checkpoint read back by
-   ``load_pipeline_checkpoint`` equals its final params bit for bit, no
-   stage process launched K1-K4, and shutdown() leaves no worker
-   process and no store segment. Prints step seconds beside phase 9's,
-   the measured and theoretical bubble, the bytes that cross stages in
-   a step and the seconds those hops took, each stage process's peak
-   memory and the phase's seconds.
+   directly (the interleaved schedule, 4 virtual stages), 2 steps and
+   a checkpoint. Fail unless both runs' first two losses are within
+   PIPELINED_RTOL of phase 9's in-program losses, the losses fall,
+   every stage process has a pid other than the driver's and sees the
+   card, every step's bubble is in [0, 1) beside the theoretical
+   (S-1)/(S-1+M) and (S-1)/(R*M+S-1), the last step's op spans keep
+   the schedule (each stage's ops in its submission order, one at a
+   time with their host copies, none started before its input reached
+   the host) and give its bubble, run B's checkpoint read back by
+   ``load_pipeline_checkpoint`` equals its live params bit for bit and
+   run A's (the trainer's) holds the same tree, finite, no stage
+   process launched K1-K4, and shutdown() leaves no worker process and
+   no store segment. Prints step seconds beside phase 9's, the measured
+   and theoretical bubble, the bytes that cross stages in a step and
+   the seconds those hops took (the device-to-host copy, the store and
+   the host-to-device copy apart), each stage process's peak memory and
+   the phase's seconds.
 
 It prints one JSON line per kernel shape and per phase, K4's rows on
 the serving and rl paths with their launches there (by window and
@@ -523,8 +528,8 @@ DQN_ITERS = 20
 # size S keeps the config's B=8 T=16 H=15 and replays 16 batches an
 # iteration (training_ratio 32: the JAX test's 16 updates of its smaller
 # batches); on pixels it is the JAX test's XS recipe
-F3_ITERS = 6
-UPDATE_ALONE = 10  # learner steps timed with the learner thread stopped
+F3_ITERS = 10
+UPDATE_ALONE = 20  # learner steps timed with the learner thread stopped
 IMPALA_CARTPOLE = dict(num_env_runners=0, num_envs_per_env_runner=16,
                        rollout_fragment_length=64)
 IMPALA_TARGET = 195.0
@@ -601,20 +606,20 @@ CQL_TRAINING = dict(hidden=(64, 64), train_batch_size=128, lr=1e-3,
 # CLUSTER_RTT_CALLS round trips timed one by one after CLUSTER_RTT_WARMUP;
 # CLUSTER_GPT2_STEPS train steps in the GPU actor and again in the driver
 CLUSTER_STORE_BYTES = 1536 << 20
-CLUSTER_RTT_WARMUP, CLUSTER_RTT_CALLS = 20, 100
+CLUSTER_RTT_WARMUP, CLUSTER_RTT_CALLS = 50, 300
 CLUSTER_PUT_BYTES = 256 << 20
-CLUSTER_GPT2_STEPS = 7
+CLUSTER_GPT2_STEPS = 13
 CLUSTER_WAIT_S = 60.0  # every get and wait of the phase
 # trainer_gpt2 (phase 15): TorchTrainer on a one-worker use_gpu gang,
-# TRAINER_STEPS steps of the mesh phase's GPT-2-small stage-0 run (the
-# first of its warm-up and timed steps, so the losses line up), a
-# save_train_state checkpoint every TRAINER_CKPT_EVERY steps and at the
-# last (1.49 GB each, two kept, under TRAINER_DIR, removed at the end); run B's rank 0
+# TRAINER_STEPS steps of the mesh phase's GPT-2-small stage-0 run (its
+# warm-up and timed steps, so the losses line up), a save_train_state
+# checkpoint every TRAINER_CKPT_EVERY steps and at the last (1.49 GB
+# each, two kept, under TRAINER_DIR, removed at the end); run B's rank 0
 # exits its process at step TRAINER_CRASH_AT on its first try and the
 # gang restarts from the step-8 checkpoint. tune_cluster: phase 12's
 # sweep and restore with each trial in a worker process of its own,
 # claiming TUNE_CLUSTER_RES (two trials share the card)
-TRAINER_STEPS = 10  # <= MESH_WARMUP + MESH_STEPS
+TRAINER_STEPS = MESH_WARMUP + MESH_STEPS
 TRAINER_CKPT_EVERY = 4
 TRAINER_CRASH_AT = 9
 TRAINER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -5667,39 +5672,93 @@ def phase_trainer_tune(torch, card: str, keep: dict) -> dict:
 # ------------------------------------------------------------ phase 16
 
 
-def _hops(stage_stats: list[dict], S: int, R: int, M: int) -> dict:
-    """The activations and cotangents of one step that crossed stages,
-    from each stage's op spans (their clock is the host's monotonic
-    one, shared by the processes): a hop runs from its producer's end
-    to its consumer's start. `stalled_s` is what the consumer waited for
-    each hop once it was free (its start less the later of the hop's
-    producer's end and its own previous op's end; the call's dispatch
-    included); `latency_s` is the whole gap of the hops whose consumer
-    sat idle at the producer's end (the put, the dispatch, the get)."""
-    V = S * R
-    ops, prev_end = {}, {}
+def _hop_source(kind: str, v: int, mb: int, V: int):
+    """The op whose output an op takes (None: its input is the
+    driver's)."""
+    if kind == "fwd":
+        return ("fwd", v - 1, mb) if v > 0 else None
+    return ("bwd", v + 1, mb) if v < V - 1 else None
+
+
+def _schedule_faults(stage_stats: list[dict], S: int, R: int,
+                     M: int) -> list[str]:
+    """What in one step's op spans breaks the schedule (empty: nothing):
+    a stage whose ops did not run in its submission order, two ops of a
+    stage that overlap (their host copies included), an op that started
+    before its input's producer had copied that input to the host. A
+    span is `(kind, v, mb, t0, t1, h2d_s, d2h_s)`: the compute alone on
+    the host's monotonic clock, which the processes share."""
+    from ray_tpu_torch.parallel.pipeline import (
+        interleaved_1f1b_submission_order,
+        one_f_one_b_submission_order,
+    )
+
+    order = (interleaved_1f1b_submission_order(S, M, R) if R > 1
+             else one_f_one_b_submission_order(S, M))
+    faults, ops = [], {}
     for st in stage_stats:
         spans = sorted(st["op_spans"], key=lambda o: o[3])
-        for i, (kind, v, mb, t0, t1) in enumerate(spans):
-            ops[(kind, v, mb)] = (t0, t1)
-            prev_end[(kind, v, mb)] = spans[i - 1][4] if i else None
-    stalled, latency = [], []
-    for (kind, v, mb), (t0, _) in ops.items():
-        src = ((kind, v - 1, mb) if kind == "fwd" and v > 0 else
-               ("bwd", v + 1, mb) if kind == "bwd" and v < V - 1 else None)
-        if src is None or v % S == src[1] % S:
+        got = [tuple(o[:3]) for o in spans]
+        want = [op for op in order if op[1] % S == st["stage"]]
+        if got != want:
+            faults.append(f"stage {st['stage']} ran {got}, submitted {want}")
+        for a, b in zip(spans, spans[1:]):
+            if a[4] + a[6] > b[3] - b[5] + 1e-6:
+                faults.append(f"stage {st['stage']}: {a[:3]} overlaps "
+                              f"{b[:3]}")
+        ops.update((tuple(o[:3]), o) for o in spans)
+    for key, o in ops.items():
+        src = _hop_source(*key, S * R)
+        if src is not None and src in ops and \
+                o[3] < ops[src][4] + ops[src][6] - 1e-6:
+            faults.append(f"{key} started before {src}'s output reached "
+                          f"the host")
+    return faults
+
+
+def _hops(stage_stats: list[dict], S: int, R: int, M: int) -> dict:
+    """The activations and cotangents of one step that crossed stages,
+    from each stage's op spans (see `_schedule_faults`). A hop runs from
+    its producer's compute end to its consumer's compute start: the
+    producer's device-to-host copy, the put, the dispatch, the
+    consumer's get and its host-to-device copy. `stalled_s` is what the
+    consumer waited for each hop once it was free (its start less the
+    later of the producer's end and the end of its own previous op's
+    copy out); `latency_s` is the whole gap of the hops whose consumer
+    sat idle at the producer's end, split into `d2h_s`, `h2d_s` and
+    `store_s` (the rest: the put, the dispatch, the get)."""
+    V = S * R
+    ops, free_at = {}, {}
+    for st in stage_stats:
+        spans = sorted(st["op_spans"], key=lambda o: o[3])
+        for i, o in enumerate(spans):
+            ops[tuple(o[:3])] = o
+            prev = spans[i - 1] if i else None
+            free_at[tuple(o[:3])] = prev[4] + prev[6] if prev else None
+    stalled, latency, d2h, h2d, store = [], [], [], [], []
+    for key, o in ops.items():
+        src = _hop_source(*key, V)
+        if src is None or key[1] % S == src[1] % S:
             continue  # an input from the driver, or the same process
-        produced = ops[src][1]
-        before = prev_end[(kind, v, mb)]
-        stalled.append(t0 - max(produced, before or produced))
-        if before is None or before <= produced:
-            latency.append(t0 - produced)
+        produced = ops[src][4]
+        free = free_at[key]
+        stalled.append(o[3] - max(produced, free or produced))
+        if free is None or free <= produced:
+            latency.append(o[3] - produced)
+            d2h.append(ops[src][6])
+            h2d.append(o[5])
+            store.append(latency[-1] - d2h[-1] - h2d[-1])
+
+    def median(xs):
+        return float(np.median(xs)) if xs else None
+
     return {"hops": len(stalled), "stalled_s_sum": float(sum(stalled)),
-            "stalled_s_median": float(np.median(stalled)),
+            "stalled_s_median": median(stalled),
             "idle_consumer_hops": len(latency),
-            "latency_s_median": (float(np.median(latency)) if latency
-                                 else None),
-            "latency_s_max": float(max(latency)) if latency else None}
+            "latency_s_median": median(latency),
+            "latency_s_max": float(max(latency)) if latency else None,
+            "d2h_s_median": median(d2h), "h2d_s_median": median(h2d),
+            "store_s_median": median(store)}
 
 
 def phase_pipeline_gpt2(torch, card: str, keep: dict) -> dict:
@@ -5733,19 +5792,6 @@ def phase_pipeline_gpt2(torch, card: str, keep: dict) -> dict:
     toks = keep["tokens"]
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
     S, M = PIPELINE_STAGES, PIPELINED_CFG["num_microbatches"]
-    # each stage gang, read just before it shuts down (the trainer shuts
-    # its strategy down inside fit()); run A's final params too
-    gangs: list[dict] = []
-    real_shutdown = P.PipelineStrategy.shutdown
-
-    def shutdown(self):
-        if self.wg.workers:
-            gangs.append({"procs": self.wg.execute("process_stats"),
-                          "stage_stats": self.last_stage_stats})
-            if len(gangs) == 1:
-                gangs[0]["full_params"] = self.full_params()
-        real_shutdown(self)
-
     counters = _reset_counters()
     os.environ["RAY_TPU_OBJECT_STORE_BYTES"] = str(CLUSTER_STORE_BYTES)
     try:
@@ -5755,7 +5801,6 @@ def phase_pipeline_gpt2(torch, card: str, keep: dict) -> dict:
     rt = _global_runtime()
     store_name = rt.store.name
     seen_pids: set = set()
-    P.PipelineStrategy.shutdown = shutdown
     runs = {}
     try:
         t0 = time.perf_counter()
@@ -5778,9 +5823,10 @@ def phase_pipeline_gpt2(torch, card: str, keep: dict) -> dict:
         except Exception as e:  # noqa: BLE001
             fail(f"pipeline_gpt2: run A failed: {e}")
         runs["A"] = {"history": result.metrics_history,
-                     "fit_s": time.perf_counter() - t0, **gangs[-1]}
+                     "stage_stats": result.stage_stats,
+                     "fit_s": time.perf_counter() - t0}
         t1 = time.perf_counter()
-        ck_params, ck_meta = P.load_pipeline_checkpoint(
+        a_params, a_meta = P.load_pipeline_checkpoint(
             result.checkpoint.path)
         load_s = time.perf_counter() - t1
         t0 = time.perf_counter()
@@ -5792,15 +5838,19 @@ def phase_pipeline_gpt2(torch, card: str, keep: dict) -> dict:
             try:
                 hist = [ps.train_step(batch)
                         for _ in range(PIPELINE_B_STEPS)]
+                fit_s = time.perf_counter() - t0
+                b_ck = ps.save_checkpoint(os.path.join(PIPELINE_DIR,
+                                                       "run_B"))
+                b_final = ps.full_params()
             finally:
                 ps.shutdown()
         except Exception as e:  # noqa: BLE001
             fail(f"pipeline_gpt2: run B failed: {e}")
-        runs["B"] = {"history": hist, "fit_s": time.perf_counter() - t0,
-                     **gangs[-1]}
+        runs["B"] = {"history": hist, "stage_stats": ps.last_stage_stats,
+                     "fit_s": fit_s}
+        b_params, b_meta = P.load_pipeline_checkpoint(b_ck.path)
         seen_pids.update(_worker_pids(rt))
     finally:
-        P.PipelineStrategy.shutdown = real_shutdown
         ray.shutdown()
         shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
 
@@ -5821,6 +5871,7 @@ def phase_pipeline_gpt2(torch, card: str, keep: dict) -> dict:
              theoretical_bubble_interleaved(S, M, PIPELINE_B_REPEATS))):
         run = runs[name]
         hist = run["history"]
+        stats = run["stage_stats"]
         losses = [h["loss"] for h in hist]
         rel = [abs(x - y) / abs(y) for x, y in zip(losses, keep["losses"])]
         if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
@@ -5835,24 +5886,35 @@ def phase_pipeline_gpt2(torch, card: str, keep: dict) -> dict:
             if h["bubble_theoretical"] != want_bubble:
                 fail(f"pipeline_gpt2: run {name}'s theoretical bubble "
                      f"{h['bubble_theoretical']}, want {want_bubble}")
-        procs = run["procs"]
-        for pr in procs:
-            if pr["pid"] == os.getpid():
-                fail(f"pipeline_gpt2: run {name}'s stage {pr['stage']} ran "
+        # the last step's bubble from its spans: on the card a stage's
+        # busy time is the sum of its ops' compute spans, copies outside
+        faults = _schedule_faults(stats, S, R, M)
+        if faults:
+            fail(f"pipeline_gpt2: run {name}'s last step broke the "
+                 f"schedule: {faults[:4]}")
+        busy = sum(sum(o[4] - o[3] for o in st["op_spans"]) for st in stats)
+        makespan = max(max(o[4] for o in st["op_spans"])
+                       - min(o[3] for o in st["op_spans"]) for st in stats)
+        from_spans = 1.0 - busy / (S * makespan)
+        if abs(from_spans - hist[-1]["bubble_ratio"]) > 1e-9:
+            fail(f"pipeline_gpt2: run {name}'s last bubble "
+                 f"{hist[-1]['bubble_ratio']}, {from_spans} from its spans")
+        for st in stats:
+            if st["pid"] == os.getpid():
+                fail(f"pipeline_gpt2: run {name}'s stage {st['stage']} ran "
                      f"in the driver's process")
-            if pr["device_name"] != torch.cuda.get_device_name(0):
-                fail(f"pipeline_gpt2: run {name}'s stage {pr['stage']} ran "
-                     f"on {pr['device']} ({pr['device_name']})")
-            if any(pr["launches"].values()):
-                fail(f"pipeline_gpt2: run {name}'s stage {pr['stage']} "
-                     f"launched {pr['launches']}: the pipelined model's "
+            if st["device_name"] != torch.cuda.get_device_name(0):
+                fail(f"pipeline_gpt2: run {name}'s stage {st['stage']} ran "
+                     f"on {st['device']} ({st['device_name']})")
+            if any(st["launches"].values()):
+                fail(f"pipeline_gpt2: run {name}'s stage {st['stage']} "
+                     f"launched {st['launches']}: the pipelined model's "
                      f"attention is the plain einsum")
             for k in launches:
-                launches[k] += pr["launches"][k]
-        seen_pids.update(pr["pid"] for pr in procs)
+                launches[k] += st["launches"][k]
+        seen_pids.update(st["pid"] for st in stats)
         V = S * R
         steady = [h["step_seconds"] for h in hist[1:]]
-        hops = _hops(run["stage_stats"], S, R, M)
         row[f"run_{name}"] = {
             "entry": ("TorchTrainer(strategy='pipeline')" if name == "A"
                       else "PipelineStrategy"),
@@ -5864,23 +5926,35 @@ def phase_pipeline_gpt2(torch, card: str, keep: dict) -> dict:
             "bubble_theoretical": want_bubble,
             "last_step_stages": [
                 {k: st[k] for k in ("stage", "busy_s", "busy_wall_s",
-                                    "window_s", "ops")}
-                for st in run["stage_stats"]],
+                                    "copy_s", "window_s", "ops")}
+                for st in stats],
             "bytes_across_stages_a_step": 2 * (V - 1) * M * hop_bytes,
-            "hop_bytes": hop_bytes, "last_step_hops": hops,
-            "pids": [pr["pid"] for pr in procs],
-            "peak_bytes_by_stage": [pr["peak_bytes"] for pr in procs],
+            "hop_bytes": hop_bytes, "last_step_hops": _hops(stats, S, R, M),
+            "pids": [st["pid"] for st in stats],
+            "peak_bytes_by_stage": [st["peak_bytes"] for st in stats],
             "fit_s": run["fit_s"]}
-    got = list(tree.leaves_with_path(ck_params))
-    want = list(tree.leaves_with_path(runs["A"]["full_params"]))
-    if len(got) != len(want) or not all(
-            pg == pw and torch.equal(g, w)
-            for (pg, g), (pw, w) in zip(got, want)):
-        fail("pipeline_gpt2: run A's checkpoint differs from its final "
-             "params")
-    if ck_meta.get("format") != "pipeline-stage-shards-v1":
-        fail(f"pipeline_gpt2: checkpoint meta {ck_meta}")
-    row["checkpoint_bitwise_equal"] = True
+    # run B's checkpoint read back equals its live params bit for bit;
+    # run A's (the trainer's, written at its last step) has their tree
+    for ck_name, got, want in (("B", b_params, b_final),
+                               ("A", a_params, b_final)):
+        got = list(tree.leaves_with_path(got))
+        want = list(tree.leaves_with_path(want))
+        if len(got) != len(want) or not all(
+                pg == pw and g.shape == w.shape and g.dtype == w.dtype
+                and bool(torch.isfinite(g).all())
+                for (pg, g), (pw, w) in zip(got, want)):
+            fail(f"pipeline_gpt2: run {ck_name}'s checkpoint is not the "
+                 f"model's param tree")
+        if ck_name == "B" and not all(torch.equal(g, w) for (_, g), (_, w)
+                                      in zip(got, want)):
+            fail("pipeline_gpt2: run B's checkpoint differs from its final "
+                 "params")
+    for ck_name, meta, R in (("A", a_meta, 1), ("B", b_meta,
+                                                 PIPELINE_B_REPEATS)):
+        if meta.get("format") != "pipeline-stage-shards-v1" or \
+                meta.get("num_stages") != S or meta.get("num_repeats") != R:
+            fail(f"pipeline_gpt2: run {ck_name}'s checkpoint meta {meta}")
+    row["run_B_checkpoint_bitwise_equal"] = True
     alive = []
     for pid in seen_pids:
         try:

@@ -46,12 +46,15 @@ The bubble is measured, not assumed: each stage reports per-op busy
 time and its step window; `train_step` computes
 ``bubble_ratio = 1 - busy / (S * makespan)`` and surfaces it on the
 `train_pipeline_bubble_ratio` gauge, alongside
-`train_pipeline_virtual_stages` (S*R). An op's busy time is never more
-than its wall span, so ``0 <= bubble_ratio < 1`` holds by construction:
-on the card it is the op's wall time with the device synchronised at
-its end; on the CPU it is the process's CPU time in the op, bounded by
-the op's wall time (CPU time alone sums every intra-op thread and can
-exceed the wall span). The theoretical floors come from
+`train_pipeline_virtual_stages` (S*R). An op's span is its compute
+alone: it opens once the op's inputs are on the device and closes
+before its output is copied to the host, so each hop's copies count as
+idle time, as the put and the get do. An op's busy time is never more
+than its span, so ``0 <= bubble_ratio < 1`` holds by construction: on
+the card it is the span, the device synchronised at both ends; on the
+CPU it is the process's CPU time in the op, bounded by the span (CPU
+time alone sums every intra-op thread and can exceed it). The
+theoretical floors come from
 `parallel.pipeline.theoretical_bubble` and
 `theoretical_bubble_interleaved`.
 
@@ -66,14 +69,19 @@ Deviations from the JAX package:
   (``setup_stage``), where JAX runs one process over D local devices.
   The driver submits each op to every member in the same order; member
   0's outputs travel on, the others return None.
-- The busy clock, as above (JAX counts ``time.process_time()`` alone).
+- The busy clock and the span, as above (JAX counts
+  ``time.process_time()`` alone, over a span that holds the op's
+  host-to-device copy).
 - Params travel as numpy trees through the port's serialization, and
   checkpoint shards are standard pickles of lists of numpy trees (JAX
   writes them with cloudpickle; `load_pipeline_checkpoint` reads both).
   `full_params` and `load_pipeline_checkpoint` return CPU tensors.
-- No tracing spans (``util/tracing.py`` is not ported). A stage worker
-  also answers `process_stats`, and `finish_step` adds each op's span
-  (``op_spans``) to its stats.
+- No tracing spans (``util/tracing.py`` is not ported). `finish_step`
+  adds each op's span to its stats (``op_spans``: the compute alone,
+  with the seconds of the op's host-to-device copy before it and its
+  device-to-host copy after it beside), and the stage process's pid,
+  device, intra-op threads, peak device memory and hand-written kernel
+  launches.
 """
 
 from __future__ import annotations
@@ -187,7 +195,7 @@ class PipelineStageWorker:
         self._saved: dict[tuple[int, int], Any] = {}  # (r, mb) -> inputs
         self._grads: list[Any] = []      # per repeat, ZeRO layout
         self._vel: list[Any] | None = None
-        self._ops: list[tuple] = []      # (kind, v, mb, t0, t1)
+        self._ops: list[tuple] = []  # (kind, v, mb, t0, t1, h2d_s, d2h_s)
         self._busy = 0.0            # work seconds inside ops (see _done)
         self.emulate: tuple[float, float] | None = None
         self._last_state_bytes: dict[str, int] = {}
@@ -352,12 +360,20 @@ class PipelineStageWorker:
             return None
         return t.detach().cpu().numpy()
 
-    def _done(self, kind: str, v: int, mb: int, t0: float,
-              c0: float) -> None:
-        """Close an op's accounting. Busy is never more than the op's
-        wall span: on the card the wall span itself, the device
+    def _start(self) -> tuple[float, float]:
+        """Open an op's compute span once its inputs are on the device:
+        (wall, process CPU) clocks."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter(), time.process_time()
+
+    def _done(self, t0: float, c0: float) -> float:
+        """Close an op's compute span and return its end. Busy is never
+        more than the span: on the card the span itself, the device
         synchronised first; on the CPU the process's CPU time in the op
-        (which sums every intra-op thread), bounded by the span."""
+        (which sums every intra-op thread), bounded by the span. The
+        op's copies to and from the host lie outside the span: they are
+        part of the hop, and `op_spans` carries their seconds."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
@@ -366,13 +382,13 @@ class PipelineStageWorker:
             self._busy += wall
         else:
             self._busy += min(time.process_time() - c0, wall)
-        self._ops.append((kind, v, mb, t0, t1))
+        return t1
 
     def _emulated(self, kind: str, v: int, mb: int, t0: float) -> None:
         dur = self.emulate[0 if kind == "fwd" else 1] / self.num_repeats
         time.sleep(dur)
         self._busy += dur
-        self._ops.append((kind, v, mb, t0, time.perf_counter()))
+        self._ops.append((kind, v, mb, t0, time.perf_counter(), 0.0, 0.0))
 
     def _run_chunk(self, r: int, params, x, targets):
         from ray_tpu_torch.models.pipelined import stage_apply
@@ -392,23 +408,25 @@ class PipelineStageWorker:
         stage's activation. Returns the activation for the next virtual
         stage, or the microbatch loss on the last. The inputs park until
         `backward(r, mb)`."""
-        t0 = time.perf_counter()
-        c0 = time.process_time()
+        h0 = time.perf_counter()
         v = r * self.num_stages + self.stage
         last = v == self.num_stages * self.num_repeats - 1
         if self.emulate is not None:
             self._saved[(r, mb)] = (payload,)
-            self._emulated("fwd", v, mb, t0)
+            self._emulated("fwd", v, mb, h0)
             return 0.0 if last else payload
         x = self._put_batch(payload)
         tgt = self._put_batch(targets) if last else None
+        t0, c0 = self._start()
         with torch.no_grad():
             out = self._run_chunk(r, self._compute_params(r), x, tgt)
         self._saved[(r, mb)] = (x, tgt) if last else (x,)
+        t1 = self._done(t0, c0)
         # the driver reads the microbatch loss straight off this call's
         # ObjectRef — no separate loss plumbing
         res = float(_whole(out)) if last else self._to_host(out)
-        self._done("fwd", v, mb, t0, c0)
+        self._ops.append(("fwd", v, mb, t0, t1, t0 - h0,
+                          time.perf_counter() - t1))
         return res
 
     def backward(self, r: int, mb: int, grad=None):
@@ -417,14 +435,15 @@ class PipelineStageWorker:
         the last, which seeds with 1/M so the accumulated grads are
         those of the MEAN loss). Returns the cotangent for the previous
         virtual stage (True from virtual stage 0)."""
-        t0 = time.perf_counter()
-        c0 = time.process_time()
+        h0 = time.perf_counter()
         v = r * self.num_stages + self.stage
         saved = self._saved.pop((r, mb))
         if self.emulate is not None:
-            self._emulated("bwd", v, mb, t0)
+            self._emulated("bwd", v, mb, h0)
             return True if v == 0 else saved[0]
         first = v == 0
+        seed = None if grad is None else self._put_batch(grad)
+        t0, c0 = self._start()
         tgt = saved[1] if len(saved) > 1 else None
         live = _tmap(lambda p: p.detach().requires_grad_(True),
                      self._compute_params(r))
@@ -437,13 +456,9 @@ class PipelineStageWorker:
             out = self._run_chunk(r, live, x, tgt)
             if grad is None:
                 out = out * (1.0 / self.num_microbatches)
-                seed = None
-            else:
-                seed = self._put_batch(grad)
-                if isinstance(out, DTensor):
-                    seed = distribute_tensor(seed, out.device_mesh,
-                                             out.placements,
-                                             src_data_rank=None)
+            elif isinstance(out, DTensor):
+                seed = distribute_tensor(seed, out.device_mesh,
+                                         out.placements, src_data_rank=None)
             got = torch.autograd.grad(
                 out, leaves + ([] if first else [x]), grad_outputs=seed)
         dparams = [_whole(g) for g in got[:len(leaves)]]
@@ -455,17 +470,21 @@ class PipelineStageWorker:
             # accumulate in the resident layout — scattered 1/D when
             # zero_stage >= 2: this buffer IS the ZeRO-2 grad state
             self._grads[r] = _tmap(torch.add, self._grads[r], dparams)
+        t1 = self._done(t0, c0)
         res = True if first else self._to_host(got[-1])
-        self._done("bwd", v, mb, t0, c0)
+        self._ops.append(("bwd", v, mb, t0, t1, t0 - h0,
+                          time.perf_counter() - t1))
         return res
 
     def finish_step(self) -> dict:
         """Apply the accumulated grads per chunk (SGD(+momentum),
         matching `pipelined_train_step` at momentum=0) and report this
         stage's timing — busy seconds and the step window (the driver's
-        bubble inputs), each op's span — plus the per-device resident
-        bytes of each state component, measured at the point the grad
-        state is fully accumulated (the honest ZeRO-2 number)."""
+        bubble inputs), each op's span and the seconds of its host
+        copies — plus the per-device resident bytes of each state
+        component, measured at the point the grad state is fully
+        accumulated (the honest ZeRO-2 number), and the process's
+        facts (`_process_facts`)."""
         from ray_tpu_torch.train.spmd import optimizer_state_bytes
 
         if self._saved:
@@ -503,7 +522,8 @@ class PipelineStageWorker:
         return {"stage": self.stage, "member": self.member,
                 "busy_s": busy, "busy_wall_s": busy_wall,
                 "window_s": window, "ops": len(ops), "op_spans": ops,
-                **self._last_state_bytes}
+                "copy_s": sum(o[5] + o[6] for o in ops),
+                **self._last_state_bytes, **self._process_facts()}
 
     def get_params(self) -> bytes:
         """This worker's current chunk params (a standard pickle of a
@@ -513,13 +533,12 @@ class PipelineStageWorker:
         chunks = [_numpy_tree(c) for c in self.params]
         return pickle.dumps(chunks) if self.member == 0 else b""
 
-    def process_stats(self) -> dict:
+    def _process_facts(self) -> dict:
         """This stage process: its pid, device, torch's intra-op
         threads, peak device memory and the launches of the port's
         hand-written kernels so far (0 for a kernel whose module this
         process never imported)."""
-        out = {"pid": os.getpid(), "stage": self.stage,
-               "member": self.member, "device": str(self.device),
+        out = {"pid": os.getpid(), "device": str(self.device),
                "intra_op_threads": torch.get_num_threads(),
                "device_name": None, "peak_bytes": None, "launches": {}}
         if self.device is not None and self.device.type == "cuda":

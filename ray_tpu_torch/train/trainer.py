@@ -32,7 +32,9 @@ Deviations from the JAX package:
   pipeline strategy's fit publishes none either.
 - ``strategy="pipeline"`` (the MPMD strategy,
   ``train/pipeline_strategy.py``) runs its stages on the card when
-  ``ScalingConfig.use_gpu`` is set and on the CPU otherwise.
+  ``ScalingConfig.use_gpu`` is set and on the CPU otherwise; its
+  ``Result`` also carries the last step's per-stage stats
+  (``stage_stats``: op spans, host copies, peak memory, launches).
 - The loop travels by value only where the port's pickler sends it so
   (defined in ``__main__``, inside a function, or a lambda); a loop
   defined at the top of an importable module travels by reference, and
@@ -163,6 +165,9 @@ class Result:
     path: str
     error: BaseException | None = None
     metrics_history: list = dataclasses.field(default_factory=list)
+    # strategy="pipeline": the last step's per-stage stats
+    # (`PipelineStrategy.last_stage_stats`)
+    stage_stats: list | None = None
 
 
 class TrainingFailedError(RuntimeError):
@@ -271,7 +276,8 @@ class TorchTrainer:
             ps.shutdown()
         return Result(metrics=history[-1] if history else {},
                       checkpoint=last_ckpt, path=exp_dir,
-                      metrics_history=history)
+                      metrics_history=history,
+                      stage_stats=ps.last_stage_stats)
 
     def _fit_spmd(self) -> Result:
         name = self.run_config.name or f"torch_trainer_{int(time.time())}"

@@ -11,7 +11,10 @@ scenario of tests/test_pipeline_strategy.py with its assertions:
   tolerances tests/test_torch_pipelined.py holds this model to;
 - the bubble, microbatch and virtual-stage metrics; bad shapes; the
   ZeRO composition (zero 3 over data_parallel=2: four gloo stage
-  processes) with its resident bytes at ~1/D; the emulated bubble,
+  processes) with its resident bytes at ~1/D; the flat and interleaved
+  runs' op spans (each stage's ops in its submission order, one at a
+  time, an input's host copy ended before its consumer starts, the
+  copies timed apart from the spans); the emulated bubble,
   interleaved below flat; the checkpoint round trip; `TorchTrainer`'s
   pipeline strategy and its checkpoints;
 - and three of the port's own: it reads a checkpoint directory the JAX
@@ -36,6 +39,8 @@ import ray_tpu_torch as ray
 from ray_tpu_torch.cluster_utils import Cluster
 from ray_tpu_torch.models.pipelined import PipelinedConfig
 from ray_tpu_torch.parallel.pipeline import (
+    interleaved_1f1b_submission_order,
+    one_f_one_b_submission_order,
     theoretical_bubble,
     theoretical_bubble_interleaved,
 )
@@ -190,6 +195,36 @@ def _strategies(cfg, *kws):
     return [f.result() for f in futs]
 
 
+def _assert_spans_follow_the_schedule(stats, S, M, R=1):
+    """Each stage's op spans (compute only, its host copies' seconds
+    beside) ran in the stage's submission order, one at a time with
+    their copies; an op that takes another stage's output started after
+    that output's copy to the host ended; the busy wall time is the sum
+    of the spans; the host copies were timed."""
+    order = (interleaved_1f1b_submission_order(S, M, R) if R > 1
+             else one_f_one_b_submission_order(S, M))
+    V, ops = S * R, {}
+    for st in stats:
+        spans = sorted(st["op_spans"], key=lambda o: o[3])
+        assert [tuple(o[:3]) for o in spans] == \
+            [op for op in order if op[1] % S == st["stage"]]
+        for o in spans:
+            assert o[3] <= o[4] and o[5] >= 0.0 and o[6] >= 0.0, o
+            ops[tuple(o[:3])] = o
+        for a, b in zip(spans, spans[1:]):
+            assert a[4] + a[6] <= b[3] - b[5] + 1e-6, (a, b)
+        assert st["busy_wall_s"] == pytest.approx(
+            sum(o[4] - o[3] for o in spans))
+        assert st["copy_s"] == pytest.approx(
+            sum(o[5] + o[6] for o in spans))
+        assert st["copy_s"] > 0.0
+    for (kind, v, m), o in ops.items():
+        src = (("fwd", v - 1, m) if kind == "fwd" and v > 0 else
+               ("bwd", v + 1, m) if kind == "bwd" and v < V - 1 else None)
+        if src is not None and src[1] % S != v % S:
+            assert o[3] >= ops[src][4] + ops[src][6] - 1e-6, (o, ops[src])
+
+
 def test_pipeline_strategy_matches_single_program(cluster):
     """2 stage workers x 4 microbatches vs pipelined_train_step on a
     one-device mesh: same init, same lr, 3 SGD steps — losses and the
@@ -217,6 +252,7 @@ def test_pipeline_strategy_matches_single_program(cluster):
             assert m["bubble_theoretical"] == pytest.approx(
                 theoretical_bubble(2, 4))
             assert m["microbatches"] == 4
+        _assert_spans_follow_the_schedule(ps.last_stage_stats, 2, 4)
     finally:
         ps.shutdown()
 
@@ -259,6 +295,10 @@ def test_torch_trainer_pipeline_strategy(cluster, tmp_path):
     assert len(result.metrics_history) == 2
     assert result.metrics["loss"] > 0
     assert "bubble_ratio" in result.metrics
+    # the port's Result also carries the last step's stage stats
+    assert [st["stage"] for st in result.stage_stats] == [0, 1]
+    assert len({st["pid"] for st in result.stage_stats} | {os.getpid()}) \
+        == 3
 
 
 def test_pipeline_strategy_rejects_bad_shapes(cluster):
@@ -302,6 +342,7 @@ def test_interleaved_strategy_matches_single_program(cluster):
             assert m["virtual_stages"] == 4
             assert m["bubble_theoretical"] == pytest.approx(
                 theoretical_bubble_interleaved(2, 4, 2))
+        _assert_spans_follow_the_schedule(ps.last_stage_stats, 2, 4, R=2)
     finally:
         ps.shutdown()
 
@@ -502,14 +543,13 @@ def test_busy_clock_keeps_bubble_non_negative(cluster):
     batch = _toy_batch(cfg, B=8)
     ps = _strategy(cfg, num_stages=2, num_microbatches=4, lr=1e-2)
     try:
-        threads = ps.wg.execute("process_stats")
-        assert all(t["intra_op_threads"] == STAGE_THREADS > 1
-                   for t in threads), threads
         for _ in range(3):
             m = ps.train_step(batch)
             assert 0.0 <= m["bubble_ratio"] < 1.0, m
             for st in ps.last_stage_stats:
+                assert st["intra_op_threads"] == STAGE_THREADS > 1, st
                 assert 0.0 < st["busy_s"] <= st["busy_wall_s"] \
                     <= st["window_s"] + 1e-9, st
     finally:
         ps.shutdown()
+

@@ -230,17 +230,17 @@ def test_state_round_trip(two_threads):
     b = _config(impala, seed=5).build()
     try:
         a.train()
-        # a's learner thread may still be stepping on queued batches:
-        # hold b to the state it was given, not to a's later weights
-        state = a.get_state()
-        b.set_state(state)
-        want = interop.rl_params_to_jax(state["learner"]["params"])
-        for x, y in zip(jax.tree.leaves(want),
+        # stop a's learner thread so that its weights hold still
+        # between get_state and the comparison below
+        a.learner_thread.stopped.set()
+        a.learner_thread.join(timeout=10)
+        b.set_state(a.get_state())
+        for x, y in zip(jax.tree.leaves(_weights(a)),
                         jax.tree.leaves(_weights(b))):
             np.testing.assert_array_equal(x, y)
         np.testing.assert_array_equal(
             b.env_runner_group.local.get_weights()["pi"][0]["w"],
-            want["pi"][0]["w"])
+            _weights(a)["pi"][0]["w"])
     finally:
         a.stop()
         b.stop()
