@@ -324,6 +324,37 @@ Phases, each of which exits non-zero on any failure:
    the seconds those hops took (the device-to-host copy, the store and
    the host-to-device copy apart), each stage process's peak memory and
    the phase's seconds.
+17. runtime_gpu: the runtime on the card (RUNTIME_* below), on one
+   ``cluster_utils.Cluster``: its head node is what ``init()`` boots
+   (this process, the card's GPU count) with a 512 MiB store, node B has
+   the card too. Every process of the phase starts at once, and (c)'s
+   loss of B and rebuild on C run beside (a), (b) and (d). (a) a
+   num_gpus=1 actor (a class defined here) in a ``runtime_env`` of an
+   env var and a working_dir holding a small module: fail unless it
+   sees the variable, imports the module from its materialized
+   working_dir (its cwd) and sees the card, and its 3 GPT-2-small steps
+   (train's recipe, seed 0) launch exactly 24/12/12 a step with losses
+   equal, bit for bit, to the driver's same steps. (b) the actor's
+   ``num_returns="streaming"`` method takes 12 more steps and yields
+   after each a 64 MiB slice of its params (a CUDA tensor) with the
+   SHA-256 of its bytes; the driver holds every ref (768 MiB against the
+   512 MiB store): fail unless the first item arrives before the last
+   step ends, the driver's store spilled at least 256 MiB (the actor's
+   worker asks its owner to spill when a create does not fit), every
+   item reads back onto the card with the actor's hash, and the stream
+   launched 24/12/12 a step. (c) a num_gpus=1 task on node B returns K1's
+   forward at B=8 T=1024 H=12 D=64 (bf16); B is removed and node C added
+   with the card: fail unless ``get`` rebuilds it by running the task
+   again in C's process (one K1 launch) bit-equal to the driver's own K1
+   call on the same inputs. (d) PPO at its default of two remote runners
+   (8 envs each, fragment 128) with the learner on the card, 5
+   iterations: fail unless the runners' pids are not the driver's, their
+   weights equal the learner's after the sync (max diff 0) and every
+   loss is finite. Nothing may outlive ``shutdown()``. Prints one line a
+   part (seconds, process starts and a card process's start split into
+   torch's import and its CUDA context, bytes spilled and spill GB/s,
+   item latencies, launches, env steps/s beside ppo_cartpole's) and the
+   phase's seconds.
 
 It prints one JSON line per kernel shape and per phase, K4's rows on
 the serving and rl paths with their launches there (by window and
@@ -637,6 +668,26 @@ PIPELINE_B_STEPS = 2
 PIPELINE_B_REPEATS = 2
 PIPELINE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "pipeline_gpt2")
+# runtime_gpu (phase 17): a 512 MiB store; (a) RUNTIME_STEPS train steps
+# in a GPU actor whose runtime_env sets RUNTIME_ENV_VAR and ships a
+# working_dir holding RUNTIME_MODULE; (b) RUNTIME_ITEMS more steps, each
+# yielding a RUNTIME_ITEM_BYTES CUDA tensor through a stream, at least
+# RUNTIME_SPILL_MIN of them spilled; (c) K1 at RUNTIME_K1_SHAPE (bf16)
+# rebuilt on another node; (d) PPO at RUNTIME_PPO for RUNTIME_PPO_ITERS
+RUNTIME_STORE_BYTES = 512 << 20
+RUNTIME_STEPS = 3
+RUNTIME_ENV_VAR = ("RUNTIME_GPU_FLAG", "phase17")
+RUNTIME_MODULE = "runtime_gpu_mod"
+RUNTIME_MODULE_VALUE = "from-working-dir"
+RUNTIME_ITEMS = 12
+RUNTIME_ITEM_BYTES = 64 << 20
+RUNTIME_SPILL_MIN = 256 << 20
+RUNTIME_K1_SHAPE = (8, 1024, 12, 64)
+RUNTIME_K1_SEED = 17
+RUNTIME_PPO = dict(num_env_runners=2, num_envs_per_env_runner=8,
+                   rollout_fragment_length=128)
+RUNTIME_PPO_TRAINING = dict(num_sgd_iter=6, minibatch_size=256)
+RUNTIME_PPO_ITERS = 5
 
 
 def fail(msg: str) -> None:
@@ -3441,12 +3492,13 @@ def _ppo_rows(results: list[dict]) -> dict:
             for k in ("env_steps_per_sec", "time_sample_s", "time_learn_s")}
 
 
-def phase_ppo_cartpole(torch, card: str) -> None:
+def phase_ppo_cartpole(torch, card: str) -> dict:
     """PPO on CartPole-v1 through ``PPOConfig(...).build().train()`` on
     the card (the JAX package's inline recipe): the best
     episode_return_mean must reach PPO_TARGET within PPO_ITERS
     iterations. Then one profiled iteration and PPO_PIPELINED_ITERS
-    iterations of a second run with pipeline_sampling."""
+    iterations of a second run with pipeline_sampling. Returns the first
+    run's env_steps_per_sec (median, max)."""
     from ray_tpu_torch.rllib import PPOConfig
 
     torch.cuda.reset_peak_memory_stats()
@@ -3495,6 +3547,7 @@ def phase_ppo_cartpole(torch, card: str) -> None:
         fail(f"ppo_cartpole: best episode_return_mean {best} after "
              f"{iters} iterations, below {PPO_TARGET}")
     release(torch)
+    return _ppo_rows(results)["env_steps_per_sec"]
 
 
 def phase_ppo_pixel(torch, card: str) -> None:
@@ -5978,6 +6031,465 @@ def phase_pipeline_gpt2(torch, card: str, keep: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 17
+
+
+def _proc_start() -> float:
+    """This process's start on the wall clock (from /proc)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        up = float(f.read().split()[0])
+    return time.time() - (up - ticks / os.sysconf("SC_CLK_TCK"))
+
+
+class RuntimeEnvWorker:
+    """Phase 17's GPU actor, defined in this script (``__main__``, so
+    pickled by value). It runs in a runtime environment (RUNTIME_ENV_VAR
+    and a working_dir holding RUNTIME_MODULE) and trains GPT-2-small
+    from the seed the driver uses."""
+
+    def __init__(self):
+        t0 = time.time()
+        import torch
+
+        t1 = time.time()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)  # raises when the card is hidden
+        torch.ones(1, device="cuda").sum().item()
+        self.start = {"proc_start": _proc_start(), "init_start": t0,
+                      "torch_imported": t1, "cuda_ready": time.time()}
+        self.state = self.step = self.batch = None
+
+    def probe(self) -> dict:
+        """What the runtime environment gave this process."""
+        import importlib
+
+        import torch
+
+        mod = importlib.import_module(RUNTIME_MODULE)
+        return {"pid": os.getpid(), "cwd": os.path.realpath(os.getcwd()),
+                "module_value": mod.VALUE,
+                "module_file": os.path.realpath(mod.__file__),
+                "env_var": os.environ.get(RUNTIME_ENV_VAR[0]),
+                "device_count": torch.cuda.device_count(),
+                "name": torch.cuda.get_device_name(0), "start": self.start}
+
+    def train(self, steps: int) -> dict:
+        """GPT-2-small's train step (train's recipe) from seed 0's params
+        and batch, `steps` steps, this process's launch counters zeroed
+        just before and read just after; the state stays for `stream`."""
+        import torch
+
+        counters = _reset_counters()
+        self.state, self.step, self.batch = _runtime_gpt2(torch)
+        losses = []
+        for _ in range(steps):
+            self.state, m = self.step(self.state, self.batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        return {"pid": os.getpid(), "losses": [float(x) for x in losses],
+                "launches": launch_counts(counters)}
+
+    def stream(self, items: int, nbytes: int):
+        """`items` more steps; after each, yield a `nbytes` slice of the
+        largest param (a CUDA tensor) with the SHA-256 of its bytes, the
+        step's end (wall clock) and the launches since the first."""
+        import hashlib
+
+        import torch
+
+        from ray_tpu_torch.util import tree
+
+        counters = _reset_counters()
+        for _ in range(items):
+            self.state, _m = self.step(self.state, self.batch)
+            torch.cuda.synchronize()
+            t_end = time.time()
+            big = max(tree.leaves(self.state.params), key=lambda t: t.numel())
+            x = big.detach().reshape(-1)[:nbytes // big.element_size()]
+            x = x.clone()
+            sha = hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+            yield {"x": x, "sha256": sha, "t_step_end": t_end,
+                   "launches": launch_counts(counters)}
+
+
+def _runtime_gpt2(torch):
+    """GPT-2-small's params, train state, step and batch from seed 0 on
+    the card: the driver's reference and the actor's run."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_loss, init_gpt2
+    from ray_tpu_torch.train import TrainState, adamw, make_train_step
+
+    cfg = GPT2Config.small()
+    B, T = TRAIN_BATCH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_gpt2(gen, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "targets": toks[:, 1:].contiguous()}
+    tx = adamw(3e-4, weight_decay=0.1)
+    step = make_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx)
+    return TrainState.create(params, tx), step, batch
+
+
+def _k1_inputs(torch, seed: int):
+    B, T, H, D = RUNTIME_K1_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return [torch.randn((B, T, H, D), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(3)]
+
+
+def _k1_task(seed: int) -> tuple:
+    """Phase 17 (c)'s task: K1's forward at the training shape on this
+    process's card, with this process's launch counters, pid and the
+    wall-clock marks of its start."""
+    t0 = time.time()
+    import torch
+
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+
+    t1 = time.time()
+    torch.cuda.set_device(0)  # raises when the card is hidden
+    counters = _reset_counters()
+    q, k, v = _k1_inputs(torch, seed)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    o = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    return o, launch_counts(counters), os.getpid(), {
+        "proc_start": _proc_start(), "task_start": t0,
+        "torch_imported": t1, "cuda_ready": t2, "done": time.time()}
+
+
+def _start_split(start: dict, submitted: float) -> dict:
+    """Seconds from a submission to a worker's process start, to its
+    code's first line, to torch imported, to its first CUDA work."""
+    marks = [("to_process", "proc_start"),
+             ("to_code", "task_start" if "task_start" in start
+              else "init_start"),
+             ("torch_import", "torch_imported"),
+             ("cuda_context", "cuda_ready")]
+    out, prev = {}, submitted
+    for name, key in marks:
+        out[name] = start[key] - prev
+        prev = start[key]
+    return out
+
+
+def _node_workers(ray, nodelets) -> dict:
+    """pid -> (actor id, spawn-to-ready seconds) of every worker of the
+    given nodelets."""
+    from ray_tpu_torch.core.rpc import RpcClient
+
+    client = RpcClient.shared()
+    out = {}
+    for nl in nodelets:
+        st = client.call(nl.address, "node_stats", {}, timeout=10)
+        out.update({w["pid"]: (w["actor_id"], w["ready_s"])
+                    for w in st["workers"]})
+    return out
+
+
+def _runtime_parts(torch, ray, c, card: str, env: dict,
+                   ppo_local: dict | None, seen_pids: set) -> dict:
+    """Phase 17's four parts on the Cluster `c` (the head node in this
+    process with the card and the 512 MiB store, node B with the card
+    for (c)); (c)'s loss of B and rebuild on C run on a thread beside
+    (a), (b) and (d). Returns the launches of the path runtime_gpu."""
+    import hashlib
+    import threading
+
+    from ray_tpu_torch.core.api import _global_runtime
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.util import tree
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+
+    rt = _global_runtime()
+    head, node_b = c.nodelets
+    t_phase = time.time()
+    # every process of the phase starts at once: (c)'s task on node B,
+    # (a)'s actor on the head node, (d)'s two runners
+    k1 = ray.remote(num_gpus=1, num_cpus=0, resources={"volatile": 1.0},
+                    max_retries=2)(_k1_task)
+    k1_ref = k1.remote(RUNTIME_K1_SEED)
+    Actor = ray.remote(num_gpus=1, runtime_env=env)(RuntimeEnvWorker)
+    actor = Actor.options(scheduling_strategy=NodeAffinitySchedulingStrategy(
+        head.node_id.hex())).remote()
+    algo = (PPOConfig().environment("CartPole-v1")
+            .env_runners(**RUNTIME_PPO)
+            .training(**RUNTIME_PPO_TRAINING)).build()
+    d_built_s = time.time() - t_phase
+    try:
+        # (a) a runtime environment on a GPU actor
+        probe = ray.get(actor.probe.remote(), timeout=120)
+
+        # (c) reconstruction on the card, in the background of (a), (b)
+        # and (d): node B's output is lost with B and rebuilt on node C
+        ready, _ = ray.wait([k1_ref], timeout=120)
+        if not ready:
+            fail("runtime_gpu: the K1 task on node B did not finish")
+        b_pids = set(_node_workers(ray, [node_b]))
+        seen_pids.update(b_pids)
+        rebuilt: dict = {}
+
+        def reconstruct():
+            try:
+                t0 = time.perf_counter()
+                c.remove_node(node_b)
+                deadline = time.monotonic() + CLUSTER_WAIT_S
+                while time.monotonic() < deadline and \
+                        sum(1 for n in ray.nodes() if n["Alive"]) != 1:
+                    time.sleep(0.2)
+                rebuilt["dead_s"] = time.perf_counter() - t0
+                rebuilt["node"] = c.add_node(num_cpus=0, num_gpus=1,
+                                             resources={"volatile": 1.0})
+                c.wait_for_nodes()
+                rebuilt["t_get"] = time.time()
+                rebuilt["value"] = ray.get(k1_ref, timeout=300)
+                rebuilt["s"] = time.time() - rebuilt["t_get"]
+            except Exception as e:  # noqa: BLE001
+                rebuilt["error"] = e
+
+        th = threading.Thread(target=reconstruct,
+                              name="runtime-gpu-reconstruct", daemon=True)
+        th.start()
+        out = ray.get(actor.train.remote(RUNTIME_STEPS), timeout=300)
+        a_s = time.time() - t_phase
+        state, step, batch = _runtime_gpt2(torch)
+        direct = []
+        for _ in range(RUNTIME_STEPS):
+            state, m = step(state, batch)
+            direct.append(m["loss"])
+        direct = [float(x) for x in direct]
+        del state, step, batch
+        release(torch)
+        L = 12
+        want = {"flash_fwd": 2 * L * RUNTIME_STEPS,
+                "flash_dq": L * RUNTIME_STEPS,
+                "flash_dkv": L * RUNTIME_STEPS, "paged_attention": 0}
+        la = out["launches"]
+        if probe["env_var"] != RUNTIME_ENV_VAR[1] or \
+                probe["module_value"] != RUNTIME_MODULE_VALUE or \
+                not probe["module_file"].startswith(probe["cwd"]) or \
+                probe["pid"] == os.getpid() or \
+                probe["device_count"] != 1 or \
+                probe["name"] != torch.cuda.get_device_name(0):
+            fail(f"runtime_gpu: the actor's runtime environment is {probe}")
+        if {k: la[k] for k in want} != want:
+            fail(f"runtime_gpu: the actor's launches {la}, want {want}")
+        if not all(math.isfinite(x) for x in out["losses"]) or \
+                out["losses"] != direct:
+            fail(f"runtime_gpu: the actor's losses {out['losses']} are not "
+                 f"the driver's {direct} bit for bit")
+        emit({"phase": "runtime_gpu", "part": "a_runtime_env", "card": card,
+              "seconds": a_s, "process_starts": 1,
+              "start_split_s": _start_split(probe["start"], t_phase),
+              "probe": {k: v for k, v in probe.items() if k != "start"},
+              "steps": RUNTIME_STEPS, "losses": out["losses"],
+              "losses_bitwise_equal_to_driver": True, "launches": la,
+              "launches_per_step": {k: v / RUNTIME_STEPS
+                                    for k, v in want.items()}})
+
+        # (b) streaming and spilling of objects made on the card
+        t0 = time.perf_counter()
+        spill0 = dict(rt.spill_stats)
+        gen = actor.stream.options(num_returns="streaming").remote(
+            RUNTIME_ITEMS, RUNTIME_ITEM_BYTES)
+        refs, t_recv = [], []
+        for ref in gen:
+            t_recv.append(time.time())
+            refs.append(ref)
+        stream_s = time.perf_counter() - t0
+        spilled = {k: rt.spill_stats[k] - spill0[k] for k in spill0}
+        items = []
+        t1 = time.perf_counter()
+        for ref in refs:  # every ref held until all are read back
+            item = ray.get(ref, timeout=CLUSTER_WAIT_S)
+            x = item["x"]
+            if not x.is_cuda or x.numel() * x.element_size() != \
+                    RUNTIME_ITEM_BYTES:
+                fail(f"runtime_gpu: an item came back as {x.device} "
+                     f"{x.numel() * x.element_size()} bytes")
+            sha = hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+            items.append({"sha_equal": sha == item["sha256"],
+                          "t_step_end": item["t_step_end"],
+                          "launches": item["launches"]})
+            del item, x
+        read_s = time.perf_counter() - t1
+        del refs, gen
+        ray.kill(actor)
+        if len(items) != RUNTIME_ITEMS or not all(i["sha_equal"]
+                                                  for i in items):
+            fail(f"runtime_gpu: {len(items)} items, hashes equal "
+                 f"{[i['sha_equal'] for i in items]}")
+        if not t_recv[0] < items[-1]["t_step_end"]:
+            fail(f"runtime_gpu: the first item reached the driver at "
+                 f"{t_recv[0]}, after the producer's last step ended at "
+                 f"{items[-1]['t_step_end']}")
+        if spilled["bytes"] < RUNTIME_SPILL_MIN:
+            fail(f"runtime_gpu: the store spilled {spilled}, below "
+                 f"{RUNTIME_SPILL_MIN} bytes")
+        lb = items[-1]["launches"]
+        want_b = {k: v // RUNTIME_STEPS * RUNTIME_ITEMS
+                  for k, v in want.items()}
+        if {k: lb[k] for k in want_b} != want_b:
+            fail(f"runtime_gpu: the stream's launches {lb}, want {want_b}")
+        emit({"phase": "runtime_gpu", "part": "b_stream_spill",
+              "card": card, "seconds": stream_s + read_s,
+              "stream_s": stream_s, "read_back_s": read_s,
+              "process_starts": 0, "items": RUNTIME_ITEMS,
+              "item_bytes": RUNTIME_ITEM_BYTES,
+              "store_capacity": RUNTIME_STORE_BYTES,
+              "first_item_before_last_step_s":
+                  items[-1]["t_step_end"] - t_recv[0],
+              "item_latency_s": [r - i["t_step_end"]
+                                 for r, i in zip(t_recv, items)],
+              "spilled_bytes": spilled["bytes"],
+              "spilled_objects": spilled["objects"],
+              "spill_s": spilled["seconds"],
+              "spill_gbps": spilled["bytes"] / spilled["seconds"] / 1e9
+              if spilled["seconds"] else None,
+              "hashes_equal": True, "launches": lb})
+
+        # (d) PPO with remote runners (built at the phase's start)
+        t_d = time.perf_counter()
+        group = algo.env_runner_group
+        on_cuda("runtime_gpu ppo", algo.learner.params)
+        workers = _node_workers(ray, [head])
+        by_actor = {a: pid for pid, (a, _) in workers.items() if a}
+        pids = [by_actor.get(r._actor_id.hex()) for r in group.runners]
+        results = [algo.train() for _ in range(RUNTIME_PPO_ITERS)]
+        learner = [np.asarray(x)
+                   for x in tree.leaves(algo.learner.get_weights())]
+        diffs = []
+        for r in group.runners:
+            got = tree.leaves(ray.get(r.get_weights.remote(),
+                                      timeout=CLUSTER_WAIT_S))
+            diffs.append(max(float(np.max(np.abs(np.asarray(a) - b)))
+                             for a, b in zip(got, learner)))
+        d_s = time.perf_counter() - t_d
+        seen_pids.update(workers)
+        if len(pids) != RUNTIME_PPO["num_env_runners"] or None in pids or \
+                os.getpid() in pids or len(set(pids)) != len(pids):
+            fail(f"runtime_gpu: the runners' pids {pids} (driver "
+                 f"{os.getpid()})")
+        if len(diffs) != len(pids) or max(diffs) != 0.0:
+            fail(f"runtime_gpu: the runners' weights differ from the "
+                 f"learner's by {diffs}")
+        if not all(math.isfinite(r["learner/total_loss"]) for r in results):
+            fail("runtime_gpu: a non-finite PPO loss")
+        emit({"phase": "runtime_gpu", "part": "d_ppo_remote_runners",
+              "card": card, "seconds": d_s,
+              "built_at_phase_start_s": d_built_s, "process_starts": 2,
+              "spawn_to_ready_s": sorted(
+                  workers[p][1] for p in pids if workers[p][1] is not None),
+              "runner_pids": pids, "driver_pid": os.getpid(),
+              "iterations": RUNTIME_PPO_ITERS,
+              "weights_max_abs_diff": max(diffs),
+              "env_steps_per_sec": [r["env_steps_per_sec"] for r in results],
+              "time_sample_s": [r["time_sample_s"] for r in results],
+              "time_learn_s": [r["time_learn_s"] for r in results],
+              "episode_return_mean": [r["episode_return_mean"]
+                                      for r in results],
+              "ppo_cartpole_local_env_steps_per_sec": ppo_local})
+
+        th.join(timeout=400)
+        if "value" not in rebuilt:
+            fail(f"runtime_gpu: the K1 output was not rebuilt: {rebuilt}")
+        o, launches, pid, start = rebuilt["value"]
+        c_pids = set(_node_workers(ray, [rebuilt["node"]]))
+        seen_pids.update(c_pids)
+    finally:
+        algo.stop()
+    q, k, v = _k1_inputs(torch, RUNTIME_K1_SEED)
+    want_o = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    equal = bool(o.is_cuda and o.shape == want_o.shape and
+                 o.dtype == want_o.dtype and torch.equal(o, want_o))
+    del q, k, v, want_o, o
+    if pid not in c_pids or pid in b_pids:
+        fail(f"runtime_gpu: the rebuilt K1 output came from pid {pid}, "
+             f"not node C's {sorted(c_pids)}")
+    if launches.get("flash_fwd") != 1:
+        fail(f"runtime_gpu: the rebuilding task launched {launches}")
+    if not equal:
+        fail("runtime_gpu: the rebuilt K1 output differs from the "
+             "driver's K1 call on the same inputs")
+    emit({"phase": "runtime_gpu", "part": "c_reconstruction", "card": card,
+          "seconds": rebuilt["dead_s"] + rebuilt["s"],
+          "death_seen_s": rebuilt["dead_s"], "rebuild_s": rebuilt["s"],
+          "rebuild_start_split_s": _start_split(start, rebuilt["t_get"]),
+          "process_starts": len(b_pids) + len(c_pids),
+          "shape": list(RUNTIME_K1_SHAPE), "dtype": "bfloat16",
+          "bitwise_equal_to_driver": True, "launches": launches})
+    return {k: la[k] + lb[k] + (launches[k] if k == "flash_fwd" else 0)
+            for k in want}
+
+
+def phase_runtime_gpu(torch, card: str, ppo_local: dict | None) -> dict:
+    """Phase 17: runtime environments, streaming and spilling of CUDA
+    tensors, reconstruction and remote env runners on the card (see the
+    docstring); returns the launches of the path runtime_gpu."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core import object_store
+
+    t_phase = time.perf_counter()
+    release(torch)
+    wd = tempfile.mkdtemp(prefix="runtime_gpu_wd_")
+    with open(os.path.join(wd, f"{RUNTIME_MODULE}.py"), "w") as f:
+        f.write(f"VALUE = {RUNTIME_MODULE_VALUE!r}\n")
+    env = {"env_vars": dict([RUNTIME_ENV_VAR]), "working_dir": wd}
+    # the head node is what init() boots (this process, the card's GPU
+    # count), with the 512 MiB store; node B gets the card for (c)
+    c = Cluster(initialize_head=True, head_node_args={
+        "num_cpus": os.cpu_count() or 8,
+        "num_gpus": torch.cuda.device_count(),
+        "store_capacity": RUNTIME_STORE_BYTES})
+    stores = [c.nodelets[0].store.name]
+    seen_pids: set = set()
+    try:
+        node_b = c.add_node(num_cpus=0, num_gpus=1,
+                            resources={"volatile": 1.0})
+        stores.append(node_b.store.name)
+        c.wait_for_nodes()
+        ray.init(address=c.address)
+        launches = _runtime_parts(torch, ray, c, card, env, ppo_local,
+                                  seen_pids)
+        stores.append(c.nodelets[-1].store.name)
+    finally:
+        ray.shutdown()
+        c.shutdown()
+        shutil.rmtree(wd, ignore_errors=True)
+    release(torch)
+    left = [s for s in stores
+            if os.path.exists(os.path.join(object_store._SHM_DIR, s))]
+    if left:
+        fail(f"runtime_gpu: store segments {left} outlived shutdown()")
+    alive = []
+    for pid in seen_pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    if alive:
+        fail(f"runtime_gpu: worker processes {alive} outlived shutdown()")
+    emit({"phase": "runtime_gpu", "card": card, "launches": launches,
+          "worker_pids_checked": len(seen_pids),
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
 def _paths(t, path=""):
     if isinstance(t, dict):
         for k in sorted(t):
@@ -6057,7 +6569,7 @@ def main() -> int:
     keep_pipe: dict = {}
     phase_pipelined(torch, keep_pipe)
     lap("pipelined")
-    phase_ppo_cartpole(torch, card)
+    ppo_local = phase_ppo_cartpole(torch, card)
     lap("ppo_cartpole")
     phase_ppo_pixel(torch, card)
     lap("ppo_pixel")
@@ -6081,6 +6593,8 @@ def main() -> int:
     lap("trainer_tune")
     paths["pipeline_gpt2"] = phase_pipeline_gpt2(torch, card, keep_pipe)
     lap("pipeline_gpt2")
+    paths["runtime_gpu"] = phase_runtime_gpu(torch, card, ppo_local)
+    lap("runtime_gpu")
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),

@@ -21,9 +21,9 @@ actor classes travel pickled by value (serialization.dumps_fn) in place
 of cloudpickle; a booted node asserts the GPUs this process may use
 (``init(num_gpus=)`` overrides the count) where the JAX package detects
 TPU chips. Not ported yet, and raising NotImplementedError when asked
-for: a non-empty ``runtime_env``, the log plane's mirror of worker
-prints to the driver (RAY_TPU_LOG_TO_DRIVER), this process's metrics
-page (metrics_text) and the profiler (profile_capture).
+for: the log plane's mirror of worker prints to the driver
+(RAY_TPU_LOG_TO_DRIVER), this process's metrics page (metrics_text) and
+the profiler (profile_capture).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ import time
 from typing import Any, Callable
 
 from ray_tpu_torch.core import exceptions as exc
+from ray_tpu_torch.core import runtime_env as rtenv
 from ray_tpu_torch.core import serialization as ser
 from ray_tpu_torch.core.api import ActorHandle, ObjectRef
 from ray_tpu_torch.core.head import dataclass_dict
@@ -284,6 +285,9 @@ class ClusterRuntime:
         # outranks any earlier queued release
         self._borrow_epoch: dict[bytes, int] = {}  # guarded_by(_lock)
         self._borrow_epoch_counter = 0  # guarded_by(_lock)
+        self._rtenv_cache: dict = {}  # normalized runtime envs by content
+        # what this owner moved to the disk tier: objects, bytes, seconds
+        self.spill_stats = {"objects": 0, "bytes": 0, "seconds": 0.0}
         # Store buffers pinned because a deserialized object graph aliases
         # them zero-copy (plasma pin semantics); released when the owning
         # object is freed or at shutdown.
@@ -344,6 +348,9 @@ class ClusterRuntime:
         self.server.register("borrow_release", self._h_borrow_release,
                              oneway=True)
         self.server.register("pubsub", self._h_pubsub, oneway=True)
+        # slow lane: spilling writes whole objects to the disk tier
+        self.server.register("spill_request", self._h_spill_request,
+                             slow=True)
         self.server.register("list_objects", self._h_list_objects)
         self.server.register("metrics_text", self._h_metrics_text)
         # profiler plane: capture handlers block for their window, so
@@ -582,7 +589,11 @@ class ClusterRuntime:
     # local_object_manager.h:41 — spill pinned primaries under memory
     # pressure, restore on access; the owner tracks the spilled URL).
     # Ownership centralizes the metadata, so the owner is the natural
-    # spill coordinator for its own primaries.
+    # spill coordinator for its own primaries: the ones it put, and the
+    # ones a producer wrote into the store this owner maps (a task's
+    # result, a stream's item). A producer whose create does not fit asks
+    # the owner to make room first (the port's spill_request; the JAX
+    # package ships such an item inline to the owner instead).
 
     _SPILL_MIN_BYTES = 64 * 1024
 
@@ -602,7 +613,10 @@ class ClusterRuntime:
         candidates = []
         with self._lock:
             for b, st in self._owned.items():
-                if (st.event.is_set() and st.location == "local"
+                if (st.event.is_set()
+                        and (st.location == "local" or (
+                            st.location is not None
+                            and st.store_name == self.store.name))
                         and st.spilled_path is None and not st.borrowers
                         and st.error is None
                         and st.size >= self._SPILL_MIN_BYTES
@@ -610,6 +624,7 @@ class ClusterRuntime:
                     candidates.append((b, st))
         freed = 0
         spill_dir = None
+        t0 = time.perf_counter()
         for b, st in candidates:  # dict order == insertion order (oldest first)
             if freed >= nbytes_needed:
                 break
@@ -654,7 +669,21 @@ class ClusterRuntime:
             self.store.release(b)   # the primary (creator) pin
             self.store.delete(b)
             freed += size
+            with self._lock:
+                self.spill_stats["objects"] += 1
+                self.spill_stats["bytes"] += size
+        with self._lock:
+            self.spill_stats["seconds"] += time.perf_counter() - t0
         return freed
+
+    def _h_spill_request(self, msg, frames):
+        """A producer on this node could not fit `bytes` into the store
+        this owner maps: spill this owner's primaries there to make room
+        (reference: plasma's create queue waits on the raylet's spilling,
+        local_object_manager.h:41). Another node's store: nothing to do."""
+        if self.store is None or msg.get("store_name") != self.store.name:
+            return {"freed": 0}
+        return {"freed": self._spill_primaries(int(msg["bytes"]))}
 
     def get(self, refs: list[ObjectRef], timeout=None):
         self.flush_submits()  # about to block: no batch may sit buffered
@@ -891,7 +920,10 @@ class ClusterRuntime:
                 if r.get("ok") and self.store.contains(oid):
                     return self._pinned_deserialize(oid)
             except Exception:  # noqa: BLE001
-                pass  # holder node unreachable: fall through
+                r = {}  # holder node unreachable: fall through
+            if r.get("holder_dead"):
+                raise exc.ObjectLostError(
+                    f"object {oid.hex()[:12]}: holder {location} is dead")
         # last resort: direct pull into memory. Probe liveness first so
         # a dead holder fails fast, while a live holder gets the full
         # window for a big single-frame transfer.
@@ -1676,11 +1708,26 @@ class ClusterRuntime:
             self._decref(b)
 
     def _normalized_runtime_env(self, runtime_env):
+        key = None
         if runtime_env:
-            raise NotImplementedError(
-                "runtime_env is not ported to ray_tpu_torch yet "
-                f"(asked for {sorted(runtime_env)})")
-        return None
+            # the cache key must track working_dir CONTENT (mtime/size
+            # fingerprint), or edits between submits ship stale code
+            fp = ""
+            wd = runtime_env.get("working_dir")
+            if wd:
+                fp = rtenv.dir_fingerprint(wd)
+            key = ("rtenv", json_stable(runtime_env), fp)
+            with self._lock:
+                cached = self._rtenv_cache.get(key)
+            if cached is not None:
+                return cached
+        norm = rtenv.normalize(runtime_env, self.client, self.head_address)
+        if key is not None:
+            with self._lock:
+                if len(self._rtenv_cache) > 64:
+                    self._rtenv_cache.clear()
+                self._rtenv_cache[key] = norm
+        return norm
 
     def submit_task(self, fn, args, kwargs, opts: TaskOptions):
         t_submit0 = time.monotonic_ns()
@@ -1901,7 +1948,7 @@ class ClusterRuntime:
     # ------------------------------------------------------------ leases
 
     def _lease_key(self, spec: TaskSpec) -> tuple:
-        return (json_stable(spec.resources), "")
+        return (json_stable(spec.resources), rtenv.env_hash(spec.runtime_env))
 
     def _submit_via_lease(self, spec: TaskSpec) -> bool:
         """Route the task through the lease layer (reference model: the

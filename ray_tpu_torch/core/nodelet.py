@@ -17,13 +17,12 @@ until saturated, then best-fit remote).
 
 The port's copy of ``ray_tpu/core/nodelet.py``. Workers run
 ``python -m ray_tpu_torch.core.worker_main`` and see the card exactly
-when they claim ``GPU`` (the accelerator registry's handoff); a worker
-exits when its nodelet's process goes. Not ported yet, and raising
-NotImplementedError when asked for: runtime environments (a task or
-actor with a non-empty ``runtime_env``), the structured log plane's
-query (log_query; a worker's prints go to its log file,
-``logs/worker-<id>.log``), the node's metrics page (node_metrics) and
-the profiler (profile_capture).
+when they claim ``GPU`` (the accelerator registry's handoff), in a
+runtime environment as well; a worker exits when its nodelet's process
+goes. Not ported yet, and raising NotImplementedError when asked for:
+the structured log plane's query (log_query; a worker's prints go to
+its log file, ``logs/worker-<id>.log``), the node's metrics page
+(node_metrics) and the profiler (profile_capture).
 """
 
 from __future__ import annotations
@@ -38,6 +37,7 @@ import time
 from collections import deque
 
 from ray_tpu_torch.core import config as cfg
+from ray_tpu_torch.core import runtime_env as rtenv
 from ray_tpu_torch.core import serialization as ser
 from ray_tpu_torch.core.head import HEARTBEAT_INTERVAL_S, dataclass_dict
 from ray_tpu_torch.core.object_store import open_store
@@ -519,9 +519,17 @@ class Nodelet:
 
         wid = WorkerID.random().binary()
         env = dict(os.environ)
-        ehash = _env_hash(runtime_env)
+        cwd = None
+        py_exe = None
+        ehash = rtenv.env_hash(runtime_env)
+        if runtime_env:
+            extra, cwd, py_exe = rtenv.materialize(
+                runtime_env, self.session_dir, self.client,
+                self.head_address)
+            env.update(extra)
         # the worker imports ray_tpu_torch from the checkout this nodelet
-        # runs from, whatever the launch cwd
+        # runs from, whatever the launch cwd (a working_dir's included)
+        # and whatever its interpreter (a pip/uv env's included)
         import ray_tpu_torch as _pkg
 
         pkg_root = os.path.dirname(os.path.dirname(
@@ -553,9 +561,10 @@ class Nodelet:
         log = open(os.path.join(self.log_dir, f"worker-{wid.hex()[:12]}.log"), "ab")
         try:
             proc = subprocess.Popen(
-                [sys.executable, "-m", "ray_tpu_torch.core.worker_main"],
+                [py_exe or sys.executable, "-m",
+                 "ray_tpu_torch.core.worker_main"],
                 env=env, stdout=log, stderr=subprocess.STDOUT,
-                start_new_session=True,
+                start_new_session=True, cwd=cwd,
             )
         finally:
             log.close()  # the child holds its own descriptor
@@ -596,7 +605,7 @@ class Nodelet:
         resources = dict(msg.get("resources") or {})
         runtime_env = msg.get("runtime_env")
         needs_gpu = resources.get("GPU", 0) > 0
-        want_env = _env_hash(runtime_env)
+        want_env = rtenv.env_hash(runtime_env)
         lease_id = os.urandom(8)
         with self._lock:
             can_run = self._can_run(resources)
@@ -1371,7 +1380,7 @@ class Nodelet:
                                 self._enqueue_time.pop(spec.task_id, None)
                     if reject is None and respill is None:
                         needs_gpu = spec.resources.get("GPU", 0) > 0
-                        want_env = _env_hash(spec.runtime_env)
+                        want_env = rtenv.env_hash(spec.runtime_env)
                         w = None
                         # reuse-first: prefer an idle worker whose device
                         # visibility AND runtime env match (reference:
@@ -1655,9 +1664,19 @@ class Nodelet:
         finally:
             self._pull_sem.release()
 
+    def _holder_dead(self, location: str) -> bool:
+        """The head's view lists the node at `location` as dead: a pull
+        from it can only time out, so the caller fails at once and the
+        owner's reconstruction starts without that wait."""
+        return any(n.get("address") == location and not n.get("alive", True)
+                   for n in self._cluster_view_cached())
+
     def _fetch_object_admitted(self, oid, location):
         if self.store.contains(oid):
             return {"ok": True}
+        if self._holder_dead(location):
+            return {"ok": False, "error": "holder node dead",
+                    "holder_dead": True}
         t_fetch0 = time.monotonic()
         meta = self.client.call(location, "object_meta", {"oid": oid},
                                 timeout=15, retries=1)
@@ -1835,15 +1854,6 @@ class Nodelet:
         return {"objects": objects, "store": store,
                 "node_id": self.node_id, "address": self.address,
                 "oom_kills": self._oom_kills}
-
-
-def _env_hash(runtime_env: dict | None) -> str:
-    """Worker-reuse key of a runtime env: "" for none, the only kind the
-    port runs (runtime_env.py is not ported; submission refuses others)."""
-    if runtime_env:
-        raise NotImplementedError(
-            "runtime_env is not ported to ray_tpu_torch yet")
-    return ""
 
 
 def _worker_died_error(name: str, code):

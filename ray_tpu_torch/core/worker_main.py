@@ -31,7 +31,10 @@ from ray_tpu_torch.core.api import ObjectRef, _set_runtime
 from ray_tpu_torch.core.cluster_runtime import ClusterRuntime, _submit_coalesced
 from ray_tpu_torch.core.rpc import Batcher
 from ray_tpu_torch.core.ids import ActorID, NodeID, ObjectID, TaskID
-from ray_tpu_torch.core.object_store import open_store
+from ray_tpu_torch.core.object_store import (
+    ObjectStoreFullError,
+    open_store,
+)
 from ray_tpu_torch.core.specs import INLINE_THRESHOLD, ActorSpec, RefArg, TaskSpec
 
 
@@ -110,6 +113,25 @@ class WorkerRuntime(ClusterRuntime):
 
     # ------------------------------------------------------------ results
 
+    def _create_making_room(self, owner: str, oid: bytes, size: int):
+        """`store.create`; when the store is full, ask the object's owner
+        to spill its primaries in this node's store and retry once. Raises
+        ObjectStoreFullError when there is still no room (the caller then
+        ships the value inline)."""
+        try:
+            return self.store.create(oid, size)
+        except ObjectStoreFullError:
+            try:
+                freed = self.client.call(
+                    owner, "spill_request",
+                    {"bytes": size, "store_name": self.store.name},
+                    timeout=60).get("freed", 0)
+            except Exception:  # noqa: BLE001
+                freed = 0
+            if not freed:
+                raise
+        return self.store.create(oid, size)
+
     def _ship_results(self, owner: str, task_id: bytes, oids: list[bytes],
                       values: list):
         frames = []
@@ -123,7 +145,7 @@ class WorkerRuntime(ClusterRuntime):
                 locations.append(None)
             else:
                 try:
-                    mv = self.store.create(b, total)
+                    mv = self._create_making_room(owner, b, total)
                     ser.write_into(mv, head_payload, views)
                     del mv
                     self.store.seal(b)
@@ -221,7 +243,7 @@ class WorkerRuntime(ClusterRuntime):
                     frames = [bytes(buf)]
                 else:
                     try:
-                        mv = self.store.create(oid, total)
+                        mv = self._create_making_room(owner, oid, total)
                         ser.write_into(mv, head_payload, views)
                         del mv
                         self.store.seal(oid)

@@ -11,10 +11,10 @@ the BYTES of produced-but-unconsumed blocks (sizes read from the
 owner's object metadata after task_done) so ingestion cannot crowd
 training out of host RAM.
 
-Deviations from the JAX package: the default memory budget is a
-quarter of `OBJECT_STORE_BYTES`, a constant here (the port has no
-``core/config.py``, which goes with the cluster runtime); and no
-execution is published to a dashboard view (the dashboard is not
+The default memory budget is a quarter of the object store's
+capacity (``core.config`` ``OBJECT_STORE_BYTES``, which
+``RAY_TPU_OBJECT_STORE_BYTES`` sets), as in the JAX package. Deviation:
+no execution is published to a dashboard view (the dashboard is not
 ported). The local runtime keeps no ownership table, so `_ref_size` is
 0 and the memory policy reduces to the concurrency cap, as in the JAX
 package's local mode.
@@ -23,9 +23,6 @@ package's local mode.
 from __future__ import annotations
 
 from typing import Iterator
-
-# the JAX package's default object-store size (ray_tpu/core/config.py)
-OBJECT_STORE_BYTES = 512 * 1024 * 1024
 
 
 class ExecutionStats:
@@ -74,10 +71,11 @@ class MemoryBudgetBackpressurePolicy(BackpressurePolicy):
 def default_policies(max_in_flight: int | None = None,
                      memory_budget: int | None = None):
     import ray_tpu_torch
+    from ray_tpu_torch.core import config as cfg
 
     cap = max_in_flight or max(
         2, int(ray_tpu_torch.cluster_resources().get("CPU", 4)))
-    budget = memory_budget or OBJECT_STORE_BYTES // 4
+    budget = memory_budget or cfg.get("OBJECT_STORE_BYTES") // 4
     return [ConcurrencyCapBackpressurePolicy(cap),
             MemoryBudgetBackpressurePolicy(budget)]
 

@@ -30,9 +30,10 @@ Ported so far:
   `record_continuous_experiences`), `load_offline_dataset`, BC and
   MARWIL, and CQL on the SAC networks; OPE over a recorded dataset
   reads it back through the same layer.
-
-Still to come (ROADMAP.md): the remote env runners, which are actors
-and wait for the cluster runtime (``num_env_runners > 0`` raises).
+- the remote env runners (``num_env_runners > 0``, the PPO and IMPALA
+  defaults): actors on the cluster runtime that sample on the CPU and
+  take the learner's weights through the object store; IMPALA and APPO
+  sample them asynchronously.
 """
 
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig

@@ -9,9 +9,11 @@ another): each env step moves the observations to the device once and
 brings ``(action, logp, value)`` back in one copy, one host sync a
 step. Collected rollouts come back as flat numpy arrays.
 
-The runners run in this process: `EnvRunnerGroup` with
-``num_env_runners > 0`` would make them actors, and the port has no
-runtime yet.
+`EnvRunnerGroup` with ``num_env_runners > 0`` makes the runners actors
+on the cluster runtime. They claim one CPU and no GPU, as the JAX
+package's do, so the nodelet hides the card from their processes: they
+sample on the CPU whatever device the algorithm runs on, and take the
+learner's weights as host arrays through the object store.
 """
 
 from __future__ import annotations
@@ -172,28 +174,65 @@ class SingleAgentEnvRunner:
             "env_steps": T * N,
         }
 
+    def ping(self) -> str:
+        return "pong"
+
 
 class EnvRunnerGroup:
-    """The env runners of an algorithm (reference:
-    rllib/env/env_runner_group.py:71 — foreach/weight sync). Only the
-    local runner exists in the port: remote runners are actors, and the
-    port has no runtime yet."""
+    """Actor pool of env runners (reference:
+    rllib/env/env_runner_group.py:71 — foreach/weight sync). Remote
+    runner i is seeded ``seed + 1000 * i`` and built on the CPU (its
+    process cannot see the card); with ``num_env_runners=0`` (or
+    ``remote=False``) one local runner samples in this process on the
+    caller's device."""
 
     def __init__(self, num_env_runners: int = 1, remote: bool = True,
                  **runner_kwargs):
-        if remote and num_env_runners > 0:
-            raise ValueError(
-                f"num_env_runners={num_env_runners}: remote env runners "
-                "are actors, and ray_tpu_torch has no runtime yet; pass "
-                "num_env_runners=0 to sample with the local runner")
-        self.local = SingleAgentEnvRunner(**runner_kwargs)
+        self.remote = remote and num_env_runners > 0
+        if not self.remote:
+            self.local = SingleAgentEnvRunner(**runner_kwargs)
+            self.runners = []
+            return
+        import ray_tpu_torch
 
-    def sample(self) -> list[dict]:
-        return [self.local.sample()]
+        cls = ray_tpu_torch.remote(num_cpus=1)(SingleAgentEnvRunner)
+        seed0 = runner_kwargs.pop("seed", 0)
+        runner_kwargs["device"] = "cpu"
+        self.runners = [
+            cls.remote(seed=seed0 + 1000 * i, **runner_kwargs)
+            for i in range(num_env_runners)
+        ]
 
-    def sync_weights(self, weights):
-        """Copy the learner's weights into the local runner."""
-        self.local.set_weights(weights)
+    def sample(self, timeout: float = 300.0) -> list[dict]:
+        if not self.remote:
+            return [self.local.sample()]
+        import ray_tpu_torch
+
+        return ray_tpu_torch.get([r.sample.remote() for r in self.runners],
+                                 timeout=timeout)
+
+    def sync_weights(self, weights, timeout: float = 120.0):
+        """Broadcast the learner's weights, host arrays (reference: the
+        weights ride the object store once, not per runner —
+        ppo.py:455)."""
+        if not self.remote:
+            self.local.set_weights(weights)
+            return
+        import ray_tpu_torch
+
+        ref = ray_tpu_torch.put(weights)
+        ray_tpu_torch.get([r.set_weights.remote(ref) for r in self.runners],
+                          timeout=timeout)
 
     def shutdown(self):
-        self.local.envs.close()
+        if not self.remote:
+            self.local.envs.close()
+            return
+        import ray_tpu_torch
+
+        for r in self.runners:
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:  # noqa: BLE001
+                pass
+        self.runners = []

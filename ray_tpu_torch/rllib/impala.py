@@ -18,9 +18,11 @@ The update writes the params in place (the port's optimizer), where the
 JAX learner swaps in a new immutable tree. So the optimizer step runs
 under ``_params_lock``, and every reader on the driver's thread (the
 target log-probs of a batch, the weight broadcast, `get_weights`) reads
-under it too: no reader sees a half-written step. The remote env
-runners are actors and wait for the runtime (``num_env_runners > 0``
-raises, as for PPO).
+under it too: no reader sees a half-written step. With
+``num_env_runners > 0`` the runners are actors on the cluster runtime
+and the driver samples them asynchronously: one sample in flight per
+runner, each landed fragment fed to the queue (dropped when it is
+full, as the reference drops it).
 """
 
 from __future__ import annotations
@@ -169,8 +171,6 @@ class IMPALA(Algorithm):
         self.opt_state = self.tx.init(self.params)
         self._params_lock = threading.Lock()
 
-        # the runner is built first: it raises for num_env_runners > 0
-        # before the learner thread starts
         self.env_runner_group = EnvRunnerGroup(
             num_env_runners=config.num_env_runners,
             remote=config.num_env_runners > 0,
@@ -182,6 +182,7 @@ class IMPALA(Algorithm):
         self.env_runner_group.sync_weights(self.get_weights())
         self.learner_thread = _LearnerThread(self)
         self.learner_thread.start()
+        self._inflight: dict = {}
         self._env_steps = 0
         self._ep_returns: list[float] = []
 
@@ -212,12 +213,18 @@ class IMPALA(Algorithm):
 
     def _to_batch(self, s: dict) -> dict:
         """Fragment -> V-trace learner batch (host-side, flattened), its
-        tensors on the learner's device."""
+        tensors on the learner's device. Every tensor is a copy: a remote
+        runner's fragment may alias the object store, whose bytes go
+        back to it once the fragment's ref is dropped, while the batch
+        waits in the queue."""
         cfg = self.config
         T, N = s["rewards"].shape
-        obs_flat = s["obs"].reshape(T * N, -1).astype(np.float32)
-        obs = torch.from_numpy(obs_flat).to(self.device)
-        actions = torch.from_numpy(s["actions"].reshape(-1)).to(self.device)
+
+        def dev(a):
+            return torch.tensor(np.asarray(a), device=self.device)
+
+        obs = dev(s["obs"].reshape(T * N, -1).astype(np.float32))
+        actions = dev(s["actions"].reshape(-1))
         with self._params_lock, torch.no_grad():
             logits, _ = models.forward(self.params, obs)
             target_logp = logp_of(logits, actions)[1].cpu().numpy()
@@ -227,10 +234,6 @@ class IMPALA(Algorithm):
         # loss MASK (not row-drop) for autoreset steps, as in the JAX
         # learner (whose jitted update keeps its shapes static)
         mask = (~s["reset_mask"].reshape(-1)).astype(np.float32)
-
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
         return {
             "obs": obs,
             "actions": actions,
@@ -242,22 +245,54 @@ class IMPALA(Algorithm):
         }
 
     def training_step(self) -> dict:
-        """One driver iteration: sample a fragment with the local runner,
-        feed the learner queue, broadcast fresh weights (reference:
-        IMPALA.training_step's async path, inline mode)."""
+        """One driver iteration: harvest landed samples, keep one
+        in-flight per runner, feed the learner queue, broadcast fresh
+        weights (reference: IMPALA.training_step's async path)."""
+        import ray_tpu_torch
+
         if self.learner_thread.error is not None:
             raise RuntimeError(
                 "IMPALA learner thread failed") from self.learner_thread.error
         t0 = time.perf_counter()
-        s = self.env_runner_group.local.sample()
-        env_steps = s["env_steps"]
-        if s["num_episodes"]:
-            self._ep_returns.append(s["episode_return_mean"])
-        self._queue.put(self._to_batch(s), timeout=30)
+        group = self.env_runner_group
+        env_steps = 0
+
+        if not group.remote:
+            # inline mode: synchronous but still through the queue+thread
+            s = group.local.sample()
+            env_steps += s["env_steps"]
+            if s["num_episodes"]:
+                self._ep_returns.append(s["episode_return_mean"])
+            self._queue.put(self._to_batch(s), timeout=30)
+        else:
+            for r in group.runners:
+                if r not in self._inflight:
+                    self._inflight[r] = r.sample.remote()
+            deadline = time.monotonic() + 5
+            harvested = 0
+            while harvested == 0 and time.monotonic() < deadline:
+                ready, _ = ray_tpu_torch.wait(
+                    list(self._inflight.values()),
+                    num_returns=1, timeout=2.0)
+                for ref in ready:
+                    runner = next(r for r, v in self._inflight.items()
+                                  if v == ref)
+                    s = ray_tpu_torch.get(ref, timeout=60)
+                    self._inflight[runner] = runner.sample.remote()
+                    env_steps += s["env_steps"]
+                    if s["num_episodes"]:
+                        self._ep_returns.append(s["episode_return_mean"])
+                    try:
+                        self._queue.put_nowait(self._to_batch(s))
+                    except queue.Full:
+                        pass  # backpressure: drop (reference drops too)
+                    harvested += 1
 
         if self._weights_dirty.is_set():
             self._weights_dirty.clear()
-            self.env_runner_group.sync_weights(self.get_weights())
+            # get_weights reads under _params_lock: never a half-written
+            # step in the broadcast
+            group.sync_weights(self.get_weights())
 
         self._env_steps += env_steps
         dt = time.perf_counter() - t0

@@ -4,9 +4,10 @@ CartPole inline with the JAX package's recipe (best episode return >=
 for PPO and DQN, checkpoint round trips (``save_checkpoint`` /
 ``load_checkpoint`` and ``save_to_path`` / ``restore_from_path``:
 params equal, the iteration clock carried over, the JAX package's file
-format), ``pipeline_sampling``, the refusals (remote env runners, search
-markers, the card's default without a card), and the env runner's
-bookkeeping (``reset_mask``, the bootstrap value, episode returns)."""
+format), ``pipeline_sampling``, the refusals (search markers, the
+card's default without a card), and the env runner's bookkeeping
+(``reset_mask``, the bootstrap value, episode returns). The remote env
+runners are held in tests/test_torch_rllib_remote.py."""
 
 import os
 import pickle
@@ -17,7 +18,6 @@ import torch
 
 from ray_tpu_torch.rllib import (
     DQNConfig,
-    EnvRunnerGroup,
     PPOConfig,
     SingleAgentEnvRunner,
 )
@@ -158,13 +158,6 @@ def test_pipeline_sampling_three_iterations(two_threads):
     assert algo._env_steps_total == 3 * 8 * 32
     algo.stop()
     assert algo._learn_executor is None
-
-
-def test_remote_env_runners_refused():
-    with pytest.raises(ValueError, match="no runtime"):
-        EnvRunnerGroup(num_env_runners=2, device="cpu")
-    with pytest.raises(ValueError, match="num_env_runners=2.*no runtime"):
-        PPOConfig().training(device="cpu").build()  # the default: 2
 
 
 @pytest.mark.parametrize("marker", [grid_search([1e-3, 3e-4]),

@@ -6,8 +6,9 @@ one IMPALA learner step and one APPO step with the KL term to a target
 network from the same params on the same batch (the loss within 1e-4,
 the params within 1e-4 of each leaf's largest plus an Adam per-element
 allowance); APPO's target copies every `target_update_freq` steps as
-in JAX; the learner thread's exception re-raised by `train()`; the
-default runners and the default device refused; a state round trip."""
+in JAX; the learner thread's exception re-raised by `train()`; the default
+two runners as actors sampled by the remote branch, and the default
+device refused without a card; a state round trip."""
 
 import jax
 import jax.numpy as jnp
@@ -247,8 +248,27 @@ def test_state_round_trip(two_threads):
 
 
 def test_remote_runners_and_missing_card_refused():
-    with pytest.raises(ValueError, match="no runtime"):
-        impala.IMPALAConfig().training(device="cpu").build()
+    """The default two runners are actors (here on the local runtime)
+    that the remote branch samples asynchronously; without a card the
+    default device is refused."""
+    import ray_tpu_torch as ray
+
+    ray.init(local_mode=True)
+    try:
+        algo = (impala.IMPALAConfig()
+                .env_runners(num_envs_per_env_runner=2,
+                             rollout_fragment_length=8)
+                .training(device="cpu")).build()
+        try:
+            assert algo.env_runner_group.remote
+            assert len(algo.env_runner_group.runners) == 2
+            r = algo.train()
+            assert r["num_env_steps_sampled_lifetime"] >= 2 * 8
+            assert len(algo._inflight) == 2  # one sample in flight each
+        finally:
+            algo.stop()
+    finally:
+        ray.shutdown()
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
