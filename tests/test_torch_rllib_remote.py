@@ -17,7 +17,8 @@ group's contract:
 Sampled actions differ from the JAX package's (the port draws Gumbel
 noise from torch's generator), so the bars are learning bars, not
 streams. One module-scoped cluster: a head node of 8 CPUs (the JAX
-fixture's). Every get carries a timeout.
+fixture's), its worker processes at one intra-op thread each. Every get
+carries a timeout.
 """
 
 import os
@@ -41,6 +42,11 @@ from ray_tpu_torch.util import tree
 
 @pytest.fixture(scope="module")
 def cluster():
+    # runner processes inherit this: one intra-op thread each (a runner
+    # claims one CPU), so their tiny forwards do not keep torch's spinning
+    # thread pool busy on every core of the host
+    old = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
     c = Cluster(initialize_head=True, head_node_args={"num_cpus": 8})
     try:
         c.wait_for_nodes()
@@ -49,6 +55,10 @@ def cluster():
     finally:
         ray.shutdown()
         c.shutdown()
+        if old is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = old
 
 
 def _actor_pids(handles) -> list:

@@ -282,7 +282,7 @@ def test_plugin_validate_rejects_bad_values():
 # ------------------------------------------------- against the JAX package
 
 
-def test_pure_functions_match_jax(tmp_path):
+def test_pure_functions_match_jax(tmp_path, monkeypatch):
     """The registry, the env hash, the directory fingerprint, the
     validated pip value and the materialized context of the same inputs
     equal the JAX package's; only the venv cache base differs."""
@@ -312,6 +312,7 @@ def test_pure_functions_match_jax(tmp_path):
     pip = {"packages": ["b", "a"], "find_links": str(d)}
     assert rtenv.registered_plugins()["pip"].validate(pip) == \
         jrtenv.registered_plugins()["pip"].validate(pip)
+    monkeypatch.delenv("RAY_TPU_ENV_CACHE", raising=False)
     ours = rtenv.registered_plugins()["pip"]._env_dir({"packages": ["a"]})
     theirs = jrtenv.registered_plugins()["pip"]._env_dir({"packages": ["a"]})
     assert os.path.basename(ours) == os.path.basename(theirs)
