@@ -55,6 +55,23 @@ from ray_tpu_torch.core.specs import INLINE_THRESHOLD, ActorSpec, RefArg, TaskSp
 from ray_tpu_torch.utils.events import TaskEventLog, child_trace, merge_spans
 
 
+class _StoreHold:
+    """One read hold on a store object, taken by a zero-copy read
+    (plasma's client-side buffer). The out-of-band buffers of the value
+    read reference it, and so does the ref's pin: the store gets the
+    hold back only when the ref and every array or tensor aliasing the
+    bytes are gone, so no later object can reuse them under a value."""
+
+    __slots__ = ("store", "oid")
+
+    def __init__(self, store, oid: bytes):
+        self.store = store
+        self.oid = oid
+
+    def __del__(self):
+        self.store.release(self.oid)
+
+
 class _Owned:
     """State of an object this process owns."""
 
@@ -288,10 +305,13 @@ class ClusterRuntime:
         self._rtenv_cache: dict = {}  # normalized runtime envs by content
         # what this owner moved to the disk tier: objects, bytes, seconds
         self.spill_stats = {"objects": 0, "bytes": 0, "seconds": 0.0}
-        # Store buffers pinned because a deserialized object graph aliases
-        # them zero-copy (plasma pin semantics); released when the owning
-        # object is freed or at shutdown.
-        self._pins: dict[bytes, memoryview] = {}  # guarded_by(_lock)
+        # one spill pass at a time: producers' spill_requests run on the
+        # RPC pool beside this owner's own puts
+        self._spill_lock = threading.Lock()
+        # Store holds of objects a deserialized graph aliases zero-copy
+        # (plasma pin semantics): the ref's share, dropped when the
+        # object is freed or at shutdown. The values hold their own.
+        self._pins: dict[bytes, _StoreHold] = {}  # guarded_by(_lock)
         # Refs riding as args of in-flight tasks hold a reference until
         # the task reaches a terminal state (reference: TaskManager
         # "submitted task references", core_worker/task_manager.h:212).
@@ -607,74 +627,78 @@ class ClusterRuntime:
 
     def _spill_primaries(self, nbytes_needed: int) -> int:
         """Spill oldest eligible local primaries until ~nbytes_needed of
-        store space has been reclaimed. Returns bytes reclaimed."""
+        store space has been reclaimed. Returns bytes reclaimed. One pass
+        at a time: two passes over one snapshot would both write an
+        object's file, and the loser's clean-up would unlink the
+        winner's."""
         if self.store is None:
             return 0
-        candidates = []
-        with self._lock:
-            for b, st in self._owned.items():
-                if (st.event.is_set()
-                        and (st.location == "local" or (
-                            st.location is not None
-                            and st.store_name == self.store.name))
-                        and st.spilled_path is None and not st.borrowers
-                        and st.error is None
-                        and st.size >= self._SPILL_MIN_BYTES
-                        and b not in self._pins):
-                    candidates.append((b, st))
-        freed = 0
-        spill_dir = None
-        t0 = time.perf_counter()
-        for b, st in candidates:  # dict order == insertion order (oldest first)
-            if freed >= nbytes_needed:
-                break
-            view = self.store.get(b)
-            if view is None:
-                continue
-            try:
-                if spill_dir is None:
-                    spill_dir = self._spill_dir()
-                path = os.path.join(spill_dir, b.hex())
-                with open(path, "wb") as f:
-                    f.write(view)
-            except OSError:
-                del view
-                self.store.release(b)
-                return freed
-            size = view.nbytes
-            del view
-            self.store.release(b)   # our read hold
+        with self._spill_lock:
+            candidates = []
             with self._lock:
-                # COMMIT point: _h_resolve registers borrowers under this
-                # same lock — re-check so we never delete shm bytes a
-                # just-registered borrower was promised (spill/borrow race)
-                if st.borrowers or b in self._pins or \
-                        st.spilled_path is not None:
-                    committed = False
-                else:
-                    committed = True
-                    st.spilled_path = path
-                    st.location = "spilled"
-                    st.store_name = None
-                    # drop the value cache: the point of spilling is
-                    # releasing memory
-                    st.value_cached = None
-                    st.has_cached = False
-            if not committed:
+                for b, st in self._owned.items():
+                    if (st.event.is_set()
+                            and st.store_name == self.store.name
+                            and st.spilled_path is None and not st.borrowers
+                            and st.error is None
+                            and st.size >= self._SPILL_MIN_BYTES
+                            and b not in self._pins):
+                        candidates.append((b, st))
+            freed = 0
+            spill_dir = None
+            t0 = time.perf_counter()
+            # dict order == insertion order: oldest first
+            for b, st in candidates:
+                if freed >= nbytes_needed:
+                    break
+                view = self.store.get(b)
+                if view is None:
+                    continue
                 try:
-                    os.unlink(path)
+                    if spill_dir is None:
+                        spill_dir = self._spill_dir()
+                    path = os.path.join(spill_dir, b.hex())
+                    with open(path, "wb") as f:
+                        f.write(view)
                 except OSError:
-                    pass
-                continue
-            self.store.release(b)   # the primary (creator) pin
-            self.store.delete(b)
-            freed += size
+                    del view
+                    self.store.release(b)
+                    return freed
+                size = view.nbytes
+                del view
+                self.store.release(b)   # our read hold
+                with self._lock:
+                    # COMMIT point: _h_resolve registers borrowers under this
+                    # same lock — re-check so we never delete shm bytes a
+                    # just-registered borrower was promised (spill/borrow
+                    # race), nor spill an object freed meanwhile
+                    if st.borrowers or b in self._pins or \
+                            self._owned.get(b) is not st:
+                        committed = False
+                    else:
+                        committed = True
+                        st.spilled_path = path
+                        st.location = "spilled"
+                        st.store_name = None
+                        # drop the value cache: the point of spilling is
+                        # releasing memory
+                        st.value_cached = None
+                        st.has_cached = False
+                if not committed:
+                    try:
+                        os.unlink(path)
+                    except OSError:
+                        pass
+                    continue
+                self.store.release(b)   # the primary (creator) pin
+                self.store.delete(b)
+                freed += size
+                with self._lock:
+                    self.spill_stats["objects"] += 1
+                    self.spill_stats["bytes"] += size
             with self._lock:
-                self.spill_stats["objects"] += 1
-                self.spill_stats["bytes"] += size
-        with self._lock:
-            self.spill_stats["seconds"] += time.perf_counter() - t0
-        return freed
+                self.spill_stats["seconds"] += time.perf_counter() - t0
+            return freed
 
     def _h_spill_request(self, msg, frames):
         """A producer on this node could not fit `bytes` into the store
@@ -953,25 +977,18 @@ class ClusterRuntime:
         view = self.store.get(oid)
         if view is None:
             raise exc.ObjectLostError(f"object {oid.hex()[:12]} vanished")
-        value, n_oob = ser.deserialize_info(view)
-        if n_oob == 0:
-            del view
-            self.store.release(oid)
-        else:
+        hold = _StoreHold(self.store, oid)  # takes over get's refcount
+        value, n_oob = ser.deserialize_info(view, hold)
+        if n_oob:
+            # the ref holds the bytes too, so spilling leaves them be
             with self._lock:
-                if oid in self._pins:
-                    del view
-                    self.store.release(oid)  # already pinned once
-                else:
-                    self._pins[oid] = view
+                self._pins.setdefault(oid, hold)
         return value
 
     def _release_pin(self, oid: bytes):
         with self._lock:
-            view = self._pins.pop(oid, None)
-        if view is not None:
-            del view
-            self.store.release(oid)
+            hold = self._pins.pop(oid, None)
+        del hold  # the store is released once no value aliases the bytes
 
     def wait(self, refs, num_returns=1, timeout=None, fetch_local=True):
         self.flush_submits()

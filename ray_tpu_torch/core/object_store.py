@@ -232,6 +232,8 @@ class SharedMemoryStore:
         return bool(self._lib.rts_contains(self._base, oid))
 
     def release(self, oid: bytes):
+        if self._base is None:  # closed: a late hold has nothing to return
+            return
         self._lib.rts_release(self._base, oid)
 
     def delete(self, oid: bytes):

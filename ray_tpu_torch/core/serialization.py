@@ -427,17 +427,37 @@ def dumps(obj: Any) -> bytes:
     return bytes(out)
 
 
-def deserialize_info(buf: memoryview) -> tuple[Any, int]:
+class _HeldBuffer:
+    """An out-of-band buffer that keeps `hold` alive while anything
+    aliases it: an array or tensor rebuilt from it references this
+    object, so the hold dies with the last value reading the bytes."""
+
+    __slots__ = ("_view", "_hold")
+
+    def __init__(self, view: memoryview, hold):
+        self._view = view
+        self._hold = hold
+
+    def __buffer__(self, flags):
+        return self._view.__buffer__(flags)
+
+    def __release_buffer__(self, view):
+        view.release()
+
+
+def deserialize_info(buf: memoryview, hold=None) -> tuple[Any, int]:
     """Like deserialize, also returning the number of out-of-band
-    buffers the object graph references (0 ⇒ nothing aliases `buf`)."""
-    return _deserialize(buf)
+    buffers the object graph references (0 ⇒ nothing aliases `buf`).
+    With `hold`, every such buffer keeps `hold` referenced until the
+    last array or tensor aliasing it is collected."""
+    return _deserialize(buf, hold)
 
 
 def deserialize(buf: memoryview) -> Any:
     return _deserialize(buf)[0]
 
 
-def _deserialize(buf: memoryview) -> tuple[Any, int]:
+def _deserialize(buf: memoryview, hold=None) -> tuple[Any, int]:
     buf = buf.cast("B") if isinstance(buf, memoryview) else memoryview(buf)
     magic, nbuf = struct.unpack_from("<II", buf, 0)
     if magic != _MAGIC:
@@ -460,7 +480,8 @@ def _deserialize(buf: memoryview) -> tuple[Any, int]:
         # Ray marks zero-copy numpy arrays immutable for this reason).
         # numpy in-place writes raise; a torch CPU tensor cannot be
         # read-only, so it aliases the store writably.
-        oob.append(buf[off:off + bl].toreadonly())
+        view = buf[off:off + bl].toreadonly()
+        oob.append(view if hold is None else _HeldBuffer(view, hold))
         off = _pad(off + bl)
     STATS["deserialize_calls"] += 1
     STATS["pickle_bytes"] += plen

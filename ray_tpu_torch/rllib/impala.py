@@ -213,18 +213,12 @@ class IMPALA(Algorithm):
 
     def _to_batch(self, s: dict) -> dict:
         """Fragment -> V-trace learner batch (host-side, flattened), its
-        tensors on the learner's device. Every tensor is a copy: a remote
-        runner's fragment may alias the object store, whose bytes go
-        back to it once the fragment's ref is dropped, while the batch
-        waits in the queue."""
+        tensors on the learner's device."""
         cfg = self.config
         T, N = s["rewards"].shape
-
-        def dev(a):
-            return torch.tensor(np.asarray(a), device=self.device)
-
-        obs = dev(s["obs"].reshape(T * N, -1).astype(np.float32))
-        actions = dev(s["actions"].reshape(-1))
+        obs_flat = s["obs"].reshape(T * N, -1).astype(np.float32)
+        obs = torch.from_numpy(obs_flat).to(self.device)
+        actions = torch.from_numpy(s["actions"].reshape(-1)).to(self.device)
         with self._params_lock, torch.no_grad():
             logits, _ = models.forward(self.params, obs)
             target_logp = logp_of(logits, actions)[1].cpu().numpy()
@@ -234,6 +228,10 @@ class IMPALA(Algorithm):
         # loss MASK (not row-drop) for autoreset steps, as in the JAX
         # learner (whose jitted update keeps its shapes static)
         mask = (~s["reset_mask"].reshape(-1)).astype(np.float32)
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
         return {
             "obs": obs,
             "actions": actions,

@@ -13,9 +13,11 @@ by value. Every get carries a timeout.
 
 import gc
 import os
+import threading
 
 import numpy as np
 import pytest
+import torch
 
 import ray_tpu_torch as ray
 from ray_tpu_torch.cluster_utils import Cluster
@@ -148,3 +150,59 @@ def test_producer_results_spill_at_the_owner(small_store):
     for w, r in zip(want, refs):
         out = ray.get(r, timeout=60)
         assert out[0] == w and out[-1] == w and len(out) == 8 << 20
+
+
+def test_concurrent_spill_requests_lose_nothing(small_store):
+    """The port's addition: producers' spill requests run on the owner's
+    RPC pool, so two can arrive at once. The owner spills one pass at a
+    time, so neither pass unlinks a file the other committed, and every
+    object, spilled or not, reads back intact."""
+    rt = _global_runtime()
+    refs = []
+    for rnd in range(4):
+        refs += [ray.put(np.full(8 << 20, 10 * rnd + i, np.uint8))
+                 for i in range(3)]
+        barrier = threading.Barrier(2)
+
+        def ask():
+            barrier.wait()
+            rt._h_spill_request({"store_name": rt.store.name,
+                                 "bytes": 8 << 20}, [])
+
+        threads = [threading.Thread(target=ask) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    paths = [st.spilled_path for st in rt._owned.values() if st.spilled_path]
+    assert len(paths) >= 8, rt.spill_stats
+    assert all(os.path.exists(p) for p in paths)
+    want = [10 * rnd + i for rnd in range(4) for i in range(3)]
+    for w, r in zip(want, refs):
+        out = ray.get(r, timeout=60)
+        assert out[0] == w and out[-1] == w and len(out) == 8 << 20
+
+
+@pytest.mark.parametrize("kind", ["numpy", "torch"])
+def test_value_outlives_its_ref(small_store, kind):
+    """The port's addition: a value read zero-copy from the store keeps
+    its bytes after its last ref is gone (plasma holds a client's buffer
+    until it is released). 64 MiB of later results pass through the
+    32 MiB store while the value lives, and it still reads as written."""
+
+    @ray.remote(num_cpus=1)
+    def block(i, kind):
+        a = np.full(4 << 20, i, np.uint8)
+        return torch.from_numpy(a) if kind == "torch" else a
+
+    val = ray.get(block.remote(7, kind), timeout=60)
+    gc.collect()
+    rt = _global_runtime()
+    rt._flush_deferred_sends()  # the free goes out now
+    refs = [block.remote(100 + i, kind) for i in range(16)]
+    ready, _ = ray.wait(refs, num_returns=len(refs), timeout=120)
+    assert len(ready) == len(refs)
+    assert int(val.min()) == 7 and int(val.max()) == 7
+    for i, r in enumerate(refs):
+        out = ray.get(r, timeout=60)
+        assert int(out[0]) == 100 + i and int(out[-1]) == 100 + i
