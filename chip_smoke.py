@@ -6,6 +6,9 @@ Run from the root of a checkout, with one CUDA card and nvcc:
 
     python3 chip_smoke.py
 
+Before it imports torch it keeps compiled modules under build/pycache
+for itself and every process it starts (``use_bytecode_cache``).
+
 Phases, each of which exits non-zero on any failure:
 
 1. device: the card's name and power limit (nvidia-smi), the torch and
@@ -355,6 +358,41 @@ Phases, each of which exits non-zero on any failure:
    torch's import and its CUDA context, bytes spilled and spill GB/s,
    item latencies, launches, env steps/s beside ppo_cartpole's) and the
    phase's seconds.
+18. serve_gpt2: Serve on the cluster runtime (SERVE_* below), on a
+   fresh ``cluster_utils.Cluster`` whose head node (this process) has
+   the card. ``serve.run(build_llm_app(model="gpt2", preset="small",
+   num_replicas=2))`` at phase 3's engine config (paged decode) with an
+   explicit SERVE_NUM_BLOCKS-page pool, each replica claiming half the
+   card; the deployment class is ServeReplica, a subclass of
+   ``LLMServer`` defined here, which reports its process's start, its
+   launch counters and its params' checksum. The controller, the
+   replicas and the proxy start at once, while the driver builds the
+   GRPO learner from seed 0. (a) Phase 3's 8 prompts stream at once
+   through ``handle.options(stream=True)`` and one more through the
+   proxy's NDJSON path: fail unless every replica's params equal the
+   driver's seed-0 GPT-2-small, each stream has one event a token with
+   contiguous indices and ends by length, its tokens are phase 3's or,
+   from where they differ, each within LOGITS_TOL["max_abs"] of a fresh
+   prefill's row max (bf16 near-ties break either way across batch
+   compositions), and the replicas' K1 and K4 counters (zeroed after
+   their warmup) are above 0. (b) a second wave of the same 8 streams;
+   ``chaos.kill_replica(busiest=True)`` fires once every stream has
+   delivered two events: fail unless all 8 finish with no error, pass
+   the same check against the first wave, at least one stream failed
+   over, ``serve.status()`` shows a restart and 2 healthy replicas, and
+   the replacement answers a request (the seconds from the kill to its
+   first token are printed). (c) a ``RolloutWorker(handle=)`` samples a
+   DigitSumTask group; the learner updates once on the driver (exactly
+   24/12/12 launches), ``publish_weights()`` returns a ref and
+   ``handle.update_weights`` sends it: fail unless every replica reports
+   weight version 1 and the next group's trajectories are tagged 1
+   with logprobs within LOGITS_TOL of the learner's teacher-forced
+   forward at its new params (the first group's at its old ones).
+   Nothing may outlive ``shutdown()``. Prints each replica's start
+   (split into torch's import, its CUDA context, the engine's build,
+   which imports the serving modules, and its warmup), wave 1's TTFT and tokens/s beside phase
+   3's, the heal time, the swap's put and get seconds, the launches and
+   the phase's seconds.
 
 It prints one JSON line per kernel shape and per phase, K4's rows on
 the serving and rl paths with their launches there (by window and
@@ -688,6 +726,18 @@ RUNTIME_PPO = dict(num_env_runners=2, num_envs_per_env_runner=8,
                    rollout_fragment_length=128)
 RUNTIME_PPO_TRAINING = dict(num_sgd_iter=6, minibatch_size=256)
 RUNTIME_PPO_ITERS = 5
+# serve_gpt2 (phase 18): SERVE_REPLICAS replicas of the app SERVE_APP,
+# each claiming SERVE_GPU_SHARE of the card, phase 3's engine config with
+# a pool of SERVE_NUM_BLOCKS 16-token pages (8 lanes x 64 pages + slack,
+# ~340 MB of bf16 KV a replica: up to three engines share the card while
+# a killed replica's replacement starts); a SERVE_STORE_BYTES store holds
+# the published weights; every wait of the phase is SERVE_WAIT_S
+SERVE_APP = "gpt2"
+SERVE_REPLICAS = 2
+SERVE_GPU_SHARE = 0.5
+SERVE_NUM_BLOCKS = 8 * 64 + 64
+SERVE_STORE_BYTES = 1536 << 20
+SERVE_WAIT_S = 120.0
 
 
 def fail(msg: str) -> None:
@@ -1603,9 +1653,10 @@ def release(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_engine(torch) -> dict:
+def phase_engine(torch, keep: dict | None = None) -> dict:
     """GPT-2-small on the paged engine: monolithic prefill (K1), paged
-    decode (K4). Returns its row."""
+    decode (K4). Returns its row; its prompts and streams go into `keep`
+    (serve_gpt2's reference)."""
     from ray_tpu_torch.models.gpt2 import gpt2_prefill_kv
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
 
@@ -1630,6 +1681,9 @@ def phase_engine(torch) -> dict:
             fail(f"{name} was not launched on the main path")
     check_drained(engine, "engine")
     finals = run.pop("finals")
+    if keep is not None:
+        keep.update(prompts=prompts,
+                    streams=[f["token_ids"] for f in finals])
     consistency = decode_consistency(torch, engine, prompts[0],
                                      finals[0]["token_ids"],
                                      gpt2_prefill_kv)
@@ -1938,15 +1992,21 @@ def profile_engine(torch, engine, prompts, phase: str = "profile") -> dict:
 # ------------------------------------------------------------ phase 5
 
 
+def _launch_counters():
+    """This process's launch counters by kernel name."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    return {"flash_fwd": fa.LAUNCHES, "flash_dq": fa.LAUNCHES_DQ,
+            "flash_dkv": fa.LAUNCHES_DKV, "paged_attention": pa.LAUNCHES}
+
+
 def _reset_counters():
     """Zero the launch counters and the count of layout copies; returns
     the launch counters by kernel name."""
     from ray_tpu_torch.ops import flash_attention as fa
-    from ray_tpu_torch.ops import paged_attention as pa
 
-    counters = {"flash_fwd": fa.LAUNCHES, "flash_dq": fa.LAUNCHES_DQ,
-                "flash_dkv": fa.LAUNCHES_DKV,
-                "paged_attention": pa.LAUNCHES}
+    counters = _launch_counters()
     for c in counters.values():
         c.reset()
     fa.LAYOUT_COPIES.reset()
@@ -2837,15 +2897,17 @@ def _rl_laps(torch, what: str, learner, engine, fly, laps: int,
     return row, trajs
 
 
-def _rl_logprob_contract(learner, trajs, w0, what: str) -> dict:
-    """Version-0 trajectories' engine logprobs (bf16 prefill and decode)
-    against the learner's teacher-forced forward at the same params,
-    held to LOGITS_TOL."""
+def _rl_logprob_contract(learner, trajs, w0, what: str,
+                         version: int = 0) -> dict:
+    """Trajectories' engine logprobs (bf16 prefill and decode), each at
+    weight `version`, against the learner's teacher-forced forward at
+    that version's params `w0` (None: the learner's own), held to
+    LOGITS_TOL."""
     diffs = []
     for t in trajs:
-        if t.stale or t.weight_version != 0:
-            fail(f"{what}: a lap-1 trajectory at version "
-                 f"{t.weight_version}, stale {t.stale}")
+        if t.stale or t.weight_version != version:
+            fail(f"{what}: a trajectory at version {t.weight_version}, "
+                 f"stale {t.stale}; want version {version}")
         got = learner.teacher_forced_logprobs(t, params=w0)
         diffs.append(np.abs(got - np.asarray(t.logprobs)))
     d = np.concatenate(diffs)
@@ -6490,6 +6552,541 @@ def phase_runtime_gpu(torch, card: str, ppo_local: dict | None) -> dict:
           "phase_s": time.perf_counter() - t_phase})
     return launches
 
+# ------------------------------------------------------------ phase 18
+
+
+def _serve_replica_class():
+    """Phase 18's deployment class: a subclass of LLMServer defined
+    here (so pickled by value) that times its process's start, warms up
+    apart from the engine's build, and answers its launch counters, its
+    params' checksum and, from `update_weights`, the seconds the store's
+    get took."""
+    from ray_tpu_torch.serve.llm.deployment import LLMServer
+
+    class ServeReplica(LLMServer):
+        def __init__(self, engine_config, warmup: bool = True,
+                     device=None, **cfg_kwargs):
+            t0 = time.time()
+            import torch
+
+            t_torch = time.time()
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            torch.cuda.set_device(0)  # raises when the card is hidden
+            torch.ones(1, device="cuda").sum().item()
+            t1 = time.time()
+            super().__init__(engine_config, warmup=False, device=device,
+                             **cfg_kwargs)
+            t2 = time.time()
+            shapes = self.engine.warmup() if warmup else 0
+            torch.cuda.synchronize()
+            self.start = {"pid": os.getpid(), "proc_start": _proc_start(),
+                          "init_start": t0, "torch_imported": t_torch,
+                          "cuda_ready": t1,
+                          "engine_built": t2, "warm": time.time(),
+                          "warmup_shapes": shapes,
+                          "card": torch.cuda.get_device_name(0)}
+
+        def process_start(self) -> dict:
+            return self.start
+
+        def counters(self, reset: bool = False) -> dict:
+            """This process's launches (zeroed first with `reset`)."""
+            return launch_counts(_reset_counters() if reset
+                                 else _launch_counters())
+
+        def checksum(self) -> list:
+            return _param_checksum(self.engine.runner.params)
+
+        def update_weights(self, version: int, weights) -> dict:
+            import ray_tpu_torch as ray
+            from ray_tpu_torch.core.api import ObjectRef
+
+            t0 = time.perf_counter()
+            if isinstance(weights, ObjectRef):
+                weights = ray.get(weights)
+            get_s = time.perf_counter() - t0
+            out = super().update_weights(version, weights)
+            return dict(out, get_s=get_s)
+
+    return ServeReplica
+
+
+def _control(replica, method: str, *args):
+    """Call a deployment method on one replica over its control lane."""
+    return replica.handle_request.options(
+        concurrency_group="control").remote(method, args, {})
+
+
+def _param_checksum(params) -> list:
+    """Each param's float64 sum and sum of squares."""
+    from ray_tpu_torch.util import tree
+
+    return [[float(t.double().sum()), float(t.double().square().sum())]
+            for t in tree.leaves(params)]
+
+
+def _stream_wave(ray, handle, prompts, max_tokens: int, hook=None) -> dict:
+    """Stream every prompt at once through the handle, each consumed on
+    its own thread: the events per stream, TTFT (s from the submission
+    to the first event), the wall time and the errors. With `hook`,
+    every consumer parks after its second event until the hook has run
+    (so it fires while every stream is in flight)."""
+    import threading
+
+    sh = handle.options(stream=True)
+    n = len(prompts)
+    events, first, errors = [None] * n, [None] * n, []
+    barrier = threading.Barrier(n + 1, timeout=SERVE_WAIT_S) if hook \
+        else None
+    resume = threading.Event()
+    if hook is None:
+        resume.set()
+
+    def consume(i, gen, t_sub):
+        try:
+            evs = []
+            for ref in gen:
+                evs.append(ray.get(ref, timeout=SERVE_WAIT_S))
+                if len(evs) == 1:
+                    first[i] = time.perf_counter() - t_sub
+                if barrier is not None and len(evs) == 2:
+                    barrier.wait()
+                    resume.wait(timeout=SERVE_WAIT_S)
+            events[i] = evs
+        except Exception as e:  # noqa: BLE001
+            errors.append((i, repr(e)))
+
+    t0 = time.perf_counter()
+    threads = []
+    for i, p in enumerate(prompts):
+        gen = sh.remote({"prompt": p, "max_tokens": max_tokens})
+        threads.append(threading.Thread(
+            target=consume, args=(i, gen, time.perf_counter()),
+            daemon=True))
+        threads[-1].start()
+    out = {"hook": None}
+    if barrier is not None:
+        try:
+            barrier.wait()
+            out["hook"] = hook()
+        finally:
+            resume.set()
+    for t in threads:
+        t.join(timeout=SERVE_WAIT_S * 2)
+    out.update(events=events, ttft_s=first, errors=errors,
+               wall_s=time.perf_counter() - t0)
+    return out
+
+
+def _check_streams(what: str, events, max_tokens: int) -> list:
+    """One event a token, contiguous indices, a final by length; returns
+    the token lists."""
+    out = []
+    for i, evs in enumerate(events):
+        if evs is None:
+            fail(f"{what}: stream {i} never finished")
+        *toks, final = evs
+        if not final.get("done") or final.get("finish_reason") != "length" \
+                or len(toks) != max_tokens \
+                or [e["index"] for e in toks] != list(range(len(toks))) \
+                or [e["token"] for e in toks] != final["token_ids"]:
+            fail(f"{what}: stream {i}: {len(toks)} token events, indices "
+                 f"{[e.get('index') for e in toks][:8]}..., final "
+                 f"{ {k: v for k, v in final.items() if k != 'logprobs'} }")
+        out.append(list(final["token_ids"]))
+    return out
+
+
+def _tie_check(torch, what: str, compute, cfg, prompts, streams,
+               refs) -> dict:
+    """Each stream against its reference: equal, or, from the first
+    token where it differs, every token within LOGITS_TOL["max_abs"] of
+    its row's max in one fresh prefill (K1) over prompt + stream."""
+    from ray_tpu_torch.models.gpt2 import gpt2_prefill_kv
+
+    equal, checked, not_argmax, worst = 0, 0, 0, 0.0
+    for prompt, gen, ref in zip(prompts, streams, refs):
+        if gen == ref:
+            equal += 1
+            continue
+        d = next(i for i, (a, b) in enumerate(zip(gen, ref)) if a != b)
+        full = torch.tensor([prompt + gen[:-1]], device="cuda")
+        with torch.no_grad():
+            logits, _, _ = gpt2_prefill_kv(compute, full, cfg)
+        rows = logits[0, len(prompt) - 1 + d:, :cfg.vocab_size].float()
+        gap = rows.max(-1).values - rows.gather(
+            -1, torch.tensor(gen[d:], device="cuda")[:, None])[:, 0]
+        checked += len(gen) - d
+        not_argmax += int((gap > 0).sum())
+        worst = max(worst, float(gap.max()))
+    out = {"streams_equal": equal, "streams": len(streams),
+           "tokens_checked": checked, "tokens_not_argmax": not_argmax,
+           "max_gap_to_argmax": worst, "gap_tol": LOGITS_TOL["max_abs"]}
+    if worst > LOGITS_TOL["max_abs"]:
+        fail(f"{what}: a token's logit is {worst} below its row's max: "
+             f"{out}")
+    return out
+
+
+def _proxy_stream(address: str, payload: dict) -> list[dict]:
+    """POST `payload` to the proxy's NDJSON path; the results."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://{address}/{SERVE_APP}?stream=1",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=SERVE_WAIT_S) as resp:
+        lines = [json.loads(x) for x in resp.read().splitlines()
+                 if x.strip()]
+    bad = [x for x in lines if "result" not in x]
+    if bad:
+        fail(f"serve_gpt2: the proxy streamed {bad[0]}")
+    return [x["result"] for x in lines]
+
+
+def _replica_start(start: dict, submitted: float, ready_s) -> dict:
+    """Seconds from the submission to a replica's process start, to its
+    worker's registration, to its __init__, to torch imported, to its
+    CUDA context, to the engine built (the serving modules' import
+    included) and to the end of its warmup."""
+    marks = [("to_process", start["proc_start"]),
+             ("worker_ready", start["proc_start"] + (ready_s or 0.0)),
+             ("to_init", start["init_start"]),
+             ("torch_import", start["torch_imported"]),
+             ("cuda_context", start["cuda_ready"]),
+             ("engine_build", start["engine_built"]),
+             ("warmup", start["warm"])]
+    out, prev = {}, submitted
+    for name, t in marks:
+        out[name] = t - prev
+        prev = t
+    return out
+
+
+def _wait_healed(serve, target: int) -> tuple[bool, dict]:
+    """Poll serve.status() until the app has restarted a replica and is
+    back to `target` healthy ones with none being replaced: (healed,
+    the last health record). Never calls fail (it runs on a thread)."""
+    deadline = time.monotonic() + SERVE_WAIT_S
+    hl: dict = {}
+    while time.monotonic() < deadline:
+        hl = serve.status()["health"].get(SERVE_APP, {})
+        if hl.get("restarts", 0) >= 1 and hl.get("healthy") == target \
+                and hl.get("replacing") == 0:
+            return True, hl
+        time.sleep(0.2)
+    return False, hl
+
+
+def _serve_parts(torch, ray, serve, c, card: str, ref: dict) -> dict:
+    """Phase 18's three parts on the cluster `c`; returns the launches
+    of the path serve_gpt2."""
+    import dataclasses
+    import threading
+
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.rllib.llm import (
+        DigitSumTask,
+        LLMLearner,
+        LLMLearnerConfig,
+        RolloutConfig,
+        RolloutWorker,
+    )
+    from ray_tpu_torch.serve.api import _replica_ident
+    from ray_tpu_torch.serve.llm import build_llm_app
+    from ray_tpu_torch.serve.llm.runner import adapters
+    from ray_tpu_torch.util import chaos
+    from ray_tpu_torch.util.state import llm_status
+
+    app = build_llm_app(
+        model="gpt2", preset="small", num_replicas=SERVE_REPLICAS,
+        engine_config={"block_size": 16, "max_model_len": 1024,
+                       "max_batch_size": 8, "prefill_chunk_size": 0,
+                       "use_paged_attention": True, "speculative": None,
+                       "seed": 0, "num_blocks": SERVE_NUM_BLOCKS},
+        ray_actor_options={"num_gpus": SERVE_GPU_SHARE},
+        max_ongoing_requests=16)
+    app = dataclasses.replace(app, deployment=app.deployment.options(
+        cls_or_fn=_serve_replica_class()))
+    # the controller, both replicas and the proxy start at once; the
+    # driver builds the learner meanwhile
+    started: dict = {}
+
+    def start(name, fn):
+        try:
+            started[name] = fn()
+        except Exception as e:  # noqa: BLE001
+            started[name] = e
+
+    t_submit = time.time()
+    threads = [threading.Thread(target=start, args=args, daemon=True)
+               for args in (("handle", lambda: serve.run(
+                   app, name=SERVE_APP)),
+                   ("proxy", lambda: serve.start_proxy(port=0)))]
+    for t in threads:
+        t.start()
+    cfg = GPT2Config.small()
+    learner = LLMLearner("gpt2", cfg, config=LLMLearnerConfig(), seed=0)
+    # the replicas' compute params (bf16 copies of the same seed-0
+    # masters), for the tie check; dropped before the learner updates
+    compute = adapters()["gpt2"].serving_params_fn(learner.state.params,
+                                                   cfg)
+    want_sum = _param_checksum(learner.state.params)
+    for t in threads:
+        t.join(timeout=SERVE_WAIT_S * 2)
+    for name in ("handle", "proxy"):
+        if isinstance(started.get(name), Exception) or name not in started:
+            fail(f"serve_gpt2: {name} did not start: {started.get(name)!r}")
+    handle, proxy = started["handle"], started["proxy"]
+    setup_s = time.time() - t_submit
+    replicas = chaos.list_replicas(SERVE_APP)
+    starts = ray.get([_control(r, "process_start") for r in replicas],
+                     timeout=SERVE_WAIT_S)
+    sums = ray.get([_control(r, "checksum") for r in replicas],
+                   timeout=SERVE_WAIT_S)
+    workers = _node_workers(ray, c.nodelets)
+    if len(replicas) != SERVE_REPLICAS or any(s != want_sum for s in sums):
+        fail(f"serve_gpt2: {len(replicas)} replicas; params equal to the "
+             f"driver's seed-0 GPT-2-small: {[s == want_sum for s in sums]}")
+    pids = [s["pid"] for s in starts]
+    if len(set(pids)) != SERVE_REPLICAS or os.getpid() in pids or \
+            any(s["card"] != torch.cuda.get_device_name(0) for s in starts):
+        fail(f"serve_gpt2: the replicas' processes {starts}")
+    emit({"phase": "serve_gpt2", "part": "setup", "card": card,
+          "seconds": setup_s, "process_starts": len(workers),
+          "replica_start_split_s": [
+              _replica_start(s, t_submit, workers.get(s["pid"], (0, 0))[1])
+              for s in starts],
+          "warmup_s": [s["warm"] - s["engine_built"] for s in starts],
+          "warmup_shapes": [s["warmup_shapes"] for s in starts],
+          "params_equal_to_driver": True, "proxy": proxy})
+
+    # (a) phase 3's prompts, streamed at once, and one more by HTTP
+    prompts, want = ref["prompts"], ref["streams"]
+    ray.get([_control(r, "counters", True) for r in replicas],
+            timeout=SERVE_WAIT_S)
+    wave1 = _stream_wave(ray, handle, prompts, MAX_TOKENS)
+    if wave1["errors"]:
+        fail(f"serve_gpt2: wave 1 failed: {wave1['errors']}")
+    streams1 = _check_streams("serve_gpt2 wave 1", wave1["events"],
+                              MAX_TOKENS)
+    t0 = time.perf_counter()
+    via_proxy = _proxy_stream(proxy, {"prompt": prompts[0],
+                                      "max_tokens": MAX_TOKENS})
+    proxy_s = time.perf_counter() - t0
+    proxy_tokens = _check_streams("serve_gpt2 proxy", [via_proxy],
+                                  MAX_TOKENS)[0]
+    counts = ray.get([_control(r, "counters") for r in replicas],
+                     timeout=SERVE_WAIT_S)
+    launches_a = {k: sum(c[k] for c in counts)
+                  for k in ("flash_fwd", "flash_dq", "flash_dkv",
+                            "paged_attention")}
+    if any(c["flash_fwd"] <= 0 or c["paged_attention"] <= 0
+           for c in counts):
+        fail(f"serve_gpt2: a replica launched no K1 or no K4: {counts}")
+    tie1 = _tie_check(torch, "serve_gpt2 wave 1", compute, cfg, prompts,
+                      streams1, want)
+    tie_proxy = _tie_check(torch, "serve_gpt2 proxy", compute, cfg,
+                           prompts[:1], [proxy_tokens], want[:1])
+    n_tok = sum(len(x) for x in streams1)
+    emit({"phase": "serve_gpt2", "part": "a_streams", "card": card,
+          "requests": len(prompts), "max_tokens": MAX_TOKENS,
+          "wall_s": wave1["wall_s"],
+          "tokens_per_s": n_tok / wave1["wall_s"],
+          "ttft_ms_p50": float(np.median(wave1["ttft_s"])) * 1e3,
+          "ttft_ms_max": max(wave1["ttft_s"]) * 1e3,
+          "engine_tokens_per_s": ref.get("tokens_per_s"),
+          "engine_ttft_ms_p50": ref.get("ttft_ms_p50"),
+          "check": tie1, "proxy_s": proxy_s, "proxy_check": tie_proxy,
+          "launches_by_replica": counts, "launches": launches_a})
+
+    # (b) the same streams again; a replica is killed mid-generation
+    before = {_replica_ident(r) for r in replicas}
+    killed: dict = {}
+
+    def kill():
+        killed["ident"] = chaos.kill_replica(SERVE_APP, busiest=True)
+        killed["t"] = time.time()
+
+    healed: dict = {}
+
+    def heal():
+        try:
+            ok, hl = _wait_healed(serve, SERVE_REPLICAS)
+            if not ok:
+                healed["error"] = f"the app never healed: {hl}"
+                return
+            new = [r for r in chaos.list_replicas(SERVE_APP)
+                   if _replica_ident(r) not in before]
+            if len(new) != 1:
+                healed["error"] = f"{len(new)} new replicas"
+                return
+            gen = new[0].handle_stream_request.options(
+                num_returns="streaming").remote(
+                "__call__", ({"prompt": prompts[-1], "max_tokens": 4},), {})
+            evs = [ray.get(next(gen), timeout=SERVE_WAIT_S)]
+            healed["first_token_t"] = time.time()
+            evs += [ray.get(r, timeout=SERVE_WAIT_S) for r in gen]
+            healed.update(health=hl, events=evs, replica=new[0],
+                          start=ray.get(_control(new[0], "process_start"),
+                                        timeout=SERVE_WAIT_S))
+        except Exception as e:  # noqa: BLE001
+            healed["error"] = repr(e)
+
+    def kill_and_watch():
+        kill()
+        th = threading.Thread(target=heal, name="serve-heal-watch",
+                              daemon=True)
+        th.start()
+        return th
+
+    wave2 = _stream_wave(ray, handle, prompts, MAX_TOKENS,
+                         hook=kill_and_watch)
+    heal_thread = wave2["hook"]
+    if wave2["errors"] or "ident" not in killed:
+        fail(f"serve_gpt2: wave 2 failed through the kill: "
+             f"{wave2['errors']}")
+    streams2 = _check_streams("serve_gpt2 wave 2", wave2["events"],
+                              MAX_TOKENS)
+    failovers = sum(e[-1].get("failovers", 0) for e in wave2["events"])
+    if failovers < 1:
+        fail("serve_gpt2: the kill landed on no stream")
+    tie2 = _tie_check(torch, "serve_gpt2 wave 2", compute, cfg, prompts,
+                      streams2, streams1)
+    del compute
+    emit({"phase": "serve_gpt2", "part": "b_kill", "card": card,
+          "wall_s": wave2["wall_s"], "failovers": failovers,
+          "check_against_wave_1": tie2})
+
+    # (c) one GRPO lap through the handle, while the replacement starts
+    task = DigitSumTask(prefix_len=RL_PREFIX)
+    rng = np.random.RandomState(18)
+    lap_prompts = [[task.make_prompt(int(a), int(b))]
+                   for a, b in rng.randint(0, 10, (2, 2))]
+    worker = RolloutWorker(handle=handle, reward_fn=even_share,
+                           config=RolloutConfig(group_size=RL_GROUP,
+                                                max_tokens=RL_TOKENS,
+                                                temperature=1.0))
+    t0 = time.perf_counter()
+    trajs0 = worker.rollout(lap_prompts[0])
+    rollout0_s = time.perf_counter() - t0
+    contract0 = _rl_logprob_contract(learner, trajs0, None,
+                                     "serve_gpt2 lap (version 0)")
+    torch.cuda.synchronize()
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    metrics = learner.update(trajs0)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    launches_c = launch_counts(counters)
+    want_c = {"flash_fwd": 2 * cfg.n_layer, "flash_dq": cfg.n_layer,
+              "flash_dkv": cfg.n_layer, "paged_attention": 0}
+    if {k: launches_c[k] for k in want_c} != want_c or \
+            not math.isfinite(metrics["loss"]):
+        fail(f"serve_gpt2: the update launched {launches_c}, want "
+             f"{want_c}; loss {metrics.get('loss')}")
+    t0 = time.perf_counter()
+    version, weights = learner.publish_weights()
+    publish_s = time.perf_counter() - t0
+    if version != 1 or not isinstance(weights, ray.ObjectRef):
+        fail(f"serve_gpt2: publish_weights gave version {version}, "
+             f"{type(weights).__name__}")
+    t0 = time.perf_counter()
+    swap = handle.update_weights(version, weights)
+    swap_s = time.perf_counter() - t0
+    if not swap or any(s.get("version") != 1 or "error" in s for s in swap):
+        fail(f"serve_gpt2: update_weights gave {swap}")
+    heal_thread.join(timeout=SERVE_WAIT_S * 2)
+    if "first_token_t" not in healed:
+        fail(f"serve_gpt2: the replacement did not answer: {healed}")
+    stats = llm_status(SERVE_APP)
+    if len(stats) != SERVE_REPLICAS or \
+            any(s["weight_version"] != 1 for s in stats):
+        fail(f"serve_gpt2: the replicas' weight versions "
+             f"{[s['weight_version'] for s in stats]}, want 1 on "
+             f"{SERVE_REPLICAS}")
+    t0 = time.perf_counter()
+    trajs1 = worker.rollout(lap_prompts[1])
+    rollout1_s = time.perf_counter() - t0
+    contract1 = _rl_logprob_contract(learner, trajs1, None,
+                                     "serve_gpt2 lap (version 1)",
+                                     version=1)
+    hl = serve.status()["health"][SERVE_APP]
+    if hl["restarts"] < 1 or hl["healthy"] != SERVE_REPLICAS:
+        fail(f"serve_gpt2: health after the heal {hl}")
+    new_start = healed["start"]
+    emit({"phase": "serve_gpt2", "part": "heal", "card": card,
+          "kill_to_replacement_first_token_s":
+              healed["first_token_t"] - killed["t"],
+          "restarts": hl["restarts"], "healthy": hl["healthy"],
+          "replacement_start_split_s": _replica_start(
+              new_start, killed["t"], _node_workers(ray, c.nodelets).get(
+                  new_start["pid"], (0, 0))[1]),
+          "lifecycle": [e["event"] for e in hl["lifecycle"]]})
+    emit({"phase": "serve_gpt2", "part": "c_grpo_lap", "card": card,
+          "group_size": RL_GROUP, "max_tokens": RL_TOKENS,
+          "rollout_s": [rollout0_s, rollout1_s], "update_s": update_s,
+          "loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
+          "publish_s": publish_s, "update_weights_s": swap_s,
+          "replica_get_s": [s.get("get_s") for s in swap],
+          "replica_swap_s": [s.get("swap_seconds") for s in swap],
+          "weight_versions": [s["weight_version"] for s in stats],
+          "logprob_contract_v0": contract0,
+          "logprob_contract_v1": contract1, "launches": launches_c})
+    del learner
+    return {k: launches_a[k] + launches_c[k] for k in want_c}
+
+
+def phase_serve_gpt2(torch, card: str, ref: dict) -> dict:
+    """Phase 18: Serve on the cluster runtime with two GPT-2-small
+    replicas on the card (see the docstring); `ref` holds phase 3's
+    prompts and streams. Returns the launches of the path serve_gpt2."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core import object_store
+
+    t_phase = time.perf_counter()
+    release(torch)
+    c = Cluster(initialize_head=True, head_node_args={
+        "num_cpus": os.cpu_count() or 8,
+        "num_gpus": torch.cuda.device_count(),
+        "store_capacity": SERVE_STORE_BYTES})
+    stores = [c.nodelets[0].store.name]
+    seen_pids: set = set()
+    try:
+        c.wait_for_nodes()
+        ray.init(address=c.address)
+        launches = _serve_parts(torch, ray, serve, c, card, ref)
+        seen_pids.update(_node_workers(ray, c.nodelets))
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            ray.shutdown()
+            c.shutdown()
+    release(torch)
+    left = [s for s in stores
+            if os.path.exists(os.path.join(object_store._SHM_DIR, s))]
+    if left:
+        fail(f"serve_gpt2: store segments {left} outlived shutdown()")
+    alive = []
+    for pid in seen_pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    if alive:
+        fail(f"serve_gpt2: worker processes {alive} outlived shutdown()")
+    emit({"phase": "serve_gpt2", "card": card, "launches": launches,
+          "worker_pids_checked": len(seen_pids),
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def _paths(t, path=""):
     if isinstance(t, dict):
         for k in sorted(t):
@@ -6498,16 +7095,31 @@ def _paths(t, path=""):
         yield path, t
 
 
+def use_bytecode_cache(root: str) -> None:
+    """Let this process and every process it starts (they inherit the
+    environment) keep compiled modules under the checkout's build/. A
+    machine that sets PYTHONDONTWRITEBYTECODE makes each new process
+    compile torch's modules from source: an import of torch took
+    10.5-10.8 s that way and 5.1-5.3 s from this cache on the host of an
+    NVIDIA H100 80GB HBM3."""
+    cache = os.path.join(root, "build", "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = cache
+
+
 def main() -> int:
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "ray_tpu_torch")):
+        fail(f"no ray_tpu_torch/ beside {__file__}: run it from a checkout")
+    use_bytecode_cache(root)
     try:
         import torch
     except ImportError:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
-    root = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(root, "ray_tpu_torch")):
-        fail(f"no ray_tpu_torch/ beside {__file__}: run it from a checkout")
     sys.path.insert(0, root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6532,7 +7144,10 @@ def main() -> int:
     lap("check_flash_bwd")
     k4 = check_paged(torch, gen)
     lap("check_paged")
-    paged = phase_engine(torch)
+    serve_ref: dict = {}
+    paged = phase_engine(torch, serve_ref)
+    serve_ref.update(tokens_per_s=paged["tokens_per_s"],
+                     ttft_ms_p50=paged["ttft_ms_p50"])
     lap("engine")
     ref_default, ref_llama = {}, {}
     paths = {"serve": paged["launches"],
@@ -6595,6 +7210,8 @@ def main() -> int:
     lap("pipeline_gpt2")
     paths["runtime_gpu"] = phase_runtime_gpu(torch, card, ppo_local)
     lap("runtime_gpu")
+    paths["serve_gpt2"] = phase_serve_gpt2(torch, card, serve_ref)
+    lap("serve_gpt2")
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),

@@ -22,7 +22,10 @@ process::
 Importing this package loads the core API only, not the serving, RL or
 training packages.
 
-Ported so far: GPT-2 and Llama serving (``ray_tpu_torch.serve.llm``) at
+Ported so far: Serve on the cluster runtime (``ray_tpu_torch.serve``:
+deployments, the controller's health loop, handles with failover, the
+HTTP proxy, the LLM deployment); GPT-2 and Llama serving
+(``ray_tpu_torch.serve.llm``) at
 the JAX engine's defaults (chunked prefill, prefix caching, dense
 decode) and with paged decode and speculative decoding, through the
 flash-attention forward (``ops/flash_attention.py``) and the paged
@@ -33,7 +36,7 @@ training (``ray_tpu_torch.train``) on one card or on a mesh of
 (``ray_tpu_torch.parallel``), through the flash-attention forward and
 backward kernels on each rank's shard, with checkpoints of the train
 state (``train/checkpointing.py``) and the train session; RL for LLMs
-(``ray_tpu_torch.rllib.llm``); the rest of the parallel layer and model
+(``ray_tpu_torch.rllib.llm``), in process or through a deployment handle; the rest of the parallel layer and model
 zoo: ring and Ulysses attention, the in-program GPipe and interleaved
 pipeline schedules with the 1F1B schedule math, the expert-parallel MoE
 layer and the pipelined transformer; classic RL

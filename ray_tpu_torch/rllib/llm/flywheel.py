@@ -2,12 +2,13 @@
 ``ray_tpu/rllib/llm/flywheel.py``.
 
 One `iteration()` is one lap: the rollout worker samples completions
-through the serving engine (prefix cache serving the shared task
-prefix), trajectory groups stream into the GRPO learner as they finish,
-the learner takes one clipped policy-gradient step, publishes the new
-weight version, and the engine installs it with a drain-free hot-swap —
-in-flight streams keep running, tagged by version, and the next lap's
-rollouts sample from the updated policy.
+through the serving engine, in process or behind a deployment handle
+(prefix cache serving the shared task prefix), trajectory groups stream
+into the GRPO learner as they finish (through the object store when a
+runtime is up), the learner takes one clipped policy-gradient step,
+publishes the new weight version, and the serving side installs it with
+a drain-free hot-swap — in-flight streams keep running, tagged by
+version, and the next lap's rollouts sample from the updated policy.
 
 The learner and the engine MUST start from the same params (pass
 ``learner.get_weights()`` into `LLMEngine(..., params=...)`); otherwise
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
 from ray_tpu_torch.rllib.llm.learner import LLMLearner
 from ray_tpu_torch.rllib.llm.rollout import RolloutWorker
@@ -57,21 +58,28 @@ class RLFlywheel:
         self.iteration_idx = 0
         self.history: list[dict] = []
 
+    def _install(self, version: int, weights: Any) -> dict | list:
+        if self.worker.engine is not None:
+            return self.worker.engine.update_weights(
+                version, _resolved(weights))
+        return self.worker.handle.update_weights(version, weights)
+
     def iteration(self) -> dict:
         """One lap. Returns learner metrics + rollout/swap stats."""
         t0 = time.perf_counter()
         prompts = self.prompt_fn(self.iteration_idx)
         trajs: list[Trajectory] = []
         for group in self.worker.rollout_stream(prompts):
-            trajs.extend(group)
+            trajs.extend(_resolved(group))
         metrics = self.learner.update(trajs)
         version, weights = self.learner.publish_weights()
         swap = None
         if not metrics.get("skipped"):
-            if self.config.swap_during_rollout:
+            if self.config.swap_during_rollout \
+                    and self.worker.engine is not None:
                 swap = self._swap_with_streams_in_flight(version, weights)
             else:
-                swap = self.worker.engine.update_weights(version, weights)
+                swap = self._install(version, weights)
         self.iteration_idx += 1
         all_rewards = [t.reward for t in trajs]
         out = dict(metrics)
@@ -103,7 +111,7 @@ class RLFlywheel:
             probes.append(engine.add_request(list(prompt), sp))
         for _ in range(2):  # streams genuinely mid-generation
             engine.step()
-        swap = engine.update_weights(version, weights)
+        swap = self._install(version, weights)
         if swap["in_flight_streams"] < 1:
             # the probes finished before the swap landed — the lap
             # proved nothing; fail loud rather than report a vacuous
@@ -125,3 +133,16 @@ class RLFlywheel:
             1 for f in finals if f is None or not f.get("done"))
         swap["probe_stale"] = sum(1 for f in finals if f.get("stale"))
         return swap
+
+
+def _resolved(value: Any) -> Any:
+    """`value`, or the object behind it when it is an object-store ref
+    (a group from `rollout_stream`, weights from `publish_weights`,
+    when a runtime is up)."""
+    from ray_tpu_torch.core.api import ObjectRef
+
+    if isinstance(value, ObjectRef):
+        import ray_tpu_torch as ray
+
+        return ray.get(value)
+    return value

@@ -23,9 +23,8 @@ any single version, and feeding them in corrupts the ratios silently.
 
 The learner runs on the card unless the caller passes ``device="cpu"``
 (or a mesh, whose device it takes). The JAX learner's tracing span
-(``rl.learner_update``) waits for the port of the tracing plane, and
-`publish_weights` hands the weights over directly: the port has no
-object store yet (ROADMAP.md, queue 3).
+(``rl.learner_update``) waits for the port of the tracing plane
+(ROADMAP.md, queue 3).
 """
 
 from __future__ import annotations
@@ -94,7 +93,7 @@ class LLMLearner:
     """Owns params + optimizer for one model family ("gpt2"/"llama");
     `update(trajectories)` runs one GRPO step and bumps the weight
     version; `publish_weights()` hands the new version to the serving
-    side."""
+    side (through the object store when a runtime is up)."""
 
     def __init__(self, model: str = "gpt2", model_config: Any = None,
                  *, params: Any = None, mesh=None,
@@ -255,12 +254,18 @@ class LLMLearner:
         return interop.params_to_numpy(self.state.params)
 
     def publish_weights(self) -> tuple[int, Any]:
-        """(version, weights) for the serving side, which installs them
-        with ``LLMEngine.update_weights(version, weights)``. The JAX
-        learner puts them in the object store when a runtime is up; the
-        port has no runtime yet, so callers get the tree directly, as
-        the JAX learner's in-process callers do."""
-        return self.version, self.get_weights()
+        """(version, weights-or-ref) for the serving side. With a
+        runtime initialized the host tree goes through the object store
+        — ONE put, every replica pulls the same ref via
+        `DeploymentHandle.update_weights(version, ref)`; in-process
+        callers get the tree directly, for
+        ``LLMEngine.update_weights(version, weights)``."""
+        import ray_tpu_torch as ray
+
+        w = self.get_weights()
+        if ray.is_initialized():
+            return self.version, ray.put(w)
+        return self.version, w
 
     @torch.no_grad()
     def teacher_forced_logprobs(self, traj: Trajectory,

@@ -1,26 +1,26 @@
 """RolloutWorker: the serving engine as the RL rollout actor, the port of
 ``ray_tpu/rllib/llm/rollout.py``.
 
-Samples N completions per prompt through an in-process continuous-
-batching `LLMEngine` (``ray_tpu_torch.serve.llm``), scores them with a
-pluggable reward fn, and emits token-level `Trajectory` lists.
+Samples N completions per prompt through a continuous-batching LLM
+engine — either an in-process `LLMEngine` (tests, the CPU closed loop)
+or a deployed `build_llm_app` behind a `DeploymentHandle` (the cluster
+flywheel) — scores them with a pluggable reward fn, and emits
+token-level `Trajectory` lists.
 
 Rollouts are the workload the prefix cache was shaped for: the N
 completions of one prompt (and every prompt sharing the task's system
 prefix) longest-prefix-match each other's KV pages at admission, so
 only the first rollout pays the prefill; `Trajectory.cached_tokens`
 and the engine's `prefix_hit_pages` counters make the reuse
-observable.
+observable. Through a handle, `affinity_key` routes same-prefix
+rollouts onto one replica's warm cache.
 
-Streaming contract: `rollout_stream()` yields one trajectory list per
-completed prompt group *as each group finishes*, so the learner can
-take groups while later ones are still decoding (and a weight
-hot-swap can land mid-rollout).
+Streaming contract: `rollout_stream()` yields one object-store ref per
+completed prompt group *as each group finishes* (the lists themselves
+when no runtime is up), so the learner can take groups while later ones
+are still decoding (and a weight hot-swap can land mid-rollout).
 
-Deviation from the JAX worker: the port has no runtime yet, so there is
-no deployment to drive (``handle=`` is refused) and no object store
-(`rollout_stream` yields the lists themselves, the JAX worker's own
-path when no runtime is up); its tracing span (``rl.rollout``) waits
+Deviation from the JAX worker: its tracing span (``rl.rollout``) waits
 for the tracing plane (ROADMAP.md, queue 3).
 """
 
@@ -46,19 +46,15 @@ class RolloutConfig:
 
 
 class RolloutWorker:
-    """Drives one in-process engine to produce trajectories."""
+    """Drives one engine (or one deployment) to produce trajectories."""
 
     def __init__(self, *, engine=None, handle=None,
                  reward_fn: Callable[[list, list], float],
                  config: RolloutConfig | None = None):
-        if handle is not None:
-            raise ValueError(
-                "RolloutWorker(handle=...) drives a serve deployment, and "
-                "ray_tpu_torch has no runtime to deploy on yet: pass "
-                "engine= (an in-process LLMEngine)")
-        if engine is None:
-            raise ValueError("pass engine= (an in-process LLMEngine)")
+        if (engine is None) == (handle is None):
+            raise ValueError("pass exactly one of engine= / handle=")
         self.engine = engine
+        self.handle = handle
         self.reward_fn = reward_fn
         self.config = config or RolloutConfig()
         self._groups = 0
@@ -86,7 +82,7 @@ class RolloutWorker:
         """Submit every group up front (shared prefixes ride the cache),
         step the engine, and yield each group the moment its last
         stream closes. With ``drive=False`` the engine is stepped
-        elsewhere (another thread's step loop or a test's own loop)."""
+        elsewhere (a deployment's step loop or a test's own loop)."""
         sp = self._sampling()
         pending = []  # (group_id, prompt, [streams])
         for gid, prompt in enumerate(prompts, start=self._groups):
@@ -120,6 +116,44 @@ class RolloutWorker:
                 else:
                     i += 1
 
+    # ------------------------------------------------------- handle path
+
+    def _rollout_handle(self, prompts: Sequence[Sequence[int]]
+                        ) -> Iterator[list[Trajectory]]:
+        """Submit every group's streams at once through the handle, each
+        routed by its prompt's affinity key (one replica's warm prefix
+        cache serves a group), and yield the groups in order."""
+        import ray_tpu_torch as ray
+        from ray_tpu_torch.serve.llm.deployment import prompt_affinity_key
+
+        c = self.config
+        sp_payload = {"max_tokens": c.max_tokens,
+                      "temperature": c.temperature,
+                      "eos_token_id": c.eos_token_id,
+                      "logprobs": True, "stream": False}
+        gens = []
+        for gid, prompt in enumerate(prompts, start=self._groups):
+            key = prompt_affinity_key(prompt)
+            h = self.handle.options(stream=True, affinity_key=key)
+            gens.append((gid, list(prompt), [
+                h.remote(dict(sp_payload, prompt=list(prompt)))
+                for _ in range(c.group_size)]))
+        self._groups += len(gens)
+        for gid, prompt, group in gens:
+            finals = []
+            for g in group:
+                last = None
+                for ref in g:
+                    last = ray.get(ref)
+                finals.append(last)
+            yield self._score_group(gid, prompt, finals)
+
+    def _groups_of(self, prompts, drive: bool | None):
+        if self.engine is not None:
+            return self._rollout_engine(
+                prompts, drive=True if drive is None else drive)
+        return self._rollout_handle(prompts)
+
     # ---------------------------------------------------------- scoring
 
     def _score_group(self, gid: int, prompt: list[int],
@@ -142,22 +176,27 @@ class RolloutWorker:
     def rollout(self, prompts: Sequence[Sequence[int]],
                 *, drive: bool | None = None) -> list[Trajectory]:
         """Sample group_size completions per prompt; returns the flat
-        trajectory list (grouped by group_id). `drive` defaults to True:
-        the caller's thread steps the engine."""
+        trajectory list (grouped by group_id). `drive` defaults to True
+        for an in-process engine: the caller's thread steps it."""
         out: list[Trajectory] = []
-        for group in self.rollout_stream(prompts, drive=drive):
+        for group in self._groups_of(prompts, drive):
             out.extend(group)
+        if out:
+            self._m_reward.set(float(np.mean([t.reward for t in out])))
         return out
 
     def rollout_stream(self, prompts: Sequence[Sequence[int]],
-                       *, drive: bool | None = None
-                       ) -> Iterator[list[Trajectory]]:
-        """Streaming rollout: yields ONE trajectory list per completed
-        prompt group, as groups finish."""
-        drive = True if drive is None else drive
+                       *, drive: bool | None = None) -> Iterator[Any]:
+        """Streaming rollout: yields ONE object-store ref per completed
+        prompt group, as groups finish, when a runtime is up; the
+        trajectory lists themselves otherwise, so the CPU closed loop
+        runs without a cluster."""
+        import ray_tpu_torch as ray
+
+        put = ray.put if ray.is_initialized() else (lambda x: x)
         rewards: list[float] = []
-        for group in self._rollout_engine(prompts, drive=drive):
+        for group in self._groups_of(prompts, drive):
             rewards.extend(t.reward for t in group)
-            yield group
+            yield put(group)
         if rewards:
             self._m_reward.set(float(np.mean(rewards)))

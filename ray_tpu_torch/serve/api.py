@@ -1,0 +1,2187 @@
+"""Serve core: deployments, controller, replicas, handles, HTTP.
+
+The port of ``ray_tpu/serve/api.py`` onto the port's cluster runtime.
+Reference parity mapped per class in docstrings; see package __init__.
+
+Deviations from the JAX module (ROADMAP.md, queue 3):
+
+- deployment classes and functions travel through the port's by-value
+  pickler (``core/serialization.py``: ``dumps_fn``/``loads_fn``), not
+  cloudpickle, which the card's machine does not have;
+- handle calls are submitted without a ``serve.*`` tracing span until
+  the tracing plane (``util/tracing.py``) is ported;
+- the controller answers ``metrics_text()``, its process's Prometheus
+  page, which stands in for the cluster metrics plane (not ported yet)
+  when a caller wants the controller's probe and restart counters;
+- a background thread (the updater's push, a failover's refresh, death
+  report or retry) does nothing once the runtime is shut down: in the
+  JAX module it can call into the runtime after ``shutdown()`` and so
+  auto-init a new cluster in the process.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import threading
+import weakref
+from typing import Any
+
+_CONTROLLER_NAME = "__serve_controller"
+_log = logging.getLogger("ray_tpu_torch.serve")
+
+
+class _ServeUpdates:
+    """Per-process long-poll subscriber for serve config pushes
+    (reference: serve/_private/long_poll.py — the LongPollClient that
+    keeps every handle's routing table fresh without per-request
+    polling). One thread per process serves every DeploymentHandle;
+    the controller publishes {"app": name} on the head's "serve" topic
+    whenever a replica set changes and affected handles refresh
+    immediately (<100ms instead of the old 2s poll)."""
+
+    _instance = None
+    _ilock = threading.Lock()
+
+    @classmethod
+    def shared(cls) -> "_ServeUpdates":
+        with cls._ilock:
+            if cls._instance is None or not cls._instance._alive:
+                cls._instance = cls()
+            return cls._instance
+
+    def __init__(self):
+        import os
+
+        self._handles: "weakref.WeakSet[DeploymentHandle]" = weakref.WeakSet()
+        self._lock = threading.Lock()
+        self._alive = True
+        self._sub_id = f"serve-{os.getpid()}-{os.urandom(4).hex()}"
+        threading.Thread(target=self._loop, daemon=True,
+                         name="serve-long-poll").start()
+
+    def register(self, handle: "DeploymentHandle"):
+        with self._lock:
+            self._handles.add(handle)
+
+    def _loop(self):
+        try:
+            self._run_loop()
+        finally:
+            # a dead updater must never be handed to new handles: shared()
+            # checks _alive and builds a fresh one after shutdown/init
+            self._alive = False
+
+    def _run_loop(self):
+        from ray_tpu_torch.core import api
+
+        # the runtime this updater serves; it never boots one (a push
+        # handled after shutdown() would auto-init a new cluster here)
+        rt = api._runtime
+        if rt is None:
+            return
+        subscribed = False
+        while self._alive and api._runtime is rt:
+            try:
+                if not subscribed:
+                    rt.client.call(rt.head_address, "subscribe",
+                                   {"mode": "poll",
+                                    "subscriber_id": self._sub_id,
+                                    "topics": ["serve"]}, timeout=10)
+                    subscribed = True
+                r = rt.client.call(rt.head_address, "poll_messages",
+                                   {"subscriber_id": self._sub_id,
+                                    "timeout": 10.0}, timeout=15)
+                if not r.get("subscribed"):
+                    subscribed = False  # head GC'd us: re-subscribe
+                    continue
+                apps = {m["data"].get("app") for m in r.get("messages", ())}
+                if not apps:
+                    continue
+                with self._lock:
+                    handles = list(self._handles)
+                for h in handles:
+                    if api._runtime is not rt:
+                        return  # shut down meanwhile
+                    if h.app_name in apps:
+                        h._refresh_now()
+            except Exception:  # noqa: BLE001
+                import time as _t
+
+                if getattr(rt, "_shutdown_flag", False):
+                    return
+                subscribed = False
+                _t.sleep(0.5)  # head briefly unreachable: retry
+
+
+@dataclasses.dataclass
+class AutoscalingConfig:
+    """Reference: serve autoscaling (_private/autoscaling_state.py) —
+    replica count tracks mean ongoing requests per replica."""
+
+    min_replicas: int = 1
+    max_replicas: int = 4
+    target_ongoing_requests: float = 2.0
+    interval_s: float = 0.5
+    downscale_idle_rounds: int = 4  # consecutive idle polls before -1
+
+
+@dataclasses.dataclass
+class Deployment:
+    """Produced by @serve.deployment; `.bind(*args)` freezes init args
+    into an Application (reference: serve/deployment.py:64)."""
+
+    cls_or_fn: Any
+    name: str
+    num_replicas: int = 1
+    ray_actor_options: dict | None = None
+    max_ongoing_requests: int = 16
+    autoscaling_config: AutoscalingConfig | None = None
+    # opt-in: the serve proxy derives a prefix-affinity routing key from
+    # this app's payloads ({"prompt": [token ids]} — see
+    # payload_affinity_key). Off by default: a non-LLM app whose payload
+    # merely resembles one must keep power-of-two load routing instead
+    # of getting rendezvous-pinned to a single replica.
+    payload_affinity: bool = False
+    # self-healing knobs (reference: health_check_period_s /
+    # health_check_timeout_s on the serve deployment config,
+    # serve/config.py). The controller pings every replica on the
+    # period over its CONTROL concurrency group; `health_check_misses`
+    # consecutive probe failures — or one ActorDiedError — mark it DEAD,
+    # pull it from the routing set, and start a replacement.
+    # `max_replica_restarts` caps CONSECUTIVE failed replacement
+    # attempts per app (a replica crashing in __init__ must not
+    # hot-loop); the counter resets whenever a replacement goes healthy.
+    health_check_period_s: float = 1.0
+    health_check_timeout_s: float = 5.0
+    health_check_misses: int = 3
+    max_replica_restarts: int = 8
+
+    def __post_init__(self):
+        # options(autoscaling_config={...}) goes through replace() and
+        # lands here too — normalize dicts in one place
+        if isinstance(self.autoscaling_config, dict):
+            self.autoscaling_config = AutoscalingConfig(
+                **self.autoscaling_config)
+
+    def bind(self, *args, **kwargs) -> "Application":
+        return Application(self, args, kwargs)
+
+    def options(self, **kw) -> "Deployment":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass
+class Application:
+    """A bound deployment. Init args may contain OTHER Applications —
+    the app graph (reference: serve/_private/build_app.py:68): serve.run
+    deploys the graph bottom-up and injects DeploymentHandles for the
+    nested nodes, so replicas compose deployments at runtime."""
+
+    deployment: Deployment
+    init_args: tuple
+    init_kwargs: dict
+
+
+@dataclasses.dataclass
+class _HandleRef:
+    """Placeholder riding through replica init args; resolved to a live
+    DeploymentHandle inside the replica process."""
+
+    app_name: str
+
+
+def deployment(_cls=None, *, name: str | None = None, num_replicas: int = 1,
+               ray_actor_options: dict | None = None,
+               max_ongoing_requests: int = 16,
+               autoscaling_config: AutoscalingConfig | dict | None = None,
+               payload_affinity: bool = False,
+               health_check_period_s: float = 1.0,
+               health_check_timeout_s: float = 5.0,
+               health_check_misses: int = 3,
+               max_replica_restarts: int = 8):
+    def wrap(cls):
+        return Deployment(cls, name or cls.__name__,
+                          num_replicas=num_replicas,
+                          ray_actor_options=ray_actor_options,
+                          max_ongoing_requests=max_ongoing_requests,
+                          autoscaling_config=autoscaling_config,
+                          payload_affinity=payload_affinity,
+                          health_check_period_s=health_check_period_s,
+                          health_check_timeout_s=health_check_timeout_s,
+                          health_check_misses=health_check_misses,
+                          max_replica_restarts=max_replica_restarts)
+
+    return wrap(_cls) if _cls is not None else wrap
+
+
+class _Replica:
+    """Replica actor: hosts one instance of the deployment class
+    (reference: replica actors, serve/_private/replica.py)."""
+
+    def __init__(self, cls_blob: bytes, args, kwargs):
+        from ray_tpu_torch.core.serialization import loads_fn
+
+        cls = loads_fn(cls_blob)
+        # resolve composed-deployment placeholders into live handles
+        # (reference: build_app.py injects DeploymentHandles for bound
+        # sub-apps)
+        args = tuple(get_app_handle(a.app_name)
+                     if isinstance(a, _HandleRef) else a for a in args)
+        kwargs = {k: (get_app_handle(v.app_name)
+                      if isinstance(v, _HandleRef) else v)
+                  for k, v in kwargs.items()}
+        self._instance = cls(*args, **kwargs) if isinstance(cls, type) \
+            else None
+        self._fn = None if isinstance(cls, type) else cls
+        self._ongoing = 0
+        self._lock = threading.Lock()
+
+    def handle_request(self, method: str, args, kwargs):
+        with self._lock:
+            self._ongoing += 1
+        try:
+            if self._fn is not None:
+                return self._fn(*args, **kwargs)
+            return getattr(self._instance, method)(*args, **kwargs)
+        finally:
+            with self._lock:
+                self._ongoing -= 1
+
+    def handle_stream_request(self, method: str, args, kwargs):
+        """Streaming variant: a GENERATOR method — called with
+        num_returns="streaming" so each yielded chunk ships to the
+        caller as produced (reference: replica response streaming over
+        the generator protocol, serve/_private/replica.py). Being a
+        generator itself keeps the ongoing-request count held until the
+        stream is drained or dropped, so autoscaling sees streams as
+        live load."""
+        with self._lock:
+            self._ongoing += 1
+        try:
+            if self._fn is not None:
+                result = self._fn(*args, **kwargs)
+            else:
+                result = getattr(self._instance, method)(*args, **kwargs)
+            if hasattr(result, "__iter__") and not isinstance(
+                    result, (str, bytes, dict, list, tuple)):
+                yield from result
+            else:
+                yield result
+        finally:
+            with self._lock:
+                self._ongoing -= 1
+
+    def ongoing(self) -> int:
+        return self._ongoing
+
+    def alive(self) -> str:
+        """Raw liveness (the deploy/heal READINESS barrier): answers as
+        soon as __init__ finished, no user hook — a replica whose
+        check_health needs warm dependencies must still pass readiness
+        (readiness and health are separate probes, as in the
+        reference)."""
+        return "pong"
+
+    def ping(self) -> str:
+        """Health probe (rides the control concurrency group). If the
+        deployment class defines `check_health()`, a raise there makes
+        the probe fail — the user hook for 'process alive but broken'
+        states (reference: user-defined check_health,
+        serve/_private/replica.py)."""
+        inst = self._instance
+        if inst is not None:
+            fn = getattr(inst, "check_health", None)
+            if callable(fn):
+                fn()  # raising marks this probe unhealthy
+        return "pong"
+
+    def chaos_exit(self) -> None:
+        """Fault injection (util.chaos.kill_replica): exit the worker
+        process immediately — no drain, no finally blocks — the failure
+        shape of an OOM-kill or node loss. Test-only by convention."""
+        import os
+
+        os._exit(1)
+
+
+def _wait_replicas_ready(replicas, timeout: float = 180.0) -> None:
+    """Readiness barrier that outlives the runtime's internal actor-
+    resolution window: a replica still CONSTRUCTING (heavy __init__ —
+    an LLM replica compiles every bucketed program during warmup, ~1
+    min for several replicas on a small box) surfaces as
+    ActorUnavailableError from a 60s resolve cap, which is 'not yet',
+    not 'failed'. Retry pings until this barrier's own deadline; real
+    deaths (ActorDiedError) propagate immediately."""
+    import time as _t
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch.core import exceptions as exc
+
+    deadline = _t.monotonic() + timeout
+    for r in replicas:
+        while True:
+            budget = deadline - _t.monotonic()
+            if budget <= 0:
+                raise exc.ActorUnavailableError(
+                    f"replica not ready within {timeout}s")
+            try:
+                # raw liveness, NOT the user check_health hook: a
+                # replica that is constructed but transiently unhealthy
+                # must still pass readiness (and must not burn the heal
+                # path's restart budget)
+                ray.get(r.alive.remote(), timeout=min(30.0, budget))
+                break
+            except (exc.ActorUnavailableError, exc.GetTimeoutError):
+                # GetTimeoutError is the local runtime's "still
+                # constructing" shape: the ping queues behind a heavy
+                # __init__ in the actor thread instead of erroring
+                _t.sleep(1.0)
+
+
+class ServeController:
+    """Controller actor: owns the deployment -> replica-handles table and
+    reconciles replica counts — load-driven autoscaling AND the
+    self-healing loop (reference: _private/controller.py:84,
+    DeploymentStateManager, autoscaling_state.py, and the controller's
+    replica health-check/recovery loop in
+    _private/deployment_state.py).
+
+    Healing contract: the health loop pings every replica on its app's
+    period over the CONTROL concurrency group (probes never queue
+    behind token streams). `health_check_misses` consecutive probe
+    failures — or a single ActorDiedError — mark the replica DEAD: it
+    leaves the published routing set immediately (handles converge via
+    the long-poll push), and a replacement starts through the same
+    `_make_replica`/`_wait_replicas_ready` path deploys use, with
+    exponential restart backoff and a `max_replica_restarts` cap on
+    consecutive failures so a replica that crashes in __init__ can
+    never hot-loop. The app serves at reduced capacity while the
+    replacement warms; an app is only ever REMOVED by an explicit
+    delete. Before a replacement enters the routing set it replays the
+    last recorded `update_weights` broadcast (see update_app_weights),
+    so a restarted LLM engine can never serve stale weights."""
+
+    def __init__(self):
+        self._apps: dict[str, dict] = {}  # app -> {replicas, meta}; guarded_by(_lock)
+        self._lock = threading.Lock()
+        self._scaler_started = False
+        self._health_started = False
+        from ray_tpu_torch.util.metrics import Counter, Gauge
+
+        self._m_restarts = Counter(
+            "serve_replica_restarts_total",
+            "Replica replacements started by the self-healing loop",
+            tag_keys=("app",))
+        self._m_checks = Counter(
+            "serve_replica_health_checks_total",
+            "Replica health probes, by result (ok|miss|dead)",
+            tag_keys=("app", "result"))
+        self._m_healthy = Gauge(
+            "serve_replicas_healthy",
+            "Replicas that passed their latest health probe round",
+            tag_keys=("app",))
+
+    def _make_replica(self, app: dict):
+        import ray_tpu_torch as ray
+
+        opts = dict(app["actor_options"] or {})
+        opts.setdefault("num_cpus", 0.1)
+        cls = ray.remote(**opts)(_Replica)
+        # control-plane probes (ongoing/ping/engine stats) ride their own
+        # executor lane so they never queue behind long-running request
+        # streams (an LLM token stream can hold a default-lane thread for
+        # minutes)
+        return cls.options(
+            max_concurrency=max(2, app["max_concurrency"]),
+            concurrency_groups={"control": 2}).remote(
+            app["cls_blob"], app["init_args"], app["init_kwargs"])
+
+    def _publish_update(self, app_name: str):
+        """Push the config change to every handle via head pubsub
+        (reference: LongPollHost notify, serve/_private/long_poll.py:1)."""
+        try:
+            from ray_tpu_torch.core.api import _global_runtime
+
+            rt = _global_runtime()
+            rt.client.send_oneway(rt.head_address, "publish",
+                                  {"topic": "serve",
+                                   "data": {"app": app_name}})
+        except Exception:  # noqa: BLE001
+            pass  # anti-entropy fallback poll covers a lost push
+
+    def deploy(self, app_name: str, cls_blob: bytes, num_replicas: int,
+               actor_options: dict | None, init_args, init_kwargs,
+               max_concurrency: int, autoscaling: dict | None = None,
+               payload_affinity: bool = False,
+               health: dict | None = None):
+        import ray_tpu_torch as ray
+
+        # version must be monotonic ACROSS redeploys or handles holding
+        # version N of the old incarnation ignore the new replica set.
+        # Read-and-retire is ONE lock acquisition: a concurrent heal/
+        # autoscale bump on the old app between a read and a separate
+        # delete could collide with the new app's version and freeze
+        # every handle on the old (dead) replica set.
+        with self._lock:
+            prior = self._apps.pop(app_name, None)
+            next_version = (prior.get("version", 0) + 1) if prior else 0
+        if prior is not None:
+            for r in prior["replicas"]:
+                try:
+                    ray.kill(r)
+                except Exception:  # noqa: BLE001
+                    pass
+            self._publish_update(app_name)
+        health = health or {}
+        app = {"cls_blob": cls_blob, "actor_options": actor_options,
+               "init_args": init_args, "init_kwargs": init_kwargs,
+               "max_concurrency": max_concurrency,
+               "autoscaling": autoscaling, "idle_rounds": 0,
+               "version": next_version,
+               "payload_affinity": payload_affinity,
+               # --- self-healing state (mutations guarded by _lock) ---
+               "health_period": float(health.get("period_s", 1.0)),
+               "health_timeout": float(health.get("timeout_s", 5.0)),
+               "health_misses": int(health.get("misses", 3)),
+               "max_replica_restarts": int(
+                   health.get("max_replica_restarts", 8)),
+               "health": {},       # ident -> {"misses": int}
+               "lifecycle": [],    # bounded event history (debug-dump)
+               "restarts": 0,      # successful replacements
+               "restart_attempts": 0,  # consecutive failures, this outage
+               "replacing": 0,     # replacements in flight
+               "degraded_reason": None,
+               "weights": None,    # (version, ref) of the last broadcast
+               "next_probe": 0.0}  # monotonic due-time (health loop)
+        if autoscaling:
+            num_replicas = max(autoscaling["min_replicas"],
+                               min(num_replicas,
+                                   autoscaling["max_replicas"]))
+        replicas = [self._make_replica(app) for _ in range(num_replicas)]
+        # readiness barrier: every replica constructed
+        _wait_replicas_ready(replicas, timeout=180)
+        with self._lock:
+            app["replicas"] = replicas
+            app["num_replicas"] = num_replicas
+            for r in replicas:
+                app["health"][_replica_ident(r)] = {"misses": 0}
+            self._apps[app_name] = app
+        self._publish_update(app_name)
+        if autoscaling and not self._scaler_started:
+            self._scaler_started = True
+            threading.Thread(target=self._autoscale_loop, daemon=True,
+                             name="serve-autoscaler").start()
+        if not self._health_started:
+            self._health_started = True
+            threading.Thread(target=self._health_loop, daemon=True,
+                             name="serve-health").start()
+        return True
+
+    # ------------------------------------------------------- self-healing
+
+    _LIFECYCLE_CAP = 200
+
+    @staticmethod
+    def _lifecycle_locked(app: dict, event: str, ident: str,
+                          detail: str = ""):
+        """Append one replica-lifecycle event (caller holds self._lock)."""
+        import time as _t
+
+        app["lifecycle"].append({"t": _t.time(), "event": event,
+                                 "replica": ident, "detail": detail})
+        if len(app["lifecycle"]) > ServeController._LIFECYCLE_CAP:
+            del app["lifecycle"][:-ServeController._LIFECYCLE_CAP]
+
+    def _health_loop(self):
+        """Ping every replica of each app on ITS period (per-app
+        due-times — one fast app never drags the others to its rate,
+        and an expensive user check_health runs exactly as often as
+        configured); classify each probe ok/miss/dead and reconcile
+        (reference: the controller's run_control_loop health checks)."""
+        import time as _t
+
+        while True:
+            try:
+                self._health_round()
+            except Exception:  # noqa: BLE001
+                # one bad round (thread exhaustion, runtime hiccup)
+                # must NOT silently kill cluster-wide self-healing
+                _log.exception("serve health round failed; retrying")
+                _t.sleep(1.0)
+            with self._lock:
+                nxt = min((app["next_probe"]
+                           for app in self._apps.values()),
+                          default=_t.monotonic() + 1.0)
+            _t.sleep(min(1.0, max(0.05, nxt - _t.monotonic())))
+
+    def _health_round(self):
+        """One pass over the apps whose probe is due."""
+        import time as _t
+
+        import ray_tpu_torch as ray
+        from ray_tpu_torch.core import exceptions as exc
+
+        now = _t.monotonic()
+        with self._lock:
+            items = [(name, app)
+                     for name, app in self._apps.items()
+                     if now >= app["next_probe"]]
+            for _, app in items:
+                app["next_probe"] = now + app["health_period"]
+        for name, app in items:
+            with self._lock:
+                if self._apps.get(name) is not app:
+                    continue  # redeployed/deleted mid-round
+                replicas = list(app["replicas"])
+            if not replicas:
+                self._m_healthy.set(0, tags={"app": name})
+                continue
+            # submit every probe first, then gather under ONE shared
+            # deadline — N slow replicas cost one timeout, not N
+            probes = []
+            for r in replicas:
+                try:
+                    probes.append(r.ping.options(
+                        concurrency_group="control").remote())
+                except Exception as e:  # noqa: BLE001
+                    probes.append(e)
+            deadline = _t.monotonic() + app["health_timeout"]
+            healthy = 0
+            for r, ref in zip(replicas, probes):
+                if isinstance(ref, Exception):
+                    outcome, why = (
+                        ("dead", repr(ref))
+                        if isinstance(ref, exc.ActorDiedError)
+                        else ("miss", repr(ref)))
+                else:
+                    try:
+                        ray.get(ref, timeout=max(
+                            0.1, deadline - _t.monotonic()))
+                        outcome, why = "ok", ""
+                    except exc.ActorDiedError as e:
+                        outcome, why = "dead", repr(e)
+                    except Exception as e:  # noqa: BLE001
+                        # timeout / unavailable / check_health raised
+                        outcome, why = "miss", repr(e)
+                ident = _replica_ident(r)
+                if outcome == "ok":
+                    healthy += 1
+                    self._m_checks.inc(tags={"app": name,
+                                             "result": "ok"})
+                    with self._lock:
+                        h = app["health"].get(ident)
+                        if h is not None:
+                            h["misses"] = 0
+                    continue
+                if outcome == "miss":
+                    self._m_checks.inc(tags={"app": name,
+                                             "result": "miss"})
+                    with self._lock:
+                        h = app["health"].setdefault(
+                            ident, {"misses": 0})
+                        h["misses"] += 1
+                        misses = h["misses"]
+                    if misses < app["health_misses"]:
+                        continue
+                    why = (f"{misses} consecutive health-check "
+                           f"misses (last: {why})")
+                self._m_checks.inc(tags={"app": name,
+                                         "result": "dead"})
+                self._mark_replica_dead(name, app, r, why)
+            self._m_healthy.set(healthy, tags={"app": name})
+
+    def _mark_replica_dead(self, name: str, app: dict, replica,
+                           reason: str) -> bool:
+        """Pull a dead replica from the routing set NOW, publish, and
+        start a replacement. Idempotent: concurrent detectors (health
+        loop vs a handle's failover report) collapse to one heal."""
+        import ray_tpu_torch as ray
+
+        ident = _replica_ident(replica)
+        with self._lock:
+            if self._apps.get(name) is not app or \
+                    replica not in app["replicas"]:
+                return False  # already handled (or app was redeployed)
+            app["replicas"].remove(replica)
+            app["version"] += 1
+            app["health"].pop(ident, None)
+            app["replacing"] += 1
+            self._lifecycle_locked(app, "dead", ident, reason)
+        _log.warning("serve app %r: replica %s marked DEAD (%s); "
+                     "replacement starting", name, ident[:12], reason)
+        self._publish_update(name)
+        try:
+            # reap a hung-but-alive process so the replacement doesn't
+            # share resources with a zombie (no-op for a real death)
+            ray.kill(replica)
+        except Exception:  # noqa: BLE001
+            pass
+        threading.Thread(target=self._replace_replica, args=(name, app),
+                         daemon=True, name="serve-heal").start()
+        return True
+
+    def _replace_replica(self, name: str, app: dict):
+        """Heal one lost replica: backoff, build, readiness barrier,
+        weight catch-up, THEN enter the routing set."""
+        import time as _t
+
+        import ray_tpu_torch as ray
+
+        try:
+            while True:
+                with self._lock:
+                    if self._apps.get(name) is not app:
+                        return  # app deleted/redeployed: stop healing
+                    if app["restart_attempts"] >= \
+                            app["max_replica_restarts"]:
+                        app["degraded_reason"] = (
+                            f"max_replica_restarts="
+                            f"{app['max_replica_restarts']} consecutive "
+                            f"failures reached; serving at reduced "
+                            f"capacity")
+                        self._lifecycle_locked(app, "restart_cap", "",
+                                               app["degraded_reason"])
+                        return
+                    app["restart_attempts"] += 1
+                    attempt = app["restart_attempts"]
+                if attempt > 1:  # exponential restart backoff, capped
+                    _t.sleep(min(0.25 * (2 ** (attempt - 2)), 30.0))
+                self._m_restarts.inc(tags={"app": name})
+                new = None
+                try:
+                    new = self._make_replica(app)
+                    _wait_replicas_ready([new], timeout=180)
+                except Exception as e:  # noqa: BLE001
+                    with self._lock:
+                        self._lifecycle_locked(
+                            app, "restart_failed",
+                            _replica_ident(new) if new is not None
+                            else "", repr(e))
+                    if new is not None:
+                        try:
+                            ray.kill(new)
+                        except Exception:  # noqa: BLE001
+                            pass
+                    continue
+                outcome = self._enter_routing_set(name, app, new)
+                if outcome == "ok":
+                    self._publish_update(name)
+                    return
+                try:
+                    ray.kill(new)
+                except Exception:  # noqa: BLE001
+                    pass
+                if outcome == "gone":
+                    return
+                # weight catch-up failed: counts as a failed attempt
+        finally:
+            with self._lock:
+                app["replacing"] -= 1
+
+    def _enter_routing_set(self, name: str, app: dict, replica
+                           ) -> str:
+        """Weight-version catch-up, then ATOMICALLY join the routing
+        set. The catch-up/append and update_app_weights' record/
+        broadcast both run under self._lock, so every broadcast either
+        reaches this replica directly (it joined before the snapshot)
+        or is replayed here before it takes traffic — an update issued
+        during the replacement window can never be lost. Returns
+        "ok" | "gone" (app redeployed) | "failed"."""
+        import ray_tpu_torch as ray
+
+        ident = _replica_ident(replica)
+        applied = -1
+        while True:
+            with self._lock:
+                if self._apps.get(name) is not app:
+                    return "gone"
+                rec = app["weights"]
+                if rec is None or applied >= rec[0]:
+                    app["replicas"].append(replica)
+                    app["version"] += 1
+                    app["health"][ident] = {"misses": 0}
+                    app["restart_attempts"] = 0
+                    app["restarts"] += 1
+                    app["degraded_reason"] = None
+                    self._lifecycle_locked(
+                        app, "replaced", ident,
+                        f"weights v{applied}" if applied >= 0 else "")
+                    return "ok"
+                version, weights = rec
+            try:
+                ray.get(
+                    replica.handle_request.options(
+                        concurrency_group="control").remote(
+                        "update_weights", (version, weights), {}),
+                    timeout=120)
+            except Exception as e:  # noqa: BLE001
+                if "weight version must increase" not in str(e):
+                    with self._lock:
+                        self._lifecycle_locked(app, "catchup_failed",
+                                               ident, repr(e))
+                    return "failed"
+                # already at/past `version` — convergence, not failure
+            applied = version
+
+    def update_app_weights(self, app_name: str, version: int, weights,
+                           timeout: float = 120.0) -> dict:
+        """Record + broadcast a weight hot-swap. The record is the
+        heal path's catch-up source (see _enter_routing_set); the
+        broadcast rides every replica's control concurrency group under
+        ONE shared deadline. `weights` arrives as a LIST of ObjectRefs
+        (never values — the handle nests refs so the runtime cannot
+        auto-resolve them into this process; only replicas pull the
+        pytree). Returns {"results": [per-replica dict], "failures": n}
+        — the caller decides what a partial failure means."""
+        import time as _t
+
+        import ray_tpu_torch as ray
+
+        if isinstance(weights, (list, tuple)) and len(weights) == 1:
+            # single publish: hand replicas the bare ref (any pytree
+            # type); multi-chunk lists keep the chunk-merge contract
+            weights = weights[0]
+        with self._lock:
+            app = self._apps.get(app_name)
+            if app is None:
+                raise ValueError(
+                    f"no serve application named {app_name!r}")
+            cur = app["weights"]
+            if cur is None or version > cur[0]:
+                app["weights"] = (version, weights)
+            replicas = list(app["replicas"])
+        refs = [
+            r.handle_request.options(concurrency_group="control").remote(
+                "update_weights", (version, weights), {})
+            for r in replicas]
+        deadline = _t.monotonic() + timeout
+        out, failures = [], 0
+        for ref in refs:
+            try:
+                out.append(ray.get(
+                    ref, timeout=max(0.01, deadline - _t.monotonic())))
+            except Exception as e:  # noqa: BLE001
+                if "weight version must increase" in str(e):
+                    # duplicate-version rejection: this replica already
+                    # installed `version` (or newer) — convergence
+                    out.append({"version": version,
+                                "already_installed": True,
+                                "error": repr(e)})
+                else:
+                    failures += 1
+                    out.append({"version": version, "error": repr(e)})
+        return {"results": out, "failures": failures}
+
+    def report_dead(self, app_name: str, ident: str, reason: str) -> bool:
+        """Handle-side death report (a failover observed ActorDied):
+        reconcile immediately instead of waiting for the next probe
+        round."""
+        with self._lock:
+            app = self._apps.get(app_name)
+            if app is None:
+                return False
+            victim = None
+            for r in app["replicas"]:
+                if _replica_ident(r) == ident:
+                    victim = r
+                    break
+        if victim is None:
+            return False
+        return self._mark_replica_dead(app_name, app, victim,
+                                       f"reported by handle: {reason}")
+
+    def app_status(self) -> dict:
+        """Per-app replica health + lifecycle history (the serve_status
+        / debug-dump surface)."""
+        with self._lock:
+            out = {}
+            for name, app in self._apps.items():
+                reps = []
+                for r in app["replicas"]:
+                    ident = _replica_ident(r)
+                    reps.append({
+                        "ident": ident,
+                        "state": "RUNNING",
+                        "misses": app["health"].get(
+                            ident, {}).get("misses", 0)})
+                out[name] = {
+                    "target_replicas": app["num_replicas"],
+                    "replicas": reps,
+                    "healthy": len(reps),
+                    "replacing": app["replacing"],
+                    "restarts": app["restarts"],
+                    "restart_attempts": app["restart_attempts"],
+                    "degraded": (bool(app["degraded_reason"])
+                                 or app["replacing"] > 0
+                                 or len(reps) < app["num_replicas"]),
+                    "degraded_reason": app["degraded_reason"],
+                    "weight_version": (app["weights"][0]
+                                       if app["weights"] else None),
+                    "lifecycle": list(app["lifecycle"]),
+                }
+            return out
+
+    def _autoscale_loop(self):
+        import time as _t
+
+        import ray_tpu_torch as ray
+
+        while True:
+            interval = 0.5
+            with self._lock:
+                items = list(self._apps.items())
+            for name, app in items:
+                cfg = app.get("autoscaling")
+                if not cfg:
+                    continue
+                interval = min(interval, cfg.get("interval_s", 0.5))
+                with self._lock:
+                    replicas = list(app["replicas"])
+                try:
+                    loads = ray.get(
+                        [r.ongoing.options(
+                            concurrency_group="control").remote()
+                         for r in replicas], timeout=10)
+                except Exception:  # noqa: BLE001
+                    continue
+                mean = sum(loads) / max(1, len(loads))
+                if mean > cfg["target_ongoing_requests"] and \
+                        len(replicas) < cfg["max_replicas"]:
+                    new = self._make_replica(app)
+                    try:
+                        _wait_replicas_ready([new], timeout=120)
+                        with self._lock:
+                            if self._apps.get(name) is not app:
+                                raise RuntimeError("app redeployed")
+                            app["replicas"].append(new)
+                            app["num_replicas"] = len(app["replicas"])
+                            app["version"] += 1
+                            app["idle_rounds"] = 0
+                            app["health"][_replica_ident(new)] = \
+                                {"misses": 0}
+                        self._publish_update(name)
+                    except Exception:  # noqa: BLE001
+                        try:
+                            ray.kill(new)
+                        except Exception:  # noqa: BLE001
+                            pass
+                elif mean < cfg["target_ongoing_requests"] / 2 and \
+                        len(replicas) > cfg["min_replicas"]:
+                    app["idle_rounds"] += 1
+                    if app["idle_rounds"] >= cfg["downscale_idle_rounds"]:
+                        with self._lock:
+                            if self._apps.get(name) is not app or \
+                                    len(app["replicas"]) <= \
+                                    cfg["min_replicas"]:
+                                continue
+                            app["idle_rounds"] = 0
+                            victim = app["replicas"].pop()
+                            app["num_replicas"] = len(app["replicas"])
+                            app["version"] += 1
+                            app["health"].pop(_replica_ident(victim),
+                                              None)
+                        self._publish_update(name)
+                        threading.Thread(
+                            target=self._drain_and_kill, args=(victim,),
+                            daemon=True).start()
+                else:
+                    app["idle_rounds"] = 0
+            _t.sleep(interval)
+
+    @staticmethod
+    def _drain_and_kill(replica, timeout: float = 60.0):
+        """Downscale drains: the replica left the routing set (pushed to
+        handles via long-poll), and in-flight work must finish — wait a
+        short push-propagation window plus ongoing==0 before killing
+        (reference: graceful replica shutdown, _private/replica.py)."""
+        import time as _t
+
+        import ray_tpu_torch as ray
+
+        # the push reaches live handles in <100ms, but it is a best-effort
+        # oneway — wait out the anti-entropy window so a handle that MISSED
+        # the push has provably refreshed before the replica dies
+        _t.sleep(DeploymentHandle._REFRESH_S + 0.5)
+        deadline = _t.monotonic() + timeout
+        while _t.monotonic() < deadline:
+            try:
+                if ray.get(replica.ongoing.options(
+                        concurrency_group="control").remote(),
+                        timeout=10) == 0:
+                    break
+            except Exception:  # noqa: BLE001
+                break
+            _t.sleep(0.2)
+        try:
+            ray.kill(replica)
+        except Exception:  # noqa: BLE001
+            pass
+
+    def get_replicas(self, app_name: str):
+        with self._lock:
+            app = self._apps.get(app_name)
+            if not app:
+                return {"replicas": [], "version": -1}
+            return {"replicas": list(app["replicas"]),
+                    "version": app.get("version", 0),
+                    "payload_affinity": app.get("payload_affinity",
+                                                False)}
+
+    def list_apps(self):
+        with self._lock:
+            return {k: v["num_replicas"] for k, v in self._apps.items()}
+
+    def delete(self, app_name: str) -> bool:
+        import ray_tpu_torch as ray
+
+        with self._lock:
+            app = self._apps.pop(app_name, None)
+        if not app:
+            return False
+        # in-flight heal threads observe the pop (identity check) and
+        # stop; replicas die here
+        for r in app["replicas"]:
+            try:
+                ray.kill(r)
+            except Exception:  # noqa: BLE001
+                pass
+        self._publish_update(app_name)
+        return True
+
+    def metrics_text(self) -> str:
+        """This process's Prometheus page: the probe, restart and
+        healthy-replica series the health loop records. It stands in
+        for the cluster metrics page until that plane is ported."""
+        from ray_tpu_torch.util.metrics import prometheus_text
+
+        return prometheus_text()
+
+    def shutdown(self):
+        with self._lock:
+            names = list(self._apps)
+        for name in names:
+            self.delete(name)
+        return True
+
+
+def _traced_submit(span_name: str, submit):
+    """Submit a handle call — the ONE place every handle flavor goes
+    through. The JAX package opens a ``serve`` span named `span_name`
+    here; the port submits without one until its tracing plane is
+    ported (ROADMAP.md, queue 3)."""
+    del span_name
+    return submit()
+
+
+def _replica_ident(replica) -> str:
+    """Stable identity for rendezvous hashing: the actor id survives
+    handle re-fetches, so a given affinity key keeps landing on the
+    same replica until the replica set itself changes."""
+    aid = getattr(replica, "_actor_id", None)
+    try:
+        return aid.hex()
+    except Exception:  # noqa: BLE001
+        return repr(replica)
+
+
+class DeploymentHandle:
+    """Client-side router (reference: DeploymentHandle + the
+    power-of-two-choices replica scheduler, _private/router.py:318 —
+    here: sample two replicas, pick the one with fewer ongoing
+    requests; falls back to round-robin when probing fails). With an
+    `affinity_key` (e.g. an LLM prompt-prefix hash), routing switches
+    to rendezvous hashing — the key's highest-scoring replica wins, so
+    equal keys reuse one replica's warm state — with a load-based
+    fallback to the key's second choice when the primary is saturated.
+    The replica list is PUSHED via the head's long-poll pubsub
+    (reference: serve/_private/long_poll.py) — the periodic poll below
+    is only an anti-entropy fallback against lost pushes."""
+
+    _REFRESH_S = 5.0  # fallback only; pushes arrive in <100ms. Also the
+    # worst-case staleness bound _drain_and_kill waits out before killing
+    # affinity fallback: spill to the second rendezvous choice only when
+    # the primary holds this many MORE ongoing requests than it — small
+    # enough to shed hotspots, large enough that routing stays sticky
+    _AFFINITY_SLACK = 4
+    # failover: retry budget PER OUTAGE — the deadline arms at the
+    # first observed failure, not at submission (a stream hours old
+    # must still get its full failover budget) — and the bounded
+    # exponential backoff between attempts (long enough to ride out a
+    # single-replica app's heal — an LLM replacement warms for seconds
+    # to a minute)
+    _FAILOVER_DEADLINE_S = 120.0
+    _FAILOVER_BACKOFF_S = 0.05
+    _FAILOVER_BACKOFF_CAP_S = 2.0
+    # bound on the relay thread's wait for one attempt's result: a
+    # replica hung in a way check_health misses must not leak a blocked
+    # thread forever (legitimate unary work finishing slower than this
+    # should be a stream)
+    _FAILOVER_RESULT_CAP_S = 3600.0
+
+    def __init__(self, app_name: str, replicas: list,
+                 payload_affinity: bool = False):
+        self.app_name = app_name
+        self._replicas = replicas
+        self._payload_affinity = payload_affinity
+        self._rr = 0
+        self._version = 0
+        self._lock = threading.Lock()
+        # replica idents a failover observed dying — skipped by _pick
+        # until a replica-set refresh supersedes them
+        self._dead_idents: set[str] = set()  # guarded_by(_lock)
+        from ray_tpu_torch.util.metrics import Counter
+
+        self._m_failovers = Counter(
+            "serve_request_failovers_total",
+            "Requests re-submitted to another replica after observing "
+            "replica death (unary retries + mid-stream resumes)",
+            tag_keys=("app",))
+        import time as _t
+
+        self._fetched = _t.monotonic()
+        _ServeUpdates.shared().register(self)
+
+    def _refresh_now(self):
+        """Pull the current replica set from the controller (called on a
+        pushed config change, by the anti-entropy fallback, and after a
+        failover observed a death). A no-op once the runtime is shut
+        down: a background caller must not boot a new one."""
+        import time as _t
+
+        import ray_tpu_torch as ray
+
+        if not ray.is_initialized():
+            return
+        try:
+            ctrl = _controller()
+            r = ray.get(ctrl.get_replicas.remote(self.app_name),
+                        timeout=10)
+            if r["replicas"] and r["version"] != self._version:
+                with self._lock:
+                    self._replicas = r["replicas"]
+                    self._version = r["version"]
+                    self._payload_affinity = r.get(
+                        "payload_affinity", self._payload_affinity)
+                    # a new set supersedes old death observations — a
+                    # replacement must never inherit a tombstone
+                    self._dead_idents.clear()
+        except Exception as e:  # noqa: BLE001
+            # do NOT swallow silently (VERDICT r3 weak 8): a stale routing
+            # set sends traffic to drained replicas
+            _log.warning("serve handle %r: replica refresh failed: %r",
+                         self.app_name, e)
+        self._fetched = _t.monotonic()
+
+    def _maybe_refresh(self):
+        import time as _t
+
+        if _t.monotonic() - self._fetched < self._REFRESH_S:
+            return
+        self._refresh_now()
+
+    def _note_dead(self, ident: str, reason: str):
+        """A failover watched this replica die: tombstone it locally,
+        tell the controller (which reconciles immediately instead of
+        waiting for the next probe round), and refresh the routing
+        set."""
+        import ray_tpu_torch as ray
+
+        with self._lock:
+            self._dead_idents.add(ident)
+        if not ray.is_initialized():
+            return  # shut down meanwhile: nothing left to tell
+        try:
+            ctrl = _controller()
+            ray.get(ctrl.report_dead.remote(self.app_name, ident,
+                                            reason), timeout=10)
+        except Exception:  # noqa: BLE001
+            pass  # the health loop's own probes still converge
+        self._refresh_now()
+
+    def _live_replicas(self, exclude: set | None = None) -> list:
+        """Routing candidates minus tombstoned/excluded idents; falls
+        back to the raw set when the filter would empty it (better to
+        retry a suspect than to fail outright)."""
+        with self._lock:
+            dead = set(self._dead_idents)
+            replicas = list(self._replicas)
+        if exclude:
+            dead |= exclude
+        if dead:
+            live = [r for r in replicas
+                    if _replica_ident(r) not in dead]
+            if live:
+                return live
+        return replicas
+
+    def _pick(self, affinity_key: str | None = None,
+              exclude: set | None = None):
+        import random
+
+        import ray_tpu_torch as ray
+
+        self._maybe_refresh()
+        replicas = self._live_replicas(exclude)
+        if not replicas:
+            from ray_tpu_torch.core import exceptions as exc
+
+            raise exc.ActorUnavailableError(
+                f"no live replicas for serve app {self.app_name!r}")
+        if len(replicas) == 1:
+            return replicas[0]
+        if affinity_key is not None:
+            return self._pick_affinity(affinity_key, replicas)
+        a, b = random.sample(replicas, 2)
+        try:
+            qa, qb = ray.get(
+                [a.ongoing.options(concurrency_group="control").remote(),
+                 b.ongoing.options(concurrency_group="control").remote()],
+                timeout=5)
+            return a if qa <= qb else b
+        except Exception:  # noqa: BLE001
+            with self._lock:
+                self._rr = (self._rr + 1) % len(replicas)
+                return replicas[self._rr]
+
+    def _pick_affinity(self, key: str, replicas: list):
+        """Rendezvous (highest-random-weight) choice over the LIVE
+        candidates: every handle ranks replicas identically for a given
+        key, so requests sharing a prompt prefix converge on one
+        replica's warm KV cache, and a replica-set change only remaps
+        the keys that hashed to the departed replica — when the key's
+        primary is dead/tombstoned it simply isn't in `replicas` and
+        the next-ranked live replica wins deterministically. Load
+        fallback: if the primary is carrying _AFFINITY_SLACK more
+        ongoing requests than the key's second choice, spill to the
+        second — still deterministic per key, so the spilled traffic
+        warms ONE backup replica, not a random one."""
+        import hashlib
+
+        import ray_tpu_torch as ray
+
+        def score(r):
+            return hashlib.blake2b(
+                f"{key}:{_replica_ident(r)}".encode(),
+                digest_size=8).digest()
+
+        if len(replicas) < 2:
+            return replicas[0]
+        ranked = sorted(replicas, key=score, reverse=True)
+        primary, second = ranked[0], ranked[1]
+        try:
+            qp, qs = ray.get(
+                [primary.ongoing.options(
+                    concurrency_group="control").remote(),
+                 second.ongoing.options(
+                     concurrency_group="control").remote()],
+                timeout=5)
+            return primary if qp <= qs + self._AFFINITY_SLACK else second
+        except Exception:  # noqa: BLE001
+            return primary  # probe failed: stay sticky
+
+    def _submit_unary(self, method: str, args, kwargs,
+                      affinity_key: str | None = None):
+        """Unary submit with transparent replica failover: the caller
+        gets ONE stable ref backed by a relay that re-picks a live
+        replica (respecting affinity fallback) and retries with bounded
+        exponential backoff whenever the chosen replica dies before
+        delivering a result. Application errors (the handler raised)
+        propagate unretried — only replica death is transparent.
+
+        Cost (accepted trade-off): one relay thread per in-flight unary
+        call (the as_future idiom) and one value copy through this
+        process on the happy path. Serve unary payloads are small and
+        the LLM hot path is streaming (which passes refs through
+        untouched) — the open-loop bench gate pins the no-regression
+        claim. The relay's result wait is capped
+        (_FAILOVER_RESULT_CAP_S) so a hung replica can't leak threads
+        forever."""
+        import time as _t
+
+        import ray_tpu_torch as ray
+        from ray_tpu_torch.core import exceptions as exc
+        from ray_tpu_torch.core.api import _global_runtime
+
+        rt = _global_runtime()
+        if not hasattr(rt, "deferred"):  # thin-client runtime: no relay
+            return self._pick(affinity_key).handle_request.remote(
+                method, args, kwargs)
+        ref, fulfill, reject = rt.deferred()
+
+        def drive():
+            deadline = None  # armed at the FIRST failure (per-outage)
+            attempt = 0
+            excluded: set[str] = set()
+            while True:
+                replica = None
+                try:
+                    replica = self._pick(affinity_key, exclude=excluded)
+                    fulfill(ray.get(
+                        replica.handle_request.remote(method, args,
+                                                      kwargs),
+                        timeout=self._FAILOVER_RESULT_CAP_S))
+                    return
+                except (exc.ActorDiedError,
+                        exc.ActorUnavailableError) as e:
+                    if not ray.is_initialized():
+                        reject(e)  # shut down meanwhile: no retry
+                        return
+                    attempt += 1
+                    self._m_failovers.inc(tags={"app": self.app_name})
+                    if deadline is None:
+                        deadline = _t.monotonic() + \
+                            self._FAILOVER_DEADLINE_S
+                    elif _t.monotonic() >= deadline:
+                        reject(e)
+                        return
+                    if replica is not None and \
+                            isinstance(e, exc.ActorDiedError):
+                        ident = _replica_ident(replica)
+                        excluded.add(ident)
+                        self._note_dead(ident, repr(e))
+                    else:
+                        self._refresh_now()
+                    _t.sleep(min(
+                        self._FAILOVER_BACKOFF_S * (2 ** (attempt - 1)),
+                        self._FAILOVER_BACKOFF_CAP_S))
+                except BaseException as e:  # noqa: BLE001
+                    reject(e)
+                    return
+
+        threading.Thread(target=drive, daemon=True,
+                         name="serve-failover").start()
+        return ref
+
+    def remote(self, *args, **kwargs):
+        return _traced_submit(
+            f"serve.{self.app_name}",
+            lambda: self._submit_unary("__call__", args, kwargs))
+
+    def method(self, name: str):
+        def call(*args, **kwargs):
+            return _traced_submit(
+                f"serve.{self.app_name}.{name}",
+                lambda: self._submit_unary(name, args, kwargs))
+
+        return call
+
+    def update_weights(self, version: int, weights,
+                       timeout: float = 120.0) -> list[dict]:
+        """Broadcast a drain-free weight hot-swap to EVERY replica of
+        this app (the RL flywheel's learner->serving edge). `weights`
+        is a param pytree (published once to the object store here), an
+        ObjectRef to one, or a list of pytree-chunk refs. The broadcast
+        goes THROUGH the controller, which records (version, ref) as
+        the app's current weights before fanning out over the replicas'
+        "control" concurrency group — the record is what a replacement
+        replica replays before it enters the routing set, so an update
+        issued during a heal window is never lost and a restarted
+        engine can never serve stale weights (keep the ref's owner
+        process alive while the app runs). Each replica installs at its
+        own engine-step boundary (no stream drops — see
+        LLMEngine.update_weights for the version/staleness contract).
+
+        Returns one dict per replica: swap stats on success,
+        ``{"version": v, "already_installed": True, ...}`` when the
+        replica rejected a duplicate version (it is already AT or past
+        `version` — a retry after a lost reply lands here, which is
+        convergence, not failure), or ``{"version": v, "error":
+        "<repr>"}`` for a real failure — per-replica outcomes are
+        never collapsed into one exception, because a partial failure
+        leaves the fleet version-split and the caller needs to know
+        WHICH replicas installed. Raises only when every replica
+        genuinely failed (an EMPTY fleet mid-heal is not a failure:
+        the recorded weights reach the replacements). `timeout` is ONE
+        shared deadline across the whole broadcast, not per replica."""
+        import ray_tpu_torch as ray
+        from ray_tpu_torch.core.api import ObjectRef
+
+        if isinstance(weights, ObjectRef):
+            refs = [weights]
+        elif (isinstance(weights, (list, tuple)) and weights
+              and all(isinstance(w, ObjectRef) for w in weights)):
+            refs = list(weights)
+        else:
+            # publish once; replicas (and future replacements) pull
+            # through the object store
+            refs = [ray.put(weights)]
+        # pin the published refs on the handle: the controller records
+        # REFS (it never materializes the pytree), and ref lifetime is
+        # owner-side — without this pin a pytree put here would be
+        # freed the moment this call returns, turning the heal path's
+        # weight catch-up into "owner reports unknown". Lives until the
+        # next update (or the handle dies — keep the publishing process
+        # alive while the app runs).
+        self._last_weights = refs
+        ctrl = _controller()
+        # the refs ride NESTED (inside a list) deliberately: a
+        # top-level ObjectRef arg would be auto-resolved by the
+        # runtime, materializing the whole pytree in the controller —
+        # nested refs pass through untouched, so the controller records
+        # and forwards REFS and only replicas ever pull the values
+        r = ray.get(
+            ctrl.update_app_weights.remote(self.app_name, version,
+                                           refs, timeout),
+            timeout=timeout + 30)
+        out = r["results"]
+        if out and r["failures"] == len(out):
+            raise RuntimeError(
+                f"weight swap to version {version} failed on every "
+                f"replica of {self.app_name!r}: {out}")
+        return out
+
+    def affinity_key_for(self, payload) -> str | None:
+        """Routing key the proxy should use for `payload` — None unless
+        this app opted in via Deployment(payload_affinity=True)."""
+        if not self._payload_affinity:
+            return None
+        return payload_affinity_key(payload)
+
+    def options(self, *, stream: bool = False,
+                generator_backpressure: int | None = None,
+                affinity_key: str | None = None
+                ) -> "DeploymentHandle":
+        """stream=True: calls return an ObjectRefGenerator — one ref per
+        chunk the deployment yields, delivered as produced (reference:
+        handle.options(stream=True), serve/handle.py).
+        `generator_backpressure` caps yielded-but-unconsumed chunks
+        before the replica blocks — a slow stream consumer (an LLM
+        client reading tokens at human speed) must not buffer an
+        unbounded queue on the replica. `affinity_key` switches replica
+        choice to rendezvous hashing on the key (see _pick_affinity) —
+        per-call state, so pass it per request:
+        ``handle.options(stream=True, affinity_key=k).remote(...)``."""
+        if not stream and affinity_key is None:
+            return self
+        return _StreamingHandle(self, generator_backpressure,
+                                affinity_key=affinity_key, stream=stream)
+
+
+class _StreamingHandle:
+    """View over a DeploymentHandle carrying per-call options: streaming
+    generator protocol (chunks consumable before the handler returns)
+    and/or an affinity routing key."""
+
+    def __init__(self, base: DeploymentHandle,
+                 backpressure: int | None = None, *,
+                 affinity_key: str | None = None, stream: bool = True):
+        self._base = base
+        self._backpressure = backpressure
+        self._affinity_key = affinity_key
+        self._stream = stream
+
+    def options(self, *, stream: bool | None = None,
+                generator_backpressure: int | None = None,
+                affinity_key: str | None = None) -> "_StreamingHandle":
+        """Layer more per-call options on (unset fields inherit)."""
+        return _StreamingHandle(
+            self._base,
+            (self._backpressure if generator_backpressure is None
+             else generator_backpressure),
+            affinity_key=(affinity_key if affinity_key is not None
+                          else self._affinity_key),
+            stream=self._stream if stream is None else stream)
+
+    def _opts(self):
+        o = {"num_returns": "streaming"}
+        if self._backpressure:
+            o["generator_backpressure_num_objects"] = self._backpressure
+        return o
+
+    def _submit(self, method_name: str, args, kwargs):
+        if self._stream:
+            return _FailoverStream(self, method_name, args, kwargs)
+        return self._base._submit_unary(method_name, args, kwargs,
+                                        affinity_key=self._affinity_key)
+
+    def remote(self, *args, **kwargs):
+        return _traced_submit(
+            f"serve.{self._base.app_name}",
+            lambda: self._submit("__call__", args, kwargs))
+
+    def method(self, name: str):
+        def call(*args, **kwargs):
+            return _traced_submit(
+                f"serve.{self._base.app_name}.{name}",
+                lambda: self._submit(name, args, kwargs))
+
+        return call
+
+
+class _FailoverStream:
+    """Streaming-handle iterator with mid-stream replica failover.
+
+    Wraps the replica's ObjectRefGenerator; on the happy path each
+    yielded ref passes through untouched (the wrapper peeks the value —
+    an owner-local lookup — to track emitted tokens). When the replica
+    dies mid-stream, the wrapper re-picks a live replica (affinity
+    fallback included) and RESUMES by re-issuing the request with
+    ``prompt + already-emitted tokens`` as the new prompt — the same
+    replay trick LIFO-preemption recompute uses, so greedy outputs stay
+    bit-identical across the failover (sampled outputs resume from the
+    same state but draw fresh randomness — SERVING.md documents the
+    caveat). Continuation events are re-indexed to continue the
+    original stream seamlessly, and the final event carries a
+    ``failovers`` count plus merged token/logprob/weight-version
+    bookkeeping.
+
+    Non-LLM payloads can't be replayed exactly: they retry only while
+    ZERO chunks have been delivered (a safe re-issue); after that a
+    death propagates to the consumer."""
+
+    def __init__(self, view: "_StreamingHandle", method: str, args,
+                 kwargs):
+        self._view = view
+        self._base = view._base
+        self._method = method
+        self._orig_args = args
+        self._kwargs = kwargs
+        self._call_args = args  # current (possibly replayed) args
+        self._inner = None
+        self._replica = None
+        self._done = False
+        self._synth: dict | None = None  # synthesized final, pending
+        self._saw_final = False  # a done event was DELIVERED
+        self._failovers = 0
+        self._delivered = 0
+        self._offset = 0  # index shift applied to continuation events
+        self._tokens: list[int] = []  # token ids delivered so far
+        self._logprobs: list[float] = []
+        self._versions: set[int] = set()
+        self._replay_base: list[int] = []  # tokens folded into a replay
+        self._replay_logprobs: list[float] = []
+        self._excluded: set[str] = set()
+        # per-OUTAGE failover budget: armed at the first failure,
+        # disarmed by any delivered event — a stream that has been
+        # healthy for hours still gets the full budget when its
+        # replica dies
+        self._deadline: float | None = None
+        # submit EAGERLY: callers batch-submit streams and drain them
+        # sequentially (RL rollout groups) — generation must start at
+        # .remote() time, not at first consumption. A dead-replica
+        # submit is swallowed; the first __next__ runs the failover
+        # path with full bookkeeping.
+        from ray_tpu_torch.core import exceptions as exc
+
+        try:
+            self._submit_inner()
+        except (exc.ActorDiedError, exc.ActorUnavailableError):
+            self._inner = None
+
+    # ------------------------------------------------------------- iter
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import ray_tpu_torch as ray
+        from ray_tpu_torch.core import exceptions as exc
+
+        while True:
+            if self._synth is not None:
+                val, self._synth = self._synth, None
+                self._done = True
+                return ray.put(val)
+            if self._done:
+                raise StopIteration
+            try:
+                if self._inner is None:
+                    self._submit_inner()
+                ref = next(self._inner)
+                val = ray.get(ref)
+            except StopIteration:
+                self._done = True
+                raise
+            except (exc.ActorDiedError, exc.ActorUnavailableError) as e:
+                if self._saw_final:
+                    # the replica died between delivering its final
+                    # event and the stream-end sentinel: the request is
+                    # COMPLETE — a failover here would duplicate the
+                    # final (or re-generate an entire completion)
+                    self._done = True
+                    raise StopIteration from None
+                self._inner = None
+                self._prepare_failover(e)  # raises when not resumable
+                continue
+            return self._deliver(val, ref)
+
+    def close(self):
+        if self._inner is not None:
+            try:
+                self._inner.close()
+            except Exception:  # noqa: BLE001
+                pass
+        self._done = True
+
+    # ---------------------------------------------------------- plumbing
+
+    def _submit_inner(self):
+        self._replica = self._base._pick(self._view._affinity_key,
+                                         exclude=self._excluded)
+        self._inner = self._replica.handle_stream_request.options(
+            **self._view._opts()).remote(self._method, self._call_args,
+                                         self._kwargs)
+
+    def _llm_payload(self) -> dict | None:
+        """The original payload, when it is replayable LLM-shaped
+        (``{"prompt": [token ids], ...}`` through __call__)."""
+        if self._method != "__call__" or len(self._orig_args) != 1:
+            return None
+        p = self._orig_args[0]
+        if not isinstance(p, dict):
+            return None
+        prompt = p.get("prompt")
+        if not isinstance(prompt, (list, tuple)) or not prompt:
+            return None
+        return p
+
+    def _eos_set(self, payload: dict) -> frozenset:
+        eos = payload.get("eos_token_id")
+        if eos is None:
+            return frozenset()
+        if isinstance(eos, int):
+            return frozenset((eos,))
+        return frozenset(int(t) for t in eos)
+
+    def _prepare_failover(self, cause: BaseException):
+        """Arm the next attempt (replayed args, exclusions, backoff) or
+        re-raise `cause` when the stream cannot be resumed.
+
+        The outage bookkeeping (first-failure deadline arming,
+        tombstone + _note_dead, exponential backoff) mirrors
+        _submit_unary's drive() — the state machines differ (single
+        result vs replay-resume with progress resets), but a deadline
+        or backoff change belongs in BOTH."""
+        import time as _t
+
+        from ray_tpu_torch.core import exceptions as exc
+
+        self._failovers += 1
+        self._base._m_failovers.inc(tags={"app": self._base.app_name})
+        if self._deadline is None:
+            self._deadline = _t.monotonic() + \
+                DeploymentHandle._FAILOVER_DEADLINE_S
+        elif _t.monotonic() >= self._deadline:
+            raise cause
+        if self._replica is not None and \
+                isinstance(cause, exc.ActorDiedError):
+            ident = _replica_ident(self._replica)
+            self._excluded.add(ident)
+            self._base._note_dead(ident, repr(cause))
+        else:
+            self._base._refresh_now()
+        payload = self._llm_payload()
+        if payload is None:
+            if self._delivered > 0:
+                raise cause  # generic stream mid-flight: no exact replay
+        else:
+            emitted = list(self._tokens)
+            budget = int(payload.get("max_tokens", 16))
+            remaining = budget - len(emitted)
+            eos = self._eos_set(payload)
+            if emitted and (remaining <= 0 or emitted[-1] in eos):
+                # generation was already complete — only the final event
+                # was lost: synthesize it from what we tracked
+                self._synth = self._synthesize_final(payload, emitted,
+                                                     eos)
+                return
+            if emitted:
+                replay = dict(payload)
+                replay["prompt"] = list(payload["prompt"]) + emitted
+                replay["max_tokens"] = remaining
+                self._call_args = (replay,)
+                self._replay_base = emitted
+                self._replay_logprobs = list(self._logprobs)
+                self._offset = len(emitted)
+        _t.sleep(min(
+            DeploymentHandle._FAILOVER_BACKOFF_S
+            * (2 ** (self._failovers - 1)),
+            DeploymentHandle._FAILOVER_BACKOFF_CAP_S))
+
+    def _deliver(self, val, ref):
+        import ray_tpu_torch as ray
+
+        self._delivered += 1
+        self._deadline = None  # progress: the outage (if any) is over
+        if isinstance(val, dict) and "token" in val and "index" in val:
+            self._tokens.append(int(val["token"]))
+            if "logprob" in val:
+                self._logprobs.append(val["logprob"])
+            if "weight_version" in val:
+                self._versions.add(val["weight_version"])
+            if self._offset:
+                return ray.put(
+                    dict(val, index=val["index"] + self._offset))
+            return ref
+        if isinstance(val, dict) and val.get("done"):
+            self._saw_final = True
+            if self._failovers:
+                return ray.put(self._merge_final(val))
+        return ref
+
+    def _merge_final(self, cont: dict) -> dict:
+        """Splice the continuation's final event onto the pre-failover
+        history so the consumer sees ONE request's summary."""
+        out = dict(cont)
+        out["token_ids"] = self._replay_base + \
+            list(cont.get("token_ids", ()))
+        out["num_generated"] = len(out["token_ids"])
+        out["failovers"] = self._failovers
+        if "logprobs" in cont:
+            out["logprobs"] = self._replay_logprobs + \
+                list(cont["logprobs"])
+        versions = set(self._versions) | \
+            set(cont.get("weight_versions", ()))
+        if versions:
+            out["weight_versions"] = sorted(versions)
+            out["weight_version"] = max(versions)
+            out["stale"] = bool(cont.get("stale")) or len(versions) > 1
+        payload = self._llm_payload()
+        if payload is not None and payload.get("echo"):
+            out["prompt_token_ids"] = list(payload["prompt"])
+        return out
+
+    def _synthesize_final(self, payload: dict, emitted: list[int],
+                          eos: frozenset) -> dict:
+        """The replica died between the last token and its final event:
+        everything needed for the summary was already streamed."""
+        out = {
+            "done": True,
+            "finish_reason": ("eos" if emitted and emitted[-1] in eos
+                              else "length"),
+            "num_generated": len(emitted),
+            "token_ids": list(emitted),
+            "preemptions": 0,
+            "cached_tokens": 0,
+            "weight_version": (max(self._versions)
+                               if self._versions else None),
+            "weight_versions": sorted(self._versions),
+            "stale": len(self._versions) > 1,
+            "failovers": self._failovers,
+            "breakdown": {},
+        }
+        if self._logprobs:
+            out["logprobs"] = list(self._logprobs)
+        if payload.get("echo"):
+            out["prompt_token_ids"] = list(payload["prompt"])
+        return out
+
+
+def payload_affinity_key(payload) -> str | None:
+    """Routing key for LLM-style payloads (``{"prompt": [token ids]}``):
+    requests sharing a prompt prefix rendezvous onto one replica, whose
+    KV prefix cache then serves the shared prefix without re-prefill.
+    The proxy only applies this to apps that opted in via
+    ``Deployment(payload_affinity=True)`` (see
+    ``DeploymentHandle.affinity_key_for``) — a non-LLM payload that
+    merely looks like a prompt must not lose load balancing.
+    Returns None for anything that doesn't look like one — callers fall
+    back to load-based routing."""
+    if not isinstance(payload, dict):
+        return None
+    prompt = payload.get("prompt")
+    if not isinstance(prompt, (list, tuple)) or not prompt:
+        return None
+    try:
+        from ray_tpu_torch.serve.llm.deployment import prompt_affinity_key
+
+        return prompt_affinity_key(prompt)
+    except Exception:  # noqa: BLE001
+        return None
+
+
+def _controller():
+    import ray_tpu_torch as ray
+
+    cls = ray.remote(num_cpus=0)(ServeController)
+    return cls.options(name=_CONTROLLER_NAME, get_if_exists=True,
+                       max_concurrency=8).remote()
+
+
+def run(app: Application, *, name: str = "default",
+        http_port: int | None = None) -> DeploymentHandle:
+    """Deploy an application — including its composed sub-deployments,
+    bottom-up (reference: serve.run -> build_app.py:68). Returns the
+    ingress deployment's handle. `http_port` starts the proxy ACTOR
+    bound on this node's IP (reference: _private/proxy.py)."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch.core.serialization import dumps_fn
+
+    def deploy_graph(a: Application, app_name: str):
+        dep = a.deployment
+        # bottom-up: nested Applications become named child apps whose
+        # handles are injected into this deployment's init args
+        def resolve(v):
+            if isinstance(v, Application):
+                child = f"{app_name}--{v.deployment.name}"
+                deploy_graph(v, child)
+                return _HandleRef(child)
+            return v
+
+        init_args = tuple(resolve(v) for v in a.init_args)
+        init_kwargs = {k: resolve(v) for k, v in a.init_kwargs.items()}
+        ctrl = _controller()
+        blob = dumps_fn(dep.cls_or_fn)
+        autoscaling = (dataclasses.asdict(dep.autoscaling_config)
+                       if dep.autoscaling_config else None)
+        health = {"period_s": dep.health_check_period_s,
+                  "timeout_s": dep.health_check_timeout_s,
+                  "misses": dep.health_check_misses,
+                  "max_replica_restarts": dep.max_replica_restarts}
+        ray.get(ctrl.deploy.remote(
+            app_name, blob, dep.num_replicas, dep.ray_actor_options,
+            init_args, init_kwargs, dep.max_ongoing_requests,
+            autoscaling, dep.payload_affinity, health),
+            timeout=180)
+
+    deploy_graph(app, name)
+    handle = get_app_handle(name)
+    if http_port is not None:
+        start_proxy(http_port)
+    return handle
+
+
+def get_app_handle(name: str = "default") -> DeploymentHandle:
+    import ray_tpu_torch as ray
+
+    ctrl = _controller()
+    r = ray.get(ctrl.get_replicas.remote(name), timeout=60)
+    if not r["replicas"]:
+        raise ValueError(f"no serve application named {name!r}")
+    return DeploymentHandle(name, r["replicas"],
+                            payload_affinity=r.get("payload_affinity",
+                                                   False))
+
+
+def delete(name: str = "default"):
+    import ray_tpu_torch as ray
+
+    ray.get(_controller().delete.remote(name), timeout=60)
+
+
+def shutdown():
+    import ray_tpu_torch as ray
+
+    try:
+        ctrl = ray.get_actor(_CONTROLLER_NAME)
+    except Exception:  # noqa: BLE001
+        return
+    try:
+        ray.get(ctrl.shutdown.remote(), timeout=60)
+        ray.kill(ctrl)
+    except Exception:  # noqa: BLE001
+        pass
+    _stop_http_proxy()
+
+
+# ---------------------------------------------------------------- HTTP
+
+_PROXY_NAME = "__serve_proxy"
+
+
+class ProxyActor:
+    """HTTP ingress as an ACTOR bound on the node IP — not a thread in
+    the driver process (reference: per-node Proxy actors,
+    _private/proxy.py). POST /<app> with a JSON body calls the app
+    handle; `?stream=1` (or X-Serve-Stream: 1) returns NDJSON chunks as
+    the deployment yields them, over the streaming generator protocol.
+    Threads serve requests concurrently, each awaiting its own
+    ObjectRef; an in-flight cap sheds load with 503 instead of queueing
+    unboundedly; request count/latency land in util.metrics and access
+    lines in the worker log (reference: proxy request metrics + access
+    logs, _private/proxy.py)."""
+
+    def __init__(self, port: int, host: str | None = None,
+                 max_inflight: int = 256):
+        import json
+        import time as _t
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        import ray_tpu_torch as ray
+        from ray_tpu_torch.core.rpc import node_ip
+        from ray_tpu_torch.util.metrics import Counter, Histogram
+
+        proxy = self
+        self._inflight = 0
+        self._max_inflight = max_inflight
+        self._stats_lock = threading.Lock()
+        self._requests = Counter(
+            "serve_num_http_requests",
+            "HTTP requests through this proxy",
+            tag_keys=("app", "status"))
+        self._latency = Histogram(
+            "serve_http_request_latency_ms",
+            "End-to-end proxy request latency",
+            boundaries=(1, 5, 10, 50, 100, 500, 1000, 5000),
+            tag_keys=("app",))
+        self._totals = {"requests": 0, "errors": 0, "shed": 0,
+                        "streamed": 0}
+
+        class Handler(BaseHTTPRequestHandler):
+            daemon_threads = True
+            protocol_version = "HTTP/1.1"
+
+            def do_POST(self):
+                t0 = _t.perf_counter()
+                path, _, query = self.path.partition("?")
+                app = path.strip("/") or "default"
+                stream = ("stream=1" in query or
+                          self.headers.get("X-Serve-Stream") == "1")
+                with proxy._stats_lock:
+                    if proxy._inflight >= proxy._max_inflight:
+                        shed = True
+                    else:
+                        shed = False
+                        proxy._inflight += 1
+                if shed:
+                    with proxy._stats_lock:
+                        proxy._totals["shed"] += 1
+                    self._reply(503, {"error": "proxy at capacity"})
+                    proxy._requests.inc(tags={"app": app, "status": "503"})
+                    return
+                status = 200
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    body = self.rfile.read(length)
+                    payload = json.loads(body) if body else None
+                    if stream:
+                        status = self._do_stream(app, payload)
+                        with proxy._stats_lock:
+                            proxy._totals["streamed"] += 1
+                    else:
+                        h = proxy._handle(app)
+                        ref = h.options(
+                            affinity_key=h.affinity_key_for(payload)
+                        ).remote(payload)
+                        result = ray.get(ref, timeout=120)
+                        self._reply(200, {"result": result})
+                except Exception as e:  # noqa: BLE001
+                    status = 500
+                    try:
+                        self._reply(500, {"error": repr(e)})
+                    except Exception:  # noqa: BLE001
+                        pass  # client gone mid-stream
+                finally:
+                    with proxy._stats_lock:
+                        proxy._inflight -= 1
+                        proxy._totals["requests"] += 1
+                        if status != 200:
+                            proxy._totals["errors"] += 1
+                    ms = (_t.perf_counter() - t0) * 1e3
+                    proxy._requests.inc(
+                        tags={"app": app, "status": str(status)})
+                    proxy._latency.observe(ms, tags={"app": app})
+                    # access log → structured log plane (replica
+                    # processes install the JSONL handler)
+                    _log.info("[serve-proxy] %s POST /%s %d %.1fms%s",
+                              self.client_address[0], app, status, ms,
+                              " stream" if stream else "")
+
+            def _do_stream(self, app: str, payload) -> int:
+                """NDJSON chunked response: one line per yielded chunk,
+                written as the replica produces it. Errors raised before
+                the first byte propagate (the caller sends a JSON 500);
+                after headers are out they become a terminal error line
+                — a second response on a chunked connection would
+                corrupt the protocol."""
+                h = proxy._handle(app)
+                gen = h.options(
+                    stream=True,
+                    affinity_key=h.affinity_key_for(payload),
+                ).remote(payload)
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-ndjson")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+
+                def chunk(data: bytes):
+                    self.wfile.write(f"{len(data):X}\r\n".encode()
+                                     + data + b"\r\n")
+                    self.wfile.flush()
+
+                status = 200
+                try:
+                    for ref in gen:
+                        item = ray.get(ref, timeout=120)
+                        chunk((json.dumps({"result": item}) + "\n")
+                              .encode())
+                except Exception as e:  # noqa: BLE001
+                    status = 500
+                    try:
+                        chunk((json.dumps({"error": repr(e)}) + "\n")
+                              .encode())
+                    except Exception:  # noqa: BLE001
+                        pass  # client disconnected mid-stream
+                finally:
+                    try:
+                        self.wfile.write(b"0\r\n\r\n")
+                    except Exception:  # noqa: BLE001
+                        pass
+                return status
+
+            def _reply(self, code: int, obj: dict):
+                out = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(out)))
+                self.end_headers()
+                self.wfile.write(out)
+
+            def log_message(self, *a):  # access log handled above
+                pass
+
+        # Bind scope: loopback by default. Cross-host ingress requires the
+        # operator to have OPTED IN to routable networking by setting
+        # RAY_TPU_NODE_IP (then we bind that advertised interface), or to
+        # pass `host` explicitly — the ingress is unauthenticated, like
+        # the reference's default HTTP proxy, so exposure is a deliberate
+        # deployment decision.
+        ip = node_ip()
+        bind_host = host if host is not None else ip
+        self._server = ThreadingHTTPServer((bind_host, port), Handler)
+        self._server.daemon_threads = True
+        self.address = f"{ip}:{self._server.server_address[1]}"
+        self._handles: dict[str, DeploymentHandle] = {}
+        self._hlock = threading.Lock()
+        threading.Thread(target=self._server.serve_forever, daemon=True,
+                         name="serve-proxy-http").start()
+        self.grpc_address = self._start_grpc(bind_host, ip)
+
+    def _start_grpc(self, bind_host: str, ip: str) -> str:
+        """gRPC ingress beside HTTP (reference: the per-node gRPC proxy,
+        serve/_private/proxy.py gRPCProxy). Generic bytes-in/bytes-out
+        service — no proto compilation: callers invoke
+        /ray_tpu.serve.Serve/Predict (unary) or /PredictStreaming (the
+        JAX package's service name, so one client reaches either)
+        (server-streaming) with a JSON payload; the target app rides the
+        'application' invocation metadata (reference: gRPC routing by
+        application metadata)."""
+        import json
+        import time as _t
+        from concurrent.futures import ThreadPoolExecutor
+
+        try:
+            import grpc
+        except ImportError:
+            # HTTP-only deployment: the gRPC ingress degrades away
+            self._grpc_server = None
+            return ""
+
+        import ray_tpu_torch as ray
+
+        proxy = self
+
+        def _app(context) -> str:
+            for k, v in (context.invocation_metadata() or ()):
+                if k == "application":
+                    return v or "default"
+            return "default"
+
+        def predict(request: bytes, context):
+            t0 = _t.perf_counter()
+            app = _app(context)
+            status = "OK"
+            try:
+                payload = json.loads(request) if request else None
+                h = proxy._handle(app)
+                ref = h.options(
+                    affinity_key=h.affinity_key_for(payload)
+                ).remote(payload)
+                result = ray.get(ref, timeout=120)
+                return json.dumps({"result": result},
+                                  default=str).encode()
+            except Exception as e:  # noqa: BLE001
+                status = "ERROR"
+                context.abort(grpc.StatusCode.INTERNAL, repr(e))
+            finally:
+                with proxy._stats_lock:
+                    proxy._totals["requests"] += 1
+                    proxy._totals["grpc"] = \
+                        proxy._totals.get("grpc", 0) + 1
+                    if status != "OK":
+                        proxy._totals["errors"] += 1
+                proxy._requests.inc(tags={"app": app, "status":
+                                          f"grpc_{status}"})
+                proxy._latency.observe((_t.perf_counter() - t0) * 1e3,
+                                       tags={"app": app})
+
+        def predict_streaming(request: bytes, context):
+            app = _app(context)
+            with proxy._stats_lock:
+                proxy._totals["grpc"] = proxy._totals.get("grpc", 0) + 1
+                proxy._totals["streamed"] += 1
+            try:
+                payload = json.loads(request) if request else None
+                h = proxy._handle(app)
+                gen = h.options(
+                    stream=True,
+                    affinity_key=h.affinity_key_for(payload),
+                ).remote(payload)
+                for ref in gen:
+                    item = ray.get(ref, timeout=120)
+                    yield json.dumps({"result": item},
+                                     default=str).encode()
+            except Exception as e:  # noqa: BLE001
+                context.abort(grpc.StatusCode.INTERNAL, repr(e))
+
+        ident = lambda b: b  # bytes pass through untouched  # noqa: E731
+        handler = grpc.method_handlers_generic_handler(
+            "ray_tpu.serve.Serve", {
+                "Predict": grpc.unary_unary_rpc_method_handler(
+                    predict, request_deserializer=ident,
+                    response_serializer=ident),
+                "PredictStreaming": grpc.unary_stream_rpc_method_handler(
+                    predict_streaming, request_deserializer=ident,
+                    response_serializer=ident),
+            })
+        self._grpc_server = grpc.server(
+            ThreadPoolExecutor(max_workers=16,
+                               thread_name_prefix="serve-grpc"))
+        self._grpc_server.add_generic_rpc_handlers((handler,))
+        gport = self._grpc_server.add_insecure_port(f"{bind_host}:0")
+        self._grpc_server.start()
+        return f"{ip}:{gport}"
+
+    def _handle(self, app: str) -> DeploymentHandle:
+        with self._hlock:
+            h = self._handles.get(app)
+        if h is None:
+            h = get_app_handle(app)
+            with self._hlock:
+                self._handles[app] = h
+        return h
+
+    def get_address(self) -> str:
+        return self.address
+
+    def get_grpc_address(self) -> str:
+        return self.grpc_address
+
+    def get_metrics(self) -> dict:
+        """Request totals for serve.status()/the state API."""
+        import ray_tpu_torch as ray
+
+        with self._stats_lock:
+            out = dict(self._totals)
+        out["inflight"] = self._inflight
+        out["node_id"] = ray.get_runtime_context().node_id.hex()
+        out["address"] = self.address
+        out["grpc_address"] = self.grpc_address
+        return out
+
+    def ping(self) -> str:
+        return "pong"
+
+    def stop(self) -> bool:
+        self._server.shutdown()
+        if getattr(self, "_grpc_server", None) is not None:
+            self._grpc_server.stop(grace=0.5)
+        return True
+
+
+def start_proxy(port: int = 8000, host: str | None = None) -> str:
+    """Start (or find) the ingress proxy actor; returns 'ip:port'."""
+    import ray_tpu_torch as ray
+
+    cls = ray.remote(num_cpus=0)(ProxyActor)
+    proxy = cls.options(name=_PROXY_NAME, get_if_exists=True,
+                        max_concurrency=32).remote(port, host)
+    return ray.get(proxy.get_address.remote(), timeout=60)
+
+
+def start_proxy_fleet(port: int = 8000, host: str | None = None
+                      ) -> dict[str, str]:
+    """One ingress proxy PER ALIVE NODE, each pinned by node affinity
+    and bound on its own node's IP (reference: the proxy runs on every
+    node, serve/_private/proxy.py + default_impl.py). Returns
+    {node_id_hex: "ip:port"}. Idempotent: existing per-node proxies are
+    reused; nodes added later get one on the next call."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+
+    cls = ray.remote(num_cpus=0)(ProxyActor)
+    out: dict[str, str] = {}
+    handles = {}
+    for node in ray.nodes():
+        if not node["Alive"]:
+            continue
+        nid = node["NodeID"]
+        handles[nid] = cls.options(
+            name=f"{_PROXY_NAME}:{nid[:12]}", get_if_exists=True,
+            max_concurrency=32,
+            scheduling_strategy=NodeAffinitySchedulingStrategy(nid),
+        ).remote(port, host)
+    for nid, h in handles.items():
+        out[nid] = ray.get(h.get_address.remote(), timeout=60)
+    return out
+
+
+def proxy_address() -> str:
+    import ray_tpu_torch as ray
+
+    proxy = ray.get_actor(_PROXY_NAME)
+    return ray.get(proxy.get_address.remote(), timeout=30)
+
+
+def grpc_proxy_address() -> str:
+    """The gRPC ingress endpoint (reference: serve's gRPC proxy port)."""
+    import ray_tpu_torch as ray
+
+    proxy = ray.get_actor(_PROXY_NAME)
+    return ray.get(proxy.get_grpc_address.remote(), timeout=30)
+
+
+def _iter_proxies():
+    import ray_tpu_torch as ray
+
+    try:
+        yield ray.get_actor(_PROXY_NAME)
+    except Exception:  # noqa: BLE001
+        pass
+    for node in ray.nodes():
+        try:
+            yield ray.get_actor(f"{_PROXY_NAME}:{node['NodeID'][:12]}")
+        except Exception:  # noqa: BLE001
+            continue
+
+
+def status() -> dict:
+    """Apps + per-replica health + per-proxy request metrics
+    (reference: serve.status(); the state API surfaces the same through
+    util/state.serve_status, and debug-dump persists it as
+    serve_status.json). ``health`` carries the self-healing plane's
+    view per app: live replicas with miss counts, restart totals,
+    degraded flags, and the bounded replica lifecycle history
+    (deaths with reasons, replacements, restart-cap events) — a
+    degraded app is visible here before it pages anyone."""
+    import ray_tpu_torch as ray
+
+    out: dict = {"apps": {}, "proxies": [], "health": {}}
+    try:
+        ctrl = ray.get_actor(_CONTROLLER_NAME)
+        out["apps"] = ray.get(ctrl.list_apps.remote(), timeout=30)
+        out["health"] = ray.get(ctrl.app_status.remote(), timeout=30)
+    except Exception:  # noqa: BLE001
+        pass
+    for proxy in _iter_proxies():
+        try:
+            out["proxies"].append(
+                ray.get(proxy.get_metrics.remote(), timeout=10))
+        except Exception:  # noqa: BLE001
+            continue
+    return out
+
+
+def _stop_http_proxy():
+    import ray_tpu_torch as ray
+
+    for proxy in _iter_proxies():
+        try:
+            ray.get(proxy.stop.remote(), timeout=30)
+            ray.kill(proxy)
+        except Exception:  # noqa: BLE001
+            pass
+

@@ -18,33 +18,47 @@ NVIDIA card or on a mesh of them, the port of ``ray_tpu.serve.llm``.
 - an **engine** (`engine.py`) gluing them together, streaming tokens
   per request and recording serving metrics; with ``mesh=`` the params
   and pages are laid out over a ``tensor`` axis and the kernels run on
-  each rank's heads.
+  each rank's heads;
+- a **serve deployment** (`deployment.py`): `LLMServer` replicas each
+  own one engine plus its step-loop thread on the port's cluster
+  runtime, `DeploymentHandle.options(stream=True)` streams tokens back,
+  and `DeploymentHandle.update_weights` hot-swaps every replica's
+  params through the object store.
 
-The serve deployment is a later slice (ROADMAP.md).
+The names below load their submodule on first use, so a process that
+only needs a routing key or a config (Serve's proxy and controller)
+never imports torch.
 """
 
-from ray_tpu_torch.serve.llm.cache import BlockPool
-from ray_tpu_torch.serve.llm.config import EngineConfig, SamplingParams
-from ray_tpu_torch.serve.llm.engine import LLMEngine, RequestStream
-from ray_tpu_torch.serve.llm.runner import ModelRunner
-from ray_tpu_torch.serve.llm.scheduler import Scheduler, SeqState, Sequence
-from ray_tpu_torch.serve.llm.spec import (
-    DraftProposer,
-    NGramProposer,
-    SpeculativeConfig,
-)
+import importlib
 
-__all__ = [
-    "BlockPool",
-    "DraftProposer",
-    "EngineConfig",
-    "LLMEngine",
-    "ModelRunner",
-    "NGramProposer",
-    "RequestStream",
-    "SamplingParams",
-    "Scheduler",
-    "SeqState",
-    "Sequence",
-    "SpeculativeConfig",
-]
+_EXPORTS = {
+    "AFFINITY_PREFIX_LEN": "deployment",
+    "BlockPool": "cache",
+    "DraftProposer": "spec",
+    "EngineConfig": "config",
+    "LLMEngine": "engine",
+    "LLMServer": "deployment",
+    "ModelRunner": "runner",
+    "NGramProposer": "spec",
+    "RequestStream": "engine",
+    "SamplingParams": "config",
+    "Scheduler": "scheduler",
+    "SeqState": "scheduler",
+    "Sequence": "scheduler",
+    "SpeculativeConfig": "spec",
+    "build_llm_app": "deployment",
+    "prompt_affinity_key": "deployment",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name not in _EXPORTS:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(
+        f"{__name__}.{_EXPORTS[name]}"), name)
+    globals()[name] = value
+    return value

@@ -1,1 +1,3 @@
-"""Utilities of the port (metrics so far)."""
+"""Utilities of the port: device choice, metrics, trees, placement
+groups and scheduling strategies, the serve chaos injector and the
+serve part of the state API."""

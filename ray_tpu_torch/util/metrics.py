@@ -1,9 +1,11 @@
 """Metrics: counters, gauges and histograms over a per-process registry.
 
 The port's own copy of the metric types of ``ray_tpu/util/metrics.py``
-(`Registry`, `Counter`, `Gauge`, `Histogram`): the engine records its
-serving metrics through them. The Prometheus exposition and the cluster
-scrape plane come with the port of the core runtime."""
+(`Registry`, `Counter`, `Gauge`, `Histogram`) and of its Prometheus
+exposition of one process's registry (`prometheus_text`): the engine,
+Serve's controller, handles and proxy record through them. The cluster
+scrape plane (`merge_prometheus`, `serve_metrics_http`) is not ported
+yet (ROADMAP.md, queue 1)."""
 
 from __future__ import annotations
 
@@ -192,3 +194,12 @@ class Histogram(Metric):
                 lines.append(
                     f"{self.name}_count{_fmt_tags(tags)} {self._totals[k]}")
         return lines
+
+
+def prometheus_text(registry: "Registry | None" = None) -> str:
+    """A registry's metrics in Prometheus exposition format (the
+    process-default registry when none is given)."""
+    lines: list[str] = []
+    for m in (registry or _registry).collect():
+        lines.extend(m.expose())
+    return "\n".join(lines) + "\n"

@@ -2,7 +2,8 @@
 imports jax or anything of the JAX package (ray_tpu), optax, flax,
 gymnasium, cloudpickle or zmq (the card's machine has none of them),
 importing the cluster runtime, the trainer and worker group, or the
-Tuner leaves jax, zmq and cloudpickle out of sys.modules, and
+Tuner leaves jax, zmq and cloudpickle out of sys.modules, importing
+Serve and its LLM deployment leaves grpc out too, and
 importing the port's core API, its serving package or its RL package
 leaves jax, gymnasium and cloudpickle out of sys.modules, and importing
 its data layer and offline RL leaves pyarrow out too (the card's
@@ -117,6 +118,38 @@ def test_serving_import_leaves_jax_unloaded():
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu'))\n"
             "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_serve_import_leaves_jax_zmq_cloudpickle_and_grpc_unloaded():
+    """Serve's controller, handles and proxy, the LLM deployment, the
+    chaos injector and the state API's serve part import neither jax
+    nor the JAX package, cloudpickle or zmq (the card's machine has
+    none), and grpc loads only where a proxy starts its gRPC ingress."""
+    code = ("import sys, ray_tpu_torch.serve, "
+            "ray_tpu_torch.serve.llm.deployment, ray_tpu_torch.util.chaos, "
+            "ray_tpu_torch.util.state\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ray_tpu', 'cloudpickle', 'zmq', 'grpc'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_serve_proxy_routing_key_loads_no_torch():
+    """Serve's proxy derives an LLM payload's routing key without
+    importing torch (a process's first torch import takes seconds)."""
+    code = ("import sys\n"
+            "from ray_tpu_torch.serve.api import payload_affinity_key\n"
+            "from ray_tpu_torch.serve.llm import EngineConfig\n"
+            "assert payload_affinity_key({'prompt': [1, 2, 3]})\n"
+            "EngineConfig.from_dict({'model': 'gpt2', 'preset': 'small'})\n"
+            "assert 'torch' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)

@@ -15,7 +15,8 @@ Then the JAX tests' own contracts on the port: rollout logprobs
 reproduced teacher-forced at the tagged version across a hot-swap, the
 8-stream mid-generation swap, the staleness guard, the temperature
 check, one update preferring the rewarded completion, a 4-lap flywheel,
-and the refusals (``handle=``, no card without ``device="cpu"``).
+and the refusals (an engine and a handle at once, or neither; no card
+without ``device="cpu"``).
 
 GPT-2 runs at the JAX test's tiny config (tests/test_rllib_llm.py: vocab
 64, 1 layer, 2 heads, E=32, f32, no remat; engine pages of 4 tokens,
@@ -496,10 +497,11 @@ def test_flywheel_closed_loop_smoke():
 def test_rollout_worker_refuses_handle_and_learner_defaults_to_cuda():
     _, cfg, _ = _gpt2()
     eng = _engine(cfg)
-    with pytest.raises(ValueError, match="no runtime"):
+    # an engine and a handle at once, or neither, as the JAX worker
+    with pytest.raises(ValueError, match="exactly one of engine="):
         t_rl.RolloutWorker(engine=eng, handle=object(),
                            reward_fn=lambda p, t: 0.0)
-    with pytest.raises(ValueError, match="engine="):
+    with pytest.raises(ValueError, match="exactly one of engine="):
         t_rl.RolloutWorker(reward_fn=lambda p, t: 0.0)
     with pytest.raises(ValueError, match="unknown model"):
         t_rl.LLMLearner("bert", device="cpu")
