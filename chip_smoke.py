@@ -263,13 +263,13 @@ Phases, each of which exits non-zero on any failure:
    num_gpus=0 task must see no card and a num_gpus=1 task the card; two
    num_gpus=0.5 actors must both run on the card while a third stays
    PENDING until one is killed. cluster_gpt2: GPT-2-small's f32 params
-   and the train phase's batch (seed 0) are put by the driver; a
-   num_gpus=1 actor of a class defined here (pickled by value) takes 13
-   steps of train's recipe and returns its losses, step ms (CUDA events)
+   and the train phase's batch (seed 0) are put by the driver; the
+   num_gpus=1 actor of a class defined here (pickled by value) that
+   read the 256 MiB tensors takes 13 steps of train's recipe and returns its losses, step ms (CUDA events)
    and its process's launch counters: K1/K2/K3 exactly 24/12/12 a step,
    every loss finite and equal, bit for bit, to the same steps run in
-   the driver. Then a max_restarts=1 GPU actor whose worker exits
-   mid-method must come back in a new process that sees the card, a
+   the driver. Then that actor (max_restarts=1), whose worker exits
+   mid-method, must come back in a new process that sees the card, a
    task whose worker crashes must be retried to its result, and GPU
    must be back to 1.0 available; shutdown() must leave no worker
    process and no store segment in /dev/shm. Prints the phase's seconds.
@@ -393,10 +393,48 @@ Phases, each of which exits non-zero on any failure:
    which imports the serving modules, and its warmup), wave 1's TTFT and tokens/s beside phase
    3's, the heal time, the swap's put and get seconds, the launches and
    the phase's seconds.
+19. dag_gpt2: collectives, channels and compiled graphs on the cluster
+   runtime (DAG_* below), on a fresh ``cluster_utils.Cluster`` whose
+   head node (this process) has the card. Two actors of DagStage (a
+   class defined here) claim half the card each and take seed-0
+   GPT-2-small from one put (their params' checksums must equal the
+   driver's); rank 1 may restart once. The group's coordinator, each
+   actor's first forward and backward, and the driver's references run
+   while the actors start. (a) Stage 0 (the embedding, blocks [0,
+   DAG_SPLIT)) and stage 1 (the other blocks, the final norm, the last
+   position's logits) are bound with ``bind`` and compiled with rings of
+   DAG_CHANNEL_MSGS f32 activations; after one warm execution,
+   DAG_EXECS executions are submitted before any ``get``: fail unless
+   each output equals the eager ``.remote()`` chain's bit for bit and
+   gpt2_forward's last position within LOGITS_TOL, the head takes no
+   get_actor, create_actor, kv_put or kv_get and the nodelet no
+   schedule_task(s), request_lease or start_actor meanwhile,
+   ``dag_executions_total`` moves by DAG_EXECS + 1 compiled and 0
+   eager_fallback, and each stage process launches K1 exactly 6 an
+   execution. (b) Both join a ``util.collective`` group; each takes the
+   LM grads of its own batch (train's shape and recipe; exactly 24/12/12
+   launches) and ``allreduce(op=MEAN)``s them: fail unless both results
+   are CUDA tensors equal, bit for bit, to the driver's ``(g0 + g1) *
+   0.5``; then rank 0's params are broadcast, the losses gathered, a
+   barrier passed, and a DAG_SEND_BYTES CUDA tensor sent through
+   send/recv and through a ShmCommunicator, each equal to what was sent.
+   (c) The graph compiled again, DAG_KILL_EXECS executions submitted and
+   rank 1's process killed: fail unless all come back equal to (a)'s
+   through the eager fallback (at least one), the restarted process
+   launches K1, no channel slot outlives ``teardown()`` and nothing
+   ``shutdown()``. Prints the actors' start, compiled and eager
+   executions a second and their latency, a stage's compute, the
+   allreduce's seconds and GB/s, ``collective_seconds`` by op, both
+   transports' GB/s, the seconds from the kill to the restart and to
+   the last result, and the phase's seconds by part.
 
-It prints one JSON line per kernel shape and per phase, K4's rows on
-the serving and rl paths with their launches there (by window and
-heads), then
+Last, every process this run started and that is still there (a
+descendant of this process, or one whose environment names this process
+as its nodelet's) is listed in a ``{"stray_processes": [...]}`` line,
+with its command, state and start, and stopped; the script fails if one
+does not go. It prints one JSON line per kernel shape and per phase,
+K4's rows on the serving and rl paths with their launches there (by
+window and heads), then
 a ``{"kernels": [...]}`` line whose launches are split by path, and as
 its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -404,6 +442,7 @@ its last line
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import json
@@ -738,6 +777,37 @@ SERVE_GPU_SHARE = 0.5
 SERVE_NUM_BLOCKS = 8 * 64 + 64
 SERVE_STORE_BYTES = 1536 << 20
 SERVE_WAIT_S = 120.0
+# dag_gpt2 (phase 19): two actors of GPT-2-small (seed 0), each claiming
+# DAG_GPU_SHARE of the card, on a cluster with a DAG_STORE_BYTES store
+# (the params, the driver's averaged grads and the four trees of one
+# allreduce round in flight, 497 MB each in f32). (a) a compiled
+# two-stage forward, stage 0 the embedding and blocks [0, DAG_SPLIT),
+# stage 1 the rest, the final norm and the last position's logits, one
+# warm and DAG_EXECS timed executions over DAG_BATCH token batches from
+# seed DAG_SEED, each channel ring DAG_CHANNEL_MSGS f32 activations
+# long (a message may fill half a ring), DAG_LATENCY_RUNS serial
+# executions a path for its latency; (b) a data-parallel step at train's
+# batch shape, rank r's batch from seed DAG_DP_SEED + r, through the
+# collective group DAG_GROUP, then a DAG_SEND_BYTES CUDA tensor (seed
+# DAG_SEND_SEED) through send/recv and a ShmCommunicator; (c)
+# DAG_KILL_EXECS executions through a kill of rank 1. Every wait is
+# DAG_WAIT_S; the phase's bar is DAG_BUDGET_S (printed beside its
+# seconds, not checked)
+DAG_GPU_SHARE = 0.5
+DAG_STORE_BYTES = 4 << 30
+DAG_BATCH = (4, 256)
+DAG_SPLIT = 6
+DAG_EXECS = 32
+DAG_SEED = 19
+DAG_CHANNEL_MSGS = 4
+DAG_LATENCY_RUNS = 5
+DAG_DP_SEED = 190
+DAG_GROUP = "dag_gpt2"
+DAG_SEND_BYTES = 64 << 20
+DAG_SEND_SEED = 191
+DAG_KILL_EXECS = 16
+DAG_WAIT_S = 120.0
+DAG_BUDGET_S = 75.0
 
 
 def fail(msg: str) -> None:
@@ -870,7 +940,6 @@ def phase_device(torch) -> str:
     except RuntimeError as e:
         fail(str(e))
     build_s = time.perf_counter() - t0
-    sass = {}
     for name, info in built.items():
         for line in info["log"].splitlines():
             if any(w in line for w in ("registers", "spill", "warning")):
@@ -878,7 +947,14 @@ def phase_device(torch) -> str:
         for fn, spilled in spills(info["log"]).items():
             if spilled and any(k in fn for k in HOPPER_KERNELS):
                 fail(f"{name}: {fn} spills {spilled} bytes")
-        sass[name] = sass_counts(_build, info["path"])
+    # one cuobjdump a library, all at once
+    with concurrent.futures.ThreadPoolExecutor(len(built)) as pool:
+        futures = {name: pool.submit(sass_counts, _build, info["path"])
+                   for name, info in built.items()}
+    try:
+        sass = {name: f.result() for name, f in futures.items()}
+    except RuntimeError as e:
+        fail(str(e))
     # each TMA/wgmma kernel on its own: every instantiation must hold
     # both, so that one kernel of a library cannot stand in for another
     for kernel in TMA_KERNELS:
@@ -926,7 +1002,9 @@ def sass_counts(_build, path: str) -> dict[str, dict[str, int]]:
     res = subprocess.run([tool, "-sass", path], capture_output=True,
                          text=True, timeout=300, check=False)
     if res.returncode != 0:
-        fail(f"cuobjdump -sass {path}: {res.stderr.strip()}")
+        # raised, not failed: this runs on a pool's thread, and the
+        # caller's result() raises it on the main thread
+        raise RuntimeError(f"cuobjdump -sass {path}: {res.stderr.strip()}")
     out: dict[str, dict[str, int]] = {}
     counts = None
     for ln in res.stdout.splitlines():
@@ -995,6 +1073,8 @@ FLASH_XL_SHAPE = (8, 1024, 16, 128, True)
 RL_FLASH_SHAPES = ((32, 256, 64, True), (1, 256, 64, True),
                    (1, 226, 64, True))
 RL_FLASH_ROWS = ("rl_learner", "rl_prefill", "rl_prefill_ragged")
+# K1 as a dag_gpt2 pipeline stage runs it: (B, T, D, causal) at H=12
+DAG_FLASH_SHAPE = (4, 256, 64, True)
 
 
 def flash_cases(torch, shapes) -> list:
@@ -1024,7 +1104,7 @@ def check_flash(torch, gen) -> dict:
     for dtype, B, T, H, D, causal in flash_cases(torch, (
             (1, 64, 64, True), (1, 512, 64, True), (1, 1024, 64, True),
             (8, 1024, 64, True), (1, 731, 64, True), (1, 256, 64, False),
-            (1, 256, 128, True)) + RL_FLASH_SHAPES) + [
+            (1, 256, 128, True), DAG_FLASH_SHAPE) + RL_FLASH_SHAPES) + [
                 (dtype, *shape) for dtype in (torch.float32, torch.bfloat16)
                 for shape in FLASH_TINY_PREFILL]:
         dn = dname(torch, dtype)
@@ -1080,6 +1160,9 @@ def check_flash(torch, gen) -> dict:
         if dtype == torch.bfloat16 and (B, T, D, causal) in RL_FLASH_SHAPES:
             main[RL_FLASH_ROWS[RL_FLASH_SHAPES.index((B, T, D, causal))]] \
                 = row
+        if dtype == torch.bfloat16 and H == 12 and \
+                (B, T, D, causal) == DAG_FLASH_SHAPE:
+            main["dag_stage"] = row
         if dtype == torch.bfloat16 and T == 1024 and D == 64:
             row["earlier_ms"] = EARLIER_MS[("flash_fwd", B)]
             row["earlier_ms_source"] = EARLIER_SOURCE
@@ -5121,9 +5204,10 @@ def phase_cluster(torch, card: str, train_keep: dict) -> dict:
 
             return torch.cuda.device_count(), torch.cuda.get_device_name(0)
 
-        n0 = ray.get(devices_without_gpu.remote(), timeout=CLUSTER_WAIT_S)
-        n1, name1 = ray.get(devices_with_gpu.remote(),
-                            timeout=CLUSTER_WAIT_S)
+        # both at once: two worker processes start side by side
+        n0, (n1, name1) = ray.get([devices_without_gpu.remote(),
+                                   devices_with_gpu.remote()],
+                                  timeout=CLUSTER_WAIT_S)
         if n0 != 0:
             fail(f"cluster: a num_gpus=0 task sees {n0} devices")
         if n1 != torch.cuda.device_count() or \
@@ -5156,8 +5240,10 @@ def phase_cluster(torch, card: str, train_keep: dict) -> dict:
         if _wait_gpu_available(ray, 1.0) != 1.0:
             fail("cluster: GPU not back to 1.0 after the half actors")
 
-        # -- put/get of 256 MiB, CPU and CUDA, read in a GPU actor
-        Gpu = ray.remote(num_gpus=1)(ClusterWorker)
+        # -- put/get of 256 MiB, CPU and CUDA, read in a GPU actor; the
+        # same actor then trains and, last, crashes and restarts (one
+        # card process for the three)
+        Gpu = ray.remote(num_gpus=1, max_restarts=1)(ClusterWorker)
         reader = Gpu.remote()
         seen_pids.add(ray.get(reader.info.remote(),
                               timeout=CLUSTER_WAIT_S)["pid"])
@@ -5181,9 +5267,6 @@ def phase_cluster(torch, card: str, train_keep: dict) -> dict:
                           "put_gbps": CLUSTER_PUT_BYTES / put_s / 1e9,
                           "get_gbps": CLUSTER_PUT_BYTES / got["s"] / 1e9}
             del ref, x
-        ray.kill(reader)
-        if _wait_gpu_available(ray, 1.0) != 1.0:
-            fail("cluster: GPU not back to 1.0 after the reader")
         spawn = _worker_pids(rt)
         seen_pids.update(spawn)
         ready = [s for s in spawn.values() if s is not None]
@@ -5215,11 +5298,10 @@ def phase_cluster(torch, card: str, train_keep: dict) -> dict:
         t0 = time.perf_counter()
         refs = [ray.put(params), ray.put(batch)]
         put_s = time.perf_counter() - t0
-        trainer = Gpu.remote()
+        trainer = reader
         out = ray.get(trainer.train.remote(refs, CLUSTER_GPT2_STEPS),
                       timeout=600)
         seen_pids.add(out["pid"])
-        ray.kill(trainer)
         del refs
         launches = out["launches"]
         L = cfg.n_layer
@@ -5259,8 +5341,7 @@ def phase_cluster(torch, card: str, train_keep: dict) -> dict:
                                     for k, v in want.items()}})
 
         # -- a fault on the card
-        Phoenix = ray.remote(num_gpus=1, max_restarts=1)(ClusterWorker)
-        p = Phoenix.remote()
+        p = trainer
         before = ray.get(p.info.remote(), timeout=CLUSTER_WAIT_S)
         try:
             ray.get(p.crash.remote(), timeout=CLUSTER_WAIT_S)
@@ -6907,8 +6988,8 @@ def _serve_parts(torch, ray, serve, c, card: str, ref: dict) -> dict:
     killed: dict = {}
 
     def kill():
-        killed["ident"] = chaos.kill_replica(SERVE_APP, busiest=True)
         killed["t"] = time.time()
+        killed["ident"] = chaos.kill_replica(SERVE_APP, busiest=True)
 
     healed: dict = {}
 
@@ -7087,6 +7168,653 @@ def phase_serve_gpt2(torch, card: str, ref: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 19
+
+
+def _dag_stage(params, cfg, x, stage: int):
+    """Stage `stage` of phase 19's two-stage GPT-2-small forward: stage 0
+    takes tokens (B, T) to the residual stream after blocks [0,
+    DAG_SPLIT); stage 1 runs the other blocks and the final norm and
+    returns the last position's logits (B, padded vocab) in f32."""
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.util import tree
+
+    blocks = tree.unstack(params["blocks"])
+    with torch.no_grad():
+        if stage == 0:
+            pos = torch.arange(x.shape[1], device=x.device)
+            x = gpt2._embed(params, x, pos, cfg)
+            for p in blocks[:DAG_SPLIT]:
+                x = gpt2._block(x, p, cfg)
+            return x
+        for p in blocks[DAG_SPLIT:]:
+            x = gpt2._block(x, p, cfg)
+        return gpt2._logits(params, x[:, -1:], cfg)[:, 0]
+
+
+def _lm_grads(params, batch: dict, cfg):
+    """The LM loss's gradients as train's step takes them
+    (``torch.autograd.grad`` of `gpt2_loss` over the params' leaves):
+    (grads in the params' tree, the loss)."""
+    import torch
+
+    from ray_tpu_torch.models.gpt2 import gpt2_loss
+    from ray_tpu_torch.util import tree
+
+    inputs = [t.detach().requires_grad_() for t in tree.leaves(params)]
+    loss = gpt2_loss(tree.unflatten(params, inputs), batch, cfg)
+    grads = torch.autograd.grad(loss, inputs)
+    return tree.unflatten(params, list(grads)), loss.detach()
+
+
+def _dp_batch(torch, vocab: int, rank: int) -> dict:
+    """Rank `rank`'s batch of the data-parallel step: train's shape,
+    tokens from seed DAG_DP_SEED + rank."""
+    B, T = TRAIN_BATCH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(DAG_DP_SEED + rank)
+    toks = torch.randint(0, vocab, (B, T + 1), generator=gen, device="cuda")
+    return {"tokens": toks[:, :-1].contiguous(),
+            "targets": toks[:, 1:].contiguous()}
+
+
+def _send_tensor(torch):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(DAG_SEND_SEED)
+    return torch.randn(DAG_SEND_BYTES // 4, generator=gen, device="cuda")
+
+
+def _trees_equal(torch, a, b) -> tuple[bool, float]:
+    """(every leaf bit-equal, the largest elementwise difference)."""
+    from ray_tpu_torch.util import tree
+
+    la, lb = tree.leaves(a), tree.leaves(b)
+    if len(la) != len(lb):
+        return False, math.inf
+    if all(x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+           for x, y in zip(la, lb)):
+        return True, 0.0
+    return False, max((x.float() - y.float()).abs().max().item()
+                      if x.shape == y.shape else math.inf
+                      for x, y in zip(la, lb))
+
+
+class DagStage:
+    """Phase 19's actor, defined in this script (``__main__``), so the
+    cluster pickles it by value: a stage of the compiled pipeline and a
+    rank of the data-parallel step, holding GPT-2-small's params from
+    the driver's one put."""
+
+    def __init__(self, refs: list, rank: int):
+        self.start = {"proc_start": _proc_start(), "init_start": time.time()}
+        import torch
+
+        self.start["torch_imported"] = time.time()
+        import ray_tpu_torch as ray
+        from ray_tpu_torch.models.gpt2 import GPT2Config
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        torch.ones(1, device="cuda").sum().item()
+        self.start["cuda_ready"] = time.time()
+        self.params = ray.get(refs[0], timeout=DAG_WAIT_S)
+        torch.cuda.synchronize()
+        self.start["params_ready"] = time.time()
+        self.rank = rank
+        self.cfg = GPT2Config.small()
+        self.comm = None
+
+    def info(self) -> dict:
+        return {"pid": os.getpid(), "rank": self.rank, "start": self.start,
+                "checksum": _param_checksum(self.params)}
+
+    def stage0(self, tokens):
+        return _dag_stage(self.params, self.cfg, tokens, 0)
+
+    def stage1(self, x):
+        return _dag_stage(self.params, self.cfg, x, 1)
+
+    def reset_counters(self) -> None:
+        _reset_counters()
+
+    def launches(self) -> dict:
+        return launch_counts(_launch_counters())
+
+    def warm(self) -> float:
+        """This process's first forward of its stage and first backward
+        (the kernels' and cuBLAS's first loads), at small shapes, before
+        the timed parts; the launch counters are zeroed after."""
+        import torch
+
+        t0 = time.perf_counter()
+        toks = torch.zeros((1, 128), dtype=torch.long, device="cuda")
+        x = _dag_stage(self.params, self.cfg, toks, 0)
+        _dag_stage(self.params, self.cfg, x, 1)
+        _lm_grads(self.params, {"tokens": toks, "targets": toks}, self.cfg)
+        torch.cuda.synchronize()
+        _reset_counters()
+        return time.perf_counter() - t0
+
+    def time_stage(self, x, stage: int, n: int) -> float:
+        """Median ms of `stage` on `x` in this process, synchronised."""
+        import torch
+
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _dag_stage(self.params, self.cfg, x, stage)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    def join(self) -> float:
+        """Join the group; one small allreduce warms its coordinator
+        (whose first tensor imports torch there)."""
+        import torch
+
+        from ray_tpu_torch.util import collective as col
+
+        t0 = time.perf_counter()
+        col.init_collective_group(2, self.rank, group_name=DAG_GROUP)
+        col.allreduce(torch.ones(1, device="cuda"), group_name=DAG_GROUP)
+        return time.perf_counter() - t0
+
+    def dp_step(self, refs: list) -> dict:
+        """The LM grads of this rank's batch with the launch counters
+        zeroed just before and read just after, averaged through the
+        group and held against the driver's average (refs[0]); then
+        rank 0's params broadcast and the two losses gathered."""
+        import torch
+
+        import ray_tpu_torch as ray
+        from ray_tpu_torch.util import collective as col
+        from ray_tpu_torch.util import tree
+
+        batch = _dp_batch(torch, self.cfg.vocab_size, self.rank)
+        torch.cuda.synchronize()
+        counters = _reset_counters()
+        t0 = time.perf_counter()
+        grads, loss = _lm_grads(self.params, batch, self.cfg)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        launches = launch_counts(counters)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in tree.leaves(grads))
+        col.barrier(DAG_GROUP)  # time the allreduce, not the other rank
+        t0 = time.perf_counter()
+        avg = col.allreduce(grads, group_name=DAG_GROUP,
+                            op=col.ReduceOp.MEAN)
+        torch.cuda.synchronize()
+        allreduce_s = time.perf_counter() - t0
+        del grads
+        placed = sorted({(type(t).__name__, str(t.device))
+                         for t in tree.leaves(avg)})
+        want = ray.get(refs[0], timeout=DAG_WAIT_S)
+        avg_equal, avg_diff = _trees_equal(torch, avg, want)
+        del avg, want
+        t0 = time.perf_counter()
+        got = col.broadcast(self.params, src_rank=0, group_name=DAG_GROUP)
+        torch.cuda.synchronize()
+        broadcast_s = time.perf_counter() - t0
+        params_equal, _ = _trees_equal(torch, got, self.params)
+        got_on = sorted({str(t.device) for t in tree.leaves(got)})
+        del got
+        losses = col.allgather(loss, group_name=DAG_GROUP)
+        col.barrier(DAG_GROUP)
+        return {"pid": os.getpid(), "launches": launches, "grad_s": grad_s,
+                "grad_bytes": nbytes, "allreduce_s": allreduce_s,
+                "avg_placed": placed, "avg_equal": avg_equal,
+                "avg_max_diff": avg_diff, "broadcast_s": broadcast_s,
+                "broadcast_equal": params_equal, "broadcast_on": got_on,
+                "losses": [float(x) for x in losses],
+                "losses_on": sorted({str(x.device) for x in losses})}
+
+    def make_comm(self, name: str) -> None:
+        from ray_tpu_torch.experimental.channel import ShmCommunicator
+
+        self.comm = ShmCommunicator(name, 2, self.rank,
+                                    capacity=2 * DAG_SEND_BYTES + (1 << 20))
+
+    def send_recv(self) -> dict:
+        """DAG_SEND_BYTES from rank 0 to rank 1 through the collective's
+        send/recv, then through the ShmCommunicator; rank 1 times each
+        from the barrier before it to the tensor on its card."""
+        import torch
+
+        from ray_tpu_torch.util import collective as col
+
+        x = _send_tensor(torch)
+        out = {}
+        for how in ("collective", "channel"):
+            col.barrier(DAG_GROUP)
+            t0 = time.perf_counter()
+            if self.rank == 0:
+                if how == "collective":
+                    col.send(x, 1, group_name=DAG_GROUP)
+                else:
+                    self.comm.send(x, 1, timeout=DAG_WAIT_S)
+                out[how] = {"s": time.perf_counter() - t0}
+                continue
+            y = (col.recv(0, group_name=DAG_GROUP) if how == "collective"
+                 else self.comm.recv(0, timeout=DAG_WAIT_S))
+            arrived_on = str(y.device)
+            y = y.to("cuda")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            out[how] = {"s": dt, "gbps": DAG_SEND_BYTES / dt / 1e9,
+                        "arrived_on": arrived_on,
+                        "equal": bool(torch.equal(y, x))}
+        col.barrier(DAG_GROUP)
+        self.comm.destroy()
+        self.comm = None
+        out["collective_seconds"] = col._collective_seconds().sums_by_tag(
+            "op")
+        return out
+
+
+def _dag_counts() -> dict:
+    """dag_executions_total by path, in this process."""
+    from ray_tpu_torch.util.metrics import prometheus_text
+
+    out = {"compiled": 0.0, "eager_fallback": 0.0}
+    for line in prometheus_text().splitlines():
+        for path in out:
+            if line.startswith(f'dag_executions_total{{path="{path}"}}'):
+                out[path] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+# the RPCs that a compiled graph's steady state may not make
+HEAD_RPCS = ("get_actor", "create_actor", "kv_put", "kv_get")
+NODELET_RPCS = ("schedule_task", "schedule_tasks", "request_lease",
+                "start_actor")
+
+
+def _rpc_counts(server, methods) -> dict:
+    stats = server.event_stats()
+    return {m: stats.get(m, {}).get("count", 0) for m in methods}
+
+
+def _dag_start(torch, ray, card: str) -> dict:
+    """Phase 19's setup: seed-0 GPT-2-small put once, both actors
+    started at once, and the driver's reference work done while they
+    start."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_forward, init_gpt2
+    from ray_tpu_torch.util import collective as col
+    from ray_tpu_torch.util import tree
+
+    cfg = GPT2Config.small()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_gpt2(gen, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params_ref = ray.put(params)
+    put_s = time.perf_counter() - t0
+    # rank 1 may restart once (part c)
+    Stage = ray.remote(num_gpus=DAG_GPU_SHARE)(DagStage)
+    submitted = time.time()
+    stages = [Stage.remote([params_ref], 0),
+              Stage.options(max_restarts=1).remote([params_ref], 1)]
+    # the group's coordinator as init_collective_group makes it, started
+    # with the actors (a call to an actor waits until it is up, so the
+    # calls come after the driver's reference work)
+    coord = ray.remote(num_cpus=0)(col._Rendezvous).options(
+        name=f"__collective_{DAG_GROUP}", get_if_exists=True,
+        max_concurrency=4).remote(2)
+    t0 = time.perf_counter()
+    tgen = torch.Generator(device="cuda")
+    tgen.manual_seed(DAG_SEED)
+    B, T = DAG_BATCH
+    inputs = [torch.randint(0, cfg.vocab_size, (B, T), generator=tgen,
+                            device="cuda") for _ in range(DAG_EXECS + 1)]
+    with torch.no_grad():
+        ref_logits = [gpt2_forward(params, x, cfg)[:, -1]
+                      for x in inputs[1:]]
+    g0, loss0 = _lm_grads(params, _dp_batch(torch, cfg.vocab_size, 0), cfg)
+    g1, loss1 = _lm_grads(params, _dp_batch(torch, cfg.vocab_size, 1), cfg)
+    avg = tree.unflatten(g0, [(a + b) * 0.5 for a, b in
+                              zip(tree.leaves(g0), tree.leaves(g1))])
+    del g0, g1
+    torch.cuda.synchronize()
+    avg_ref = ray.put(avg)
+    del avg
+    want_sum = _param_checksum(params)
+    ref_s = time.perf_counter() - t0
+    # one tensor to a mailbox slot no rank reads: torch's import in the
+    # coordinator runs beside the rest of the actors' start
+    coord_ref = coord.send.remote(-1, -1, 0, torch.zeros(1))
+    info_refs = [s.info.remote() for s in stages]
+    warm_refs = [s.warm.remote() for s in stages]
+    infos = ray.get(info_refs, timeout=DAG_WAIT_S)
+    ready_s = time.time() - submitted
+    warm_s = ray.get(warm_refs, timeout=DAG_WAIT_S)
+    ray.get(coord_ref, timeout=DAG_WAIT_S)
+    warmed_s = time.time() - submitted
+    for i in infos:
+        if i["checksum"] != want_sum:
+            fail(f"dag_gpt2: rank {i['rank']}'s params differ from the "
+                 f"driver's seed-0 GPT-2-small")
+    if infos[0]["pid"] == infos[1]["pid"]:
+        fail(f"dag_gpt2: both ranks run in process {infos[0]['pid']}")
+    emit({"phase": "dag_gpt2_start", "card": card, "params_put_s": put_s,
+          "driver_reference_s": ref_s, "actors_ready_s": ready_s,
+          "warm_s": warm_s, "warmed_and_coordinator_ready_s": warmed_s,
+          "start_split": [dict(_start_split(i["start"], submitted),
+                               params_get=i["start"]["params_ready"]
+                               - i["start"]["cuda_ready"])
+                          for i in infos]})
+    with torch.no_grad():
+        act = _dag_stage(params, cfg, inputs[1], 0)
+    return {"cfg": cfg, "params_ref": params_ref, "stages": stages,
+            "infos": infos, "inputs": inputs, "ref_logits": ref_logits,
+            "act": act, "avg_ref": avg_ref,
+            "losses": [float(loss0), float(loss1)]}
+
+
+def _dag_pipeline(torch, ray, c, card: str, st: dict, slots: list) -> dict:
+    """Phase 19 (a): the compiled two-stage forward against the eager
+    chain and gpt2_forward. Returns the outputs and each stage's
+    launches over the timed executions."""
+    from ray_tpu_torch.dag import InputNode
+
+    cfg, (s0, s1), inputs = st["cfg"], st["stages"], st["inputs"]
+    B, T = DAG_BATCH
+    with InputNode() as inp:
+        st["out_node"] = s1.stage1.bind(s0.stage0.bind(inp))
+    st["cap"] = DAG_CHANNEL_MSGS * B * T * cfg.n_embd * 4
+    counts0 = _dag_counts()
+    t0 = time.perf_counter()
+    dag = st["out_node"].compile(channel_capacity=st["cap"])
+    compile_s = time.perf_counter() - t0
+    slots.extend(ch.name for ch in dag._channels)
+    t0 = time.perf_counter()
+    dag.execute(inputs[0]).get(timeout=DAG_WAIT_S)
+    warm_s = time.perf_counter() - t0
+    ray.get([s.reset_counters.remote() for s in st["stages"]],
+            timeout=DAG_WAIT_S)
+    head0 = _rpc_counts(c.head.server, HEAD_RPCS)
+    node0 = _rpc_counts(c.nodelets[0].server, NODELET_RPCS)
+    t0 = time.perf_counter()
+    refs = [dag.execute(x) for x in inputs[1:]]
+    compiled = [r.get(timeout=DAG_WAIT_S) for r in refs]
+    torch.cuda.synchronize()
+    compiled_s = time.perf_counter() - t0
+    head1 = _rpc_counts(c.head.server, HEAD_RPCS)
+    node1 = _rpc_counts(c.nodelets[0].server, NODELET_RPCS)
+    launches = ray.get([s.launches.remote() for s in st["stages"]],
+                       timeout=DAG_WAIT_S)
+    execs = {k: v - counts0[k] for k, v in _dag_counts().items()}
+    if head1 != head0 or node1 != node0:
+        fail(f"dag_gpt2: scheduling RPCs during the compiled executions: "
+             f"head {head0} -> {head1}, nodelet {node0} -> {node1}")
+    if execs != {"compiled": DAG_EXECS + 1, "eager_fallback": 0}:
+        fail(f"dag_gpt2: dag_executions_total moved by {execs}, want "
+             f"{DAG_EXECS + 1} compiled and 0 eager_fallback")
+    for rank, n in enumerate((DAG_SPLIT, cfg.n_layer - DAG_SPLIT)):
+        want = {"flash_fwd": n * DAG_EXECS, "flash_dq": 0, "flash_dkv": 0,
+                "paged_attention": 0}
+        if {k: launches[rank][k] for k in want} != want:
+            fail(f"dag_gpt2: stage {rank} launched {launches[rank]} over "
+                 f"{DAG_EXECS} executions, want {want}")
+    lat_compiled = []
+    for x in inputs[1:1 + DAG_LATENCY_RUNS]:
+        t1 = time.perf_counter()
+        dag.execute(x).get(timeout=DAG_WAIT_S)
+        lat_compiled.append(time.perf_counter() - t1)
+    dag.teardown()
+    # the eager chain of the same stages on the same inputs
+    t0 = time.perf_counter()
+    eager = ray.get([s1.stage1.remote(s0.stage0.remote(x))
+                     for x in inputs[1:]], timeout=DAG_WAIT_S)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    lat_eager = []
+    for x in inputs[1:1 + DAG_LATENCY_RUNS]:
+        t1 = time.perf_counter()
+        ray.get(s1.stage1.remote(s0.stage0.remote(x)), timeout=DAG_WAIT_S)
+        lat_eager.append(time.perf_counter() - t1)
+    stage_ms = ray.get([s0.time_stage.remote(inputs[1], 0, 10),
+                        s1.time_stage.remote(st.pop("act"), 1, 10)],
+                       timeout=DAG_WAIT_S)
+    worst, worst_mean = 0.0, 0.0
+    for i, (a, e, r) in enumerate(zip(compiled, eager, st["ref_logits"])):
+        if not (a.is_cuda and a.shape == (B, cfg.padded_vocab)
+                and torch.equal(a, e)):
+            fail(f"dag_gpt2: execution {i}'s logits ({a.dtype} "
+                 f"{tuple(a.shape)} on {a.device}) differ from the eager "
+                 f"chain's")
+        d = (a - r).abs()
+        worst = max(worst, d.max().item())
+        worst_mean = max(worst_mean, d.mean().item())
+    if not (worst <= LOGITS_TOL["max_abs"]
+            and worst_mean <= LOGITS_TOL["mean_abs"]):
+        fail(f"dag_gpt2: the stages' logits differ from gpt2_forward's by "
+             f"{worst} max, {worst_mean} mean (tol {LOGITS_TOL})")
+    emit({"phase": "dag_gpt2_pipeline", "card": card,
+          "batch": list(DAG_BATCH), "split": DAG_SPLIT,
+          "executions": DAG_EXECS, "channel_capacity": st["cap"],
+          "compile_s": compile_s, "warm_execution_s": warm_s,
+          "compiled_s": compiled_s,
+          "compiled_exec_per_s": DAG_EXECS / compiled_s,
+          "eager_s": eager_s, "eager_exec_per_s": DAG_EXECS / eager_s,
+          "latency_ms": {
+              "compiled": spread([x * 1e3 for x in lat_compiled]),
+              "eager": spread([x * 1e3 for x in lat_eager])},
+          "stage_compute_ms": stage_ms,
+          "bitwise_equal_to_eager": True,
+          "max_abs_vs_gpt2_forward": worst,
+          "mean_abs_vs_gpt2_forward": worst_mean,
+          "dag_executions_total": execs,
+          "head_rpcs_during": {k: head1[k] - head0[k] for k in head0},
+          "nodelet_rpcs_during": {k: node1[k] - node0[k] for k in node0},
+          "stage_launches": launches})
+    return {"compiled": compiled, "launches": launches}
+
+
+def _dag_data_parallel(torch, ray, card: str, st: dict) -> list:
+    """Phase 19 (b): the data-parallel step through the host collective,
+    then send/recv and a ShmCommunicator. Returns each rank's launches
+    over its grads."""
+    cfg, stages = st["cfg"], st["stages"]
+    t0 = time.perf_counter()
+    join_s = ray.get([s.join.remote() for s in stages], timeout=DAG_WAIT_S)
+    avg_ref = st.pop("avg_ref")
+    dp = ray.get([s.dp_step.remote([avg_ref]) for s in stages],
+                 timeout=DAG_WAIT_S)
+    del avg_ref
+    L = cfg.n_layer
+    want = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L,
+            "paged_attention": 0}
+    for rank, r in enumerate(dp):
+        if {k: r["launches"][k] for k in want} != want:
+            fail(f"dag_gpt2: rank {rank}'s grads launched {r['launches']}, "
+                 f"want {want}")
+        if r["avg_placed"] != [("Tensor", "cuda:0")] or not r["avg_equal"]:
+            fail(f"dag_gpt2: rank {rank}'s averaged grads ({r['avg_placed']}"
+                 f") differ from the driver's (g0 + g1) * 0.5 by "
+                 f"{r['avg_max_diff']}")
+        if not r["broadcast_equal"] or r["broadcast_on"] != ["cuda:0"]:
+            fail(f"dag_gpt2: rank {rank}'s broadcast params on "
+                 f"{r['broadcast_on']} differ from rank 0's")
+        if r["losses"] != st["losses"] or r["losses_on"] != ["cuda:0"]:
+            fail(f"dag_gpt2: rank {rank} gathered {r['losses']} on "
+                 f"{r['losses_on']}, the driver's losses are "
+                 f"{st['losses']}")
+    comm_name = f"{DAG_GROUP}_{os.getpid()}"
+    for s in stages:  # rank 0 makes the rings first
+        ray.get(s.make_comm.remote(comm_name), timeout=DAG_WAIT_S)
+    sr = ray.get([s.send_recv.remote() for s in stages], timeout=DAG_WAIT_S)
+    for how in ("collective", "channel"):
+        if not sr[1][how]["equal"]:
+            fail(f"dag_gpt2: the {DAG_SEND_BYTES}-byte tensor through the "
+                 f"{how} differs from what rank 0 sent")
+    if sr[1]["channel"]["arrived_on"] != "cuda:0":
+        fail(f"dag_gpt2: the channel's tensor arrived on "
+             f"{sr[1]['channel']['arrived_on']}, not the card")
+    emit({"phase": "dag_gpt2_data_parallel", "card": card,
+          "batch": list(TRAIN_BATCH), "join_s": join_s,
+          "grad_s": [r["grad_s"] for r in dp],
+          "launches": [r["launches"] for r in dp],
+          "grad_bytes": dp[0]["grad_bytes"],
+          "allreduce_s": [r["allreduce_s"] for r in dp],
+          "allreduce_gbps": [r["grad_bytes"] / r["allreduce_s"] / 1e9
+                             for r in dp],
+          "broadcast_s": [r["broadcast_s"] for r in dp],
+          "averaged_grads_bitwise_equal_to_driver": True,
+          "losses": dp[0]["losses"],
+          "collective_seconds_by_op": [x["collective_seconds"] for x in sr],
+          "send_bytes": DAG_SEND_BYTES,
+          "send_recv": {how: {"recv_s": sr[1][how]["s"],
+                              "gbps": sr[1][how]["gbps"],
+                              "arrived_on": sr[1][how]["arrived_on"],
+                              "send_s": sr[0][how]["s"]}
+                        for how in ("collective", "channel")},
+          "part_s": time.perf_counter() - t0})
+    return [r["launches"] for r in dp]
+
+
+def _dag_kill(torch, ray, card: str, st: dict, compiled: list,
+              slots: list) -> None:
+    """Phase 19 (c): the pipeline compiled again, DAG_KILL_EXECS
+    executions submitted and rank 1's process killed while they are in
+    flight."""
+    import signal
+
+    from ray_tpu_torch.core.api import _global_runtime
+
+    rt = _global_runtime()
+    s1, infos = st["stages"][1], st["infos"]
+
+    def head_view() -> tuple:
+        r = rt.client.call(rt.head_address, "get_actor",
+                           {"actor_id": s1._actor_id.binary(),
+                            "wait": False}, timeout=10)
+        return r.get("state"), r.get("address")
+
+    old_address = head_view()[1]
+    dag = st["out_node"].compile(channel_capacity=st["cap"])
+    slots_c = [ch.name for ch in dag._channels]
+    slots.extend(slots_c)
+    counts0 = _dag_counts()
+    refs = [dag.execute(x) for x in st["inputs"][1:1 + DAG_KILL_EXECS]]
+    t_kill, killed_at = time.perf_counter(), time.time()
+    os.kill(infos[1]["pid"], signal.SIGKILL)
+    # the JAX restartable-stage scenario's settle barrier: the head
+    # shows the new incarnation before the results are read, so the
+    # drain's first liveness probe sees the new address
+    deadline = time.monotonic() + DAG_WAIT_S
+    while True:
+        state, address = head_view()
+        if state == "ALIVE" and address != old_address:
+            break
+        if time.monotonic() > deadline:
+            fail(f"dag_gpt2: rank 1 did not come back within {DAG_WAIT_S} s")
+        time.sleep(0.1)
+    settled_s = time.perf_counter() - t_kill
+    after = [r.get(timeout=DAG_WAIT_S) for r in refs]
+    kill_s = time.perf_counter() - t_kill
+    execs = {k: v - counts0[k] for k, v in _dag_counts().items()}
+    dag.teardown()
+    left = [n for n in slots_c if os.path.exists(os.path.join("/dev/shm", n))]
+    if left:
+        fail(f"dag_gpt2: channel slots {left} outlived teardown()")
+    for i, (a, b) in enumerate(zip(after, compiled)):
+        if not (a.is_cuda and torch.equal(a, b)):
+            fail(f"dag_gpt2: execution {i} through the kill differs from "
+                 f"part (a)'s")
+    if execs["eager_fallback"] < 1:
+        fail(f"dag_gpt2: no execution took the eager fallback ({execs})")
+    info1 = ray.get(s1.info.remote(), timeout=DAG_WAIT_S)
+    restarted = ray.get(s1.launches.remote(), timeout=DAG_WAIT_S)
+    if info1["pid"] == infos[1]["pid"] or restarted["flash_fwd"] < 1:
+        fail(f"dag_gpt2: rank 1 after the kill is process {info1['pid']} "
+             f"(was {infos[1]['pid']}) with launches {restarted}")
+    emit({"phase": "dag_gpt2_kill", "card": card,
+          "executions": DAG_KILL_EXECS, "dag_executions_total": execs,
+          "kill_to_restarted_s": settled_s,
+          "kill_to_last_result_s": kill_s,
+          "killed_pid": infos[1]["pid"], "restarted_pid": info1["pid"],
+          "restart_split": _start_split(info1["start"], killed_at),
+          "restarted_launches": restarted,
+          "results_equal_to_part_a": True})
+
+
+def phase_dag_gpt2(torch, card: str) -> dict:
+    """Phase 19: collectives, channels and compiled graphs on the cluster
+    runtime with two GPT-2-small actors on the card (see the docstring);
+    returns the launches of the path dag_gpt2."""
+    import ray_tpu_torch as ray
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core import object_store
+
+    t_phase = time.perf_counter()
+    release(torch)
+    c = Cluster(initialize_head=True, head_node_args={
+        "num_cpus": os.cpu_count() or 8,
+        "num_gpus": torch.cuda.device_count(),
+        "store_capacity": DAG_STORE_BYTES})
+    stores = [c.nodelets[0].store.name]
+    seen_pids: set = set()
+    slots: list = []
+    parts: dict = {}
+    t_part = [time.perf_counter()]
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    try:
+        c.wait_for_nodes()
+        ray.init(address=c.address)
+        part("cluster")
+        st = _dag_start(torch, ray, card)
+        seen_pids.update(i["pid"] for i in st["infos"])
+        part("start")
+        pipe = _dag_pipeline(torch, ray, c, card, st, slots)
+        part("pipeline")
+        dp = _dag_data_parallel(torch, ray, card, st)
+        part("data_parallel")
+        _dag_kill(torch, ray, card, st, pipe["compiled"], slots)
+        part("kill")
+        seen_pids.update(_node_workers(ray, c.nodelets))
+        for s in st["stages"]:
+            ray.kill(s)
+        del st
+    finally:
+        ray.shutdown()
+        c.shutdown()
+    release(torch)
+    part("shutdown")
+    left = [s for s in stores + slots
+            if os.path.exists(os.path.join(object_store._SHM_DIR, s))]
+    if left:
+        fail(f"dag_gpt2: shm segments {left} outlived shutdown()")
+    alive = []
+    for pid in seen_pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    if alive:
+        fail(f"dag_gpt2: worker processes {alive} outlived shutdown()")
+    launches = {k: sum(r[k] for r in dp) for k in dp[0]
+                if k != "paged_attention_by_shape"}
+    launches["flash_fwd"] += sum(r["flash_fwd"] for r in pipe["launches"])
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "dag_gpt2", "card": card, "launches": launches,
+          "worker_pids_checked": len(seen_pids), "phase_s": phase_s,
+          "parts_s": parts, "budget_s": DAG_BUDGET_S,
+          "within_budget": phase_s <= DAG_BUDGET_S})
+    return launches
+
+
 def _paths(t, path=""):
     if isinstance(t, dict):
         for k in sorted(t):
@@ -7109,6 +7837,98 @@ def use_bytecode_cache(root: str) -> None:
     sys.pycache_prefix = cache
 
 
+def _proc_table() -> dict:
+    """pid -> (parent pid, state, start in seconds after boot) of every
+    process /proc lists."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                rest = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        out[int(name)] = (int(rest[1]), rest[0], int(rest[19]) / tick)
+    return out
+
+
+def _own_processes() -> dict:
+    """pid -> (parent pid, state, start) of every process this run
+    started that is still there: a descendant of this process, or one
+    whose environment names this process as its nodelet's (a worker's
+    child left to init when its worker went)."""
+    me = os.getpid()
+    table = _proc_table()
+    mark = f"RAY_TPU_NODELET_PID={me}".encode()
+    own = set()
+    for pid in table:
+        if pid == me:
+            continue
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                if mark in f.read().split(b"\0"):
+                    own.add(pid)
+        except OSError:
+            pass
+    children: dict = {}
+    for pid, (ppid, _, _) in table.items():
+        children.setdefault(ppid, []).append(pid)
+    todo = list(children.get(me, []))
+    while todo:
+        pid = todo.pop()
+        if pid not in own:
+            own.add(pid)
+            todo.extend(children.get(pid, []))
+    return {pid: table[pid] for pid in own if pid in table}
+
+
+def stop_own_processes(t_start: float) -> list:
+    """List every process this run started that is still there, stop
+    each (SIGKILL to it and to its process group where it leads one) and
+    wait until it is gone; `t_start` is this process's start in seconds
+    after boot. Fails if one is still there after 30 s."""
+    import signal
+
+    found = []
+    for pid, (ppid, state, start) in sorted(_own_processes().items()):
+        if state == "Z":  # gone already: reaped by its parent or init
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(pid, os.WNOHANG)
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            cmd = ""
+        found.append({"pid": pid, "ppid": ppid, "state": state,
+                      "cmd": cmd.strip()[:200],
+                      "started_s_into_run": start - t_start})
+        for kill in (lambda: os.killpg(pid, signal.SIGKILL)
+                     if os.getpgid(pid) == pid else None,
+                     lambda: os.kill(pid, signal.SIGKILL)):
+            try:
+                kill()
+            except OSError:
+                pass
+    deadline = time.monotonic() + 30
+    left = [f["pid"] for f in found]
+    while left:
+        for pid in list(left):
+            try:  # a child of this process is reaped here
+                os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                pass
+            if not os.path.exists(f"/proc/{pid}"):
+                left.remove(pid)
+        if left and time.monotonic() > deadline:
+            fail(f"processes {left} of this run are still there 30 s "
+                 f"after SIGKILL: {found}")
+        time.sleep(0.05)
+    return found
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "ray_tpu_torch")):
@@ -7126,6 +7946,7 @@ def main() -> int:
     torch.cuda.set_device(0)
 
     seconds: dict = {}
+    t_start = _proc_table()[os.getpid()][2]
     t_lap = [time.perf_counter()]
 
     def lap(name: str) -> None:
@@ -7212,6 +8033,8 @@ def main() -> int:
     lap("runtime_gpu")
     paths["serve_gpt2"] = phase_serve_gpt2(torch, card, serve_ref)
     lap("serve_gpt2")
+    paths["dag_gpt2"] = phase_dag_gpt2(torch, card)
+    lap("dag_gpt2")
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),
@@ -7238,9 +8061,10 @@ def main() -> int:
               "launches_at_this_shape": k4_launches(
                   by_shape, W, H, HK, S=len(ctx_list))})
 
-    # K1-K3's rows on the tiny and XL-class training paths, with the
-    # launches of the paths that run them (the tiny path's launches are
-    # those of both presets, in both dtypes)
+    # K1-K3's rows on the tiny and XL-class training paths, the rl paths
+    # and a dag_gpt2 pipeline stage, with the launches of the paths that
+    # run them (the tiny path's launches are those of both presets, in
+    # both dtypes)
     for key, name in (("tiny", "flash_fwd"), ("tiny_f32", "flash_fwd"),
                       ("train_xl", "flash_fwd"),
                       ("flash_dq_tiny", "flash_dq"),
@@ -7253,10 +8077,11 @@ def main() -> int:
                       ("rl_prefill", "flash_fwd"),
                       ("rl_prefill_ragged", "flash_fwd"),
                       ("flash_dq_rl", "flash_dq"),
-                      ("flash_dkv_rl", "flash_dkv")):
+                      ("flash_dkv_rl", "flash_dkv"),
+                      ("dag_stage", "flash_fwd")):
         row = (k1 if name == "flash_fwd" else k23)[key]
-        path = ("tiny" if "tiny" in key else
-                "rl" if "rl" in key else "remat")
+        path = ("tiny" if "tiny" in key else "rl" if "rl" in key else
+                "dag_gpt2" if key == "dag_stage" else "remat")
         emit({"kernel": name, "row": key, "shape": row["shape"],
               "dtype": row["dtype"],
               "max_abs_err": row.get("max_abs_err",
@@ -7298,6 +8123,7 @@ def main() -> int:
             "tflops": main_row["tflops"],
             "share_of_bound": main_row["share_of_bound"],
             "shape": main_row["shape"], "dtype": main_row["dtype"]})
+    emit({"stray_processes": stop_own_processes(t_start)})
     emit({"phase_seconds": seconds,
           "total_s": sum(seconds.values())})
     emit({"kernels": kernels})

@@ -11,6 +11,7 @@ Deviations from the JAX package: ``init(num_gpus=)`` in place of
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
 import threading
@@ -225,9 +226,29 @@ def _set_runtime(rt):
     _runtime = rt
 
 
+_background = threading.local()
+
+
+@contextlib.contextmanager
+def no_auto_init():
+    """Within this block, on this thread, a call that needs the runtime
+    raises RuntimeError where it would boot a new one: for background
+    paths (Serve's refresh, death report and failover relay, a chaos
+    kill) that may run on past ``shutdown()``, where a check of
+    `is_initialized` first leaves a window to race it."""
+    prev = getattr(_background, "on", False)
+    _background.on = True
+    try:
+        yield
+    finally:
+        _background.on = prev
+
+
 def _global_runtime():
     global _runtime
     if _runtime is None:
+        if getattr(_background, "on", False):
+            raise RuntimeError("ray_tpu_torch is shut down")
         with _runtime_lock:
             if _runtime is None:
                 init()
@@ -397,11 +418,10 @@ class ActorMethod:
 
     def bind(self, *args):
         """Bind into a compiled DAG (reference: ray.dag —
-        actor.method.bind(node), dag/class_node.py). Raises: ``dag/`` is
-        not ported yet."""
-        raise NotImplementedError(
-            "ActorMethod.bind: compiled graphs (dag/) are not ported to "
-            "ray_tpu_torch yet")
+        actor.method.bind(node), dag/class_node.py)."""
+        from ray_tpu_torch.dag import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._name, args)
 
     def options(self, **opts):
         return ActorMethod(self._handle, self._name, {**self._opts, **opts})

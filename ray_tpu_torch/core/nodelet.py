@@ -103,6 +103,21 @@ def _fpq(x: float) -> float:
     return round(x * 10000.0) / 10000.0
 
 
+def _stop_process(proc, grace_s: float) -> None:
+    """Wait `grace_s` for a worker told to go, then kill it and wait
+    until it is gone: a worker that holds a card can take seconds to
+    exit, and one left behind outlives the node."""
+    try:
+        proc.wait(timeout=grace_s)
+        return
+    except Exception:  # noqa: BLE001
+        pass
+    try:
+        proc.kill()
+        proc.wait(timeout=30)
+    except Exception:  # noqa: BLE001
+        pass
+
 
 class Nodelet:
     def __init__(self, head_address: str, resources: dict[str, float],
@@ -307,23 +322,20 @@ class Nodelet:
         return self
 
     def stop(self):
-        self._stopped.set()
-        self._dispatch_wake.set()
+        # set under the lock that registers a spawned worker: a spawn
+        # racing this stop either lands in the list below or sees the
+        # flag and stops its own process (_spawn_worker)
         with self._lock:
+            self._stopped.set()
             workers = list(self._workers.values())
+        self._dispatch_wake.set()
         for w in workers:
             try:
                 w.proc.terminate()
             except Exception:
                 pass
         for w in workers:
-            try:
-                w.proc.wait(timeout=2)
-            except Exception:
-                try:
-                    w.proc.kill()
-                except Exception:
-                    pass
+            _stop_process(w.proc, grace_s=2)
         self.server.stop()
         # Unlink the shm NAME but keep this process's mapping alive:
         # server.stop() does not drain in-flight handler threads (slow-
@@ -574,7 +586,14 @@ class Nodelet:
         # lease request would double-grant it
         w.lease_id = lease_id
         with self._lock:
-            self._workers[wid] = w
+            stopped = self._stopped.is_set()
+            if not stopped:
+                self._workers[wid] = w
+        if stopped:
+            # stop() has taken its list of workers: this one would
+            # outlive the node, so it goes now
+            _stop_process(proc, grace_s=0)
+            raise RuntimeError("nodelet stopped")
         return w
 
     def _h_worker_ready(self, msg, frames):

@@ -11,9 +11,10 @@ The port's copy of ``ray_tpu/core/worker_main.py``: functions and actor
 classes arrive pickled by value (serialization.dumps_fn), not through
 cloudpickle. Not ported yet: the structured log plane (a worker's prints
 and logging go to its log file, ``logs/worker-<id>.log``, as the nodelet
-opened it) and compiled-graph channels (dag_start raises). The worker
-exits when its nodelet's process is gone: its parent changes, or three
-pings in a row go unanswered.
+opened it). A compiled graph's stage (dag_start) runs as a resident loop
+over the port's shared-memory channels (experimental/channel.py). The
+worker exits when its nodelet's process is gone: its parent changes, or
+three pings in a row go unanswered.
 """
 
 from __future__ import annotations
@@ -729,11 +730,87 @@ class WorkerRuntime(ClusterRuntime):
         return done
 
     # ------------------------------------------------------------ compiled DAG
+    # Reference: accelerated/compiled DAGs (dag/compiled_dag_node.py:711)
+    # — after compile, repeated executions bypass task submission
+    # entirely: each actor runs a resident loop reading its input
+    # CHANNELS, invoking the bound method directly on the hosted
+    # instance, and writing the result channel.
 
     def _h_dag_start(self, msg, frames):
-        raise NotImplementedError(
-            "compiled graphs (dag/ and experimental/channel.py) are not "
-            "ported to ray_tpu_torch yet")
+        from ray_tpu_torch.experimental.channel import Channel
+
+        if self._actor_instance is None:
+            raise exc.ActorUnavailableError("not an actor worker")
+        loop_id = msg["loop_id"]
+        method = msg["method"]
+        ins = [Channel(name=n, create=False) for n in msg["in_channels"]]
+        out = Channel(name=msg["out_channel"], create=False)
+        stop = threading.Event()
+        self._dag_loops[loop_id] = stop
+
+        # per-stage attribution: SPSC channels deliver executions in
+        # seq order through every stage, so a local counter IS the
+        # execution's seq — each stage's span joins the driver's
+        # dag.execute span under one synthetic trace_id per execution
+        prefix, _, stage = loop_id.rpartition("_")
+        span_name = f"dag.{method}:{stage}"
+
+        def run():
+            fn = getattr(self._actor_instance, method)
+            n_exec = 0
+            while not stop.is_set():
+                try:
+                    # short poll on the FIRST input (checks `stop`); once
+                    # one arg of an execution landed the rest are in
+                    # flight, so wait them out fully — a short timeout
+                    # there would drop the already-consumed first arg
+                    first = ins[0].get(timeout=0.5)
+                except TimeoutError:
+                    continue
+                except Exception:  # noqa: BLE001
+                    return  # channel closed/destroyed: loop ends
+                try:
+                    args = [first] + [c.get(timeout=60) for c in ins[1:]]
+                except Exception:  # noqa: BLE001
+                    return
+                dag_trace = {"trace_id": f"dag:{prefix}:{n_exec}"}
+                n_exec += 1
+                # an upstream stage's error marker passes through
+                # UNCHANGED (it consumes one slot per stage, so sequence
+                # numbers stay aligned and the driver re-raises the
+                # ORIGINAL error — same propagation as an eager chain)
+                marker = next((a for a in args
+                               if isinstance(a, dict)
+                               and "__dag_error__" in a), None)
+                try:
+                    if marker is not None:
+                        out.put(marker)
+                        continue
+                    if getattr(self, "_serial_actor", False):
+                        with self._instance_lock, \
+                                self._events.span(span_name, "dag",
+                                                  trace=dag_trace):
+                            result = fn(*args)
+                    else:
+                        with self._events.span(span_name, "dag",
+                                               trace=dag_trace):
+                            result = fn(*args)
+                    out.put(result)
+                except Exception as e:  # noqa: BLE001
+                    # ship the same TaskError the eager path would raise
+                    # at get(); fall back to a repr if it won't pickle
+                    err = exc.TaskError.from_exception(e, f"dag:{method}")
+                    try:
+                        out.put({"__dag_error__": err})
+                    except Exception:  # noqa: BLE001
+                        try:
+                            out.put({"__dag_error__": f"{method}: {e!r}"})
+                        except Exception:  # noqa: BLE001
+                            return
+
+        threading.Thread(target=run, daemon=True,
+                         name=f"dag-loop-{method}").start()
+        return {"ok": True}
 
     def _h_dag_stop(self, msg, frames):
         stop = self._dag_loops.pop(msg["loop_id"], None)
@@ -758,26 +835,39 @@ def _matches_retry(e, retry_exceptions) -> bool:
     return False
 
 
-def main():
-    rt = WorkerRuntime()
-    _set_runtime(rt)
-    nodelet = rt.nodelet_address
-    rt.client.call(nodelet, "worker_ready",
-                   {"worker_id": rt.worker_id_bytes, "address": rt.address},
-                   timeout=30, retries=3)
-    pid = os.environ.get("RAY_TPU_NODELET_PID")
-    nodelet_pid = int(pid) if pid else None
-    # Stay alive while the nodelet is there; exit if orphaned: the
-    # nodelet's process is this one's parent until it goes
-    misses = 0
-    beat = 0
+def _exit_when_orphaned(nodelet_pid: int) -> None:
+    """Exit once the nodelet's process is gone: it is this one's parent
+    until then."""
     while True:
         time.sleep(0.5)
-        if nodelet_pid is not None and os.getppid() != nodelet_pid:
+        if os.getppid() != nodelet_pid:
             os._exit(0)
-        beat += 1
-        if beat % 4:
-            continue
+
+
+def main():
+    pid = os.environ.get("RAY_TPU_NODELET_PID")
+    if pid:
+        # watched from the start, not only once registered: a worker
+        # spawned as its nodelet stops must not outlive it by the length
+        # of its start-up
+        threading.Thread(target=_exit_when_orphaned, args=(int(pid),),
+                         daemon=True, name="orphan-check").start()
+    try:
+        rt = WorkerRuntime()
+        _set_runtime(rt)
+        nodelet = rt.nodelet_address
+        rt.client.call(nodelet, "worker_ready",
+                       {"worker_id": rt.worker_id_bytes,
+                        "address": rt.address}, timeout=30, retries=3)
+    except Exception:  # noqa: BLE001
+        # the nodelet or its store is gone: nothing to register with
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    # stay alive while the nodelet answers
+    misses = 0
+    while True:
+        time.sleep(2)
         try:
             rt.client.call(nodelet, "ping", {}, timeout=5)
             misses = 0

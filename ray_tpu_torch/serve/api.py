@@ -27,6 +27,8 @@ import threading
 import weakref
 from typing import Any
 
+from ray_tpu_torch.core.api import no_auto_init
+
 _CONTROLLER_NAME = "__serve_controller"
 _log = logging.getLogger("ray_tpu_torch.serve")
 
@@ -1054,9 +1056,10 @@ class DeploymentHandle:
         if not ray.is_initialized():
             return
         try:
-            ctrl = _controller()
-            r = ray.get(ctrl.get_replicas.remote(self.app_name),
-                        timeout=10)
+            with no_auto_init():  # shutdown() may land meanwhile
+                ctrl = _controller()
+                r = ray.get(ctrl.get_replicas.remote(self.app_name),
+                            timeout=10)
             if r["replicas"] and r["version"] != self._version:
                 with self._lock:
                     self._replicas = r["replicas"]
@@ -1092,9 +1095,10 @@ class DeploymentHandle:
         if not ray.is_initialized():
             return  # shut down meanwhile: nothing left to tell
         try:
-            ctrl = _controller()
-            ray.get(ctrl.report_dead.remote(self.app_name, ident,
-                                            reason), timeout=10)
+            with no_auto_init():  # shutdown() may land meanwhile
+                ctrl = _controller()
+                ray.get(ctrl.report_dead.remote(self.app_name, ident,
+                                                reason), timeout=10)
         except Exception:  # noqa: BLE001
             pass  # the health loop's own probes still converge
         self._refresh_now()
@@ -1210,6 +1214,11 @@ class DeploymentHandle:
         ref, fulfill, reject = rt.deferred()
 
         def drive():
+            # a relay that outlives shutdown() must boot no runtime
+            with no_auto_init():
+                _drive()
+
+        def _drive():
             deadline = None  # armed at the FIRST failure (per-outage)
             attempt = 0
             excluded: set[str] = set()

@@ -50,7 +50,8 @@ def kill_replica(app_name: str, index: int | None = None,
     mid-stream kill provably lands on in-flight work); default is the
     first replica. The kill is a process exit injected over the
     replica's CONTROL concurrency group, so it fires even while every
-    request lane is busy streaming."""
+    request lane is busy streaming. It returns once this process has
+    seen the death (at most 30 s later)."""
     import ray_tpu_torch as ray
     from ray_tpu_torch.core.api import _global_runtime
     from ray_tpu_torch.serve.api import _replica_ident
@@ -69,13 +70,22 @@ def kill_replica(app_name: str, index: int | None = None,
         except Exception:  # noqa: BLE001
             pass  # probe raced a death: the default victim still dies
     ident = _replica_ident(victim)
-    if _global_runtime().context_info().get("local_mode"):
+    rt = _global_runtime()
+    if rt.context_info().get("local_mode"):
         # local mode: replicas are threads in THIS process — os._exit
         # would kill the test itself. ray.kill is the local
         # equivalent of abrupt death (pending calls fail ActorDied).
         ray.kill(victim)
         return ident
-    # fire-and-forget: the process exits before any reply can be sent,
-    # so the returned ref resolves to ActorDiedError — by design
-    victim.chaos_exit.options(concurrency_group="control").remote()
+    # the process exits before any reply can be sent, so the ref
+    # resolves to ActorDiedError once the death is known here: waiting
+    # for it means a call made after this returns cannot still reach
+    # the dying process (JAX's kill fires and forgets). The wait goes to
+    # this runtime, not the module's, so a kill fired from a thread that
+    # outlives shutdown() boots no new runtime.
+    ref = victim.chaos_exit.options(concurrency_group="control").remote()
+    try:
+        rt.get([ref], timeout=30)
+    except Exception:  # noqa: BLE001  # the death, or a slow report of it
+        pass
     return ident

@@ -355,6 +355,10 @@ def test_init_without_local_mode_boots_the_cluster():
 
 
 def test_bind_raises_until_dag_is_ported():
+    """`dag/` is ported: `bind` builds a graph node in local mode too,
+    and raises, as JAX's does, on an argument that is no graph node."""
+    from ray_tpu_torch.dag import ClassMethodNode, InputNode
+
     ray = ray_tpu_torch
     ray.init(local_mode=True)
     try:
@@ -363,8 +367,13 @@ def test_bind_raises_until_dag_is_ported():
             def f(self, x):
                 return x
 
-        with pytest.raises(NotImplementedError, match="dag"):
-            A.remote().f.bind(1)
+        a = A.remote()
+        with InputNode() as inp:
+            node = a.f.bind(inp)
+        assert isinstance(node, ClassMethodNode)
+        assert node.method_name == "f" and node.upstream == [inp]
+        with pytest.raises(TypeError, match="DAG nodes"):
+            a.f.bind(1)
     finally:
         ray.shutdown()
 
@@ -391,3 +400,17 @@ def test_objects_pass_by_reference():
         assert ray.get(same.remote(ref, ref))
     finally:
         ray.shutdown()
+
+
+def test_no_auto_init_refuses_to_boot_a_runtime():
+    """The port's own case: a background path wrapped in `no_auto_init`
+    raises where the module API would boot a new runtime after
+    ``shutdown()``; outside it, the API still boots one on demand."""
+    from ray_tpu_torch.core.api import no_auto_init
+
+    assert not ray_tpu_torch.is_initialized()
+    with no_auto_init():
+        with pytest.raises(RuntimeError, match="shut down"):
+            ray_tpu_torch.put(1)
+    assert not ray_tpu_torch.is_initialized()
+

@@ -3,7 +3,9 @@ imports jax or anything of the JAX package (ray_tpu), optax, flax,
 gymnasium, cloudpickle or zmq (the card's machine has none of them),
 importing the cluster runtime, the trainer and worker group, or the
 Tuner leaves jax, zmq and cloudpickle out of sys.modules, importing
-Serve and its LLM deployment leaves grpc out too, and
+Serve and its LLM deployment leaves grpc out too, importing compiled
+graphs, the host collectives and the channels leaves jax and
+cloudpickle out, and
 importing the port's core API, its serving package or its RL package
 leaves jax, gymnasium and cloudpickle out of sys.modules, and importing
 its data layer and offline RL leaves pyarrow out too (the card's
@@ -58,6 +60,8 @@ def test_port_files_exist():
                                        "paged_attention.cu"))
     assert os.path.exists(os.path.join(ROOT, "ray_tpu_torch", "csrc",
                                        "flash_attention_bwd.cu"))
+    assert os.path.exists(os.path.join(ROOT, "ray_tpu_torch", "csrc",
+                                       "channel.cc"))
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -175,6 +179,22 @@ def test_data_and_offline_rl_import_leaves_pyarrow_unloaded():
             "('pyarrow', 'jax', 'jaxlib', 'ray_tpu', 'gymnasium', 'gym', "
             "'cloudpickle'))\n"
             "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_dag_collective_channel_import_leaves_jax_and_cloudpickle_unloaded():
+    """Compiled graphs, the host collectives and the shared-memory
+    channels import neither jax nor the JAX package nor cloudpickle, and
+    importing them builds no channel library."""
+    code = ("import sys, ray_tpu_torch.dag, ray_tpu_torch.util.collective, "
+            "ray_tpu_torch.experimental.channel as ch\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ray_tpu', 'cloudpickle'))\n"
+            "assert not bad, bad\n"
+            "assert ch._lib is None, ch._lib\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
