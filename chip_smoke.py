@@ -283,9 +283,10 @@ Phases, each of which exits non-zero on any failure:
    uninterrupted; run B the same with rank 0's process exiting at step
    9 on its first try, ``FailureConfig(max_failures=1)``, two
    checkpoints kept, so the gang restarts from the step-8 checkpoint.
-   Fail unless both finish, run B restarted once into a new pid that saw
-   the card, every step of every worker launched K1/K2/K3 exactly
-   24/12/12 in its own process, every loss is finite, run B's losses
+   Fail unless both finish, each kept only its last two checkpoints,
+   run B restarted once into a new pid that saw the card, every step
+   of every worker launched K1/K2/K3 exactly 24/12/12 in its own
+   process, every loss is finite, run B's losses
    (after the restart too) equal run A's bit for bit, and run A's are
    within MESH_RTOL of the mesh phase's stage-0 losses when that phase
    ran. Prints step ms (median, max; CUDA events in the worker) beside
@@ -293,10 +294,13 @@ Phases, each of which exits non-zero on any failure:
    report and where they went (the death seen to the new process, its
    imports and rendezvous, init and the checkpoint's load, the first
    step), checkpoint save and load GB/s and each worker's peak memory.
-   tune_cluster: phase 12's ASHA sweep and restore through the Tuner
-   with each trial a worker process of its own claiming half the card:
-   fail unless two trial processes trained at once, each process
-   launched 24/12/12 a step, every loss is finite and a trial restored
+   tune_cluster: phase 12's ASHA sweep, over its first
+   TUNE_CLUSTER_LRS learning rates (the last queued until a process
+   frees), and its restore through the Tuner with each trial a worker
+   process of its own claiming half the card:
+   fail unless two trial processes trained at once, the third trial
+   started in a process of its own after one of the first two ended,
+   each process launched 24/12/12 a step, every loss is finite and a trial restored
    from its checkpoint in a new process repeats the first run's losses
    bit for bit. Prints step ms with two trial processes at once and one
    alone beside phase 12's two threads and one, and each process's peak
@@ -427,6 +431,36 @@ Phases, each of which exits non-zero on any failure:
    allreduce's seconds and GB/s, ``collective_seconds`` by op, both
    transports' GB/s, the seconds from the kill to the restart and to
    the last result, and the phase's seconds by part.
+20. observe_gpt2: the observability planes (OBSERVE_* below). Parts (a)
+   and (b) run right after the train phase (6), on the driver. (a)
+   Phase 3's 8 requests through an engine at the JAX engine's defaults
+   but for the paged decode, submitted under one ``tracing.span``: fail unless each
+   request's ``llm.request`` span sits under the root's trace with its
+   prefill and decode children, each breakdown sums to its e2e within
+   5 % (the JAX test's bar), the SLO histograms (TTFT and TPOT) hold
+   the 8 requests, K1 launched 12 times for each prompt of at most one
+   prefill chunk and K4 12 times a decode step. (b) Phase 5's state
+   takes OBSERVE_TRAIN_STEPS more steps with the step waterfall on, inside
+   ``tracing.profiler_capture(OBSERVE_DIR, device="cuda")``: fail
+   unless they launch exactly 24/12/12 a step, the waterfall's phases
+   and each step's ``train.step.*`` spans sum to its host time within
+   5 %, and the chrome trace written into OBSERVE_DIR holds one device
+   event a launch of K1, K2 and K3 by their kernel names
+   (OBSERVE_KERNELS). (c) On phase 19's cluster, after its part (c) and with its rank-0 actor
+   (no new card process): a driver span around a call to the actor that
+   prints, logs and submits a task: fail unless all three share the
+   span's trace id, also on the merged timeline; the actor trains
+   GPT-2-small for OBSERVE_LOOP_S (24/12/12 launches a step) while
+   ``state.profile`` samples the cluster for OBSERVE_PROFILE_S: fail
+   unless the stacks of the actor's process name its loop, its
+   ``train_step_seconds`` shows tagged by its node on
+   ``state.cluster_metrics()`` and on the head's ``start_metrics_http``
+   page, ``cluster_logs(trace_id=)`` returns its print and its log
+   record, a threshold rule given to the head's Watchtower when phase
+   19 built it (the median train step landing in its window), quiet
+   until the loop, fires in ``alerts()``, and ``debug_dump`` writes
+   every artifact with no
+   error. Prints one line with the parts' seconds and each check.
 
 Last, every process this run started and that is still there (a
 descendant of this process, or one whose environment names this process
@@ -725,14 +759,18 @@ CLUSTER_WAIT_S = 60.0  # every get and wait of the phase
 # each, two kept, under TRAINER_DIR, removed at the end); run B's rank 0
 # exits its process at step TRAINER_CRASH_AT on its first try and the
 # gang restarts from the step-8 checkpoint. tune_cluster: phase 12's
-# sweep and restore with each trial in a worker process of its own,
-# claiming TUNE_CLUSTER_RES (two trials share the card)
+# sweep over its first TUNE_CLUSTER_LRS learning rates (TUNE_CONCURRENT
+# trial processes at once and one more queued behind them; phase 12
+# sweeps all four in-process) and its restore, each trial in a worker
+# process of its own, claiming TUNE_CLUSTER_RES (two trials share the
+# card)
 TRAINER_STEPS = MESH_WARMUP + MESH_STEPS
 TRAINER_CKPT_EVERY = 4
 TRAINER_CRASH_AT = 9
 TRAINER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "trainer_gpt2")
 TUNE_CLUSTER_RES = {"CPU": 1.0, "GPU": 0.5}
+TUNE_CLUSTER_LRS = TUNE_LRS[:TUNE_CONCURRENT + 1]
 # pipeline_gpt2 (phase 16): two stage processes share the card, each
 # claiming PIPELINE_STAGE_RES; run A (TorchTrainer, flat 1F1B) takes
 # PIPELINE_A_STEPS steps and checkpoints at the last under PIPELINE_DIR
@@ -808,6 +846,31 @@ DAG_SEND_SEED = 191
 DAG_KILL_EXECS = 16
 DAG_WAIT_S = 120.0
 DAG_BUDGET_S = 75.0
+# observe_gpt2 (phase 20): (a) phase 3's engine and requests (but the
+# JAX engine's defaults beside the paged decode) under one span, (b)
+# OBSERVE_TRAIN_STEPS of train's GPT-2-small steps with the step
+# waterfall on inside a torch.profiler capture into OBSERVE_DIR, (c) on
+# phase 19's cluster, rank 0 trains GPT-2-small (train's recipe, batch
+# seed OBSERVE_SEED) for OBSERVE_LOOP_S while an OBSERVE_PROFILE_S
+# cluster profile runs, and the threshold rule OBSERVE_RULE (over a
+# window of OBSERVE_RULE_WINDOW_S), given to phase 19's head (its
+# Watchtower sampling every OBSERVE_WATCH_PERIOD_S), must fire; waits are DAG_WAIT_S, spans, log records and the alert are
+# polled for OBSERVE_POLL_S; the phase's bar is OBSERVE_BUDGET_S
+# (printed beside its seconds, not checked)
+OBSERVE_TRAIN_STEPS = 3
+OBSERVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "observe_gpt2")
+OBSERVE_SEED = 20
+OBSERVE_LOOP_S = 3.0
+OBSERVE_PROFILE_S = 2.0
+OBSERVE_POLL_S = 15.0
+OBSERVE_RULE = "observe-gpt2-trained"
+OBSERVE_RULE_WINDOW_S = 15.0
+OBSERVE_WATCH_PERIOD_S = 1.0
+OBSERVE_BUDGET_S = 40.0
+OBSERVE_KERNELS = {"flash_fwd": "flash_fwd_bf16_kernel",
+                   "flash_dq": "flash_dq_bf16_kernel",
+                   "flash_dkv": "flash_dkv_bf16_kernel"}
 
 
 def fail(msg: str) -> None:
@@ -2157,6 +2220,7 @@ def phase_train(torch, keep: dict | None = None) -> dict:
     emit(profile)
     if keep is not None:
         keep["step_ms"] = row["step_ms"]
+        keep["observe"] = (step, state, batch)  # phase 20 (b)
     return launches
 
 
@@ -5581,6 +5645,13 @@ def _trainer_runs(torch, card: str, mesh_ref: dict) -> tuple[dict, dict]:
                     "fit_s": time.perf_counter() - t0,
                     "checkpoint": result.checkpoint}
     a, b = out["A"]["history"], out["B"]["history"]
+    for run in out:  # num_to_keep=2 pruned the older checkpoints
+        kept = sorted(n for n in os.listdir(os.path.join(TRAINER_DIR,
+                                                         f"run_{run}"))
+                      if n.startswith("checkpoint_"))
+        if len(kept) != 2 or int(kept[-1].split("_")[1]) < 2:
+            fail(f"trainer_gpt2: run {run} kept the checkpoints {kept}, "
+                 f"want the last 2 of at least 3")
     crash_file = os.path.join(TRAINER_DIR, "run_B", "crashed_at")
     if not os.path.exists(crash_file):
         fail("trainer_gpt2: run B's rank 0 never crashed")
@@ -5703,7 +5774,7 @@ def _tune_cluster(torch, card: str, tune_ref: dict) -> tuple[dict, dict]:
 
     t0 = time.perf_counter()
     sweep_grid = trials(
-        "cluster_sweep", TUNE_LRS,
+        "cluster_sweep", TUNE_CLUSTER_LRS,
         list(range(TUNE_CKPT_EVERY, TUNE_MAX_T + 1, TUNE_CKPT_EVERY)),
         max_concurrent_trials=TUNE_CONCURRENT,
         scheduler=tune.ASHAScheduler(max_t=TUNE_MAX_T,
@@ -5750,6 +5821,18 @@ def _tune_cluster(torch, card: str, tune_ref: dict) -> tuple[dict, dict]:
              f"process's: {sorted({r['pid'] for r in two})})")
     if os.getpid() in {r["pid"] for r in rows}:
         fail("tune_cluster: a trial ran in the driver's process")
+    # the trial beyond TUNE_CONCURRENT waited for a slot, then started in
+    # a process of its own
+    spans = {}
+    for r in sweep:
+        lo, hi = spans.get(r["pid"], (r["start"], r["end"]))
+        spans[r["pid"]] = (min(lo, r["start"]), max(hi, r["end"]))
+    order = sorted(spans.values())
+    if len(spans) != len(TUNE_CLUSTER_LRS) or \
+            order[-1][0] < min(hi for _, hi in order[:TUNE_CONCURRENT]):
+        fail(f"tune_cluster: the sweep's trial processes ran over "
+             f"{order}: want {len(TUNE_CLUSTER_LRS)}, the last started "
+             f"after one of the first {TUNE_CONCURRENT} ended")
     L = GPT2Config.small().n_layer
     per_step = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
     by_pid: dict[int, list] = {}
@@ -5784,13 +5867,13 @@ def _tune_cluster(torch, card: str, tune_ref: dict) -> tuple[dict, dict]:
     two_ms = [r["ms"] for r in two if r["step"] > 1]
     alone = [r["ms"] for r in resume[:n_first] if r["step"] > 1]
     row = {"phase": "tune_cluster", "card": card, "model": "gpt2-small",
-           "batch": TRAIN_BATCH, "lrs": TUNE_LRS,
+           "batch": TRAIN_BATCH, "lrs": TUNE_CLUSTER_LRS,
            "trial_resources": TUNE_CLUSTER_RES,
            "concurrent": TUNE_CONCURRENT, "sweep_s": sweep_s,
            "trials": {str(lr): {"steps": max(r["step"] for r in sweep
                                              if r["lr"] == lr),
                                 "asha": status[lr]}
-                      for lr in TUNE_LRS},
+                      for lr in TUNE_CLUSTER_LRS},
            "trial_pids": sorted(by_pid),
            "resume_losses": [r["loss"] for r in again],
            "resume_losses_bitwise_equal": True,
@@ -6258,17 +6341,14 @@ class RuntimeEnvWorker:
                    "launches": launch_counts(counters)}
 
 
-def _runtime_gpt2(torch):
-    """GPT-2-small's params, train state, step and batch from seed 0 on
-    the card: the driver's reference and the actor's run."""
-    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_loss, init_gpt2
+def _gpt2_train_setup(torch, params, cfg, gen):
+    """train's recipe over GPT-2 `params`: adamw, the loss's train step
+    and a TRAIN_BATCH batch drawn from `gen` on the card; the train
+    state, step and batch."""
+    from ray_tpu_torch.models.gpt2 import gpt2_loss
     from ray_tpu_torch.train import TrainState, adamw, make_train_step
 
-    cfg = GPT2Config.small()
     B, T = TRAIN_BATCH
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    params = init_gpt2(gen, cfg)
     toks = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=gen,
                          device="cuda")
     batch = {"tokens": toks[:, :-1].contiguous(),
@@ -6276,6 +6356,17 @@ def _runtime_gpt2(torch):
     tx = adamw(3e-4, weight_decay=0.1)
     step = make_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx)
     return TrainState.create(params, tx), step, batch
+
+
+def _runtime_gpt2(torch):
+    """GPT-2-small's params, train state, step and batch from seed 0 on
+    the card: the driver's reference and the actor's run."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config, init_gpt2
+
+    cfg = GPT2Config.small()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return _gpt2_train_setup(torch, init_gpt2(gen, cfg), cfg, gen)
 
 
 def _k1_inputs(torch, seed: int):
@@ -7241,6 +7332,33 @@ def _trees_equal(torch, a, b) -> tuple[bool, float]:
                       for x, y in zip(la, lb))
 
 
+def _observe_leaf() -> dict:
+    """Phase 20 (c)'s task: the trace context it runs under."""
+    from ray_tpu_torch.util import tracing
+
+    return tracing.current_trace()
+
+
+def _observe_loop(params, cfg, seconds: float) -> dict:
+    """Phase 20 (c)'s loop: train's recipe (`_gpt2_train_setup`) on a
+    copy of `params` and a batch of seed OBSERVE_SEED, steps until
+    `seconds` have passed; the steps and their losses."""
+    import torch
+
+    from ray_tpu_torch.util import tree
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(OBSERVE_SEED)
+    state, step, batch = _gpt2_train_setup(
+        torch, tree.tree_map(torch.clone, params), cfg, gen)
+    losses = []
+    t_end = time.perf_counter() + seconds
+    while not losses or time.perf_counter() < t_end:
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    return {"steps": len(losses), "losses": [float(x) for x in losses]}
+
+
 class DagStage:
     """Phase 19's actor, defined in this script (``__main__``), so the
     cluster pickles it by value: a stage of the compiled pipeline and a
@@ -7270,6 +7388,28 @@ class DagStage:
     def info(self) -> dict:
         return {"pid": os.getpid(), "rank": self.rank, "start": self.start,
                 "checksum": _param_checksum(self.params)}
+
+    def observe_chain(self) -> dict:
+        """Phase 20 (c): under the caller's trace, one print, one
+        logging record and one task; the trace contexts seen here and
+        in the task."""
+        import logging
+
+        import ray_tpu_torch as ray
+        from ray_tpu_torch.util import tracing
+
+        trace = tracing.current_trace()
+        print(f"observe_gpt2 print {trace['trace_id']}", flush=True)
+        logging.getLogger("observe_gpt2").warning(
+            "observe_gpt2 log %s", trace["trace_id"])
+        leaf = ray.get(ray.remote(num_cpus=0.1)(_observe_leaf).remote(),
+                       timeout=DAG_WAIT_S)
+        return {"actor": trace, "leaf": leaf, "pid": os.getpid()}
+
+    def observe_train(self, seconds: float) -> dict:
+        """Phase 20 (c): GPT-2-small train steps in this process for
+        `seconds` (`_observe_loop`)."""
+        return _observe_loop(self.params, self.cfg, seconds)
 
     def stage0(self, tokens):
         return _dag_stage(self.params, self.cfg, tokens, 0)
@@ -7744,24 +7884,379 @@ def _dag_kill(torch, ray, card: str, st: dict, compiled: list,
           "results_equal_to_part_a": True})
 
 
-def phase_dag_gpt2(torch, card: str) -> dict:
+# ------------------------------------------------------------ phase 20
+
+
+def _spans_since(log, n0: int, prefix: str) -> list[dict]:
+    return [e for e in log.chrome_trace()[n0:]
+            if e.get("ph") == "X" and e.get("name", "").startswith(prefix)]
+
+
+def _slo_counts(text: str) -> dict:
+    """The SLO histograms' observation counts on a Prometheus page: TTFT's
+    whole (its ``phase="total"`` series) and TPOT's."""
+    out = {}
+    for line in text.splitlines():
+        name = line.split("{", 1)[0]
+        if name == "serve_slo_tpot_ms_count" or (
+                name == "serve_slo_ttft_ms_count"
+                and 'phase="total"' in line):
+            out[name] = out.get(name, 0.0) + float(line.split()[-1])
+    return out
+
+
+def _observe_serve(torch, card: str) -> dict:
+    """Phase 20 (a): phase 3's GPT-2-small requests through an engine at
+    the JAX engine's defaults but for the paged decode (K4), submitted
+    under one span; returns the launches."""
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.util import tracing
+    from ray_tpu_torch.util.metrics import prometheus_text
+
+    t0 = time.perf_counter()
+    engine = LLMEngine(EngineConfig(model="gpt2", preset="small",
+                                    max_model_len=1024, seed=0,
+                                    use_paged_attention=True))
+    init_s = time.perf_counter() - t0
+    prompts = engine_prompts(engine.model_cfg.vocab_size, 0)
+    _, log = tracing._ctx_and_log()
+    n0 = len(log.chrome_trace())
+    slo0 = _slo_counts(prometheus_text())
+    counters = _reset_counters()
+    with tracing.span("observe_gpt2.serve") as root:
+        run = serve(torch, engine, prompts, MAX_TOKENS)
+    launches = launch_counts(counters)
+    check_drained(engine, "observe_gpt2")
+    L, chunk = engine.model_cfg.n_layer, engine.runner.prefill_chunk_size
+    del engine
+    release(torch)
+    # K1 runs a monolithic prefill (a prompt of at most one chunk), K4
+    # each decode step (the engine's step histogram counts them), once a
+    # layer
+    decodes = run["step_ms"].get("decode", {}).get("n", 0)
+    mono = sum(1 for p in prompts if len(p) <= chunk)
+    want = {"flash_fwd": mono * L, "paged_attention": decodes * L}
+    if decodes <= 0 or {k: launches[k] for k in want} != want:
+        fail(f"observe_gpt2: the traced engine launched {launches}, want "
+             f"{want} ({mono} monolithic prefills, {decodes} decode steps "
+             f"of {L} layers)")
+    worst = 0.0
+    for f in run["finals"]:
+        bd = f["breakdown"]
+        gap = abs(sum(v for k, v in bd.items() if k != "e2e") - bd["e2e"])
+        worst = max(worst, gap / bd["e2e"])
+    if worst > 0.05:
+        fail(f"observe_gpt2: a request's breakdown misses its e2e by "
+             f"{worst:.1%} (the JAX bar is 5 %)")
+    spans = _spans_since(log, n0, "llm.request")
+    reqs = [e for e in spans if e["name"] == "llm.request"
+            and e["args"].get("trace_id") == root["trace_id"]]
+    if len(reqs) != len(prompts):
+        fail(f"observe_gpt2: {len(reqs)} llm.request spans under the "
+             f"root trace, want {len(prompts)}")
+    kids = {}
+    for e in spans:
+        if e["name"].startswith("llm.request."):
+            kids.setdefault(e["args"].get("parent_id"), set()).add(
+                e["name"].split(".", 2)[2])
+    for e in reqs:
+        phases = kids.get(e["args"]["span_id"], set())
+        if not {"prefill", "decode"} <= phases:
+            fail(f"observe_gpt2: a request's phase children are "
+                 f"{sorted(phases)}, want prefill and decode among them")
+    slo = {k: v - slo0.get(k, 0.0)
+           for k, v in _slo_counts(prometheus_text()).items()}
+    if slo != {"serve_slo_ttft_ms_count": len(prompts),
+               "serve_slo_tpot_ms_count": len(prompts)}:
+        fail(f"observe_gpt2: the SLO histograms took {slo} observations "
+             f"of the {len(prompts)} requests")
+    return {"launches": launches, "init_s": init_s,
+            "decode_steps": decodes, "monolithic_prefills": mono,
+            "tokens_per_s": run["tokens_per_s"],
+            "ttft_ms_p50": run["ttft_ms_p50"],
+            "breakdown_worst_gap": worst, "request_spans": len(reqs),
+            "slo_counts": slo}
+
+
+def _observe_train(torch, train: tuple) -> dict:
+    """Phase 20 (b): train's step, state and batch (`train`, left by the
+    train phase), OBSERVE_TRAIN_STEPS more steps with the step waterfall
+    on inside ``tracing.profiler_capture(..., device="cuda")``; returns
+    the launches."""
+    import shutil
+
+    from ray_tpu_torch.train import spmd
+    from ray_tpu_torch.util import tracing
+
+    step, state, batch = train
+    del train
+    shutil.rmtree(OBSERVE_DIR, ignore_errors=True)
+    _, log = tracing._ctx_and_log()
+    n0 = len(log.chrome_trace())
+    counters = _reset_counters()
+    spmd.waterfall.reset()
+    spmd.enable_step_waterfall()
+    host_s = []
+    try:
+        with tracing.profiler_capture(OBSERVE_DIR, device="cuda") as path:
+            t_first = time.perf_counter()
+            for _ in range(OBSERVE_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                state, _ = step(state, batch)
+                host_s.append(time.perf_counter() - t0)
+            wall = time.perf_counter() - t_first
+        export_s = time.perf_counter() - t_first - wall
+    finally:
+        spmd.enable_step_waterfall(False)
+    launches = launch_counts(counters)
+    del state
+    want = {"flash_fwd": 24 * OBSERVE_TRAIN_STEPS,
+            "flash_dq": 12 * OBSERVE_TRAIN_STEPS,
+            "flash_dkv": 12 * OBSERVE_TRAIN_STEPS, "paged_attention": 0}
+    if {k: launches[k] for k in want} != want:
+        fail(f"observe_gpt2: the traced steps launched {launches}, want "
+             f"{want}")
+    summ = spmd.waterfall.summary()
+    if summ["steps"] != OBSERVE_TRAIN_STEPS \
+            or abs(summ["total_seconds"] - wall) > 0.05 * wall:
+        fail(f"observe_gpt2: the waterfall's {summ['steps']} steps hold "
+             f"{summ['total_seconds']} s of the steps' {wall} s")
+    spans = _spans_since(log, n0, "train.step.")
+    per_step = [0.0] * OBSERVE_TRAIN_STEPS
+    i = -1
+    for e in sorted(spans, key=lambda e: e["ts"]):
+        if e["name"] == "train.step.h2d" or i < 0:
+            i += 1
+        if i >= OBSERVE_TRAIN_STEPS:
+            break
+        per_step[i] += e["dur"] / 1e6
+    gaps = [abs(a - b) / b for a, b in zip(per_step, host_s)]
+    if len(spans) < 2 * OBSERVE_TRAIN_STEPS or max(gaps) > 0.05:
+        fail(f"observe_gpt2: the train.step.* spans ({len(spans)}) sum to "
+             f"{per_step} s a step against the steps' {host_s} s")
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    device = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for k, sym in OBSERVE_KERNELS.items():
+            if sym in e.get("name", ""):
+                device[k] = device.get(k, 0) + 1
+    if device != {k: launches[k] for k in OBSERVE_KERNELS}:
+        fail(f"observe_gpt2: the chrome trace {path} holds device events "
+             f"{device}, want one a launch: "
+             f"{ {k: launches[k] for k in OBSERVE_KERNELS} }")
+    return {"launches": launches, "step_host_s": host_s,
+            "step_span_s": per_step, "worst_span_gap": max(gaps),
+            "waterfall": summ["phases"], "trace_file": path,
+            "trace_bytes": os.path.getsize(path), "export_s": export_s,
+            "device_events": device}
+
+
+def phase_observe_gpt2(torch, card: str, train: tuple) -> tuple:
+    """Phase 20 (a) and (b), on the driver, (b) on the train phase's
+    step, state and batch (`train`); part (c) runs on phase 19's cluster
+    (`_observe_cluster`) and prints the phase's line. Returns the
+    launches of (a) and (b) and their results, which (c) takes."""
+    t0 = time.perf_counter()
+    serve_part = _observe_serve(torch, card)
+    t1 = time.perf_counter()
+    train_part = _observe_train(torch, train)
+    del train
+    release(torch)
+    result = {"serve": serve_part, "train": train_part,
+              "serve_s": t1 - t0, "train_s": time.perf_counter() - t1}
+    return _add_launches(dict(serve_part["launches"]),
+                         train_part["launches"]), result
+
+
+def _poll(fn, what: str):
+    deadline = time.monotonic() + OBSERVE_POLL_S
+    while True:
+        got = fn()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            fail(f"observe_gpt2: {what} within {OBSERVE_POLL_S} s")
+        time.sleep(0.25)
+
+
+def _observe_cluster(torch, ray, c, card: str, st: dict,
+                     result: dict) -> dict:
+    """Phase 20 (c), on phase 19's cluster with its rank-0 actor (no new
+    card process): the span chain, the metrics page and its HTTP face,
+    the log plane, the profiler, a Watchtower rule and a debug dump.
+    Prints the phase's line; returns the actor's launches."""
+    import urllib.request
+
+    from ray_tpu_torch.util import state as sapi
+    from ray_tpu_torch.util import tracing
+
+    t0 = time.perf_counter()
+    stage = st["stages"][0]
+    nid = c.nodelets[0].node_id.hex()[:12]
+    checks = {}
+    with tracing.span("observe_gpt2.cluster") as root:
+        chain = ray.get(stage.observe_chain.remote(), timeout=DAG_WAIT_S)
+    tid = root["trace_id"]
+    if chain["actor"]["trace_id"] != tid or chain["leaf"]["trace_id"] != tid:
+        fail(f"observe_gpt2: the actor ran under {chain['actor']} and its "
+             f"task under {chain['leaf']}, the driver's span is {root}")
+
+    def chain_spans():
+        names = {e["name"] for e in ray.timeline() if e.get("ph") == "X"
+                 and e.get("args", {}).get("trace_id") == tid}
+        actor = any(n.endswith(".observe_chain") for n in names)
+        want = {"observe_gpt2.cluster", "_observe_leaf"}
+        return names if actor and want <= names else None
+
+    _poll(chain_spans, "the span chain on the merged timeline")
+    if chain["pid"] == os.getpid():
+        fail("observe_gpt2: the actor ran in the driver's process")
+    checks["span_chain_one_trace"] = True
+
+    quiet = [a for a in sapi.alerts()["alerts"]
+             if a["rule"] == OBSERVE_RULE and a["state"] != "resolved"]
+    ray.get(stage.reset_counters.remote(), timeout=DAG_WAIT_S)
+    loop_ref = stage.observe_train.remote(OBSERVE_LOOP_S)
+    time.sleep(0.5)
+    prof = sapi.profile(duration_s=OBSERVE_PROFILE_S)
+    loop = ray.get(loop_ref, timeout=DAG_WAIT_S)
+    launches = ray.get(stage.launches.remote(), timeout=DAG_WAIT_S)
+    n = loop["steps"]
+    want = {"flash_fwd": 24 * n, "flash_dq": 12 * n, "flash_dkv": 12 * n,
+            "paged_attention": 0}
+    if {k: launches[k] for k in want} != want \
+            or not all(math.isfinite(x) for x in loop["losses"]):
+        fail(f"observe_gpt2: the actor's {n} steps launched {launches} "
+             f"(want {want}), losses {loop['losses']}")
+    looped = [k for k in prof["stacks"] if ":_observe_loop" in k]
+    if prof["errors"] or not looped \
+            or not all(k.startswith(f"node:{nid};proc:") for k in looped):
+        fail(f"observe_gpt2: the profile ({prof['samples']} samples, "
+             f"errors {prof['errors']}) names the actor's loop in "
+             f"{len(looped)} stacks")
+    checks["profile_names_the_loop"] = True
+
+    def step_series(text):
+        return [ln for ln in text.splitlines()
+                if ln.startswith("train_step_seconds_count{")
+                and f'node="{nid}"' in ln and float(ln.split()[-1]) >= n]
+
+    series = step_series(sapi.cluster_metrics())
+    if not series:
+        fail(f"observe_gpt2: no train_step_seconds of node {nid} with "
+             f">= {n} steps on the cluster metrics page")
+    checks["cluster_metrics_by_node"] = True
+    port = c.head.start_metrics_http(0)
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as r:
+        if not step_series(r.read().decode()):
+            fail("observe_gpt2: the /metrics page over HTTP lacks the "
+                 "actor's train_step_seconds")
+    checks["metrics_http"] = True
+
+    def traced_logs():
+        recs = sapi.cluster_logs(trace_id=tid)["records"]
+        got = {r.get("source"): r.get("msg", "") for r in recs}
+        return got if {"stdout", "log"} <= set(got) else None
+
+    logs = _poll(traced_logs, "the actor's print and log by trace id")
+    if logs["stdout"] != f"observe_gpt2 print {tid}" \
+            or logs["log"] != f"observe_gpt2 log {tid}":
+        fail(f"observe_gpt2: the log plane returned {logs}")
+    checks["logs_by_trace_id"] = True
+
+    def fired():
+        return [a for a in sapi.alerts()["alerts"]
+                if a["rule"] == OBSERVE_RULE and a["state"] == "firing"]
+
+    if quiet:
+        fail(f"observe_gpt2: the rule {OBSERVE_RULE} fired before the "
+             f"actor trained: {quiet}")
+    firing = _poll(fired, f"the rule {OBSERVE_RULE} firing")
+    checks["threshold_rule_fires"] = True
+
+    out_dir = sapi.debug_dump(out_dir=os.path.join(OBSERVE_DIR, "dump"),
+                              deadline_s=30)
+    with open(os.path.join(out_dir, "summary.json")) as f:
+        summary = json.load(f)
+    every = {"nodes", "actors", "tasks", "task_ledger", "placement_groups",
+             "objects", "memory", "metrics", "alerts", "timeline",
+             "cluster_logs", "profile", "serve_status"}
+    if summary["errors"] or not every <= set(summary["artifacts"]):
+        fail(f"observe_gpt2: the debug dump wrote "
+             f"{sorted(summary['artifacts'])} with errors "
+             f"{summary['errors']}")
+    checks["debug_dump_every_artifact"] = True
+    cluster_s = time.perf_counter() - t0
+
+    checks.update(serve_spans_breakdown_slo_k1_k4=True,
+                  train_spans_waterfall_trace_k1_k3=True)
+    seconds = {"serve": result["serve_s"], "train": result["train_s"],
+               "cluster": cluster_s}
+    emit({"phase": "observe_gpt2", "card": card, "part_s": seconds,
+          "phase_s": sum(seconds.values()),
+          "budget_s": OBSERVE_BUDGET_S, "checks": checks,
+          "serve": {k: v for k, v in result["serve"].items()
+                    if k != "launches"},
+          "train": {k: v for k, v in result["train"].items()
+                    if k != "launches"},
+          "cluster": {"actor_steps": n, "actor_launches": launches,
+                      "profile_samples": prof["samples"],
+                      "loop_stacks": len(looped),
+                      "rule_p50_step_s": firing[0]["value"],
+                      "metrics_series": series,
+                      "dump_artifacts": summary["artifacts"]}})
+    return launches
+
+
+def _dag_cluster(torch):
+    """Phase 19's cluster: one node with the card and DAG_STORE_BYTES of
+    store. Its head's Watchtower carries phase 20 (c)'s threshold rule
+    OBSERVE_RULE: the median train step observed on the cluster page
+    over the last OBSERVE_RULE_WINDOW_S, which exists only while train
+    steps land (the driver's own steps, on the head's page, ended before
+    the cluster started; only phase 20's loop trains on it)."""
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.head import Head
+    from ray_tpu_torch.util.watchtower import WatchRule, default_rules
+
+    rule = WatchRule(OBSERVE_RULE, metric="train_step_seconds",
+                     stat="p50", op=">", threshold=0.0,
+                     window_s=OBSERVE_RULE_WINDOW_S, severity="info",
+                     description="phase 20: train steps landed on the "
+                                 "cluster page")
+    c = Cluster(initialize_head=False)
+    c.head = Head(session_name=os.path.basename(c.session_dir),
+                  watchtower_period_s=OBSERVE_WATCH_PERIOD_S,
+                  watchtower_rules=default_rules() + [rule]).start()
+    c.add_node(num_cpus=os.cpu_count() or 8,
+               num_gpus=torch.cuda.device_count(),
+               store_capacity=DAG_STORE_BYTES)
+    return c
+
+
+def phase_dag_gpt2(torch, card: str, observe: dict | None = None) -> dict:
     """Phase 19: collectives, channels and compiled graphs on the cluster
     runtime with two GPT-2-small actors on the card (see the docstring);
-    returns the launches of the path dag_gpt2."""
+    returns the launches of the path dag_gpt2 under its name. With
+    `observe` (phase 20's (a) and (b) results) phase 20's part (c) runs
+    on this cluster before its shutdown, and its launches come back
+    under ``observe_gpt2``."""
     import ray_tpu_torch as ray
-    from ray_tpu_torch.cluster_utils import Cluster
     from ray_tpu_torch.core import object_store
 
     t_phase = time.perf_counter()
     release(torch)
-    c = Cluster(initialize_head=True, head_node_args={
-        "num_cpus": os.cpu_count() or 8,
-        "num_gpus": torch.cuda.device_count(),
-        "store_capacity": DAG_STORE_BYTES})
+    c = _dag_cluster(torch)
     stores = [c.nodelets[0].store.name]
     seen_pids: set = set()
     slots: list = []
     parts: dict = {}
+    paths: dict = {}
     t_part = [time.perf_counter()]
 
     def part(name: str) -> None:
@@ -7782,6 +8277,10 @@ def phase_dag_gpt2(torch, card: str) -> dict:
         part("data_parallel")
         _dag_kill(torch, ray, card, st, pipe["compiled"], slots)
         part("kill")
+        if observe is not None:
+            paths["observe_gpt2"] = _observe_cluster(torch, ray, c, card, st,
+                                                     observe)
+            part("observe_gpt2")
         seen_pids.update(_node_workers(ray, c.nodelets))
         for s in st["stages"]:
             ray.kill(s)
@@ -7812,7 +8311,7 @@ def phase_dag_gpt2(torch, card: str) -> dict:
           "worker_pids_checked": len(seen_pids), "phase_s": phase_s,
           "parts_s": parts, "budget_s": DAG_BUDGET_S,
           "within_budget": phase_s <= DAG_BUDGET_S})
-    return launches
+    return {"dag_gpt2": launches, **paths}
 
 
 def _paths(t, path=""):
@@ -7982,6 +8481,9 @@ def main() -> int:
     train_keep: dict = {}
     paths["train"] = phase_train(torch, train_keep)
     lap("train")
+    paths["observe_gpt2"], observe = phase_observe_gpt2(
+        torch, card, train_keep.pop("observe"))
+    lap("observe_gpt2")
     release(torch)
     paths["train_llama"] = phase_train_llama(torch)
     lap("train_llama")
@@ -8033,8 +8535,11 @@ def main() -> int:
     lap("runtime_gpu")
     paths["serve_gpt2"] = phase_serve_gpt2(torch, card, serve_ref)
     lap("serve_gpt2")
-    paths["dag_gpt2"] = phase_dag_gpt2(torch, card)
+    dag = phase_dag_gpt2(torch, card, observe)
     lap("dag_gpt2")
+    paths["dag_gpt2"] = dag["dag_gpt2"]
+    paths["observe_gpt2"] = _add_launches(paths["observe_gpt2"],
+                                          dag["observe_gpt2"])
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),

@@ -20,10 +20,10 @@ The port's copy of ``ray_tpu/core/cluster_runtime.py``. Functions and
 actor classes travel pickled by value (serialization.dumps_fn) in place
 of cloudpickle; a booted node asserts the GPUs this process may use
 (``init(num_gpus=)`` overrides the count) where the JAX package detects
-TPU chips. Not ported yet, and raising NotImplementedError when asked
-for: the log plane's mirror of worker prints to the driver
-(RAY_TPU_LOG_TO_DRIVER), this process's metrics page (metrics_text) and
-the profiler (profile_capture).
+TPU chips. Each process serves its own metrics page (metrics_text) and
+stack profile (profile_capture) to its nodelet's fan-out, and a driver
+receives its workers' mirrored prints when RAY_TPU_LOG_TO_DRIVER is
+set.
 """
 
 from __future__ import annotations
@@ -368,6 +368,8 @@ class ClusterRuntime:
         self.server.register("borrow_release", self._h_borrow_release,
                              oneway=True)
         self.server.register("pubsub", self._h_pubsub, oneway=True)
+        self.server.register("driver_log", self._h_driver_log,
+                             oneway=True)
         # slow lane: spilling writes whole objects to the disk tier
         self.server.register("spill_request", self._h_spill_request,
                              slow=True)
@@ -384,16 +386,12 @@ class ClusterRuntime:
         # cpu_stats RPC (bounded: overflow folds into "_other")
         self._cpu_by_label: dict[tuple, list] = {}  # guarded_by(_cpu_lock)
         self._cpu_lock = threading.Lock()
+        # worker prints mirrored here by the log plane when
+        # RAY_TPU_LOG_TO_DRIVER is armed (bounded; appends are atomic)
+        self._mirrored_logs: _deque = _deque(maxlen=500)
         self.address = self.server.address
 
         if mode == "driver":
-            from ray_tpu_torch.core import config as cfg
-
-            if cfg.get("LOG_TO_DRIVER"):
-                raise NotImplementedError(
-                    "RAY_TPU_LOG_TO_DRIVER: the structured log plane is not "
-                    "ported to ray_tpu_torch yet; a worker's prints are in "
-                    "its log file under the session's logs/")
             self._boot_or_connect(address, num_cpus, num_gpus, resources or {},
                                   labels or {}, store_capacity)
             atexit.register(self.shutdown)
@@ -1040,15 +1038,83 @@ class ClusterRuntime:
 
     # -- owner-side handlers --------------------------------------------------
 
+    def _h_driver_log(self, msg, frames):
+        """Worker print mirrored to this (owning) process — the
+        RAY_TPU_LOG_TO_DRIVER ergonomic: the raw line lands on the
+        driver console with a `(task pid=…, node=…)` prefix, exactly
+        the reference's worker-print forwarding. Also retained in the
+        bounded `_mirrored_logs` ring so tests and tooling can read
+        what was mirrored without scraping a console."""
+        entry = {k: msg.get(k) for k in
+                 ("line", "source", "task", "task_id", "node", "pid")}
+        self._mirrored_logs.append(entry)
+        prefix = (f"({entry.get('task') or '?'} "
+                  f"pid={entry.get('pid') or '?'}, "
+                  f"node={entry.get('node') or '?'})")
+        try:
+            import sys as _sys
+
+            stream = (_sys.stderr if entry.get("source") == "stderr"
+                      else _sys.stdout)
+            # the mirror's whole purpose is the driver console — the
+            # one sanctioned raw print outside CLI entry points
+            # graftlint: disable=bare-print
+            print(f"{prefix} {entry.get('line', '')}", file=stream,
+                  flush=True)
+        except Exception:  # noqa: BLE001
+            pass  # console gone (piped/closed): the ring still has it
+
+    def _mirror_stream_line(self, line: str, source: str) -> None:
+        """Capture hook (worker side): forward one captured print line
+        to the executing task's owner. Armed only when
+        RAY_TPU_LOG_TO_DRIVER is set — unarmed workers never install
+        this, so the print hot path pays nothing. Best-effort oneway:
+        a dead owner loses mirrored lines, never the task."""
+        ctx = self._ctx
+        owner = getattr(ctx, "task_owner", None)
+        if not owner:
+            return
+        try:
+            self.client.send_oneway(owner, "driver_log", {
+                "line": line, "source": source,
+                "task": getattr(ctx, "task_name", None),
+                "task_id": ctx.task_id.hex() if ctx.task_id else None,
+                "node": self.node_id.hex()[:12]
+                if getattr(self, "node_id", None) else None,
+                "pid": os.getpid(),
+            })
+        except Exception:  # noqa: BLE001
+            pass
+
     def _h_metrics_text(self, msg, frames):
-        raise NotImplementedError(
-            "the metrics plane (metrics_text) is not ported to "
-            "ray_tpu_torch yet")
+        """This process's Prometheus page — the scrape surface the
+        nodelet's node_metrics fans out to for every worker. The
+        stranded-ref gauge is refreshed AT scrape (same discipline as
+        the nodelet's store-occupancy gauges): the auditor scan is one
+        pass over _owned, paid only when somebody actually looks."""
+        from ray_tpu_torch.util.metrics import Gauge, prometheus_text
+
+        try:
+            stranded = self.audit_stranded()
+            Gauge("object_store_stranded_bytes",
+                  "Bytes held by owned refs past the stranded-age "
+                  "threshold with no consumer progress"
+                  ).set(sum(o["size"] for o in stranded))
+        except Exception:  # noqa: BLE001
+            pass
+        return {"text": prometheus_text()}
 
     def _h_profile_capture(self, msg, frames):
-        raise NotImplementedError(
-            "the profiler (profile_capture) is not ported to "
-            "ray_tpu_torch yet")
+        """Arm this process's stack sampler for the requested window
+        and return collapsed stacks — the leaf of the head→nodelet→
+        worker capture fan-out (the handler thread sleeping the window
+        is the capture; slow lane, so token streams and control calls
+        never queue behind it)."""
+        from ray_tpu_torch.util import profiler
+
+        return profiler.capture_collapsed(
+            msg.get("duration_s", 5.0), hz=msg.get("hz"),
+            max_unique_stacks=msg.get("max_stacks"))
 
     def _cpu_account(self, label: str, kind: str, cpu_s: float) -> None:
         """Attribute one execution's thread CPU time: the

@@ -10,12 +10,11 @@ lifecycle, the function/KV store, and placement groups.
 Runs either embedded in the driver process tree (ray_tpu_torch.init()
 local boot) or standalone via `python -m ray_tpu_torch.core.head`.
 
-The port's copy of ``ray_tpu/core/head.py`` without the observability
-planes that are not ported yet: the head starts no Watchtower, and a
-query of the metrics plane (cluster_metrics, metrics_history, alerts,
-the /metrics HTTP page), the structured log plane (cluster_logs) or the
-profiler (profile_capture) raises NotImplementedError naming the plane.
-The timeline (task events and spans) and the task ledger are ported.
+The port's copy of ``ray_tpu/core/head.py``, with its observability
+planes: the Watchtower starts and stops with the head, and the head
+answers the metrics plane (cluster_metrics, metrics_history, alerts,
+the /metrics HTTP page), the structured log plane (cluster_logs), the
+profiler (profile_capture), the timeline and the task ledger.
 """
 
 from __future__ import annotations
@@ -58,7 +57,11 @@ class Head:
                  span_capacity: int = 50_000,
                  span_spill_dir: str | None = None,
                  span_spill_max_bytes: int = 64 << 20,
-                 span_rate_limit: float | None = None):
+                 span_rate_limit: float | None = None,
+                 watchtower_period_s: float | None = None,
+                 watchtower_rules: list | None = None,
+                 watchtower_autodump: str | bool | None = None,
+                 watchtower_autodump_cooldown_s: float | None = None):
         from ray_tpu_torch.core.head_storage import InMemoryHeadStore
 
         self.server = RpcServer(name="head", num_threads=32)
@@ -187,6 +190,21 @@ class Head:
         s.register("cluster_logs", self._h_cluster_logs, slow=True)
         s.register("alerts", self._h_alerts)
         s.register("ping", lambda m, f: "pong")
+        # watchtower: the always-on consumer of the scrape fan-out —
+        # metric history, SLO rules, alerts, alert-triggered dumps. Its
+        # sampling loop is the head's own thread (period_s apart), so
+        # history/alerting never touches a request hot path.
+        from ray_tpu_torch.util.watchtower import Watchtower
+
+        self.watchtower = Watchtower(
+            scrape=self._cluster_metrics_text,
+            period_s=watchtower_period_s,
+            rules=watchtower_rules,
+            autodump=watchtower_autodump,
+            autodump_cooldown_s=watchtower_autodump_cooldown_s,
+            address_fn=lambda: self.address,
+            span_sink=self._ingest_spans,
+            log_context_fn=self._watchtower_log_context)
         self._monitor = threading.Thread(target=self._monitor_loop, daemon=True,
                                          name="head-monitor")
         self._pg_retry = threading.Thread(target=self._pg_retry_loop,
@@ -233,6 +251,7 @@ class Head:
         self._monitor.start()
         self._pg_retry.start()
         self._persister.start()
+        self.watchtower.start()
         return self
 
     def _enqueue_persist(self, op: str, table: str, key, value=None):
@@ -266,6 +285,7 @@ class Head:
                     break
             time.sleep(0.02)
         self._stopped.set()
+        self.watchtower.stop()
         self.server.stop()
 
     # ------------------------------------------------------------ nodes
@@ -790,33 +810,185 @@ class Head:
             spans = spilled + list(self._span_events)
         return {"spans": spans[-limit:]}
 
-    # ------------------------------------------------------------ planes
-    # The metrics plane (Prometheus pages, the Watchtower's history and
-    # alerts), the structured log plane and the profiler are not ported:
-    # their queries raise rather than answer empty.
+    # ------------------------------------------------------------ metrics
+
+    def _cluster_metrics_text(self) -> str:
+        """One Prometheus page for the whole cluster: scrape every alive
+        nodelet's node_metrics (which itself fans out to its workers)
+        and inject the node id as a label (reference: the dashboard's
+        cluster-level metrics aggregation over per-node agents)."""
+        from ray_tpu_torch.util import metrics as _metrics
+
+        with self._lock:
+            targets = [(n.node_id.hex()[:12], n.address)
+                       for n in self._nodes.values() if n.alive]
+        pages = [({"node": "head"}, _metrics.prometheus_text())]
+        pages += _metrics.scrape_pages(self.client, targets,
+                                       "node_metrics", 10.0, "node")
+        return _metrics.merge_prometheus(pages)
 
     def _h_cluster_metrics(self, msg, frames):
-        raise NotImplementedError(_unported("the metrics plane "
-                                            "(cluster_metrics)"))
+        return {"text": self._cluster_metrics_text()}
 
     def _h_metrics_history(self, msg, frames):
-        raise NotImplementedError(_unported("the Watchtower "
-                                            "(metrics_history)"))
+        """The watchtower's retained time series (bounded ring buffers
+        over the periodic cluster scrape). Read-only over state the
+        sampling thread already gathered — this handler must NEVER call
+        back into its own server's handler pool (the GL013 self-deadlock
+        shape; the fan-out happened on the watchtower thread)."""
+        return self.watchtower.history_dict(
+            msg.get("names"), msg.get("window_s"))
 
     def _h_alerts(self, msg, frames):
-        raise NotImplementedError(_unported("the Watchtower (alerts)"))
+        """Active alerts + bounded transition history + the rule pack.
+        Same read-only discipline as metrics_history."""
+        return self.watchtower.alerts_dict(
+            include_history=msg.get("history", True))
+
+    def _gather_cluster_logs(self, query: dict, timeout_s: float) -> dict:
+        """One structured-log sweep: fan `log_query` out to every alive
+        nodelet via call_gather (ONE shared deadline — a stopped node
+        costs at most `timeout_s` and lands in `errors`, never fails
+        the gather), merge the pages ts-sorted, thread per-node follow
+        offsets through. Shared by the `cluster_logs` RPC handler and
+        the watchtower's alert-context fetch (which runs on the
+        watchtower thread — never back into this server's own pool,
+        the GL013 shape)."""
+        node_filter = query.get("node")
+        with self._lock:
+            targets = [(n.node_id.hex()[:12], n.address)
+                       for n in self._nodes.values() if n.alive]
+        if node_filter:
+            targets = [(nid, a) for nid, a in targets
+                       if nid.startswith(node_filter)]
+        offsets = query.get("offsets") or {}
+        limit = max(1, min(int(query.get("limit") or 1000), 5000))
+        calls = []
+        for nid, addr in targets:
+            q = {k: query.get(k) for k in
+                 ("level", "grep", "since", "until", "trace_id",
+                  "task", "proc")}
+            # the DEFAULTED limit, not the caller's raw value — a query
+            # omitting "limit" must not ship limit=None to the nodelets
+            q["limit"] = limit
+            q["offsets"] = offsets.get(nid)
+            calls.append((addr, "log_query", q))
+        results = self.client.call_gather(calls, timeout=timeout_s)
+        records: list[dict] = []
+        errors: dict[str, str] = {}
+        out_offsets: dict[str, dict] = {}
+        truncated = False
+        for (nid, _), r in zip(targets, results):
+            if r is None:
+                errors[nid] = ("log query failed, timed out, or node "
+                               "unreachable")
+                continue
+            for rec in r.get("records", ()):
+                rec.setdefault("node", nid)
+                records.append(rec)
+            out_offsets[nid] = r.get("offsets", {})
+            truncated = truncated or bool(r.get("truncated"))
+        records.sort(key=lambda r: r.get("ts", 0.0))
+        if len(records) > limit:
+            truncated = True
+            records = records[-limit:]
+        return {"records": records, "errors": errors,
+                "offsets": out_offsets, "truncated": truncated}
 
     def _h_cluster_logs(self, msg, frames):
-        raise NotImplementedError(_unported("the structured log plane "
-                                            "(cluster_logs)"))
+        from ray_tpu_torch.utils.logging import LEVELS
+
+        level = msg.get("level")
+        if level and str(level).lower() not in LEVELS:
+            # level_no() ranks unknown names as info — fine for a
+            # record, silently WIDENING as a filter; a raw-RPC caller's
+            # typo must error like the CLI/state paths do
+            raise ValueError(f"unknown level {level!r}")
+        grep = msg.get("grep")
+        if grep:
+            # same discipline: a bad regex raised inside every
+            # nodelet's log_query is indistinguishable from N dead
+            # nodes
+            import re as _re
+
+            try:
+                _re.compile(grep)
+            except _re.error as e:
+                raise ValueError(
+                    f"invalid grep regex {grep!r}: {e}") from e
+        timeout_s = max(1.0, min(float(msg.get("timeout") or 10.0),
+                                 60.0))
+        return self._gather_cluster_logs(msg, timeout_s)
+
+    def _watchtower_log_context(self, n: int = 20) -> list[dict]:
+        """Last N error-level lines cluster-wide — attached to firing
+        alerts as bounded context (runs on the watchtower thread with a
+        short budget; an unreachable node just thins the context)."""
+        r = self._gather_cluster_logs(
+            {"level": "error", "limit": n,
+             "since": time.time() - 600.0}, timeout_s=3.0)
+        return r["records"][-n:]
 
     def _h_profile_capture(self, msg, frames):
-        raise NotImplementedError(_unported("the profiler "
-                                            "(profile_capture)"))
+        """Cluster-wide capture: fan `profile_capture` out to every
+        alive nodelet (which fans out to its workers) under ONE shared
+        deadline while sampling the head's own process, and merge the
+        node-tagged collapsed pages. The same fan-out shape as the
+        metrics scrape — a dead node costs its timeout and a named
+        entry in `errors`, never the capture."""
+        from ray_tpu_torch.util import profiler
+
+        duration = max(0.05, min(float(msg.get("duration_s", 5.0)),
+                                 profiler.MAX_CAPTURE_S))
+        hz = msg.get("hz")
+        with self._lock:
+            targets = [(n.node_id.hex()[:12], n.address)
+                       for n in self._nodes.values() if n.alive]
+        own = profiler.StackSampler(hz=hz).start()
+        # a timer bounds the SELF-sample to exactly the capture window:
+        # a hung nodelet parks call_gather for its full timeout, and an
+        # unbounded own-sampler would then weigh the head ~(timeout/
+        # duration)x heavier than every node page in the merged counts
+        stopper = threading.Timer(duration, own.stop)
+        stopper.daemon = True
+        stopper.start()
+        t0 = time.monotonic()
+        try:
+            results = self.client.call_gather(
+                [(a, "profile_capture", {"duration_s": duration, "hz": hz})
+                 for _, a in targets],
+                timeout=duration + 15.0)
+            rem = duration - (time.monotonic() - t0)
+            if rem > 0:
+                # stop-aware wait: shutdown ends the window early
+                self._stopped.wait(rem)
+        finally:
+            stopper.cancel()
+            own.stop()
+        profiler._note_capture(own)
+        pages = [profiler.prefix_stacks(own.collapsed(),
+                                        "node:head;proc:head")]
+        samples, dropped, procs = own.samples, own.stacks_dropped, 1
+        errors: dict[str, str] = {}
+        for (nid, _), r in zip(targets, results):
+            if r is None:
+                errors[nid] = "capture timed out or node unreachable"
+                continue
+            pages.append(profiler.prefix_stacks(r["stacks"], f"node:{nid}"))
+            samples += r["samples"]
+            dropped += r["dropped"]
+            procs += r["procs"]
+        return {"stacks": profiler.merge_collapsed(pages),
+                "samples": samples, "dropped": dropped, "procs": procs,
+                "errors": errors, "hz": own.hz, "duration_s": duration}
 
     def start_metrics_http(self, port: int = 0) -> int:
-        raise NotImplementedError(_unported("the metrics plane "
-                                            "(/metrics over HTTP)"))
+        """Serve the cluster-wide /metrics page over HTTP from the head
+        (reference: the dashboard metrics endpoint). Returns the bound
+        port."""
+        from ray_tpu_torch.util.metrics import serve_metrics_http
+
+        return serve_metrics_http(port, text_fn=self._cluster_metrics_text)
 
     def _h_list_actors(self, msg, frames):
         """State API source (reference: `ray list actors`,
@@ -939,10 +1111,6 @@ class Head:
     def _h_remove_pg(self, msg, frames):
         from ray_tpu_torch.core.placement import remove_pg
         return remove_pg(self, self._pgs, msg["pg_id"])
-
-
-def _unported(plane: str) -> str:
-    return f"{plane} is not ported to ray_tpu_torch yet"
 
 
 def dataclass_dict(dc) -> dict:

@@ -19,10 +19,9 @@ The port's copy of ``ray_tpu/core/nodelet.py``. Workers run
 ``python -m ray_tpu_torch.core.worker_main`` and see the card exactly
 when they claim ``GPU`` (the accelerator registry's handoff), in a
 runtime environment as well; a worker exits when its nodelet's process
-goes. Not ported yet, and raising NotImplementedError when asked for:
-the structured log plane's query (log_query; a worker's prints go to
-its log file, ``logs/worker-<id>.log``), the node's metrics page
-(node_metrics) and the profiler (profile_capture).
+goes. The node serves the observability planes: the structured log
+plane's query (log_query), the node's metrics page (node_metrics) and
+the profiler (profile_capture), each over this node's workers.
 """
 
 from __future__ import annotations
@@ -430,10 +429,28 @@ class Nodelet:
             return {"ok": False, "error": str(e)}
 
     def _h_log_query(self, msg, frames):
-        raise NotImplementedError(
-            "the structured log plane (log_query) is not ported to "
-            "ray_tpu_torch yet; a worker's prints are in its log file "
-            "(list_logs / tail_log)")
+        """Filtered query over this node's STRUCTURED logs (the JSONL
+        files every process on this node writes via
+        utils/logging.py): tail/grep/level/time-window/trace-id/task-id
+        filters, bounded reply, per-file byte offsets for incremental
+        follow. Records are filtered to THIS node's origin by default,
+        so in-process test clusters sharing one log dir never
+        double-report a record through two nodelets."""
+        from ray_tpu_torch.utils import logging as slog
+
+        return slog.query_log_dir(
+            self.log_dir,
+            level=msg.get("level"),
+            grep=msg.get("grep"),
+            since=msg.get("since"),
+            until=msg.get("until"),
+            trace_id=msg.get("trace_id"),
+            task=msg.get("task"),
+            proc=msg.get("proc"),
+            limit=msg.get("limit") or 1000,
+            offsets=msg.get("offsets"),
+            node=None if msg.get("any_node")
+            else self.node_id.hex()[:12])
 
     def _h_lease_demand(self, msg, frames):
         owner = msg.get("owner")
@@ -1826,14 +1843,86 @@ class Nodelet:
                     "oom_kills": self._oom_kills}
 
     def _h_node_metrics(self, msg, frames):
-        raise NotImplementedError(
-            "the metrics plane (node_metrics) is not ported to "
-            "ray_tpu_torch yet")
+        """This node's metrics page: the nodelet's PRIVATE registry
+        (store/transfer metrics — never aliased with other in-process
+        nodelets) plus every ready worker's page (scraped over the
+        metrics_text RPC), each worker tagged with its proc id so
+        same-named series from different processes stay distinct. The
+        head merges these pages cluster-wide with a node tag
+        (reference: per-node metrics agents feeding the dashboard's
+        Prometheus surface). Worker processes are real OS processes
+        even in in-process test clusters, so their attribution is
+        always exact."""
+        from ray_tpu_torch.util import metrics as _metrics
+
+        try:
+            st = self.store.stats()
+            self._m_store_allocated.set(st.get("bytes_allocated", 0))
+            self._m_store_objects.set(st.get("num_objects", 0))
+            self._m_store_evictions.set(st.get("evictions", 0))
+        except Exception:  # noqa: BLE001
+            pass
+        with self._lock:
+            targets = [(w.worker_id.hex()[:12], w.address)
+                       for w in self._workers.values()
+                       if w.address and w.ready.is_set()]
+        pages = [({"proc": "nodelet"},
+                  _metrics.prometheus_text(self._metrics_registry))]
+        pages += _metrics.scrape_pages(self.client, targets,
+                                       "metrics_text", 5.0, "proc")
+        return {"text": _metrics.merge_prometheus(pages)}
 
     def _h_profile_capture(self, msg, frames):
-        raise NotImplementedError(
-            "the profiler (profile_capture) is not ported to "
-            "ray_tpu_torch yet")
+        """One node's slice of a cluster profile: fan the capture out to
+        every ready worker via call_gather (ONE shared deadline — a hung
+        worker costs the fan-out its timeout, not timeout-per-worker)
+        while a sampler covers this nodelet's own process for the same
+        window; merge proc-tagged collapsed pages. The head stamps the
+        node tag when it merges node pages."""
+        from ray_tpu_torch.util import profiler
+
+        duration = max(0.05, min(float(msg.get("duration_s", 5.0)),
+                                 profiler.MAX_CAPTURE_S))
+        hz = msg.get("hz")
+        with self._lock:
+            targets = [(w.worker_id.hex()[:12], w.address)
+                       for w in self._workers.values()
+                       if w.address and w.ready.is_set()]
+        own = profiler.StackSampler(hz=hz).start()
+        # timer-bounded self-sample: a hung worker parks call_gather
+        # for its full timeout, which must not weigh this nodelet's
+        # page heavier than its workers' in the merged counts
+        stopper = threading.Timer(duration, own.stop)
+        stopper.daemon = True
+        stopper.start()
+        t0 = time.monotonic()
+        try:
+            results = self.client.call_gather(
+                [(a, "profile_capture", {"duration_s": duration, "hz": hz})
+                 for _, a in targets],
+                timeout=duration + 10.0)
+            # hold the local window open for its full length even when
+            # the worker fan-out returns early (e.g. zero workers);
+            # stop-aware so shutdown ends the window early
+            rem = duration - (time.monotonic() - t0)
+            if rem > 0:
+                self._stopped.wait(rem)
+        finally:
+            stopper.cancel()
+            own.stop()
+        profiler._note_capture(own)
+        pages = [profiler.prefix_stacks(own.collapsed(), "proc:nodelet")]
+        samples, dropped, procs = own.samples, own.stacks_dropped, 1
+        for (wid, _), r in zip(targets, results):
+            if r is None:
+                continue  # dead/slow worker: the rest of the page stands
+            pages.append(profiler.prefix_stacks(r["stacks"], f"proc:{wid}"))
+            samples += r["samples"]
+            dropped += r["dropped"]
+            procs += 1
+        return {"stacks": profiler.merge_collapsed(pages),
+                "samples": samples, "dropped": dropped, "procs": procs,
+                "hz": own.hz}
 
     def _h_node_cpu_stats(self, msg, frames):
         """Aggregate every ready worker's per-task CPU attribution
@@ -1906,6 +1995,14 @@ def main():
     nl = Nodelet(args.head_address, json.loads(args.resources),
                  labels=json.loads(args.labels), session_dir=args.session_dir,
                  store_capacity=args.store_capacity).start()
+    # structured logging for the nodelet's own process (workers install
+    # their own in worker_main; in-process test nodelets deliberately
+    # leave the host process's logging untouched)
+    from ray_tpu_torch.utils import logging as slog
+
+    slog.install_process_logging(role="nodelet", log_dir=nl.log_dir,
+                                 node_id=nl.node_id.hex()[:12],
+                                 proc="nodelet")
     if args.address_file:
         tmp = args.address_file + ".tmp"
         with open(tmp, "w") as f:

@@ -9,10 +9,12 @@ actor_call straight from callers); results go DIRECTLY to the owner.
 
 The port's copy of ``ray_tpu/core/worker_main.py``: functions and actor
 classes arrive pickled by value (serialization.dumps_fn), not through
-cloudpickle. Not ported yet: the structured log plane (a worker's prints
-and logging go to its log file, ``logs/worker-<id>.log``, as the nodelet
-opened it). A compiled graph's stage (dag_start) runs as a resident loop
-over the port's shared-memory channels (experimental/channel.py). The
+cloudpickle. The worker installs the structured log plane: its logging
+calls land in the node's JSONL log dir with task and trace attribution,
+and its prints are captured (and mirrored to the submitting driver when
+RAY_TPU_LOG_TO_DRIVER is set). A compiled graph's stage (dag_start)
+runs as a resident loop over the port's shared-memory channels
+(experimental/channel.py). The
 worker exits when its nodelet's process is gone: its parent changes, or
 three pings in a row go unanswered.
 """
@@ -22,6 +24,7 @@ from __future__ import annotations
 import os
 import queue as _queue
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -852,24 +855,50 @@ def main():
         # of its start-up
         threading.Thread(target=_exit_when_orphaned, args=(int(pid),),
                          daemon=True, name="orphan-check").start()
+    t0 = time.monotonic()
     try:
         rt = WorkerRuntime()
         _set_runtime(rt)
-        nodelet = rt.nodelet_address
-        rt.client.call(nodelet, "worker_ready",
-                       {"worker_id": rt.worker_id_bytes,
-                        "address": rt.address}, timeout=30, retries=3)
     except Exception:  # noqa: BLE001
         # the nodelet or its store is gone: nothing to register with
         traceback.print_exc()
         sys.stderr.flush()
         os._exit(1)
+    # structured log plane: every logging call in this process lands in
+    # the node's JSONL log dir with task/trace attribution, and raw
+    # prints are captured (attributed, optionally mirrored to the
+    # submitting driver — the one-bool RAY_TPU_LOG_TO_DRIVER path)
+    from ray_tpu_torch.core import config as cfg
+    from ray_tpu_torch.utils import logging as slog
+
+    session_dir = os.environ.get("RAY_TPU_SESSION_DIR") or os.path.join(
+        tempfile.gettempdir(), "ray_tpu")
+    slog.install_process_logging(
+        role="worker",
+        log_dir=os.path.join(session_dir, "logs"),
+        node_id=os.environ.get("RAY_TPU_NODE_ID", "")[:12],
+        proc=os.environ.get("RAY_TPU_WORKER_ID", "")[:12])
+    slog.install_stream_capture(
+        mirror_fn=rt._mirror_stream_line
+        if cfg.get("LOG_TO_DRIVER") else None)
+    try:
+        rt.client.call(rt.nodelet_address, "worker_ready",
+                       {"worker_id": rt.worker_id_bytes,
+                        "address": rt.address}, timeout=30, retries=3)
+    except Exception:  # noqa: BLE001
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    import logging as _logging
+
+    _logging.getLogger("ray_tpu_torch.worker").info(
+        "worker ready in %.3fs", time.monotonic() - t0)
     # stay alive while the nodelet answers
     misses = 0
     while True:
         time.sleep(2)
         try:
-            rt.client.call(nodelet, "ping", {}, timeout=5)
+            rt.client.call(rt.nodelet_address, "ping", {}, timeout=5)
             misses = 0
         except Exception:
             misses += 1

@@ -13,16 +13,20 @@ training out of host RAM.
 
 The default memory budget is a quarter of the object store's
 capacity (``core.config`` ``OBJECT_STORE_BYTES``, which
-``RAY_TPU_OBJECT_STORE_BYTES`` sets), as in the JAX package. Deviation:
-no execution is published to a dashboard view (the dashboard is not
-ported). The local runtime keeps no ownership table, so `_ref_size` is
-0 and the memory policy reduces to the concurrency cap, as in the JAX
-package's local mode.
+``RAY_TPU_OBJECT_STORE_BYTES`` sets), as in the JAX package. Each
+execution is published to the dashboard's data view. The local runtime
+keeps no ownership table, so `_ref_size` is 0 and the memory policy
+reduces to the concurrency cap, as in the JAX package's local mode.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterator
+
+# dashboard "data" view key ring: bounded records per driver process
+_RUN_SEQ = 0
+_MAX_RUN_RECORDS = 20
 
 
 class ExecutionStats:
@@ -125,7 +129,43 @@ class StreamingExecutor:
         poll = getattr(input_refs, "poll", None)
         it = iter(input_refs) if poll is None else None
         exhausted = False
+        # dashboard data view: one record per execution, refreshed as
+        # blocks flow (reference: dashboard/modules/data). Keys rotate
+        # through a bounded per-process ring so a long-lived driver
+        # looping over dataset executions cannot grow head KV unbounded.
+        global _RUN_SEQ
+        _RUN_SEQ += 1
+        run_id = f"exec_{os.getpid()}_{_RUN_SEQ % _MAX_RUN_RECORDS}"
+        last_pub = 0.0
+
+        def _pub(status):
+            from ray_tpu_torch import dashboard as _dash
+
+            _dash.publish_view("data", run_id, {
+                "status": status, "submitted": stats.submitted,
+                "yielded": stats.yielded, "in_flight": stats.in_flight,
+                "buffered_bytes": stats.buffered_bytes,
+                "backpressure_waits": stats.backpressure_waits})
+
+        try:
+            yield from self._run_loop(input_refs, submit, policies, stats,
+                                      window, poll, it, exhausted, _pub,
+                                      last_pub)
+        finally:
+            # abandoned iteration (limit(), break, task error) must not
+            # leave a forever-RUNNING record in the dashboard view
+            _pub("FINISHED")
+
+    def _run_loop(self, input_refs, submit, policies, stats, window, poll,
+                  it, exhausted, _pub, last_pub):
+        import time as _t
+
+        import ray_tpu_torch
+
         while not exhausted or window:
+            if _t.monotonic() - last_pub > 2.0:
+                last_pub = _t.monotonic()
+                _pub("RUNNING")
             # account completed-but-unconsumed bytes
             stats.buffered_bytes = sum(_ref_size(r) for r in window)
             stats.peak_buffered_bytes = max(stats.peak_buffered_bytes,

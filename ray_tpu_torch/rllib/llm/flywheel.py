@@ -13,8 +13,7 @@ version, and the next lap's rollouts sample from the updated policy.
 The learner and the engine MUST start from the same params (pass
 ``learner.get_weights()`` into `LLMEngine(..., params=...)`); otherwise
 the first lap's importance ratios are wrong in a way the staleness
-guard cannot see. The JAX flywheel's tracing span (``rl.iteration``)
-waits for the port of the tracing plane (ROADMAP.md, queue 3).
+guard cannot see. A lap is an ``rl.iteration`` span.
 """
 
 from __future__ import annotations
@@ -66,20 +65,24 @@ class RLFlywheel:
 
     def iteration(self) -> dict:
         """One lap. Returns learner metrics + rollout/swap stats."""
+        from ray_tpu_torch.util import tracing
+
         t0 = time.perf_counter()
-        prompts = self.prompt_fn(self.iteration_idx)
-        trajs: list[Trajectory] = []
-        for group in self.worker.rollout_stream(prompts):
-            trajs.extend(_resolved(group))
-        metrics = self.learner.update(trajs)
-        version, weights = self.learner.publish_weights()
-        swap = None
-        if not metrics.get("skipped"):
-            if self.config.swap_during_rollout \
-                    and self.worker.engine is not None:
-                swap = self._swap_with_streams_in_flight(version, weights)
-            else:
-                swap = self._install(version, weights)
+        with tracing.span("rl.iteration"):
+            prompts = self.prompt_fn(self.iteration_idx)
+            trajs: list[Trajectory] = []
+            for group in self.worker.rollout_stream(prompts):
+                trajs.extend(_resolved(group))
+            metrics = self.learner.update(trajs)
+            version, weights = self.learner.publish_weights()
+            swap = None
+            if not metrics.get("skipped"):
+                if self.config.swap_during_rollout \
+                        and self.worker.engine is not None:
+                    swap = self._swap_with_streams_in_flight(
+                        version, weights)
+                else:
+                    swap = self._install(version, weights)
         self.iteration_idx += 1
         all_rewards = [t.reward for t in trajs]
         out = dict(metrics)

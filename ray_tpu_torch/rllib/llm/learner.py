@@ -22,9 +22,8 @@ stale (mixed weight versions): their logprobs are not reproducible at
 any single version, and feeding them in corrupts the ratios silently.
 
 The learner runs on the card unless the caller passes ``device="cpu"``
-(or a mesh, whose device it takes). The JAX learner's tracing span
-(``rl.learner_update``) waits for the port of the tracing plane
-(ROADMAP.md, queue 3).
+(or a mesh, whose device it takes). An update is an
+``rl.learner_update`` span.
 """
 
 from __future__ import annotations
@@ -222,17 +221,20 @@ class LLMLearner:
         """One GRPO step over a trajectory batch: staleness guard →
         group-relative advantages → clipped policy-gradient update.
         Bumps the published weight version."""
+        from ray_tpu_torch.util import tracing
+
         t0 = time.perf_counter()
-        kept, dropped = self.filter_stale(trajs)
-        self._check_temperature(kept)
-        if not kept:
-            return {"skipped": True, "kept": 0,
-                    "dropped_stale": dropped["stale"],
-                    "dropped_too_old": dropped["too_old"]}
-        adv = group_relative_advantages(kept, self.config.group_eps)
-        batch = to_train_batch(kept, adv, max_len=self.cfg.block_size)
-        self.state, metrics = self._train_step(self.state, batch)
-        self.version += 1
+        with tracing.span("rl.learner_update"):
+            kept, dropped = self.filter_stale(trajs)
+            self._check_temperature(kept)
+            if not kept:
+                return {"skipped": True, "kept": 0,
+                        "dropped_stale": dropped["stale"],
+                        "dropped_too_old": dropped["too_old"]}
+            adv = group_relative_advantages(kept, self.config.group_eps)
+            batch = to_train_batch(kept, adv, max_len=self.cfg.block_size)
+            self.state, metrics = self._train_step(self.state, batch)
+            self.version += 1
         rewards = np.asarray([t.reward for t in kept], np.float32)
         return {
             "loss": float(metrics["loss"]),

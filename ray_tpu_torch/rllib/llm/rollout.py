@@ -18,10 +18,8 @@ rollouts onto one replica's warm cache.
 Streaming contract: `rollout_stream()` yields one object-store ref per
 completed prompt group *as each group finishes* (the lists themselves
 when no runtime is up), so the learner can take groups while later ones
-are still decoding (and a weight hot-swap can land mid-rollout).
-
-Deviation from the JAX worker: its tracing span (``rl.rollout``) waits
-for the tracing plane (ROADMAP.md, queue 3).
+are still decoding (and a weight hot-swap can land mid-rollout). Both
+run inside an ``rl.rollout`` span.
 """
 
 from __future__ import annotations
@@ -178,9 +176,12 @@ class RolloutWorker:
         """Sample group_size completions per prompt; returns the flat
         trajectory list (grouped by group_id). `drive` defaults to True
         for an in-process engine: the caller's thread steps it."""
+        from ray_tpu_torch.util import tracing
+
         out: list[Trajectory] = []
-        for group in self._groups_of(prompts, drive):
-            out.extend(group)
+        with tracing.span("rl.rollout"):
+            for group in self._groups_of(prompts, drive):
+                out.extend(group)
         if out:
             self._m_reward.set(float(np.mean([t.reward for t in out])))
         return out
@@ -192,11 +193,13 @@ class RolloutWorker:
         trajectory lists themselves otherwise, so the CPU closed loop
         runs without a cluster."""
         import ray_tpu_torch as ray
+        from ray_tpu_torch.util import tracing
 
         put = ray.put if ray.is_initialized() else (lambda x: x)
         rewards: list[float] = []
-        for group in self._groups_of(prompts, drive):
-            rewards.extend(t.reward for t in group)
-            yield put(group)
+        with tracing.span("rl.rollout"):
+            for group in self._groups_of(prompts, drive):
+                rewards.extend(t.reward for t in group)
+                yield put(group)
         if rewards:
             self._m_reward.set(float(np.mean(rewards)))

@@ -8,11 +8,6 @@ Deviations from the JAX module (ROADMAP.md, queue 3):
 - deployment classes and functions travel through the port's by-value
   pickler (``core/serialization.py``: ``dumps_fn``/``loads_fn``), not
   cloudpickle, which the card's machine does not have;
-- handle calls are submitted without a ``serve.*`` tracing span until
-  the tracing plane (``util/tracing.py``) is ported;
-- the controller answers ``metrics_text()``, its process's Prometheus
-  page, which stands in for the cluster metrics plane (not ported yet)
-  when a caller wants the controller's probe and restart counters;
 - a background thread (the updater's push, a failover's refresh, death
   report or retry) does nothing once the runtime is shut down: in the
   JAX module it can call into the runtime after ``shutdown()`` and so
@@ -951,14 +946,6 @@ class ServeController:
         self._publish_update(app_name)
         return True
 
-    def metrics_text(self) -> str:
-        """This process's Prometheus page: the probe, restart and
-        healthy-replica series the health loop records. It stands in
-        for the cluster metrics page until that plane is ported."""
-        from ray_tpu_torch.util.metrics import prometheus_text
-
-        return prometheus_text()
-
     def shutdown(self):
         with self._lock:
             names = list(self._apps)
@@ -968,12 +955,15 @@ class ServeController:
 
 
 def _traced_submit(span_name: str, submit):
-    """Submit a handle call — the ONE place every handle flavor goes
-    through. The JAX package opens a ``serve`` span named `span_name`
-    here; the port submits without one until its tracing plane is
-    ported (ROADMAP.md, queue 3)."""
-    del span_name
-    return submit()
+    """Submit a handle call inside a serve span — the ONE place the
+    span naming/category/context wiring lives for every handle flavor:
+    the replica's actor-side span becomes a child of this context, so a
+    request correlates across caller and replica on the merged
+    timeline."""
+    from ray_tpu_torch.util import tracing
+
+    with tracing.span(span_name, category="serve"):
+        return submit()
 
 
 def _replica_ident(replica) -> str:

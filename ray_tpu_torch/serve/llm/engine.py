@@ -21,9 +21,11 @@ in page-aligned chunks against the gathered context, and decode runs
 over a dense gathered context; with ``use_paged_attention`` decode and
 the speculative verify window run through kernel K4 instead. With
 ``speculative`` set, a host-side proposer drafts tokens for each lane
-and one verify step a lane scores them. The JAX engine's tracing spans
-need the core runtime and wait for its port; its metrics go to the
-port's own registry (``ray_tpu_torch.util``).
+and one verify step a lane scores them. Each request records its waterfall
+as an ``llm.request`` span with one child a phase, under the trace that
+submitted it, and a weight swap an ``rl.weight_swap`` span
+(``util/tracing.py``); its metrics go to the port's own registry
+(``ray_tpu_torch.util``).
 """
 
 from __future__ import annotations
@@ -359,6 +361,13 @@ class LLMEngine:
             raise ValueError("empty prompt")
         seq = Sequence(seq_id=next(self._ids), prompt=prompt,
                        sampling=sampling)
+        # the request's trace context: a child of whatever span chain
+        # submitted it (handle call, proxy request), so the finalize-
+        # time waterfall spans correlate by trace_id
+        from ray_tpu_torch.util import tracing
+        from ray_tpu_torch.utils.events import child_trace
+
+        seq.trace = child_trace(tracing.current_trace())
         stream = RequestStream(seq.seq_id)
         with self._lock:
             # validate (scheduler.add raises on over-long prompts) BEFORE
@@ -675,6 +684,7 @@ class LLMEngine:
             self._finished_requests += 1
             for k, v in seq.phases.items():
                 self._phase_totals[k] = self._phase_totals.get(k, 0.0) + v
+        self._record_request_spans(seq, now)
         versions = sorted(set(seq.token_versions))
         final = {
             "done": True,
@@ -700,6 +710,33 @@ class LLMEngine:
             final["logprobs"] = list(seq.logprobs)
         stream._close(final)
 
+    # deterministic waterfall order for the laid-out request spans
+    _PHASE_ORDER = ("queue", "prefix_match", "prefill", "preempt",
+                    "decode", "verify", "emit")
+
+    def _record_request_spans(self, seq: Sequence, now: float) -> None:
+        """Emit the request's waterfall as child spans: one parent
+        `llm.request` over [enqueue, close] plus one child per nonzero
+        phase, laid out contiguously in waterfall order (phases
+        interleave in real time — chunked prefill alternates with
+        decode — so the contiguous layout is the readable summary, and
+        the durations are the exact per-phase totals). All hang off the
+        request's propagated trace context."""
+        from ray_tpu_torch.util import tracing
+        from ray_tpu_torch.utils.events import child_trace
+
+        tracing.record_interval("llm.request", seq.enqueued_at, now,
+                                category="serve", trace=seq.trace)
+        cursor = seq.enqueued_at
+        for phase in self._PHASE_ORDER:
+            dur = seq.phases.get(phase, 0.0)
+            if dur <= 0.0:
+                continue
+            tracing.record_interval(
+                f"llm.request.{phase}", cursor, cursor + dur,
+                category="serve", trace=child_trace(seq.trace))
+            cursor += dur
+
     # ------------------------------------------------------------- admin
 
     @property
@@ -715,21 +752,24 @@ class LLMEngine:
         tagged ``stale``; the prefix cache is invalidated, so that no
         later admission matches old-weight KV, and stale sequences stop
         registering pages; `version` must be strictly increasing."""
+        from ray_tpu_torch.util import tracing
+
         t0 = time.perf_counter()
         with self._step_lock:
             if version <= self._weight_version:
                 raise ValueError(
                     f"weight version must increase: engine at "
                     f"{self._weight_version}, got {version}")
-            self.runner.set_params(params)
-            dropped = self.pool.invalidate_prefix_cache()
-            with self._lock:
-                previous = self._weight_version
-                self._weight_version = version
-                running = list(self.scheduler.running)
-                for s in running:
-                    s.kv_stale = True
-                in_flight = len(running) + len(self.scheduler.waiting)
+            with tracing.span("rl.weight_swap"):
+                self.runner.set_params(params)
+                dropped = self.pool.invalidate_prefix_cache()
+                with self._lock:
+                    previous = self._weight_version
+                    self._weight_version = version
+                    running = list(self.scheduler.running)
+                    for s in running:
+                        s.kv_stale = True
+                    in_flight = len(running) + len(self.scheduler.waiting)
         dt = time.perf_counter() - t0
         self._m_swaps.inc(tags=self._m_tags)
         self._m_swap_s.observe(dt, tags=self._m_tags)

@@ -76,7 +76,9 @@ Deviations from the JAX package:
   checkpoint shards are standard pickles of lists of numpy trees (JAX
   writes them with cloudpickle; `load_pipeline_checkpoint` reads both).
   `full_params` and `load_pipeline_checkpoint` return CPU tensors.
-- No tracing spans (``util/tracing.py`` is not ported). `finish_step`
+- Each op's compute span is also recorded on the stage's timeline
+  (``pipeline.stage<s>.v<v>.<kind>.mb<m>``), and a step is a
+  ``pipeline.train_step`` span, as in JAX. `finish_step` also
   adds each op's span to its stats (``op_spans``: the compute alone,
   with the seconds of the op's host-to-device copy before it and its
   device-to-host copy after it beside), and the stage process's pid,
@@ -388,7 +390,17 @@ class PipelineStageWorker:
         dur = self.emulate[0 if kind == "fwd" else 1] / self.num_repeats
         time.sleep(dur)
         self._busy += dur
-        self._ops.append((kind, v, mb, t0, time.perf_counter(), 0.0, 0.0))
+        t1 = time.perf_counter()
+        self._ops.append((kind, v, mb, t0, t1, 0.0, 0.0))
+        self._trace(kind, t0, t1, v, mb)
+
+    def _trace(self, kind: str, t0: float, t1: float, v: int,
+               mb: int) -> None:
+        from ray_tpu_torch.util import tracing
+
+        tracing.record_interval(
+            f"pipeline.stage{self.stage}.v{v}.{kind}.mb{mb}", t0, t1,
+            category="train")
 
     def _run_chunk(self, r: int, params, x, targets):
         from ray_tpu_torch.models.pipelined import stage_apply
@@ -427,6 +439,7 @@ class PipelineStageWorker:
         res = float(_whole(out)) if last else self._to_host(out)
         self._ops.append(("fwd", v, mb, t0, t1, t0 - h0,
                           time.perf_counter() - t1))
+        self._trace("fwd", t0, t1, v, mb)
         return res
 
     def backward(self, r: int, mb: int, grad=None):
@@ -474,6 +487,7 @@ class PipelineStageWorker:
         res = True if first else self._to_host(got[-1])
         self._ops.append(("bwd", v, mb, t0, t1, t0 - h0,
                           time.perf_counter() - t1))
+        self._trace("bwd", t0, t1, v, mb)
         return res
 
     def finish_step(self) -> dict:
@@ -688,6 +702,7 @@ class PipelineStrategy:
         bubble_theoretical, step_seconds, microbatches, virtual_stages,
         num_repeats}."""
         import ray_tpu_torch
+        from ray_tpu_torch.util import tracing
 
         S, M, R = self.num_stages, self.num_microbatches, self.num_repeats
         V = S * R
@@ -701,29 +716,30 @@ class PipelineStrategy:
         order = (interleaved_1f1b_submission_order(S, M, R) if R > 1
                  else one_f_one_b_submission_order(S, M))
         t0 = time.perf_counter()
-        fwd: dict[tuple[int, int], Any] = {}
-        bwd: dict[tuple[int, int], Any] = {}
-        others: list = []  # members > 0: they return None
-        for kind, v, m in order:
-            lead, *rest = self.members[v % S]
-            r = v // S
-            if kind == "fwd":
-                payload = (tokens[m * mb:(m + 1) * mb] if v == 0
-                           else fwd[(v - 1, m)])
-                tgt = (targets[m * mb:(m + 1) * mb]
-                       if v == V - 1 else None)
-                fwd[(v, m)] = lead.forward.remote(r, m, payload, tgt)
-                others += [w.forward.remote(r, m, payload, tgt)
-                           for w in rest]
-            else:
-                g = bwd[(v + 1, m)] if v < V - 1 else None
-                bwd[(v, m)] = lead.backward.remote(r, m, g)
-                others += [w.backward.remote(r, m, g) for w in rest]
-        losses = ray_tpu_torch.get([fwd[(V - 1, m)] for m in range(M)],
-                                   timeout=STEP_TIMEOUT_S)
-        ray_tpu_torch.get([bwd[(0, m)] for m in range(M)] + others,
-                          timeout=STEP_TIMEOUT_S)
-        stats = self.wg.execute("finish_step", timeout=STEP_TIMEOUT_S)
+        with tracing.span("pipeline.train_step", category="train"):
+            fwd: dict[tuple[int, int], Any] = {}
+            bwd: dict[tuple[int, int], Any] = {}
+            others: list = []  # members > 0: they return None
+            for kind, v, m in order:
+                lead, *rest = self.members[v % S]
+                r = v // S
+                if kind == "fwd":
+                    payload = (tokens[m * mb:(m + 1) * mb] if v == 0
+                               else fwd[(v - 1, m)])
+                    tgt = (targets[m * mb:(m + 1) * mb]
+                           if v == V - 1 else None)
+                    fwd[(v, m)] = lead.forward.remote(r, m, payload, tgt)
+                    others += [w.forward.remote(r, m, payload, tgt)
+                               for w in rest]
+                else:
+                    g = bwd[(v + 1, m)] if v < V - 1 else None
+                    bwd[(v, m)] = lead.backward.remote(r, m, g)
+                    others += [w.backward.remote(r, m, g) for w in rest]
+            losses = ray_tpu_torch.get([fwd[(V - 1, m)] for m in range(M)],
+                                       timeout=STEP_TIMEOUT_S)
+            ray_tpu_torch.get([bwd[(0, m)] for m in range(M)] + others,
+                              timeout=STEP_TIMEOUT_S)
+            stats = self.wg.execute("finish_step", timeout=STEP_TIMEOUT_S)
         dt = time.perf_counter() - t0
         stats = stats[::self.data_parallel]  # member 0 of each stage
         makespan = max(st["window_s"] for st in stats)

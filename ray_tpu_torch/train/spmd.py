@@ -22,11 +22,15 @@ device or on a mesh of ``torch.distributed`` ranks.
   keeps the JAX step's order of layouts; see `make_train_step`.
 - `optimizer_state_bytes` and the gauges ``train_optimizer_state_bytes``,
   ``train_grad_state_bytes`` and ``train_param_state_bytes``: the bytes
-  this rank holds of each component.
+  of each component on the rank that holds the most of it (JAX's max
+  over addressable devices).
 - `StepWaterfall` (``waterfall``), `enable_step_waterfall` and
   `data_wait`: per-step time attribution, off by default, with the
-  phases that exist without XLA: ``data_wait``, ``h2d``, ``host`` and
-  ``compute``.
+  phases that exist without XLA: ``data_wait``, ``h2d``, ``host``,
+  ``collective.<op>`` (host collectives of ``util/collective.py`` in
+  the step) and ``compute``, each laid on the timeline as a
+  ``train.step.*`` span; at ZeRO 3 the ``train_zero_gather_share``
+  gauge.
 
 Deviation: JAX initialises each shard on its own device and never
 holds a whole copy; `init_sharded_state` makes the whole state on every
@@ -37,6 +41,7 @@ all.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import threading
 import time
@@ -70,9 +75,10 @@ class StepWaterfall:
 
     Phases per step: ``data_wait`` (caller-reported input fetch, see
     `note_data_wait`), ``h2d`` (moving host batch leaves to the params'
-    device), ``host`` (the loop's own time between steps) and
-    ``compute`` (dispatch plus device execution). They sum to the
-    loop's wall time."""
+    device), ``host`` (the loop's own time between steps),
+    ``collective.<op>`` (host collectives inside the step) and
+    ``compute`` (dispatch plus device execution, less those). They sum
+    to the loop's wall time."""
 
     def __init__(self):
         # "0"/"false"/"" all mean OFF
@@ -131,6 +137,15 @@ class StepWaterfall:
         return {"steps": steps, "total_seconds": total, "phases": phases,
                 "percent": {k: (100.0 * v / total if total else 0.0)
                             for k, v in phases.items()}}
+
+    def table(self) -> str:
+        """Human attribution table: percent of step time per phase."""
+        s = self.summary()
+        lines = [f"# step attribution over {s['steps']} steps "
+                 f"({s['total_seconds']:.3f}s attributed)"]
+        for k, v in sorted(s["phases"].items(), key=lambda kv: -kv[1]):
+            lines.append(f"#   {k:<24} {v:9.4f}s  {s['percent'][k]:5.1f}%")
+        return "\n".join(lines)
 
 
 waterfall = StepWaterfall()
@@ -279,26 +294,85 @@ def state_shardings(rules: PartitionRules, state: TrainState, mesh,
     )
 
 
+def _local_shape(shape, dims, coord, placements_) -> list[int]:
+    """The shape of the shard the rank at mesh coordinate `coord`
+    holds: each ``Shard(d)`` splits dim d as ``torch.chunk`` does
+    (DTensor's layout), mesh dims in order."""
+    out = list(shape)
+    for n, c, pl in zip(dims, coord, placements_):
+        d = getattr(pl, "dim", None)
+        if d is None or not pl.is_shard():
+            continue
+        chunk = -(-out[d] // n)
+        out[d] = max(0, min(out[d], (c + 1) * chunk) - c * chunk)
+    return out
+
+
 def optimizer_state_bytes(tree_: PyTree) -> int:
-    """Bytes of a state tree resident on this rank: the local shard of
-    each DTensor (a replicated leaf counts whole, a ZeRO-sharded leaf
-    1/N) and every plain tensor whole. Named for its first (optimizer
-    state) use; the same measure backs the
+    """Bytes of a state tree on the rank that holds the most of it (the
+    JAX package's max over addressable devices): a DTensor counts its
+    shard on each rank of its mesh (a replicated leaf whole, a
+    ZeRO-sharded leaf 1/N), every plain tensor whole. Named for its
+    first (optimizer state) use; the same measure backs the
     ``train_{optimizer,grad,param}_state_bytes`` gauges."""
-    return sum((t.to_local() if isinstance(t, DTensor) else t).nbytes
-               for t in _state_leaves(tree_))
+    plain = 0
+    per_rank: dict[int, int] = {}  # global rank -> bytes, over meshes
+    for t in _state_leaves(tree_):
+        if not isinstance(t, DTensor):
+            plain += t.nbytes
+            continue
+        dims = tuple(t.device_mesh.shape)
+        ranks = t.device_mesh.mesh
+        for coord in itertools.product(*(range(n) for n in dims)):
+            n_el = int(np.prod(_local_shape(t.shape, dims, coord,
+                                            t.placements)))
+            rank = int(ranks[coord])
+            per_rank[rank] = per_rank.get(rank, 0) + \
+                n_el * t.element_size()
+    return plain + max(per_rank.values(), default=0)
 
 
-_gauges: dict[str, Gauge] = {}
+_opt_bytes_gauge = None
+_grad_bytes_gauge = None
+_param_bytes_gauge = None
 
 
-def _bytes_gauge(name: str, what: str, layout: str) -> Gauge:
-    if name not in _gauges:
-        _gauges[name] = Gauge(
-            name, f"Bytes of {what} resident on this rank, tagged by "
-            f"layout=replicated|{layout} — the ZeRO ladder's memory win "
-            "made visible", tag_keys=("layout",))
-    return _gauges[name]
+def _optimizer_bytes_gauge() -> Gauge:
+    global _opt_bytes_gauge
+    if _opt_bytes_gauge is None:
+        _opt_bytes_gauge = Gauge(
+            "train_optimizer_state_bytes",
+            "Per-rank optimizer-state bytes (max over the mesh's "
+            "ranks), tagged by layout=replicated|zero1 — the ZeRO-1 "
+            "memory win made visible pre/post sharding",
+            tag_keys=("layout",))
+    return _opt_bytes_gauge
+
+
+def _grad_state_bytes_gauge() -> Gauge:
+    global _grad_bytes_gauge
+    if _grad_bytes_gauge is None:
+        _grad_bytes_gauge = Gauge(
+            "train_grad_state_bytes",
+            "Per-rank resident gradient-accumulation bytes (max over "
+            "the mesh's ranks), tagged by layout=replicated|zero2 — "
+            "the ZeRO-2 memory win: grads live reduce-scattered 1/N "
+            "between accumulation steps",
+            tag_keys=("layout",))
+    return _grad_bytes_gauge
+
+
+def _param_state_bytes_gauge() -> Gauge:
+    global _param_bytes_gauge
+    if _param_bytes_gauge is None:
+        _param_bytes_gauge = Gauge(
+            "train_param_state_bytes",
+            "Per-rank resident parameter bytes (max over the mesh's "
+            "ranks), tagged by layout=replicated|zero3 — the ZeRO-3 "
+            "memory win: params live 1/N and are all-gathered "
+            "just-in-time inside the step",
+            tag_keys=("layout",))
+    return _param_bytes_gauge
 
 
 def _layout(t: DTensor, placements) -> DTensor:
@@ -473,11 +547,23 @@ def make_train_step(
         boundaries=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 10, 60))
     m_phase = Histogram(
         "train_step_phase_seconds",
-        "Per-step waterfall phases (data_wait/h2d/host/compute) — "
-        "populated only while step attribution is enabled",
+        "Per-step waterfall phases (data_wait/h2d/host/collective/"
+        "compute) — populated only while step attribution is enabled",
         boundaries=(0.0001, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5,
                     30),
         tag_keys=("phase",))
+    m_gather_share = None
+    if stage >= 3:
+        m_gather_share = Gauge(
+            "train_zero_gather_share",
+            "Fraction of step time spent in host-observed all_gather "
+            "collectives while zero_stage >= 3 — the ZeRO-3 "
+            "param-gather tax; input of the train-zero-gather-stall "
+            "watchtower rule. Populated while step attribution is on.")
+
+    # resolved once here, so no step pays a first import
+    from ray_tpu_torch.util import tracing
+    from ray_tpu_torch.util.collective import _collective_seconds
 
     def _attributed_step(state: TrainState, batch: PyTree):
         """Waterfall-mode step: wall-to-wall phase attribution, with a
@@ -489,15 +575,41 @@ def make_train_step(
         batch = _place(state, batch)
         _sync(device)
         t1 = time.perf_counter()
+        coll0 = _collective_seconds().sums_by_tag("op")
         out = step(state, batch)
         _sync(device)
         t2 = time.perf_counter()
-        m_step.observe(t2 - t1)
-        phases = {"data_wait": data_wait_s, "h2d": t1 - t0, "host": gap,
-                  "compute": t2 - t1}
+        dt = t2 - t1
+        m_step.observe(dt)
+        coll_now = _collective_seconds().sums_by_tag("op")
+        coll_by_op = {op: v - coll0.get(op, 0.0)
+                      for op, v in coll_now.items()
+                      if v - coll0.get(op, 0.0) > 0.0}
+        coll = sum(coll_by_op.values())
+        if coll > dt > 0.0:  # clamp: collectives cannot exceed the step
+            scale = dt / coll
+            coll_by_op = {op: v * scale for op, v in coll_by_op.items()}
+            coll = dt
+        phases = {"data_wait": data_wait_s, "h2d": t1 - t0, "host": gap}
+        for op, v in coll_by_op.items():
+            phases[f"collective.{op}"] = v
+        if m_gather_share is not None and dt > 0.0:
+            m_gather_share.set(coll_by_op.get("all_gather", 0.0) / dt)
+        phases["compute"] = dt - coll
         for k, v in phases.items():
             if v > 0.0:
                 m_phase.observe(v, tags={"phase": k})
+        # laid-out sub-spans at their true monotonic positions
+        # (perf_counter is the monotonic clock on linux;
+        # record_interval re-anchors to the epoch)
+        if data_wait_s > 0.0:
+            tracing.record_interval("train.step.data_wait",
+                                    t0 - data_wait_s, t0, category="train")
+        if t1 - t0 > 0.0:
+            tracing.record_interval("train.step.h2d", t0, t1,
+                                    category="train")
+        tracing.record_interval("train.step.compute", t1, t2,
+                                category="train")
         waterfall.add(phases)
         waterfall.mark_step_end(t2)
         return out
@@ -548,16 +660,14 @@ def init_sharded_state(
                        grad_accum=(None if full.grad_accum is None
                                    else place(full.grad_accum, "grads")))
     del full
-    _bytes_gauge("train_optimizer_state_bytes", "optimizer state",
-                 "zero1").set(
+    _optimizer_bytes_gauge().set(
         optimizer_state_bytes(state.opt_state),
         tags={"layout": "zero1" if stage >= 1 else "replicated"})
-    _bytes_gauge("train_param_state_bytes", "parameters", "zero3").set(
+    _param_state_bytes_gauge().set(
         optimizer_state_bytes(state.params),
         tags={"layout": "zero3" if stage >= 3 else "replicated"})
     if state.grad_accum is not None:
-        _bytes_gauge("train_grad_state_bytes", "gradient accumulation",
-                     "zero2").set(
+        _grad_state_bytes_gauge().set(
             optimizer_state_bytes(state.grad_accum),
             tags={"layout": "zero2" if stage >= 2 else "replicated"})
     return state

@@ -28,8 +28,6 @@ Deviations from the JAX package:
   (world > 1).
 - No libtpu topology env (``TPU_WORKER_ID``, ``TPU_WORKER_HOSTNAMES``):
   the process group's rendezvous takes its place.
-- No dashboard views: ``dashboard.py`` is not ported, so the
-  pipeline strategy's fit publishes none either.
 - ``strategy="pipeline"`` (the MPMD strategy,
   ``train/pipeline_strategy.py``) runs its stages on the card when
   ``ScalingConfig.use_gpu`` is set and on the CPU otherwise; its
@@ -259,6 +257,8 @@ class TorchTrainer:
             momentum=float(cfg.get("momentum", 0.0)),
             device="cuda" if sc.use_gpu else "cpu",
         )
+        from ray_tpu_torch import dashboard as _dash
+
         history: list[dict] = []
         last_ckpt: Checkpoint | None = None
         try:
@@ -272,6 +272,19 @@ class TorchTrainer:
                     staged = ps.save_checkpoint(
                         os.path.join(exp_dir, f"staging_{step:06d}"))
                     last_ckpt = manager.register(staged, metrics)
+                _dash.publish_view("train", name, {
+                    "status": "RUNNING", "iteration": len(history),
+                    "num_workers": ps.num_stages, "metrics": metrics})
+            _dash.publish_view("train", name, {
+                "status": "FINISHED", "iteration": len(history),
+                "num_workers": ps.num_stages,
+                "metrics": history[-1] if history else {}})
+        except BaseException as e:
+            # a dead view must not read RUNNING forever
+            _dash.publish_view("train", name, {
+                "status": "FAILED", "iteration": len(history),
+                "error": str(e)})
+            raise
         finally:
             ps.shutdown()
         return Result(metrics=history[-1] if history else {},
@@ -293,13 +306,22 @@ class TorchTrainer:
         resize_to = None
         failures = 0
         history: list[dict] = []
+        from ray_tpu_torch import dashboard as _dash
+
+        _dash.publish_view("train", name, {
+            "status": "RUNNING", "iteration": 0,
+            "num_workers": self.scaling_config.num_workers})
         while True:
             wg = None
             try:
                 target, resize_to = resize_to, None  # one-shot: a FAILED
                 # resized start must not retry the stale target forever
                 wg = self._start_worker_group(name, exp_dir, resume, target)
-                metrics, ckpt = self._result_loop(wg, manager, history)
+                metrics, ckpt = self._result_loop(wg, manager, history,
+                                                  run_name=name)
+                _dash.publish_view("train", name, {
+                    "status": "FINISHED", "iteration": len(history),
+                    "num_workers": wg.num_workers, "metrics": metrics})
                 return Result(metrics=metrics, checkpoint=ckpt or
                               manager.latest(), path=exp_dir,
                               metrics_history=history)
@@ -316,6 +338,9 @@ class TorchTrainer:
             except (WorkerGroupError, _WorkerFailure) as e:
                 failures += 1
                 if failures > failure_config.max_failures:
+                    _dash.publish_view("train", name, {
+                        "status": "FAILED", "iteration": len(history),
+                        "error": str(e)})
                     raise TrainingFailedError(
                         f"training failed after {failures - 1} restarts: {e}"
                     ) from e
@@ -399,7 +424,8 @@ class TorchTrainer:
     # ------------------------------------------------------------------
 
     def _result_loop(self, wg: WorkerGroup, manager: CheckpointManager,
-                     history: list) -> tuple[dict, Checkpoint | None]:
+                     history: list, run_name: str = ""
+                     ) -> tuple[dict, Checkpoint | None]:
         """Drive rounds of per-worker reports until every worker finishes
         (reference: backend_executor.get_next_results — all workers must
         report in lockstep)."""
@@ -464,6 +490,14 @@ class TorchTrainer:
                 if rank0.get("checkpoint_dir"):
                     last_ckpt = manager.register(
                         Checkpoint(rank0["checkpoint_dir"]), last_metrics)
+                if run_name:
+                    from ray_tpu_torch import dashboard as _dash
+
+                    _dash.publish_view("train", run_name, {
+                        "status": "RUNNING",
+                        "iteration": len(history),
+                        "num_workers": wg.num_workers,
+                        "metrics": last_metrics})
         return last_metrics, last_ckpt
 
 

@@ -23,8 +23,7 @@ Deviations from the JAX package:
   JAX's waits out its whole poll timeout (5 s) on the ended loop's
   empty queue first. The statuses are the same.
 - The loop and the dataset shards travel through the port's pickler
-  (``core/serialization.py``), not cloudpickle, and the group opens no
-  tracing spans (``util/tracing.py`` is not ported).
+  (``core/serialization.py``), not cloudpickle.
 """
 
 from __future__ import annotations
@@ -253,17 +252,26 @@ class WorkerGroup:
     def execute(self, method: str, *args, timeout: float | None = 120.0,
                 **kwargs) -> list:
         import ray_tpu_torch
+        from ray_tpu_torch.util import tracing
 
-        refs = [getattr(w, method).remote(*args, **kwargs)
-                for w in self.workers]
-        return ray_tpu_torch.get(refs, timeout=timeout)
+        # one span per gang call: every rank's actor-side span carries a
+        # child of this context, so the merged timeline shows the whole
+        # gang under one trace_id (straggler ranks stick out)
+        with tracing.span(f"worker_group.{method}", category="train"):
+            refs = [getattr(w, method).remote(*args, **kwargs)
+                    for w in self.workers]
+            return ray_tpu_torch.get(refs, timeout=timeout)
 
     def execute_single(self, rank: int, method: str, *args,
                        timeout: float | None = 120.0, **kwargs) -> Any:
         import ray_tpu_torch
+        from ray_tpu_torch.util import tracing
 
-        ref = getattr(self.workers[rank], method).remote(*args, **kwargs)
-        return ray_tpu_torch.get(ref, timeout=timeout)
+        with tracing.span(f"worker_group.{method}[{rank}]",
+                          category="train"):
+            ref = getattr(self.workers[rank], method).remote(*args,
+                                                             **kwargs)
+            return ray_tpu_torch.get(ref, timeout=timeout)
 
     def enable_step_waterfall(self, on: bool = True) -> list:
         """Flip per-step attribution on EVERY rank; fetch the per-rank
@@ -273,8 +281,12 @@ class WorkerGroup:
         return self.execute("set_step_waterfall", on)
 
     def execute_async(self, method: str, *args, **kwargs) -> list:
-        return [getattr(w, method).remote(*args, **kwargs)
-                for w in self.workers]
+        from ray_tpu_torch.util import tracing
+
+        with tracing.span(f"worker_group.{method}.submit",
+                          category="train"):
+            return [getattr(w, method).remote(*args, **kwargs)
+                    for w in self.workers]
 
     def shutdown(self):
         import ray_tpu_torch

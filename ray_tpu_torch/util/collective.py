@@ -34,9 +34,8 @@ Design notes:
   coordinator's max_concurrency.
 - `offer` is idempotent per (kind, seq, rank): at-least-once RPC
   delivery (submitter retries) cannot corrupt a round.
-- The JAX package also records a ``collective.<kind>`` span per round
-  through its tracing module; the port has no tracing module yet, so
-  rounds show in the ``collective_seconds`` histogram only.
+- Each round is observed in the ``collective_seconds`` histogram and
+  recorded as a ``collective.<kind>`` span.
 """
 
 from __future__ import annotations
@@ -340,9 +339,13 @@ def _sync(g: _GroupState, kind, data, op=None, root=None,
         ready, result = ray_tpu_torch.get(
             g.coordinator.poll.remote(kind, seq), timeout=60)
         if ready:
+            dt = time.perf_counter() - t0
             _collective_seconds().observe(
-                time.perf_counter() - t0,
-                tags={"op": _OP_LABELS.get(kind, kind)})
+                dt, tags={"op": _OP_LABELS.get(kind, kind)})
+            from ray_tpu_torch.util import tracing
+
+            tracing.record_span(f"collective.{kind}", dt,
+                                category="collective")
             return result
         time.sleep(sleep)
         sleep = min(sleep * 2, 0.05)

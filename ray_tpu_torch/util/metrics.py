@@ -1,11 +1,12 @@
 """Metrics: counters, gauges and histograms over a per-process registry.
 
 The port's own copy of the metric types of ``ray_tpu/util/metrics.py``
-(`Registry`, `Counter`, `Gauge`, `Histogram`) and of its Prometheus
-exposition of one process's registry (`prometheus_text`): the engine,
-Serve's controller, handles and proxy record through them. The cluster
-scrape plane (`merge_prometheus`, `serve_metrics_http`) is not ported
-yet (ROADMAP.md, queue 1)."""
+(`Registry`, `Counter`, `Gauge`, `Histogram`), of its Prometheus
+exposition of one process's registry (`prometheus_text`) and of the
+cluster scrape plane's export half: `inject_labels` and
+`merge_prometheus` (a page a node, stamped with its origin),
+`scrape_pages` (the head's and nodelet's fan-out) and
+`serve_metrics_http` (the /metrics page)."""
 
 from __future__ import annotations
 
@@ -203,3 +204,131 @@ def prometheus_text(registry: "Registry | None" = None) -> str:
     for m in (registry or _registry).collect():
         lines.extend(m.expose())
     return "\n".join(lines) + "\n"
+
+
+def inject_labels(sample_line: str, tags: dict) -> str:
+    """Add labels to one exposition SAMPLE line (`name 1` or
+    `name{a="b"} 1`) — how the cluster aggregator stamps each scraped
+    page with its origin (node=..., proc=...) without touching the
+    producing process's registry. A key the series already carries is
+    left alone (duplicate label names are invalid exposition format
+    and would fail the whole scrape)."""
+    if not tags:
+        return sample_line
+    if "{" in sample_line:
+        import re as _re
+
+        head, sep, value = sample_line.rpartition("} ")
+        if not sep:
+            return sample_line
+        items = [(k, v) for k, v in sorted(tags.items())
+                 # exact label-name match only: `node=` must not be
+                 # shadowed by a series that carries `src_node=`
+                 if not _re.search(rf'[{{,]{_re.escape(k)}="', head)]
+        if not items:
+            return sample_line
+        extra = ",".join(f'{k}="{v}"' for k, v in items)
+        return f"{head},{extra}}} {value}"
+    name, sep, value = sample_line.partition(" ")
+    if not sep:
+        return sample_line
+    extra = ",".join(f'{k}="{v}"' for k, v in sorted(tags.items()))
+    return f"{name}{{{extra}}} {value}"
+
+
+def merge_prometheus(pages: list[tuple[dict, str]]) -> str:
+    """Merge scraped exposition pages into one, injecting each page's
+    origin tags into its sample lines. Samples are GROUPED BY FAMILY
+    with the HELP/TYPE header emitted once above all of them — standard
+    Prometheus parsers require a family's samples contiguous under its
+    header (interleaving families demotes them to untyped). Within a
+    page, samples belong to the most recent header's family (the shape
+    prometheus_text() and this function itself both emit, so merges
+    compose). Series stay distinct because every page carries
+    distinguishing tags (node/proc)."""
+    order: list[str] = []
+    headers: dict[str, list[str]] = {}
+    samples: dict[str, list[str]] = {}
+
+    def family(fam: str) -> str:
+        if fam not in samples:
+            order.append(fam)
+            samples[fam] = []
+            headers.setdefault(fam, [])
+        return fam
+
+    for tags, text in pages:
+        current = None
+        for line in text.splitlines():
+            if not line.strip():
+                continue
+            if line.startswith("#"):
+                parts = line.split(None, 3)
+                if len(parts) >= 3:
+                    current = family(parts[2])
+                    directive = parts[1]  # HELP / TYPE, one each
+                    if not any(h.split(None, 3)[1] == directive
+                               for h in headers[current]):
+                        headers[current].append(line)
+                continue
+            fam = current
+            if fam is None:  # headerless sample: its own family
+                fam = family(line.split("{", 1)[0].split(" ", 1)[0])
+            samples[fam].append(inject_labels(line, tags))
+    out: list[str] = []
+    for fam in order:
+        out.extend(headers.get(fam, ()))
+        out.extend(samples[fam])
+    return "\n".join(out) + "\n"
+
+
+def scrape_pages(client, targets: list[tuple[str, str]], method: str,
+                 timeout_s: float, tag_key: str) -> list[tuple[dict, str]]:
+    """Concurrently scrape `method` (a handler returning {"text": ...})
+    from (tag_value, address) targets under ONE shared deadline — a
+    slow or dead target costs the whole scrape at most `timeout_s`, not
+    timeout_s apiece (RpcClient.call_gather also reclaims timed-out
+    reply slots, so repeated scrapes of a hung peer cannot leak).
+    Shared by the head's node fan-out and the nodelet's worker
+    fan-out."""
+    results = client.call_gather(
+        [(addr, method, {}) for _, addr in targets], timeout=timeout_s)
+    pages: list[tuple[dict, str]] = []
+    for (tag, _), r in zip(targets, results):
+        if r is not None:  # dead/slow target: the rest of the page stands
+            pages.append(({tag_key: tag}, r["text"]))
+    return pages
+
+
+def clear_registry():
+    _registry.clear()
+
+
+def serve_metrics_http(port: int = 0, text_fn=None) -> int:
+    """Expose /metrics over HTTP (reference: metrics agent endpoint).
+    `text_fn` overrides the page source — the head passes its
+    cluster-wide aggregation so one port serves every node's metrics.
+    Returns the bound port."""
+    import http.server
+    import threading as _t
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            if self.path not in ("/metrics", "/"):
+                self.send_response(404)
+                self.end_headers()
+                return
+            body = (text_fn or prometheus_text)().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; version=0.0.4")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", port), Handler)
+    _t.Thread(target=server.serve_forever, daemon=True,
+              name="metrics-http").start()
+    return server.server_address[1]

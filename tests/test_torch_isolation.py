@@ -5,7 +5,8 @@ importing the cluster runtime, the trainer and worker group, or the
 Tuner leaves jax, zmq and cloudpickle out of sys.modules, importing
 Serve and its LLM deployment leaves grpc out too, importing compiled
 graphs, the host collectives and the channels leaves jax and
-cloudpickle out, and
+cloudpickle out, importing the observability planes leaves torch out
+too (``torch.profiler`` loads only when a capture is armed), and
 importing the port's core API, its serving package or its RL package
 leaves jax, gymnasium and cloudpickle out of sys.modules, and importing
 its data layer and offline RL leaves pyarrow out too (the card's
@@ -93,6 +94,32 @@ def test_cluster_runtime_import_leaves_jax_zmq_and_cloudpickle_unloaded():
     worker starts without torch (it loads where a tensor is read)."""
     code = ("import sys, ray_tpu_torch.core.cluster_runtime, "
             "ray_tpu_torch.core.worker_main, ray_tpu_torch.cluster_utils\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ray_tpu', 'zmq', 'cloudpickle', 'torch'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_observability_planes_import_leaves_jax_and_torch_unloaded():
+    """The observability planes (tracing, the metrics export, the log
+    plane, the profiler, the Watchtower, critpath, the state API, the
+    catalog, the dashboard and the CLI) import neither jax nor zmq nor
+    cloudpickle, nor torch: `torch.profiler` loads only once
+    `tracing.profiler_capture` arms a window on a CUDA device."""
+    code = ("import sys\n"
+            "import ray_tpu_torch.util.tracing as tr\n"
+            "import ray_tpu_torch.util.metrics, ray_tpu_torch.utils.logging\n"
+            "import ray_tpu_torch.util.profiler, ray_tpu_torch.util.watchtower\n"
+            "import ray_tpu_torch.util.critpath, ray_tpu_torch.util.state\n"
+            "import ray_tpu_torch.util.metrics_catalog\n"
+            "import ray_tpu_torch.dashboard, ray_tpu_torch.scripts.cli\n"
+            "with tr.profiler_capture('/nonexistent', device='cpu') as p:\n"
+            "    assert p is None\n"
+            "with tr.profiler_capture(None) as p:\n"
+            "    assert p is None\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu', 'zmq', 'cloudpickle', 'torch'))\n"
             "assert not bad, bad\n")

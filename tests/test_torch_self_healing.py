@@ -12,10 +12,7 @@ background paths boot no runtime after ``shutdown()``.
 
 The LLM app is the JAX fixture's: tiny GPT-2 (vocab 64, one layer, two
 heads, E=32) in float32, pages of 8 tokens, on the CPU
-(``build_llm_app(device="cpu")``). One change to a scenario: the
-cluster metrics page is not ported, so the health-loop test reads the
-probe and restart series from the controller's own Prometheus page
-(``ServeController.metrics_text``).
+(``build_llm_app(device="cpu")``).
 """
 
 import os
@@ -222,8 +219,9 @@ def test_health_loop_replaces_killed_replica(cluster):
         st = serve_status()
         assert st["health"]["heal"]["restarts"] >= 1
         # probe/restart metrics reached the controller's /metrics page
-        ctrl = ray_tpu.get_actor("__serve_controller")
-        text = ray_tpu.get(ctrl.metrics_text.remote(), timeout=30)
+        from ray_tpu_torch.util.state import cluster_metrics
+
+        text = cluster_metrics()
         assert "serve_replica_restarts_total" in text
         assert 'serve_replica_health_checks_total{app="heal"' in text
     finally:

@@ -69,6 +69,7 @@ from ray_tpu_torch.util.state import llm_status
 
 ROLLOUT_ATOL = 1e-4  # streamed logprobs against the JAX engine's
 CONTRACT_ATOL = 1e-4  # rollout logprobs against teacher forcing
+LAPS_FOR_A_GRADIENT = 5  # GRPO laps through the handle, at most
 
 
 def _tiny_cfgs():
@@ -476,15 +477,22 @@ def test_rollout_worker_handle_lap_matches_teacher_forcing(llm_cluster):
                 atol=CONTRACT_ATOL)
 
         fly = t_rl.RLFlywheel(worker, learner, lambda i: prompts)
-        m = fly.iteration()
-        assert m["num_trajectories"] == 8 and m["version"] == 1
-        assert [s["version"] for s in m["swap"]] == [1, 1]
-        assert [s["weight_version"] for s in llm_status("llm-grpo")] == \
-            [1, 1]
+        # a lap whose every group drew equal rewards has zero advantages
+        # and a zero gradient (the replicas' draws depend on how their
+        # batches interleave): lap until one draws a reward difference
+        for version in range(1, LAPS_FOR_A_GRADIENT + 1):
+            m = fly.iteration()
+            assert m["num_trajectories"] == 8 and m["version"] == version
+            assert [s["version"] for s in m["swap"]] == [version, version]
+            assert [s["weight_version"]
+                    for s in llm_status("llm-grpo")] == [version, version]
+            if m["grad_norm"] > 0:
+                break
+        assert m["grad_norm"] > 0, "no lap drew a reward difference"
         trajs = worker.rollout(prompts)
         assert len(trajs) == 8
         for t in trajs:
-            assert t.weight_version == 1 and not t.stale
+            assert t.weight_version == version and not t.stale
             np.testing.assert_allclose(
                 learner.teacher_forced_logprobs(t), t.logprobs,
                 atol=CONTRACT_ATOL)

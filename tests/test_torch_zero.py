@@ -14,6 +14,9 @@ over four CPU devices, in float32:
 - the bytes each rank holds of each component at <= 1.25/N of the
   replicated layout, and a stage-3 step's all_gathers outnumbering
   stage 0's (CommDebugMode's counts);
+- the ``train_{optimizer,grad,param}_state_bytes`` gauges (adamw,
+  accum_steps=2) at stages 0-3 and the ``train_zero_gather_share``
+  gauge after an attributed stage-3 step equal to the JAX package's;
 - the stage-0 mesh step against the port's single-device step;
 - `init_sharded_state` laying out rank 0's values, and `constrain`
   holding in a remat block replayed on another thread;
@@ -82,10 +85,55 @@ def _port_tx(opt):
     return optim.sgd(0.05, momentum=0.9)
 
 
+GAUGES = ("train_optimizer_state_bytes", "train_grad_state_bytes",
+          "train_param_state_bytes")
+LAYOUT = {"train_optimizer_state_bytes": (1, "zero1"),
+          "train_grad_state_bytes": (2, "zero2"),
+          "train_param_state_bytes": (3, "zero3")}
+
+
+def _gauge_values(text, stage):
+    """The three state-bytes gauges at `stage`'s layout labels, and the
+    gather share, read off a Prometheus page."""
+    out = {}
+    for line in text.splitlines():
+        name = line.split("{", 1)[0].split(" ", 1)[0]
+        if name in LAYOUT:
+            rung, zero = LAYOUT[name]
+            want = zero if stage >= rung else "replicated"
+            if f'layout="{want}"' in line:
+                out[name] = float(line.rsplit(" ", 1)[1])
+        elif name == "train_zero_gather_share":
+            out[name] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
 def _copy(tree):
     if isinstance(tree, dict):
         return {k: _copy(v) for k, v in tree.items()}
     return np.array(tree)
+
+
+def _bytes_across_two_meshes():
+    """`optimizer_state_bytes` of leaves on two meshes of different
+    shapes and rank orders, beside the largest sum of local shard bytes
+    any rank holds (all-reduced)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from ray_tpu_torch.train import spmd
+
+    flat = DeviceMesh("cpu", [0, 1, 2, 3])
+    square = DeviceMesh("cpu", [[3, 2], [1, 0]])
+    tree = {"a": distribute_tensor(torch.zeros(7, 4), flat, [Shard(0)]),
+            "b": distribute_tensor(torch.zeros(4, 4), square,
+                                   [Shard(0), Replicate()]),
+            "c": torch.zeros(3)}
+    held = torch.tensor(float(sum(
+        (v.to_local() if hasattr(v, "to_local") else v).nbytes
+        for v in tree.values())))
+    torch.distributed.all_reduce(held, torch.distributed.ReduceOp.MAX)
+    return {"counted": spmd.optimizer_state_bytes(tree), "held": float(held)}
 
 
 def _zero_body(rank, init):
@@ -98,6 +146,7 @@ def _zero_body(rank, init):
     from ray_tpu_torch.parallel.ops import collective_op_counts
     from ray_tpu_torch.parallel.sharding import shard_pytree
     from ray_tpu_torch.train import spmd
+    from ray_tpu_torch.util.metrics import prometheus_text
 
     meshes = {k: build_mesh(MeshSpec(**v), device="cpu")
               for k, v in MESHES.items()}
@@ -113,9 +162,15 @@ def _zero_body(rank, init):
         step = spmd.make_train_step(loss_fn, tx, mesh=mesh, rules=rules,
                                     zero_stage=stage, accum_steps=accum)
         traj = []
+        attributed = case == ("gpt2", "tensor", 3, "sgd", 1)
+        spmd.enable_step_waterfall(attributed)
         for batch in _batches(cfg.vocab_size, STEPS * accum):
             state, m = step(state, batch)
             traj.append((float(m["loss"]), float(m["grad_norm"])))
+        spmd.enable_step_waterfall(False)
+        if attributed:
+            out["gauges/gather_share"] = _gauge_values(
+                prometheus_text(), 3).get("train_zero_gather_share")
         out[_case_id(case)] = {
             "traj": np.array(traj),
             # copied: a replicated leaf's numpy view would see the
@@ -141,6 +196,7 @@ def _zero_body(rank, init):
             "optimizer": spmd.optimizer_state_bytes(state.opt_state),
             "grads": spmd.optimizer_state_bytes(state.grad_accum),
             "params": spmd.optimizer_state_bytes(state.params)}
+        out[f"gauges/zero{stage}"] = _gauge_values(prometheus_text(), stage)
 
     # init_sharded_state lays out rank 0's values, whatever the other
     # ranks' init_fn gives
@@ -156,6 +212,8 @@ def _zero_body(rank, init):
         out[f"init_from_rank0/zero{stage}"] = float(err)
     out["remat_backward_on_a_thread"] = _remat_backward_on_a_thread(
         mesh, init["gpt2"])
+
+    out["two_meshes"] = _bytes_across_two_meshes()
 
     sharded = shard_pytree(interop.params_from_jax(init["gpt2"]), rules,
                            mesh)
@@ -248,6 +306,7 @@ def _jax_runs(init):
 
     from ray_tpu.parallel.mesh import MeshSpec, build_mesh
     from ray_tpu.train import spmd as jax_spmd
+    from ray_tpu.util.metrics import prometheus_text
 
     devices = jax.devices()[:4]
     meshes = {k: build_mesh(MeshSpec(**v), devices=devices)
@@ -267,15 +326,30 @@ def _jax_runs(init):
             loss_fn, tx, donate=False, zero_stage=stage, mesh=mesh,
             rules=rules, accum_steps=accum)
         traj = []
+        attributed = case == ("gpt2", "tensor", 3, "sgd", 1)
+        jax_spmd.enable_step_waterfall(attributed)
         with mesh:
             for batch in _batches(cfg.vocab_size, STEPS * accum):
                 batch = jax.device_put(
                     batch, jax_spmd.batch_shardings(mesh, batch))
                 state, m = step(state, batch)
                 traj.append((float(m["loss"]), float(m["grad_norm"])))
+        jax_spmd.enable_step_waterfall(False)
+        if attributed:
+            out["gauges/gather_share"] = _gauge_values(
+                prometheus_text(), 3).get("train_zero_gather_share")
         out[_case_id(case)] = {
             "traj": np.array(traj),
             "params": jax.tree.map(np.asarray, state.params)}
+    # the state-bytes gauges at each rung (adamw, accum_steps=2, as the
+    # port's bytes section)
+    cfg, _, rules, _ = _jax_parts("gpt2")
+    params = jax.tree.map(jax.numpy.asarray, init["gpt2"])
+    for stage in range(4):
+        jax_spmd.init_sharded_state(
+            lambda: params, optax.adamw(3e-3, weight_decay=0.1),
+            meshes["tensor"], rules, zero_stage=stage, accum_steps=2)
+        out[f"gauges/zero{stage}"] = _gauge_values(prometheus_text(), stage)
     return out
 
 
@@ -357,6 +431,39 @@ def test_state_bytes_shrink_per_rung(runs, component, rung):
             assert have <= 1.25 * full / N_DATA, (component, stage)
         else:
             assert have == full, (component, stage)
+
+
+@pytest.mark.parametrize("stage", range(4))
+def test_state_gauges_match_jax(runs, stage):
+    """The three state-bytes gauges at each rung: the bytes of each
+    component on the rank (JAX: the device) that holds the most. JAX's
+    adamw state also holds its step count, a replicated int32 (4
+    bytes); the port's keeps it on the host (``train/optim.py``)."""
+    _, port, jax_out = runs
+    got, want = ({k: v for k, v in d[f"gauges/zero{stage}"].items()
+                  if k in GAUGES} for d in (port, jax_out))
+    assert set(want) == set(GAUGES), want
+    want["train_optimizer_state_bytes"] -= 4
+    assert got == want
+
+
+def test_zero_gather_share_gauge_matches_jax(runs):
+    """An attributed stage-3 step sets the gather share on both
+    packages' pages: the share of the step in host-observed all_gather
+    rounds, none here."""
+    _, port, jax_out = runs
+    assert jax_out["gauges/gather_share"] is not None
+    assert port["gauges/gather_share"] == jax_out["gauges/gather_share"]
+
+
+def test_state_bytes_add_up_per_rank_across_meshes(runs):
+    """Leaves on meshes of different shapes and rank orders add up per
+    global rank, as JAX's per-device sum does: rank 2 holds 2 of the
+    flat mesh's rows of 4 floats and 2 of the square mesh's, plus the
+    plain leaf."""
+    _, port, _ = runs
+    got = port["two_meshes"]
+    assert got["counted"] == got["held"] == 2 * 16 + 2 * 16 + 12
 
 
 def test_zero3_step_carries_param_gathers(runs):
