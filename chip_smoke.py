@@ -445,8 +445,8 @@ Phases, each of which exits non-zero on any failure:
    unless they launch exactly 24/12/12 a step, the waterfall's phases
    and each step's ``train.step.*`` spans sum to its host time within
    5 %, and the chrome trace written into OBSERVE_DIR holds one device
-   event a launch of K1, K2 and K3 by their kernel names
-   (OBSERVE_KERNELS). (c) On phase 19's cluster, after its part (c) and with its rank-0 actor
+   event a launch of K1, K2 and K3 (OBSERVE_KERNELS, counted by
+   ``tracing.kernel_events``). (c) On phase 19's cluster, after its part (c) and with its rank-0 actor
    (no new card process): a driver span around a call to the actor that
    prints, logs and submits a task: fail unless all three share the
    span's trace id, also on the merged timeline; the actor trains
@@ -462,6 +462,37 @@ Phases, each of which exits non-zero on any failure:
    every artifact with no
    error. Prints one line with the parts' seconds and each check.
 
+21. tools_gpt2: the cluster tools (TOOLS_* below), last, after every RL
+   phase. (a) On the driver, GPT-2-small's train step takes
+   OBSERVE_TRAIN_STEPS steps inside ``tracing.profiler_capture``: fail
+   unless the chrome trace holds one device event a launch of K1, K2
+   and K3 (the capture itself raises when the trace holds fewer events
+   of a kernel than its block launched). (b) ``launcher.up`` boots a
+   cluster from a config dict (a head of CPUs only, a "gpu" type of one
+   CPU and one GPU, 0 to 1 of them) as ``python -m
+   ray_tpu_torch.scripts.cli start`` processes, with a v2 Reconciler
+   over ``launcher.LaunchedNodeProvider``. ``cli submit --no-wait``
+   submits chip_job.py, whose driver (under the job's supervisor, no
+   card) reserves a placement group of one CPU and one GPU, which stays
+   pending until the Reconciler launches the gpu node, and starts in it
+   a detached GPT-2-small actor that takes TOOLS_STEPS train steps on
+   the card: fail unless the job ends SUCCEEDED, its logs hold its JSON
+   line with finite losses and launches of exactly 24/12/12 a step, its
+   driver loaded no torch and saw no card, `cli job list` and `cli job
+   status` and the dashboard's jobs view name it, and a second job
+   (``sleep 60``) stopped ends STOPPED. (c) A workflow run from this
+   driver: a CPU step draws a token batch, a step trains TOOLS_WF_STEPS
+   steps in the named actor, a step with ``max_retries=0`` ends its own
+   worker until a marker exists: fail unless `run` raises, the status
+   is RESUMABLE, `resume` (after the marker) returns the second step's
+   losses and the batch's checksum without moving the actor's launch
+   counters, and the status is SUCCESS. (d) With the actor killed and
+   its group removed, the Reconciler takes the idle gpu node down: fail
+   unless the node went QUEUED, REQUESTED, ALLOCATED, RAY_RUNNING,
+   TERMINATING, TERMINATED with one launch and one termination, and
+   after ``launcher.down`` no node process is left. The only card
+   process it starts is the actor's. Prints one line with the parts'
+   seconds; fails if the phase took more than TOOLS_BUDGET_S.
 Last, every process this run started and that is still there (a
 descendant of this process, or one whose environment names this process
 as its nodelet's) is listed in a ``{"stray_processes": [...]}`` line,
@@ -485,6 +516,7 @@ import os
 import subprocess
 import sys
 import time
+import urllib.request
 
 import numpy as np
 
@@ -868,9 +900,9 @@ OBSERVE_RULE = "observe-gpt2-trained"
 OBSERVE_RULE_WINDOW_S = 15.0
 OBSERVE_WATCH_PERIOD_S = 1.0
 OBSERVE_BUDGET_S = 40.0
-OBSERVE_KERNELS = {"flash_fwd": "flash_fwd_bf16_kernel",
-                   "flash_dq": "flash_dq_bf16_kernel",
-                   "flash_dkv": "flash_dkv_bf16_kernel"}
+# the launch counters of K1-K3, whose kernels a profiled train step's
+# chrome trace must hold one event a launch of
+OBSERVE_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 def fail(msg: str) -> None:
@@ -7978,6 +8010,21 @@ def _observe_serve(torch, card: str) -> dict:
             "slo_counts": slo}
 
 
+def _trace_holds_launches(phase: str, path: str, launches: dict) -> dict:
+    """K1-K3's kernel events in the chrome trace at `path`; fail unless
+    there is one a launch (`launches`). ``profiler_capture`` has already
+    raised on fewer; this also fails on more."""
+    from ray_tpu_torch.util import tracing
+
+    events = tracing.kernel_events(path)
+    device = {k: events[k] for k in OBSERVE_KERNELS}
+    want = {k: launches[k] for k in OBSERVE_KERNELS}
+    if device != want:
+        fail(f"{phase}: the chrome trace {path} holds device events "
+             f"{device}, want one a launch: {want}")
+    return device
+
+
 def _observe_train(torch, train: tuple) -> dict:
     """Phase 20 (b): train's step, state and batch (`train`, left by the
     train phase), OBSERVE_TRAIN_STEPS more steps with the step waterfall
@@ -8006,6 +8053,8 @@ def _observe_train(torch, train: tuple) -> dict:
                 host_s.append(time.perf_counter() - t0)
             wall = time.perf_counter() - t_first
         export_s = time.perf_counter() - t_first - wall
+    except RuntimeError as e:
+        fail(f"observe_gpt2: {e}")
     finally:
         spmd.enable_step_waterfall(False)
     launches = launch_counts(counters)
@@ -8034,20 +8083,7 @@ def _observe_train(torch, train: tuple) -> dict:
     if len(spans) < 2 * OBSERVE_TRAIN_STEPS or max(gaps) > 0.05:
         fail(f"observe_gpt2: the train.step.* spans ({len(spans)}) sum to "
              f"{per_step} s a step against the steps' {host_s} s")
-    with open(path) as f:
-        trace = json.load(f)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    device = {}
-    for e in events:
-        if e.get("cat") != "kernel":
-            continue
-        for k, sym in OBSERVE_KERNELS.items():
-            if sym in e.get("name", ""):
-                device[k] = device.get(k, 0) + 1
-    if device != {k: launches[k] for k in OBSERVE_KERNELS}:
-        fail(f"observe_gpt2: the chrome trace {path} holds device events "
-             f"{device}, want one a launch: "
-             f"{ {k: launches[k] for k in OBSERVE_KERNELS} }")
+    device = _trace_holds_launches("observe_gpt2", path, launches)
     return {"launches": launches, "step_host_s": host_s,
             "step_span_s": per_step, "worst_span_gap": max(gaps),
             "waterfall": summ["phases"], "trace_file": path,
@@ -8314,6 +8350,350 @@ def phase_dag_gpt2(torch, card: str, observe: dict | None = None) -> dict:
     return {"dag_gpt2": launches, **paths}
 
 
+# tools_gpt2 (phase 21): the cluster tools. `launcher.up` boots
+# TOOLS_CLUSTER (a head of TOOLS_HEAD_CPUS CPUs, a "gpu" type of one CPU
+# and one GPU, 0-1 of them) under TOOLS_DIR; a v2 Reconciler over its
+# "gpu" nodes ticks every TOOLS_TICK_S and takes an idle node back after
+# TOOLS_IDLE_S; the job TOOLS_JOB (chip_job.py) trains TOOLS_STEPS steps
+# in the detached actor TOOLS_ACTOR (batch seed TOOLS_SEED), the
+# workflow TOOLS_WF_STEPS more on a batch drawn from TOOLS_WF_SEED;
+# waits are TOOLS_WAIT_S; the phase fails past TOOLS_BUDGET_S
+TOOLS_CLUSTER = "tools_gpt2"
+TOOLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "tools_gpt2")
+TOOLS_HEAD_CPUS = 4.0
+TOOLS_TICK_S = 0.5
+TOOLS_IDLE_S = 3.0
+TOOLS_JOB = "tools-gpt2"
+TOOLS_SLEEP_JOB = "tools-sleep"
+TOOLS_ACTOR = "tools_gpt2_trainer"
+TOOLS_STEPS = 3
+TOOLS_SEED = 21
+TOOLS_WF_STEPS = 2
+TOOLS_WF_SEED = 210
+TOOLS_WAIT_S = 120.0
+TOOLS_BUDGET_S = 60.0
+
+
+def _tools_config() -> dict:
+    """Phase 21's cluster config (a dict: the card's machine may have no
+    PyYAML)."""
+    return {"cluster_name": TOOLS_CLUSTER, "max_workers": 1,
+            "provider": {"type": "local"}, "head_node_type": "head",
+            "available_node_types": {
+                "head": {"resources": {"CPU": TOOLS_HEAD_CPUS},
+                         "min_workers": 0, "max_workers": 0},
+                "gpu": {"resources": {"CPU": 1.0, "GPU": 1.0},
+                        "min_workers": 0, "max_workers": 1}},
+            "initialization_commands": [], "setup_commands": []}
+
+
+def _cli(*args) -> subprocess.CompletedProcess:
+    """``python -m ray_tpu_torch.scripts.cli ARGS`` from the checkout."""
+    return subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", *args],
+        capture_output=True, text=True, timeout=TOOLS_WAIT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _wf_batch(seed: int):
+    """Workflow step 1 (a CPU task): a seeded (B, T + 1) batch of token
+    ids for GPT-2's vocabulary, drawn with numpy."""
+    B, T = TRAIN_BATCH
+    return np.random.default_rng(seed).integers(0, 50257, (B, T + 1))
+
+
+def _wf_train(tokens, actor: str, steps: int) -> list:
+    """Workflow step 2: `steps` train steps in the named actor on
+    `tokens`; the losses as host floats. The actor is looked up here, so
+    no handle enters the step's id."""
+    import ray_tpu_torch as ray
+
+    a = ray.get_actor(actor)
+    return ray.get(a.train.remote(steps, tokens),
+                   timeout=TOOLS_WAIT_S)["losses"]
+
+
+def _wf_finish(losses: list, tokens, marker: str) -> dict:
+    """Workflow step 3 (max_retries=0): ends its own worker process
+    until `marker` exists."""
+    if not os.path.exists(marker):
+        os._exit(1)
+    return {"losses": losses, "tokens_sum": int(tokens.sum())}
+
+
+def _tools_capture(torch) -> dict:
+    """Phase 21 (a), after every RL phase: GPT-2-small's train step
+    (train's recipe, batch seed TOOLS_SEED) takes OBSERVE_TRAIN_STEPS
+    steps inside ``tracing.profiler_capture``, after one warm-up step;
+    the trace must hold one device event a launch of K1-K3."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config, init_gpt2
+    from ray_tpu_torch.util import tracing
+
+    cfg = GPT2Config.small()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TOOLS_SEED)
+    state, step, batch = _gpt2_train_setup(torch, init_gpt2(gen, cfg), cfg,
+                                           gen)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    try:
+        with tracing.profiler_capture(os.path.join(TOOLS_DIR, "profile"),
+                                      device="cuda") as path:
+            for _ in range(OBSERVE_TRAIN_STEPS):
+                state, _ = step(state, batch)
+    except RuntimeError as e:
+        fail(f"tools_gpt2: after the RL phases {e}")
+    capture_s = time.perf_counter() - t0
+    launches = launch_counts(counters)
+    del state, step, batch
+    release(torch)
+    want = {"flash_fwd": 24 * OBSERVE_TRAIN_STEPS,
+            "flash_dq": 12 * OBSERVE_TRAIN_STEPS,
+            "flash_dkv": 12 * OBSERVE_TRAIN_STEPS, "paged_attention": 0}
+    if {k: launches[k] for k in want} != want:
+        fail(f"tools_gpt2: the captured steps launched {launches}, want "
+             f"{want}")
+    device = _trace_holds_launches("tools_gpt2: after the RL phases",
+                                   path, launches)
+    return {"launches": {k: launches[k] for k in want},
+            "device_events": device,
+            "all_device_events": tracing.device_events(path),
+            "trace_bytes": os.path.getsize(path), "capture_s": capture_s}
+
+
+def _tools_job(ray, address: str, card: str) -> dict:
+    """Submit chip_job.py through the CLI, wait for it, read its line
+    back; the CLI's and the dashboard's views of it."""
+    from ray_tpu_torch import dashboard
+    from ray_tpu_torch.job_submission import JobStatus, JobSubmissionClient
+
+    job = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chip_job.py")
+    r = _cli("submit", "--address", address, "--submission-id", TOOLS_JOB,
+             "--no-wait", "--", sys.executable, job, "--address", address,
+             "--actor", TOOLS_ACTOR, "--steps", str(TOOLS_STEPS),
+             "--seed", str(TOOLS_SEED), "--batch", *map(str, TRAIN_BATCH))
+    if r.returncode != 0 or f"submitted {TOOLS_JOB}" not in r.stdout:
+        fail(f"tools_gpt2: cli submit exited {r.returncode}: {r.stdout} "
+             f"{r.stderr}")
+    client = JobSubmissionClient(address)
+    status = client.wait_until_finished(TOOLS_JOB, timeout=TOOLS_WAIT_S)
+    logs = client.get_job_logs(TOOLS_JOB)
+    if status != JobStatus.SUCCEEDED:
+        fail(f"tools_gpt2: the job ended {status.value}: {logs[-2000:]}")
+    lines = [json.loads(x) for x in logs.splitlines()
+             if x.startswith('{"job": ')]
+    if len(lines) != 1:
+        fail(f"tools_gpt2: the job's logs hold {len(lines)} result lines: "
+             f"{logs[-2000:]}")
+    out = lines[0]
+    want = {"flash_fwd": 24 * TOOLS_STEPS, "flash_dq": 12 * TOOLS_STEPS,
+            "flash_dkv": 12 * TOOLS_STEPS, "paged_attention": 0}
+    if out["launches"] != want:
+        fail(f"tools_gpt2: the job's actor launched {out['launches']}, "
+             f"want {want}")
+    if len(out["losses"]) != TOOLS_STEPS or \
+            not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"tools_gpt2: the job's losses {out['losses']}")
+    if out["driver_torch_loaded"] or \
+            out["driver_cuda_visible_devices"] != "":
+        fail(f"tools_gpt2: the job's driver loaded torch "
+             f"({out['driver_torch_loaded']}) or saw the card "
+             f"(CUDA_VISIBLE_DEVICES={out['driver_cuda_visible_devices']!r})")
+    if out["actor_start"]["device_count"] != 1:
+        fail(f"tools_gpt2: the actor sees {out['actor_start']}")
+    listed = _cli("job", "list", "--address", address)
+    row = f"{TOOLS_JOB}\tSUCCEEDED\t"
+    if listed.returncode != 0 or not any(
+            x.startswith(row) for x in listed.stdout.splitlines()):
+        fail(f"tools_gpt2: cli job list: {listed.stdout} {listed.stderr}")
+    st = _cli("job", "status", "--address", address, "--id", TOOLS_JOB)
+    if st.returncode != 0 or st.stdout.strip() != "SUCCEEDED exit code 0":
+        fail(f"tools_gpt2: cli job status: {st.stdout} {st.stderr}")
+    port = dashboard.start_dashboard(address, port=0)
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/jobs",
+                                    timeout=30) as resp:
+            view = json.loads(resp.read())
+    finally:
+        dashboard.stop_dashboard()
+    if not any(j["submission_id"] == TOOLS_JOB and j["status"] ==
+               "SUCCEEDED" for j in view):
+        fail(f"tools_gpt2: the dashboard's jobs view {view}")
+    sleeper = client.submit_job(entrypoint="sleep 60",
+                                submission_id=TOOLS_SLEEP_JOB)
+    deadline = time.monotonic() + TOOLS_WAIT_S
+    while client.get_job_status(sleeper) != JobStatus.RUNNING:
+        if time.monotonic() > deadline:
+            fail("tools_gpt2: the sleep job never ran")
+        time.sleep(0.1)
+    if not client.stop_job(sleeper):
+        fail("tools_gpt2: stop_job refused the sleep job")
+    stopped = client.wait_until_finished(sleeper, timeout=TOOLS_WAIT_S)
+    if stopped != JobStatus.STOPPED:
+        fail(f"tools_gpt2: the stopped job ended {stopped.value}")
+    return {**out, "card": card, "cli_job_status": st.stdout.strip(),
+            "dashboard_jobs": view, "sleep_job": stopped.value}
+
+
+def _tools_workflow(ray) -> dict:
+    """Run, kill and resume a three-step workflow whose second step
+    trains in the job's actor."""
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.core.exceptions import RayTpuError
+
+    store = os.path.join(TOOLS_DIR, "workflows")
+    marker = os.path.join(TOOLS_DIR, "resume_marker")
+    actor = ray.get_actor(TOOLS_ACTOR)
+    make = workflow.step(_wf_batch)
+    train = workflow.step(_wf_train)
+    finish = workflow.step(max_retries=0)(_wf_finish)
+    batch = make.step(TOOLS_WF_SEED)
+    dag = finish.step(train.step(batch, TOOLS_ACTOR, TOOLS_WF_STEPS),
+                      batch, marker)
+    t0 = time.perf_counter()
+    try:
+        workflow.run(dag, workflow_id="tools", storage=store)
+    except RayTpuError as e:
+        raised = type(e).__name__
+    else:
+        fail("tools_gpt2: the workflow ran through a step that ends its "
+             "worker")
+    run_s = time.perf_counter() - t0
+    status = workflow.get_status("tools", storage=store)
+    if status != workflow.RESUMABLE:
+        fail(f"tools_gpt2: the crashed workflow is {status}")
+    trained = ray.get(actor.last_result.remote(), timeout=TOOLS_WAIT_S)
+    want_launches = {"flash_fwd": 24 * TOOLS_WF_STEPS,
+                     "flash_dq": 12 * TOOLS_WF_STEPS,
+                     "flash_dkv": 12 * TOOLS_WF_STEPS, "paged_attention": 0}
+    if trained is None or trained["launches"] != want_launches:
+        fail(f"tools_gpt2: the workflow's train step launched "
+             f"{trained and trained['launches']}, want {want_launches}")
+    before = ray.get(actor.launches.remote(), timeout=TOOLS_WAIT_S)
+    with open(marker, "w"):
+        pass
+    t1 = time.perf_counter()
+    value = workflow.resume("tools", storage=store)
+    resume_s = time.perf_counter() - t1
+    after = ray.get(actor.launches.remote(), timeout=TOOLS_WAIT_S)
+    want = {"losses": trained["losses"],
+            "tokens_sum": int(_wf_batch(TOOLS_WF_SEED).sum())}
+    if value != want:
+        fail(f"tools_gpt2: resume returned {value}, want {want}")
+    if after != before:
+        fail(f"tools_gpt2: the resume ran a finished step again: the "
+             f"actor's launches went {before} -> {after}")
+    final = workflow.get_status("tools", storage=store)
+    if final != workflow.SUCCESS:
+        fail(f"tools_gpt2: the resumed workflow is {final}")
+    return {"run_raised": raised, "status_after_crash": status,
+            "status_after_resume": final, "losses": trained["losses"],
+            "launches": trained["launches"], "run_s": run_s,
+            "resume_s": resume_s, "actor_launches_across_resume":
+                {"before": before, "after": after}}
+
+
+def phase_tools_gpt2(torch, card: str) -> dict:
+    """Phase 21: the cluster tools on a GPT-2-small job (see the
+    docstring); returns the launches of the path tools_gpt2 (the
+    captured steps on the driver, the job's steps and the workflow's in
+    its actor)."""
+    import shutil
+
+    import ray_tpu_torch as ray
+    from ray_tpu_torch import launcher
+    from ray_tpu_torch.autoscaler_v2 import RAY_RUNNING, TERMINATED, Reconciler
+    from ray_tpu_torch.util.placement_group import (
+        PlacementGroup,
+        remove_placement_group,
+    )
+    from ray_tpu_torch.core.ids import PlacementGroupID
+
+    t_phase = time.perf_counter()
+    parts: dict = {}
+    t_part = [t_phase]
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    capture = _tools_capture(torch)
+    part("capture")
+    state = launcher.up(_tools_config(), state_dir=TOOLS_DIR)
+    address = state["head"]["address"]
+    pids = [state["head"]["pid"]]
+    rec = None
+    try:
+        part("up")
+        provider = launcher.LaunchedNodeProvider(TOOLS_CLUSTER, "gpu",
+                                                 state_dir=TOOLS_DIR)
+        rec = Reconciler(address, provider, node_type="gpu", min_workers=0,
+                         max_workers=1, idle_timeout_s=TOOLS_IDLE_S)
+        rec.start(interval_s=TOOLS_TICK_S)
+        ray.init(address=address)
+        job = _tools_job(ray, address, card)
+        part("job")
+        gpu_nodes = launcher.load_state(TOOLS_CLUSTER, TOOLS_DIR)["workers"]
+        pids += [w["pid"] for w in gpu_nodes]
+        running = rec.storage.list(RAY_RUNNING)
+        if len(gpu_nodes) != 1 or len(running) != 1 or \
+                running[0].node_id != bytes.fromhex(
+                    gpu_nodes[0]["node_id_hex"]):
+            fail(f"tools_gpt2: the reconciler's gpu node: {rec.summary()}, "
+                 f"launched {gpu_nodes}")
+        flow = _tools_workflow(ray)
+        part("workflow")
+        ray.kill(ray.get_actor(TOOLS_ACTOR))
+        remove_placement_group(PlacementGroup(
+            PlacementGroupID(bytes.fromhex(job["pg_id"])), []))
+        deadline = time.monotonic() + TOOLS_WAIT_S
+        while not rec.storage.list(TERMINATED):
+            if time.monotonic() > deadline:
+                fail(f"tools_gpt2: the idle gpu node was never taken "
+                     f"down: {rec.summary()}")
+            time.sleep(0.1)
+        history = [s for s, _ in rec.storage.list(TERMINATED)[0].history]
+        summary = rec.summary()
+        part("scale_down")
+    finally:
+        if rec is not None:
+            rec.stop()
+        ray.shutdown()
+        launcher.down(TOOLS_CLUSTER, state_dir=TOOLS_DIR)
+    deadline = time.monotonic() + 30
+    while any(launcher.pid_alive(p) for p in pids):
+        if time.monotonic() > deadline:
+            fail(f"tools_gpt2: node processes {pids} outlived down()")
+        time.sleep(0.1)
+    part("down")
+    if history != ["QUEUED", "REQUESTED", "ALLOCATED", "RAY_RUNNING",
+                   "TERMINATING", "TERMINATED"] or \
+            summary["launches"] != 1 or summary["terminations"] != 1:
+        fail(f"tools_gpt2: the gpu node's history {history}, {summary}")
+    launches = {k: job["launches"][k] + flow["launches"][k]
+                + capture["launches"][k] for k in job["launches"]}
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "tools_gpt2", "card": card, "launches": launches,
+          "job": {k: job[k] for k in ("losses", "launches", "placed_s",
+                                      "seconds", "train_s", "actor_start",
+                                      "cli_job_status", "sleep_job")},
+          "capture_after_rl": capture,
+          "workflow": flow, "gpu_node_history": history,
+          "reconciler": summary, "phase_s": phase_s, "parts_s": parts,
+          "budget_s": TOOLS_BUDGET_S,
+          "within_budget": phase_s <= TOOLS_BUDGET_S})
+    if phase_s > TOOLS_BUDGET_S:
+        fail(f"tools_gpt2: the phase took {phase_s} s, over its bar of "
+             f"{TOOLS_BUDGET_S} s")
+    return launches
+
+
 def _paths(t, path=""):
     if isinstance(t, dict):
         for k in sorted(t):
@@ -8540,6 +8920,8 @@ def main() -> int:
     paths["dag_gpt2"] = dag["dag_gpt2"]
     paths["observe_gpt2"] = _add_launches(paths["observe_gpt2"],
                                           dag["observe_gpt2"])
+    paths["tools_gpt2"] = phase_tools_gpt2(torch, card)
+    lap("tools_gpt2")
 
     # K4's rows on the serving paths, each with its launches there
     for name, path in (("decode", "serve"), ("verify", "serve_spec"),

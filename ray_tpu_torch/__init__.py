@@ -22,7 +22,11 @@ process::
 Importing this package loads the core API only, not the serving, RL or
 training packages.
 
-Ported so far: Serve on the cluster runtime (``ray_tpu_torch.serve``:
+Ported so far: the cluster tools (``launcher``, the autoscalers
+``autoscaler``, ``autoscaler_v2`` and ``autoscaler_gcp``,
+``job_submission``, the thin ``client``, durable ``workflow``s, ``air``
+and the CLI's cluster commands, ``python -m
+ray_tpu_torch.scripts.cli``); Serve on the cluster runtime (``ray_tpu_torch.serve``:
 deployments, the controller's health loop, handles with failover, the
 HTTP proxy, the LLM deployment); GPT-2 and Llama serving
 (``ray_tpu_torch.serve.llm``) at

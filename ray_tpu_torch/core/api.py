@@ -1,12 +1,19 @@
 """Public task/actor/object API: the port's copy of
-``ray_tpu/core/api.py``, on the in-process `LocalRuntime`.
+``ray_tpu/core/api.py``.
 
 Reference parity: ray.init (python/ray/_private/worker.py:1275),
 @ray.remote (python/ray/remote_function.py:41, python/ray/actor.py:602),
 ray.get/put/wait (worker.py:2636,2804,2869).
 
-Deviations from the JAX package: ``init(num_gpus=)`` in place of
-``num_tpus=``; and `ActorMethod.bind` raises until ``dag/`` is ported.
+`init()` boots the cluster runtime (`core/cluster_runtime.py`): a head
+and a nodelet in this process, with worker processes under them, or,
+given an address, joins a running cluster; `init(local_mode=True)` runs
+tasks and actors on threads of this process (`LocalRuntime`).
+`ActorMethod.bind` builds a compiled graph's `ClassMethodNode`
+(``ray_tpu_torch.dag``).
+
+Deviation from the JAX package: ``init(num_gpus=)`` in place of
+``num_tpus=``.
 """
 
 from __future__ import annotations

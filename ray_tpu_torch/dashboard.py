@@ -10,8 +10,7 @@ tables + per-node store usage, the `ray memory` role), /api/history
 /api/serve (the libraries' published views), /api/node_stats,
 /api/logs, /metrics (this process's Prometheus registry).
 
-The port's copy of ``ray_tpu/dashboard.py``; /api/jobs lists nothing
-until job submission is ported."""
+The port's copy of ``ray_tpu/dashboard.py``."""
 
 from __future__ import annotations
 
@@ -290,9 +289,17 @@ def start_dashboard(head_address: str | None = None, port: int = 8265) -> int:
 
 
 def _jobs(head_address: str | None) -> list[dict]:
-    """Submitted jobs: none until job submission is ported (the JAX
-    dashboard lists them through its JobSubmissionClient)."""
-    return []
+    try:
+        from ray_tpu_torch.job_submission import JobSubmissionClient
+
+        client = JobSubmissionClient(head_address)
+        return [
+            {"submission_id": j.submission_id, "status": j.status.value,
+             "entrypoint": j.entrypoint}
+            for j in client.list_jobs()
+        ]
+    except Exception:  # noqa: BLE001
+        return []
 
 
 def stop_dashboard():

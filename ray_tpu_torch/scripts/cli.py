@@ -1,10 +1,23 @@
-"""Cluster CLI: the port's copy of the observability commands of
-``ray_tpu/scripts/cli.py``.
+"""Cluster CLI: the port's copy of ``ray_tpu/scripts/cli.py``.
 
-Reference parity: python/ray/scripts/scripts.py — `ray status`,
-`ray list`, `ray timeline`, `ray logs`. Every command reads a running
-cluster through the state API. Usage:
+Reference parity: python/ray/scripts/scripts.py — `ray start --head`,
+`ray start --address`, `ray stop`, `ray status`, `ray list`, `ray up`,
+`ray down`, `ray exec`, `ray attach`, `ray job submit`. No console
+script is installed: run it as ``python -m ray_tpu_torch.scripts.cli``.
+Usage:
 
+  python -m ray_tpu_torch.scripts.cli start --head [--node-ip IP] \
+      [--num-cpus N] [--num-gpus N] [--resources JSON] [--block]
+  python -m ray_tpu_torch.scripts.cli start --address HOST:PORT [...]
+  python -m ray_tpu_torch.scripts.cli stop   [--session-dir DIR]
+  python -m ray_tpu_torch.scripts.cli up     CONFIG.yaml [--state-dir DIR]
+  python -m ray_tpu_torch.scripts.cli down   CLUSTER [--state-dir DIR]
+  python -m ray_tpu_torch.scripts.cli exec   [--state-dir DIR] CLUSTER -- CMD
+  python -m ray_tpu_torch.scripts.cli attach CLUSTER [--state-dir DIR]
+  python -m ray_tpu_torch.scripts.cli submit --address HOST:PORT
+      [--submission-id ID] [--no-wait] -- CMD
+  python -m ray_tpu_torch.scripts.cli job {list|status|logs|stop}
+      --address HOST:PORT [--id ID]
   python -m ray_tpu_torch.scripts.cli status  --address HOST:PORT
   python -m ray_tpu_torch.scripts.cli summary --address HOST:PORT [--json]
   python -m ray_tpu_torch.scripts.cli explain TASK_ID --address HOST:PORT
@@ -20,8 +33,12 @@ cluster through the state API. Usage:
       [--grep RE] [--level error] [--node N] [--task TID] [--trace-id T]
   python -m ray_tpu_torch.scripts.cli debug-dump --address HOST:PORT [-o DIR]
 
-The cluster commands (`start`, `stop`, `submit`, `job`, `up`, `down`,
-`exec`, `attach`) are not ported yet.
+Deviations from the JAX CLI: `start` takes ``--num-gpus`` where JAX's
+takes ``--num-tpus``; the default session root is the port's own,
+``$TMPDIR/ray_tpu_torch`` (JAX's is ``/tmp/ray_tpu``), so a `stop`
+without ``--session-dir`` signals the port's nodes only; and a node
+started here shuts its nodelet and head down on SIGTERM (what `stop`
+sends) as on ^C, so its store's segment is unlinked.
 """
 
 from __future__ import annotations
@@ -29,8 +46,104 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import sys
+import tempfile
 import time
+
+_DEFAULT_DIR = os.path.join(tempfile.gettempdir(), "ray_tpu_torch")
+
+
+def _pidfile(session_dir: str) -> str:
+    return os.path.join(session_dir, "cli_pids.json")
+
+
+def _record_pid(session_dir: str, role: str):
+    os.makedirs(session_dir, exist_ok=True)
+    path = _pidfile(session_dir)
+    pids = []
+    if os.path.exists(path):
+        try:
+            with open(path) as f:
+                pids = json.load(f)
+        except (OSError, ValueError):
+            pids = []
+    pids.append({"pid": os.getpid(), "role": role, "t": time.time()})
+    with open(path, "w") as f:
+        json.dump(pids, f)
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
+def cmd_start(args):
+    if args.node_ip:
+        os.environ["RAY_TPU_NODE_IP"] = args.node_ip
+    from ray_tpu_torch.core.head import Head
+    from ray_tpu_torch.core.nodelet import Nodelet
+
+    session_dir = args.session_dir or os.path.join(
+        _DEFAULT_DIR, f"session_cli_{int(time.time())}")
+    os.makedirs(os.path.join(session_dir, "logs"), exist_ok=True)
+    res = json.loads(args.resources) if args.resources else {}
+    res.setdefault("CPU", float(args.num_cpus if args.num_cpus is not None
+                                else os.cpu_count() or 1))
+    if args.num_gpus:
+        res["GPU"] = float(args.num_gpus)
+
+    head = None
+    if args.head:
+        head = Head(session_name=os.path.basename(session_dir)).start()
+        head_address = head.address
+        print(f"head started at {head_address}")
+        print(f"connect with: ray_tpu_torch.init(address={head_address!r})")
+    else:
+        if not args.address:
+            print("error: start needs --head or --address", file=sys.stderr)
+            return 2
+        head_address = args.address
+    nodelet = Nodelet(head_address, res,
+                      labels=json.loads(args.labels or "{}"),
+                      session_dir=session_dir).start()
+    # this process (head+nodelet or nodelet) joins the structured log
+    # plane too, so control-plane warnings are queryable via
+    # `logs` like any worker's
+    from ray_tpu_torch.utils import logging as slog
+
+    slog.install_process_logging(
+        role="head" if args.head else "nodelet",
+        log_dir=nodelet.log_dir,
+        node_id=nodelet.node_id.hex()[:12], proc="nodelet")
+    print(f"nodelet started at {nodelet.address} with {res}", flush=True)
+    if getattr(args, "node_info_file", None):
+        # machine-readable handle for the cluster launcher / autoscaler
+        # provider (reference: the node's metadata in the GCS node table)
+        tmp = args.node_info_file + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"node_id_hex": nodelet.node_id.hex(),
+                       "address": nodelet.address,
+                       "head_address": head_address,
+                       "pid": os.getpid()}, f)
+        os.replace(tmp, args.node_info_file)
+    if args.address_file:
+        tmp = args.address_file + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(head_address)
+        os.replace(tmp, args.address_file)
+    _record_pid(session_dir, "head+nodelet" if args.head else "nodelet")
+    # services are in-process threads: block until ^C or `stop`'s SIGTERM
+    signal.signal(signal.SIGTERM, _interrupt)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:  # graftlint: disable=except-hygiene
+        pass  # ^C IS the stop signal: shutdown continues right below
+    nodelet.stop()
+    if head is not None:
+        head.stop()
+    return 0
+
 
 def cmd_status(args):
     from ray_tpu_torch.util import state
@@ -422,9 +535,135 @@ def cmd_logs(args):
         return 0  # ^C IS how an operator ends a follow
 
 
+def cmd_stop(args):
+    session_dir = args.session_dir
+    roots = ([session_dir] if session_dir else
+             [os.path.join(_DEFAULT_DIR, d)
+              for d in os.listdir(_DEFAULT_DIR)] if
+             os.path.isdir(_DEFAULT_DIR) else [])
+    n = 0
+    for root in roots:
+        path = _pidfile(root)
+        if not os.path.exists(path):
+            continue
+        try:
+            with open(path) as f:
+                pids = json.load(f)
+        except (OSError, ValueError):
+            continue
+        for entry in pids:
+            try:
+                os.kill(entry["pid"], signal.SIGTERM)
+                n += 1
+            except ProcessLookupError:
+                pass
+        os.unlink(path)
+    print(f"stopped {n} process(es)")
+    return 0
+
+
+def cmd_up(args):
+    from ray_tpu_torch import launcher
+
+    cfg = launcher.load_cluster_config(args.config_file)
+    state = launcher.up(cfg, state_dir=args.state_dir)
+    print(f"cluster {cfg['cluster_name']!r} up: "
+          f"head at {state['head']['address']}, "
+          f"{len(state['workers'])} workers")
+    print(f"connect with: ray_tpu_torch.init(address="
+          f"{state['head']['address']!r})")
+    return 0
+
+
+def cmd_down(args):
+    from ray_tpu_torch import launcher
+
+    state = launcher.down(args.cluster_name, state_dir=args.state_dir)
+    n = len(state.get("workers", [])) + (1 if state.get("head") else 0)
+    print(f"cluster {args.cluster_name!r} down ({n} nodes terminated)")
+    return 0
+
+
+def cmd_exec(args):
+    from ray_tpu_torch import launcher
+
+    cmd = " ".join(args.command)
+    if cmd.startswith("-- "):
+        cmd = cmd[3:]
+    return launcher.exec_on_cluster(args.cluster_name, cmd,
+                                    state_dir=args.state_dir)
+
+
+def cmd_attach(args):
+    from ray_tpu_torch import launcher
+
+    return launcher.attach(args.cluster_name, state_dir=args.state_dir)
+
+
+def cmd_submit(args):
+    import ray_tpu_torch as ray
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    ray.init(address=args.address)
+    client = JobSubmissionClient(args.address)
+    entry = args.entrypoint
+    if entry and entry[0] == "--":
+        entry = entry[1:]
+    if not entry:
+        print("error: no entrypoint given (use: submit --address A -- cmd)",
+              file=sys.stderr)
+        return 2
+    job_id = client.submit_job(entrypoint=" ".join(entry),
+                               submission_id=args.submission_id)
+    print(f"submitted {job_id}")
+    if args.no_wait:
+        return 0
+    status = client.wait_until_finished(job_id, timeout=3600)
+    print(f"job {job_id}: {status.value}")
+    print(client.get_job_logs(job_id), end="")
+    return 0 if status.value == "SUCCEEDED" else 1
+
+
+def cmd_job(args):
+    import ray_tpu_torch as ray
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    ray.init(address=args.address)
+    client = JobSubmissionClient(args.address)
+    if args.action == "list":
+        for j in client.list_jobs():
+            print(f"{j.submission_id}\t{j.status.value}\t{j.entrypoint}")
+        return 0
+    if not args.id:
+        print("error: --id required", file=sys.stderr)
+        return 2
+    if args.action == "status":
+        info = client.get_job_info(args.id)
+        print(f"{info.status.value} {info.message}")
+    elif args.action == "logs":
+        print(client.get_job_logs(args.id), end="")
+    elif args.action == "stop":
+        print("stopped" if client.stop_job(args.id) else "not found")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="ray_tpu_torch.scripts.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("start")
+    p.add_argument("--head", action="store_true")
+    p.add_argument("--address")
+    p.add_argument("--node-ip")
+    p.add_argument("--num-cpus", type=float)
+    p.add_argument("--num-gpus", type=float)
+    p.add_argument("--resources")
+    p.add_argument("--labels")
+    p.add_argument("--session-dir")
+    p.add_argument("--address-file")
+    p.add_argument("--node-info-file")
+    p.add_argument("--block", action="store_true")
+    p.set_defaults(fn=cmd_start)
 
     p = sub.add_parser("status")
     p.add_argument("--address", required=True)
@@ -545,6 +784,47 @@ def main(argv=None):
     p.add_argument("--json", action="store_true",
                    help="raw JSONL records instead of formatted lines")
     p.set_defaults(fn=cmd_logs)
+
+    p = sub.add_parser("stop")
+    p.add_argument("--session-dir")
+    p.set_defaults(fn=cmd_stop)
+
+    p = sub.add_parser("submit")
+    p.add_argument("--address", required=True)
+    p.add_argument("--submission-id")
+    p.add_argument("--no-wait", action="store_true")
+    p.add_argument("entrypoint", nargs=argparse.REMAINDER,
+                   help="-- command to run")
+    p.set_defaults(fn=cmd_submit)
+
+    p = sub.add_parser("job")
+    p.add_argument("action", choices=["status", "logs", "stop", "list"])
+    p.add_argument("--address", required=True)
+    p.add_argument("--id")
+    p.set_defaults(fn=cmd_job)
+
+    p = sub.add_parser("up", help="boot a cluster from a YAML config")
+    p.add_argument("config_file")
+    p.add_argument("--state-dir")
+    p.set_defaults(fn=cmd_up)
+
+    p = sub.add_parser("down", help="terminate a launched cluster")
+    p.add_argument("cluster_name")
+    p.add_argument("--state-dir")
+    p.set_defaults(fn=cmd_down)
+
+    p = sub.add_parser("exec", help="run a command with the cluster "
+                                    "address exported")
+    p.add_argument("cluster_name")
+    p.add_argument("command", nargs=argparse.REMAINDER)
+    p.add_argument("--state-dir")
+    p.set_defaults(fn=cmd_exec)
+
+    p = sub.add_parser("attach", help="interactive shell against the "
+                                      "cluster")
+    p.add_argument("cluster_name")
+    p.add_argument("--state-dir")
+    p.set_defaults(fn=cmd_attach)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,7 +1,9 @@
 """Dashboard-lite endpoint tests: the scenarios of tests/test_dashboard.py
 (6) on the port's dashboard and its Train and Data views, on one
-module-scoped cluster of the port. The Train view's run is a
-`TorchTrainer` (the port's trainer) with one CPU worker."""
+module-scoped cluster of the port, and its jobs view listing a job
+submitted through the port's job submission in the JAX dashboard's
+fields. The Train view's run is a `TorchTrainer` (the port's trainer)
+with one CPU worker."""
 
 import json
 import urllib.request
@@ -155,3 +157,34 @@ def test_data_and_serve_views(cluster):
     assert execs[0]["yielded"] >= 4
     serve_view = json.loads(_get(port, "/api/serve"))
     assert isinstance(serve_view, dict)  # empty control plane is fine
+
+
+def test_jobs_endpoint_lists_submitted_jobs(cluster, monkeypatch):
+    """/api/jobs lists a submitted job with its status, in the JAX
+    dashboard's fields (its `_jobs` run on a stub client's answer)."""
+    import ray_tpu.dashboard as jax_dashboard
+    import ray_tpu.job_submission as jax_js
+
+    from ray_tpu_torch.job_submission import JobStatus, JobSubmissionClient
+
+    c, port = cluster
+    client = JobSubmissionClient(c.address)
+    job_id = client.submit_job(entrypoint="echo listed",
+                               submission_id="dash-job")
+    assert client.wait_until_finished(job_id, timeout=120) == \
+        JobStatus.SUCCEEDED
+    jobs = json.loads(_get(port, "/api/jobs"))
+    mine = [j for j in jobs if j["submission_id"] == "dash-job"]
+    assert mine == [{"submission_id": "dash-job", "status": "SUCCEEDED",
+                     "entrypoint": "echo listed"}]
+
+    class StubClient:
+        def __init__(self, address):
+            pass
+
+        def list_jobs(self):
+            return [jax_js.JobDetails("dash-job", "echo listed",
+                                      jax_js.JobStatus.SUCCEEDED)]
+
+    monkeypatch.setattr(jax_js, "JobSubmissionClient", StubClient)
+    assert jax_dashboard._jobs(None) == mine

@@ -10,11 +10,16 @@ too (``torch.profiler`` loads only when a capture is armed), and
 importing the port's core API, its serving package or its RL package
 leaves jax, gymnasium and cloudpickle out of sys.modules, and importing
 its data layer and offline RL leaves pyarrow out too (the card's
-machine has no pyarrow). It keeps its
-own copies of the JAX-free modules it needs, and its own envs."""
+machine has no pyarrow), importing the cluster tools (client, workflows,
+launcher, job submission, autoscalers) leaves PyYAML and torch out too,
+and no string of the port starts a JAX package module in a subprocess.
+The card scripts beside chip_smoke.py are scanned with the package. It
+keeps its own copies of the JAX-free modules it needs, and its own
+envs."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -24,7 +29,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    # chip_smoke.py and the card scripts committed beside it
+    out = [os.path.join(ROOT, f) for f in os.listdir(ROOT)
+           if f.startswith("chip_") and f.endswith(".py")]
     for d, _, files in os.walk(os.path.join(ROOT, "ray_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -55,6 +62,8 @@ def _imports(path):
 def test_port_files_exist():
     files = _port_files()
     assert len(files) > 10
+    assert os.path.join(ROOT, "chip_smoke.py") in files
+    assert os.path.join(ROOT, "chip_job.py") in files
     assert os.path.exists(os.path.join(ROOT, "ray_tpu_torch", "csrc",
                                        "flash_attention.cu"))
     assert os.path.exists(os.path.join(ROOT, "ray_tpu_torch", "csrc",
@@ -240,3 +249,74 @@ def test_import_builds_nothing():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_cluster_tools_import_leaves_jax_cloudpickle_yaml_and_torch_unloaded():
+    """The cluster tools (the client, workflows, the launcher, job
+    submission, the autoscalers) import neither jax nor the JAX package,
+    cloudpickle or PyYAML (the card's machine may have none: the
+    launcher reads YAML only in `load_cluster_config`), nor torch: a
+    job's driver or a launched node starts without it."""
+    code = ("import sys, ray_tpu_torch.client, ray_tpu_torch.workflow, "
+            "ray_tpu_torch.launcher, ray_tpu_torch.job_submission, "
+            "ray_tpu_torch.autoscaler, ray_tpu_torch.autoscaler_v2, "
+            "ray_tpu_torch.autoscaler_gcp\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ray_tpu', 'cloudpickle', 'yaml', 'torch'))\n"
+            "assert not bad, bad\n"
+            "import ray_tpu_torch.air\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ray_tpu', 'cloudpickle', 'yaml'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+_JAX_MODULE_IN_A_STRING = re.compile(
+    r"-m\s+ray_tpu(?![\w])|\b(?:from|import)\s+ray_tpu(?![\w])")
+
+
+def _jax_module_launches(source: str, path: str = "<source>"):
+    """String constants of `source` that would start a JAX package
+    module in a subprocess: ``"-m", "ray_tpu..."`` as arguments, or
+    ``-m ray_tpu...`` / ``from ray_tpu... import`` inside a string (a
+    shell command or a ``-c`` program)."""
+    tree = ast.parse(source, path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and _JAX_MODULE_IN_A_STRING.search(node.value):
+            bad.append((node.lineno, node.value[:80]))
+        elts = (node.elts if isinstance(node, (ast.List, ast.Tuple)) else
+                node.args if isinstance(node, ast.Call) else [])
+        for a, b in zip(elts, elts[1:]):
+            if isinstance(a, ast.Constant) and a.value == "-m" and \
+                    isinstance(b, ast.Constant) and isinstance(b.value, str) \
+                    and re.match(r"ray_tpu(?![\w])", b.value):
+                bad.append((b.lineno, b.value))
+    return bad
+
+
+@pytest.mark.parametrize("snippet,flagged", [
+    ('subprocess.Popen([sys.executable, "-m", "ray_tpu.scripts.cli"])', 1),
+    ('cmd = "python -m ray_tpu.scripts.cli start --head"', 1),
+    ('args = ["-c", "from ray_tpu.client import _client_host_main"]', 1),
+    ('args = ["-c", "import ray_tpu; ray_tpu.init()"]', 1),
+    ('args = [sys.executable, "-m", "ray_tpu_torch.scripts.cli"]', 0),
+    ('args = ["-c", "from ray_tpu_torch.client import main"]', 0),
+    ('doc = "the port of ray_tpu/launcher.py"', 0),
+])
+def test_jax_module_launch_check_flags_what_it_should(snippet, flagged):
+    assert len(_jax_module_launches(snippet)) == flagged
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_subprocess_runs_a_jax_package_module(path):
+    """No string of the port starts a module of the JAX package in a
+    subprocess (the launcher's nodes, the client's hosts and every
+    other process the port starts run the port's own modules)."""
+    bad = _jax_module_launches(open(path).read(), path)
+    assert not bad, f"{os.path.relpath(path, ROOT)} starts {bad}"

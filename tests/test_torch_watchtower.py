@@ -11,7 +11,10 @@ the port. Beside them:
   ``train_zero_gather_share`` gauge, set by an attributed ZeRO-3 step
   on a one-rank gloo mesh;
 - `tracing.profiler_capture` is a no-op on a CPU device and raises on a
-  CUDA device where there is no card (JAX yields None there)."""
+  CUDA device where there is no card (JAX yields None there), and raises
+  when the block launched the port's kernels but the profiler's trace
+  holds fewer of their device events, or none (a stub profiler stands in
+  for the card's)."""
 
 import dataclasses
 import json
@@ -441,6 +444,79 @@ def test_profiler_capture_raises_on_cuda_without_a_card(tmp_path):
                                       device="cuda"):
             pass
     assert not os.path.exists(tmp_path / "prof")
+
+
+@pytest.mark.parametrize("launched,device_events,raises", [
+    (3, 0, "no device event"),  # kernels ran, the trace saw none
+    (3, 1, "1 of them"),        # the trace lost two of three records
+    (3, 3, None),               # one device event a launch
+    (0, 0, None),               # nothing launched: an empty trace is honest
+])
+def test_profiler_capture_raises_on_a_trace_without_device_events(
+        tmp_path, monkeypatch, launched, device_events, raises):
+    """After the export, a block that launched the port's kernels (their
+    launch counters moved) but left fewer of their device events in the
+    trace, or none, makes the capture raise instead of handing back the
+    trace."""
+    import torch
+    import torch.profiler
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.util import tracing
+
+    class StubProfile:
+        """torch.profiler.profile on a schedule of one warm-up and one
+        active step: the active step's end exports the trace."""
+
+        def __init__(self, activities, schedule, on_trace_ready):
+            self.on_trace_ready = on_trace_ready
+            self.steps = 0
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def step(self):
+            self.steps += 1
+            if self.steps == 2:
+                self.on_trace_ready(self)
+
+        def export_chrome_trace(self, path):
+            events = [{"name": "cudaLaunchKernel", "cat": "cuda_runtime",
+                       "ts": 0, "dur": 1}]
+            events += [{"name": "flash_fwd_bf16_kernel", "cat": "kernel",
+                        "ts": 2 + i, "dur": 1}
+                       for i in range(device_events)]
+            with open(path, "w") as f:
+                json.dump({"traceEvents": events}, f)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.profiler, "profile", StubProfile)
+    monkeypatch.setattr(tracing, "_warm_up", lambda torch, device: None)
+    # the stub's launches are undone after the test: later tests of this
+    # process hold the counter at 0
+    monkeypatch.setattr(fa.LAUNCHES, "count", fa.LAUNCHES.count)
+    out = str(tmp_path / "prof")
+
+    def capture():
+        with tracing.profiler_capture(out, device="cuda") as path:
+            for _ in range(launched):
+                fa.LAUNCHES.add()
+        return path
+
+    if raises:
+        with pytest.raises(RuntimeError, match=raises) as err:
+            capture()
+        assert f"{{'flash_fwd': {launched - device_events}}}" in \
+            str(err.value)
+    else:
+        path = capture()
+        assert tracing.device_events(path) == device_events
+        assert tracing.kernel_events(path)["flash_fwd"] == device_events
+    assert len(os.listdir(out)) == 1  # the trace is written either way
 
 
 # ---------------------------------------------------------------------------
